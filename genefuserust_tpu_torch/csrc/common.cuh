@@ -1,0 +1,85 @@
+// Shared device helpers of the scan kernels: constants, table-row loads,
+// payload decode, dupe expansion and the packed gplong key.
+//
+// Conventions follow genefuserust_tpu/ops/hashtable.py: a lookup yields
+// (contig, pos) with contig >= 0 regular, DUPE (pos = dupe row), HIGH
+// (skipped) or EMPTY (miss or invalid query). Keys and payloads are
+// uint32 bit patterns stored as int32.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace gf {
+
+constexpr int KMER = 16;
+constexpr int32_t EMPTY = -3;
+constexpr int32_t DUPE = -1;
+constexpr int32_t HIGH = -2;
+constexpr int ALLOWED_GAP = 10;
+constexpr int THRESHOLD_LEN = 20;
+// JAX's invalid candidate (hi = lo = INT32_MAX) as a packed key
+constexpr long long INVALID_KEY = 0x7FFFFFFF7FFFFFFFLL;
+
+// N consecutive int32 of a table row, loaded as 8- or 16-byte vectors
+// (rows are 8*S bytes wide and the wrapper checks 16-byte alignment).
+template <int N>
+__device__ __forceinline__ void load_row(const int32_t* p, int32_t (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      int4 t = __ldg(reinterpret_cast<const int4*>(p) + i);
+      v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z; v[4 * i + 3] = t.w;
+    }
+  } else {
+    static_assert(N == 2, "rows of 2, 4, 8 or 16 int32");
+    int2 t = __ldg(reinterpret_cast<const int2*>(p));
+    v[0] = t.x; v[1] = t.y;
+  }
+}
+
+__device__ __forceinline__ void decode(uint32_t pay, int cbits, int pos_bias,
+                                       int32_t& contig, int32_t& pos) {
+  const int pbits = 32 - cbits;
+  const uint32_t tag = pay >> pbits;
+  const uint32_t val = pay & ((1u << pbits) - 1u);
+  if (tag == 0) { contig = EMPTY; pos = 0; }
+  else if (tag == 1) { contig = HIGH; pos = 0; }
+  else if (tag == 2) { contig = DUPE; pos = (int32_t)val; }
+  else { contig = (int32_t)(tag - 3); pos = (int32_t)(val + (uint32_t)pos_bias); }
+}
+
+// Candidate d of one lookup result (expand_candidates / _kv): a regular
+// entry fills slot 0, a dupe entry reads slot d of its dupe row. Returns
+// whether the candidate is valid.
+__device__ __forceinline__ bool expand(int32_t contig, int32_t pos, int d, int D,
+                                       bool split, const int32_t* __restrict__ dupes,
+                                       int dstride, int cbits, int pos_bias,
+                                       int32_t& cc, int32_t& cp) {
+  if (contig >= 0) {
+    cc = contig; cp = pos;
+    return d == 0;
+  }
+  if (contig != DUPE || D == 1) return false;
+  const int32_t* row = dupes + (long long)pos * dstride;
+  if (split) {
+    cc = __ldg(row + 2 * d);
+    cp = __ldg(row + 2 * d + 1);
+    return cc != EMPTY;
+  }
+  decode((uint32_t)__ldg(row + d), cbits, pos_bias, cc, cp);
+  return cc >= 0;
+}
+
+// (contig, pos - i) packed as the reference's i64: the low half is formed
+// in wrapping 32-bit arithmetic with no borrow into the contig.
+__device__ __forceinline__ long long gplong(int32_t contig, int32_t pos, int i) {
+  const uint32_t lo = (uint32_t)pos - (uint32_t)i;
+  return (long long)(((unsigned long long)(uint32_t)contig << 32) | lo);
+}
+
+__device__ __forceinline__ long long gplong_hl(int32_t hi, int32_t lo) {
+  return (long long)(((unsigned long long)(uint32_t)hi << 32) | (uint32_t)lo);
+}
+
+}  // namespace gf

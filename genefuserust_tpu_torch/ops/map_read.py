@@ -1,0 +1,462 @@
+"""Batched map_read on torch tensors: the two-pass k-mer vote/mask scan.
+
+Port of `genefuserust_tpu/ops/map_read.py`. The plain PyTorch functions
+keep the JAX names; three of them have a hand-written CUDA kernel beside
+them (csrc/), reached through a wrapper that launches the kernel for CUDA
+tensors and runs the plain version for CPU tensors:
+
+  probe          compute_kmers + kv_lookup / hash_lookup  (csrc/probe.cu)
+  vote           expand + gplong + top2_votes + gate     (csrc/vote.cu)
+  mask_segments  expand + flags + mask + extract_segments (csrc/mask_segments.cu)
+
+gplong (the reference's i64 `contig<<32 | pos bits`) is carried as ONE
+int64 here instead of the JAX package's two int32 planes. JAX forms the
+low half as `pos - i` in wrapping int32 with no borrow into the contig,
+so the port packs `(contig << 32) | ((pos - i) & 0xFFFFFFFF)` and never
+subtracts from the packed value. With that key, ascending int64 order is
+JAX's (hi signed, lo unsigned) order and `_eq_pm1` is `|key - g| <= 1`.
+
+uint32 arithmetic (hashes, payload decode) is done in int64 masked to 32
+bits: torch on the CPU does not shift, add or compare uint32.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from genefuserust_tpu.config import ALLOWED_GAP, KMER, PASS1_STEP, THRESHOLD_LEN
+from genefuserust_tpu.ops.hashtable import DUPE, EMPTY, HIGH
+
+from . import cuda
+from .index import TorchIndex
+
+INT32_MAX = 0x7FFFFFFF
+M32 = 0xFFFFFFFF
+# JAX's invalid candidate (hi = lo = INT32_MAX) as a packed key; sorts after
+# every real candidate
+INVALID_KEY = (INT32_MAX << 32) | INT32_MAX
+MAX_VOTE_KEYS = 16384  # per-row candidate sort buffer of the vote kernel
+
+
+class MapReadResult(NamedTuple):
+    """Per-read outputs; segment 0 is the TOP target, 1 the SECOND."""
+
+    seg_valid: torch.Tensor  # (B, 2) bool
+    seg_start: torch.Tensor  # (B, 2) int32
+    seg_end: torch.Tensor  # (B, 2) int32
+    seg_contig: torch.Tensor  # (B, 2) int32
+    seg_pos: torch.Tensor  # (B, 2) int32
+
+
+# ---------------- 32-bit helpers on int64 ----------------
+
+
+def _mul32(k: torch.Tensor, m: int) -> torch.Tensor:
+    """(k * m) mod 2^32 for 0 <= k < 2^32, without int64 overflow."""
+    lo = k * (m & 0xFFFF)
+    hi = ((k * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & M32
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding a 32-bit pattern -> int32 with that bit pattern."""
+    x = x & M32
+    return torch.where(x > INT32_MAX, x - (1 << 32), x).to(torch.int32)
+
+
+def buckets(kmers: torch.Tensor, shift: int):
+    """The 2-choice bucket pair of each k-mer (int64 in [0, 2^32))."""
+    b1 = _mul32(kmers, 0x9E3779B1) >> shift
+    b2 = ((_mul32(kmers ^ (kmers >> 15), 0x85EBCA6B) + 0xC2B2AE35) & M32) >> shift
+    return b1, b2
+
+
+def gplong(contig: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """(contig, pos-bits) -> packed int64 key; `lo` is any integer tensor
+    whose low 32 bits are the position bits."""
+    return (contig.to(torch.int64) << 32) | (lo.to(torch.int64) & M32)
+
+
+def _hi_lo(g: torch.Tensor):
+    return (g >> 32).to(torch.int32), _i32(g)
+
+
+# ---------------- plain versions ----------------
+
+
+def compute_kmers(codes: torch.Tensor, lengths: torch.Tensor):
+    """(B, L) uint8 codes -> (B, NK) int64 k-mers (uint32 values) + validity."""
+    B, L = codes.shape
+    NK = L - KMER + 1
+    ok = codes != 255
+    c = torch.where(ok, codes, 0).to(torch.int64)
+    km = torch.zeros((B, NK), dtype=torch.int64, device=codes.device)
+    for j in range(KMER):
+        km |= c[:, j : j + NK] << (2 * (KMER - 1 - j))
+    km &= M32
+    cs = torch.cumsum((~ok).to(torch.int32), dim=1)
+    cse = torch.cat([torch.zeros((B, 1), dtype=cs.dtype, device=cs.device), cs], 1)
+    clean = (cse[:, KMER:] - cse[:, :-KMER]) == 0
+    i_idx = torch.arange(NK, device=codes.device)
+    in_range = i_idx[None, :] <= (lengths[:, None].to(torch.int64) - KMER)
+    return km, clean & in_range
+
+
+def hash_lookup(keys_tbl, vals_tbl, shift: int, kmers, valid):
+    """Split layout: -> (contig, pos) int32, contig == EMPTY on a miss or an
+    invalid query. The first matching slot wins, h1's bucket first."""
+    S = keys_tbl.shape[1]
+    ki = _i32(kmers)
+    b1, b2 = buckets(kmers, shift)
+    b1 = torch.where(valid, b1, 0)
+    b2 = torch.where(valid, b2, 0)
+    m1 = keys_tbl[b1] == ki[..., None]
+    m2 = keys_tbl[b2] == ki[..., None]
+    f1 = m1.any(-1)
+    f2 = m2.any(-1)
+    s1 = m1.to(torch.uint8).argmax(-1)
+    s2 = m2.to(torch.uint8).argmax(-1)
+    found = (f1 | f2) & valid
+    flat = torch.where(f1, b1, b2) * S + torch.where(f1, s1, s2)
+    sel = vals_tbl[torch.where(found, flat, 0)]
+    out_c = torch.where(found, sel[..., 0], EMPTY)
+    out_p = torch.where(found, sel[..., 1], 0)
+    return out_c, out_p
+
+
+def _decode(pay: torch.Tensor, cbits: int, pos_bias: int):
+    """Packed uint32 payloads (int64) -> (contig, pos) int32 with the split
+    layout's conventions (EMPTY, HIGH, DUPE with pos = dupe row, regular)."""
+    pbits = 32 - cbits
+    tag = pay >> pbits
+    val = pay & ((1 << pbits) - 1)
+    contig = torch.where(
+        tag == 0,
+        EMPTY,
+        torch.where(tag == 1, HIGH, torch.where(tag == 2, DUPE, tag - 3)),
+    ).to(torch.int32)
+    pos = torch.where(tag >= 3, _i32(val + pos_bias), torch.where(tag == 2, val, 0))
+    return contig, pos.to(torch.int32)
+
+
+def kv_lookup(kv_tbl, shift: int, cbits: int, pos_bias: int, kmers, valid):
+    """kv rows (S [key | payload] slots per row, S = width // 2): two row
+    loads per query. Returns (contig, pos) like hash_lookup; an invalid
+    query gives (EMPTY, 0)."""
+    S = kv_tbl.shape[1] // 2
+    ki = _i32(kmers)
+    b1, b2 = buckets(kmers, shift)
+    r1 = kv_tbl[torch.where(valid, b1, 0)]
+    r2 = kv_tbl[torch.where(valid, b2, 0)]
+    # keys are unique, so at most one slot of each row matches with a
+    # nonzero payload (empty slots hold an absent key and payload 0)
+    p1 = torch.where(r1[..., :S] == ki[..., None], r1[..., S:], 0).to(torch.int64)
+    p2 = torch.where(r2[..., :S] == ki[..., None], r2[..., S:], 0).to(torch.int64)
+    pay = (p1.sum(-1) & M32) | (p2.sum(-1) & M32)
+    contig, pos = _decode(pay, cbits, pos_bias)
+    return torch.where(valid, contig, EMPTY), torch.where(valid, pos, 0)
+
+
+def lookup(index: TorchIndex, kmers, valid):
+    if index.split:
+        return hash_lookup(index.table, index.vals, index.shift, kmers, valid)
+    return kv_lookup(index.table, index.shift, index.cbits, index.pos_bias, kmers, valid)
+
+
+def expand_candidates_kv(contig, pos, dupes_packed, max_dupe: int, cbits: int,
+                         pos_bias: int):
+    """kv layout: (..., ) lookup results -> (..., D) candidate (contig, pos,
+    valid); dupe rows hold 8 packed regular-coded payloads."""
+    is_reg = contig >= 0
+    is_dupe = contig == DUPE
+    if max_dupe <= 1 or dupes_packed.shape[0] == 0:
+        return (
+            torch.where(is_reg, contig, 0)[..., None],
+            torch.where(is_reg, pos, 0)[..., None],
+            is_reg[..., None],
+        )
+    drow = dupes_packed[torch.where(is_dupe, pos, 0).to(torch.int64)][..., :max_dupe]
+    dc, dp = _decode(drow.to(torch.int64) & M32, cbits, pos_bias)
+    dv = is_dupe[..., None] & (dc >= 0)
+    cc = torch.where(dv, dc, 0)
+    cp = torch.where(dv, dp, 0)
+    cc[..., 0] = torch.where(is_reg, contig, cc[..., 0])
+    cp[..., 0] = torch.where(is_reg, pos, cp[..., 0])
+    dv[..., 0] |= is_reg
+    return cc, cp, dv
+
+
+def expand_candidates(contig, pos, dupes, max_dupe: int):
+    """Split layout: dupe rows hold (D, 2) [contig, pos] pairs, EMPTY-padded."""
+    is_reg = contig >= 0
+    is_dupe = contig == DUPE
+    if max_dupe <= 1 or dupes.shape[0] == 0:
+        return (
+            torch.where(is_reg, contig, 0)[..., None],
+            torch.where(is_reg, pos, 0)[..., None],
+            is_reg[..., None],
+        )
+    drow = dupes[torch.where(is_dupe, pos, 0).to(torch.int64)]  # (..., D, 2)
+    cc = torch.where(is_dupe[..., None], drow[..., 0], 0)
+    cp = torch.where(is_dupe[..., None], drow[..., 1], 0)
+    cv = is_dupe[..., None] & (drow[..., 0] != EMPTY)
+    cc[..., 0] = torch.where(is_reg, contig, cc[..., 0])
+    cp[..., 0] = torch.where(is_reg, pos, cp[..., 0])
+    cv[..., 0] |= is_reg
+    return cc, cp, cv
+
+
+def expand(index: TorchIndex, contig, pos):
+    if index.split:
+        return expand_candidates(contig, pos, index.dupes, index.max_dupe)
+    return expand_candidates_kv(
+        contig, pos, index.dupes, index.max_dupe, index.cbits, index.pos_bias
+    )
+
+
+def lookup_expand(index: TorchIndex, kmers, valid):
+    return expand(index, *lookup(index, kmers, valid))
+
+
+def top2_votes(keys: torch.Tensor, valid: torch.Tensor):
+    """(B, P) gplong candidates -> top-2 (key, count) by the reference's
+    (count desc, then smallest key) rule; key 0 is never voted for.
+    Returns (g1, c1, g2, c2). With fewer than two voted keys the missing
+    entries take count 0 and, as in JAX, the smallest sorted key."""
+    B, P = keys.shape
+    s = torch.sort(torch.where(valid, keys, INVALID_KEY), dim=1).values
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[:, 1:] = s[:, 1:] != s[:, :-1]
+    idx = torch.arange(P, device=keys.device)
+    nxt = torch.where(first, idx, P)
+    nxt = torch.cat([nxt[:, 1:], torch.full((B, 1), P, device=keys.device)], 1)
+    nxt = torch.flip(torch.cummin(torch.flip(nxt, [1]), dim=1).values, [1])
+    svalid = (s >> 32) != INT32_MAX
+    cand = torch.where(first & svalid & (s != 0), nxt - idx, -1)
+    i1 = cand.argmax(1, keepdim=True)
+    c1 = cand.gather(1, i1)[:, 0]
+    g1 = s.gather(1, i1)[:, 0]
+    cand2 = torch.where(idx[None, :] == i1, -1, cand)
+    i2 = cand2.argmax(1, keepdim=True)
+    c2 = cand2.gather(1, i2)[:, 0]
+    g2 = s.gather(1, i2)[:, 0]
+    return g1, c1.clamp_min(0), g2, c2.clamp_min(0)
+
+
+def extract_segments(mask: torch.Tensor, lengths: torch.Tensor, target: int):
+    """Chain segments of one target flag -> (valid, start, end) per read:
+    positions link when the gap is <= ALLOWED_GAP with no higher flag
+    between; a target at the last in-bounds base cannot start a chain; the
+    first longest chain wins and counts if longer than THRESHOLD_LEN."""
+    B, L = mask.shape
+    dev = mask.device
+    t_idx = torch.arange(L, device=dev).expand(B, L)
+    within = t_idx < lengths[:, None]
+    ok = (mask == target) & within
+    blocked = (mask > target) & within
+    prev_inc = torch.cummax(torch.where(ok, t_idx, -1), dim=1).values
+    prev = torch.cat([torch.full((B, 1), -1, device=dev), prev_inc[:, :-1]], 1)
+    last_blocked = torch.cummax(torch.where(blocked, t_idx, -1), dim=1).values
+    linked = ok & (prev >= 0) & ((t_idx - prev) <= ALLOWED_GAP) & (last_blocked <= prev)
+    head = ok & ~linked & (t_idx < lengths[:, None] - 1)
+    member = ok & (linked | head)
+    hid = torch.cummax(torch.where(head, t_idx, -1), dim=1).values
+    BIG = 0x3FFFFFFF
+    nm = torch.where(member, hid, BIG)
+    nm_inc = torch.flip(torch.cummin(torch.flip(nm, [1]), dim=1).values, [1])
+    nm_hid = torch.cat([nm_inc[:, 1:], torch.full((B, 1), BIG, device=dev)], 1)
+    chain_end = member & (nm_hid != hid)
+    run_len = torch.where(chain_end & (hid >= 0), t_idx - hid, -1)
+    best = run_len.argmax(1, keepdim=True)
+    best_len = run_len.gather(1, best)[:, 0]
+    seg_start = hid.gather(1, best)[:, 0]
+    return best_len > THRESHOLD_LEN, seg_start.to(torch.int32), best[:, 0].to(torch.int32)
+
+
+def probe_plain(codes, lengths, stride: int, index: TorchIndex):
+    """Plain twin of the probe kernel: every `stride`-th k-mer of each row,
+    looked up -> (B, NQ, 2) int32 [contig, pos]."""
+    km, kvalid = compute_kmers(codes, lengths)
+    c, p = lookup(index, km[:, ::stride], kvalid[:, ::stride])
+    return torch.stack([c, p], dim=-1)
+
+
+def _keys_at(index: TorchIndex, pr: torch.Tensor, step: int):
+    """Probe results (B, NQ, 2) -> candidate keys and validity (B, NQ, D)."""
+    cc, cp, cv = expand(index, pr[..., 0], pr[..., 1])
+    i = torch.arange(pr.shape[1], device=pr.device)[None, :, None] * step
+    return gplong(cc, cp.to(torch.int64) - i), cv
+
+
+def vote_plain(pr, index: TorchIndex, major_req: int, minor_req: int):
+    """Plain twin of the vote kernel: pass-1 probe results (B, NS, 2) ->
+    (B, 5) int32 [ok, h1, l1, h2, l2]."""
+    B = pr.shape[0]
+    keys, cv = _keys_at(index, pr, PASS1_STEP)
+    g1, c1, g2, c2 = top2_votes(keys.reshape(B, -1), cv.reshape(B, -1))
+    ok = (c1 * PASS1_STEP >= major_req) & (c2 * PASS1_STEP >= minor_req)
+    h1, l1 = _hi_lo(g1)
+    h2, l2 = _hi_lo(g2)
+    return torch.stack([ok.to(torch.int32), h1, l1, h2, l2], dim=1)
+
+
+def mask_segments_plain(pr, lengths, gp, index: TorchIndex, mismatch_thr: int):
+    """Plain twin of the mask+segments kernel: full-stride probe results
+    (B, NK, 2), lengths and the vote's [h1, l1, h2, l2] -> (B, 10) int32
+    [valid0, valid1, start0, start1, end0, end1, h1, h2, l1, l2]."""
+    B, NK = pr.shape[:2]
+    L = NK + KMER - 1
+    keys, cv = _keys_at(index, pr, 1)
+    keys = torch.where(cv, keys, 0)
+    g1 = gplong(gp[:, 0], gp[:, 1])[:, None, None]
+    g2 = gplong(gp[:, 2], gp[:, 3])[:, None, None]
+    m1 = cv & ((keys - g1).abs() <= 1)
+    m2 = cv & ((keys - g2).abs() <= 1)
+    flag = torch.where(m1, 3, torch.where(m2, 2, 0)).amax(-1)
+    pad = torch.zeros((B, KMER - 1), dtype=flag.dtype, device=flag.device)
+    padded = torch.cat([pad, flag, pad], 1)
+    mask = padded[:, KMER - 1 : KMER - 1 + L]
+    for j in range(1, KMER):
+        mask = torch.maximum(mask, padded[:, KMER - 1 - j : KMER - 1 - j + L])
+    within = torch.arange(L, device=pr.device)[None, :] < lengths[:, None]
+    read_ok = ((mask < 2) & within).sum(1) <= mismatch_thr
+    v3, s3, e3 = extract_segments(mask, lengths, 3)
+    v2, s2, e2 = extract_segments(mask, lengths, 2)
+    cols = [v3 & read_ok, v2 & read_ok, s3, s2, e3, e2, gp[:, 0], gp[:, 2], gp[:, 1], gp[:, 3]]
+    return torch.stack([c.to(torch.int32) for c in cols], dim=1)
+
+
+# ---------------- kernel wrappers ----------------
+
+
+def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(
+            f"{name}: expected {ndim}-D {dtype}, got {t.dim()}-D {t.dtype}"
+        )
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_index(index: TorchIndex, device) -> None:
+    _check(index.table, "index.table", torch.int32, 2, device)
+    _check(index.vals, "index.vals", torch.int32, 2, device)
+    _check(index.dupes, "index.dupes", torch.int32, 3 if index.split else 2, device)
+    if index.split and index.S != 8:
+        raise ValueError(f"split keys rows must be 8 slots wide, got {index.S}")
+    if not index.split and index.S not in (1, 2, 4):
+        raise ValueError(f"kv rows must hold 1, 2 or 4 slots, got {index.S}")
+
+
+def probe(codes, lengths, stride: int, index: TorchIndex):
+    """Kernel 1: build every `stride`-th 16-mer of each (B, W) code row and
+    probe the table -> (B, NQ, 2) int32 [contig, pos]."""
+    dev = codes.device
+    _check(codes, "codes", torch.uint8, 2, dev)
+    _check(lengths, "lengths", torch.int32, 1, dev)
+    _check_index(index, dev)
+    B, W = codes.shape
+    if W < KMER or lengths.shape[0] != B or stride < 1:
+        raise ValueError(f"probe: bad shapes codes={tuple(codes.shape)} "
+                         f"lengths={tuple(lengths.shape)} stride={stride}")
+    if dev.type == "cpu":
+        return probe_plain(codes, lengths, stride, index)
+    NQ = (W - KMER + stride) // stride
+    out = torch.empty((B, NQ, 2), dtype=torch.int32, device=dev)
+    if B:
+        cuda.launch_probe(codes, lengths, None, None, B * NQ, W, stride, NQ, index, out)
+    return out
+
+
+def probe_kmers(kmers, valid, index: TorchIndex):
+    """Kernel 1 over flat queries (the `pallas_lookup` signature): (N,)
+    int32 k-mer bit patterns + (N,) bool validity -> (N, 2) int32."""
+    dev = kmers.device
+    _check(kmers, "kmers", torch.int32, 1, dev)
+    _check(valid, "valid", torch.bool, 1, dev)
+    _check_index(index, dev)
+    if valid.shape != kmers.shape:
+        raise ValueError("probe_kmers: kmers and valid differ in shape")
+    if dev.type == "cpu":
+        c, p = lookup(index, kmers.to(torch.int64) & M32, valid)
+        return torch.stack([c, p], dim=-1)
+    N = kmers.shape[0]
+    out = torch.empty((N, 2), dtype=torch.int32, device=dev)
+    if N:
+        cuda.launch_probe(None, None, kmers, valid, N, 0, 1, 1, index, out)
+    return out
+
+
+def vote_width(NS: int, D: int) -> int:
+    """Sort buffer of the vote kernel: NS*D keys rounded up to a power of 2."""
+    return 1 << max(0, NS * D - 1).bit_length()
+
+
+def vote(pr, index: TorchIndex, major_req: int, minor_req: int):
+    """Kernel 2: pass-1 probe results (B, NS, 2) -> (B, 5) int32
+    [ok, h1, l1, h2, l2]; one block sorts one row's candidates."""
+    dev = pr.device
+    _check(pr, "probe results", torch.int32, 3, dev)
+    _check_index(index, dev)
+    B, NS, two = pr.shape
+    P2 = vote_width(NS, index.D)
+    if two != 2 or P2 > MAX_VOTE_KEYS:
+        raise ValueError(f"vote: {NS} samples x {index.D} candidates exceed "
+                         f"the {MAX_VOTE_KEYS}-key sort buffer")
+    if dev.type == "cpu":
+        return vote_plain(pr, index, major_req, minor_req)
+    out = torch.empty((B, 5), dtype=torch.int32, device=dev)
+    if B:
+        cuda.launch_vote(pr, B, NS, index, PASS1_STEP, major_req, minor_req, P2, out)
+    return out
+
+
+def mask_segments(pr, lengths, gp, index: TorchIndex, mismatch_thr: int):
+    """Kernel 3: pass-2 probe results (B, NK, 2), lengths and the vote's
+    (B, 4) [h1, l1, h2, l2] -> (B, 10) int32 segment rows."""
+    dev = pr.device
+    _check(pr, "probe results", torch.int32, 3, dev)
+    _check(lengths, "lengths", torch.int32, 1, dev)
+    _check(gp, "gp", torch.int32, 2, dev)
+    _check_index(index, dev)
+    B, NK, two = pr.shape
+    if two != 2 or lengths.shape[0] != B or tuple(gp.shape) != (B, 4):
+        raise ValueError("mask_segments: bad shapes")
+    if dev.type == "cpu":
+        return mask_segments_plain(pr, lengths, gp, index, mismatch_thr)
+    out = torch.empty((B, 10), dtype=torch.int32, device=dev)
+    if B:
+        cuda.launch_mask_segments(pr, lengths, gp, B, NK, index, mismatch_thr, out)
+    return out
+
+
+# ---------------- the two passes ----------------
+
+
+def map_read_pass1(codes, lengths, index: TorchIndex, major_req: int = 40,
+                   minor_req: int = 20):
+    """Vote phase: stride-2 lookups, top-2 selection, threshold gate ->
+    (pass1_ok, h1, l1, h2, l2)."""
+    v = vote(probe(codes, lengths, PASS1_STEP, index), index, major_req, minor_req)
+    return v[:, 0] != 0, v[:, 1], v[:, 2], v[:, 3], v[:, 4]
+
+
+def map_read_pass2(codes, lengths, h1, l1, h2, l2, index: TorchIndex,
+                   mismatch_thr: int = 10) -> MapReadResult:
+    """Mask + segment phase for reads that passed the vote gate."""
+    gp = torch.stack([h1, l1, h2, l2], dim=1).to(torch.int32).contiguous()
+    r = mask_segments(probe(codes, lengths, 1, index), lengths, gp, index, mismatch_thr)
+    return MapReadResult(r[:, 0:2] != 0, r[:, 2:4], r[:, 4:6], r[:, 6:8], r[:, 8:10])
+
+
+def map_read_batch(codes, lengths, index: TorchIndex, major_req: int = 40,
+                   minor_req: int = 20, mismatch_thr: int = 10) -> MapReadResult:
+    """Both passes over every row; a segment is valid only if its read
+    passed the vote gate."""
+    ok, h1, l1, h2, l2 = map_read_pass1(codes, lengths, index, major_req, minor_req)
+    r = map_read_pass2(codes, lengths, h1, l1, h2, l2, index, mismatch_thr)
+    return r._replace(seg_valid=r.seg_valid & ok[:, None])
