@@ -15,12 +15,31 @@ Phases, one result line each; any failure raises and exits non-zero:
   4 golden   tests/goldens/planted.{json,html} through TorchEngine, byte
              for byte (timestamps stripped), at survivor cap 1024 and 2
   5 cli      262,144 read pairs (plus two planted fusions) through the
-             port's CLI: every kernel launched, >= 1 fusion reported
+             port's CLI: every kernel launched, >= 1 fusion reported; the
+             edit-distance flushes it made, re-encoded, kernel bit-equal
+             to plain and to host Myers
   6 oracle   the first 4,096 pairs: TorchEngine's JSON equal to the host
              oracle's, with the kv2 and the split table
   7 profile  the same 262,144 pairs through a warm TorchEngine, the kv2
              table already on the card, under torch.profiler: device time
              by kernel and the device's busy share of the scan's wall time
+  8 gather   the gather-floor probe (profiling/gather_floor.py) bit-equal
+             to its plain version: (a) over the kv2 table, reading exactly
+             the rows phase 3's probe reads, against the probe's time;
+             (b) and (c) through its entry point at the two TPU kernels'
+             shapes, int32[2^22, 128], 2^17 indices, 1 and 128 lanes
+  9 edit     the Myers kernel bit-equal to its plain version on 65,536
+             jobs of 100-300 bases, 2,000 of them also to host Myers
+ 10 rich     8,192 pairs, 1 in 8 a junction pair: TorchEngine's JSON equal
+             to the host oracle's, its edit distances through the kernel;
+             its flushes checked as in phase 5; over the jobs phases 5
+             and 10 flushed, the sweep of flush sizes that DEVICE_MIN_JOBS
+             was set from
+ 11 multi    panel.csv split into 3 CSVs of 10 genes, listed in a CSV-list
+             file: the 262,144 pairs through the port's CLI, and on the
+             first 4,096 pairs each CSV's JSON equal to the host oracle's
+ 12 single   R1 of the 262,144 pairs through the CLI, and the first 4,096
+             reads' JSON equal to the host oracle's
 
 The last two lines are the kernels' JSON record and the contract line
 {"ok": true, "device": {...}}, preceded by nvidia-smi's name/power line.
@@ -31,11 +50,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import re
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -48,6 +67,14 @@ PANEL_GENES = 30
 BATCH = 65_536
 CLI_PAIRS = 4 * BATCH
 ORACLE_PAIRS = 4_096
+RICH_PAIRS = 8_192
+ED_JOBS = 65_536
+# kernels the build compiles: probe 4 (split, kv2/kv4/kv8), vote,
+# mask_segments, gather_sum 3 (vector widths), edit_distance 4 (word bounds)
+N_COMPILED = 13
+# the kernels of the scan path (phases 5, 11, 12)
+SCAN_KERNELS = ("probe", "vote", "mask_segments")
+SWEEP_MAX_JOBS = 4096
 _TS = re.compile(r"\d{4}-\d{2}-\d{2} \d{2}:\d{2}:\d{2}\.\d+ \+00:00")
 
 
@@ -58,22 +85,6 @@ def check(cond, msg: str) -> None:
 
 def say(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over `reps` runs after a warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def max_abs_err(got, exp) -> int:
@@ -89,6 +100,57 @@ def quiet(data: dict):
 def strip_json(text: str) -> str:
     return "\n".join(l for l in _TS.sub("<ts>", text).splitlines()
                      if not l.startswith('\t"time"'))
+
+
+@contextlib.contextmanager
+def captured_flushes():
+    """Record the (query, ref) jobs of every EdBatcher flush made inside the
+    block, in order; the flushes themselves run unchanged."""
+    from genefuserust_tpu_torch.parallel.ed_batch import EdBatcher
+
+    flushes, flush = [], EdBatcher.flush
+
+    def recording(self):
+        flushes.append([(q, r) for q, r, _ in self._jobs])
+        flush(self)
+
+    EdBatcher.flush = recording
+    try:
+        yield flushes
+    finally:
+        EdBatcher.flush = flush
+
+
+def check_flushes(name: str, flushes) -> dict:
+    """Encode each flush that reached DEVICE_MIN_JOBS as the batcher did and
+    require the Myers kernel on the card bit-equal to its plain version on
+    those tensors, and both equal to host Myers -> what was checked."""
+    import torch
+
+    from genefuserust_tpu.core.edit_distance import edit_distance
+    from genefuserust_tpu_torch.ops import edit_distance as ted
+    from genefuserust_tpu_torch.parallel import ed_batch
+
+    big = [f for f in flushes if len(f) >= ed_batch.DEVICE_MIN_JOBS]
+    check(big, f"{name}: no edit-distance flush reached DEVICE_MIN_JOBS")
+    widths, jobs, err = [], 0, 0
+    for pairs in big:
+        host, arrays = ed_batch.encode_jobs(pairs)
+        if arrays is None:
+            continue
+        args = [torch.from_numpy(a).cuda() for a in arrays]
+        W = args[0].shape[1] // 32
+        got = ted.edit_distance_batch(*args, W)
+        ref = ted.edit_distance_plain(*args, W)
+        err = max(err, max_abs_err(got, ref))
+        check(torch.equal(got, ref),
+              f"{name}: Myers kernel differs from its plain version on a scan flush (W={W})")
+        exp = [edit_distance(q, r) for (q, r), h in zip(pairs, host) if not h]
+        check(got.cpu().tolist() == exp, f"{name}: Myers kernel differs from host Myers")
+        widths.append((len(exp), W, args[2].shape[1]))
+        jobs += len(exp)
+    return dict(flush_sizes=[len(f) for f in flushes], checked_flushes=len(widths),
+                checked_jobs=jobs, batch_W_Lt=widths, err=err)
 
 
 # ---------------- data ----------------
@@ -161,13 +223,10 @@ def write_fastq(path: str, seq: np.ndarray, qual: np.ndarray, tag: str) -> None:
 def phase_device():
     import torch
 
+    from genefuserust_tpu_torch.profiling.gather_floor import card_line
+
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    smi_line = smi.stdout.strip().splitlines()[0]
+    smi_line = card_line()
     say("1 device", kind=repr(torch.cuda.get_device_name(0)),
         count=torch.cuda.device_count(), nvidia_smi=repr(smi_line),
         torch=torch.__version__, cuda=torch.version.cuda)
@@ -183,14 +242,18 @@ def phase_build():
     secs = time.perf_counter() - t0
     log = open(lib + ".log").read()
     regs = re.findall(r"Used (\d+) registers", log)
-    check(len(regs) == 6, f"expected 6 compiled kernels, ptxas reported {len(regs)}")
+    check(len(regs) == N_COMPILED,
+          f"expected {N_COMPILED} compiled kernels, ptxas reported {len(regs)}")
     say("2 build", seconds=f"{secs:.2f}", lib=os.path.relpath(lib, REPO),
         registers_per_kernel=",".join(regs))
 
 
 def _timed_pair(name, kernel_fn, plain_fn, exp=None, reps=20, plain_reps=3):
-    """Run kernel and plain once, require bit equality, time both."""
+    """Run kernel and plain once, require bit equality, time both (mean
+    device ms after a warm-up, CUDA events)."""
     import torch
+
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
 
     got = kernel_fn()
     ref = plain_fn() if exp is None else exp
@@ -198,7 +261,7 @@ def _timed_pair(name, kernel_fn, plain_fn, exp=None, reps=20, plain_reps=3):
     err = max_abs_err(got, ref)
     check(got.shape == ref.shape and torch.equal(got, ref),
           f"{name}: kernel differs from its plain version (max_abs_err {err})")
-    return got, err, cuda_ms(kernel_fn, reps), cuda_ms(plain_fn, plain_reps)
+    return got, err, event_ms(kernel_fn, reps), event_ms(plain_fn, plain_reps)
 
 
 def phase_kernels(data: dict) -> dict:
@@ -209,11 +272,10 @@ def phase_kernels(data: dict) -> dict:
     from genefuserust_tpu.core.indexer import Indexer
     from genefuserust_tpu.core.sequence import encode_bases
     from genefuserust_tpu.models.fusion import Fusion
-    from genefuserust_tpu.ops.hashtable import build_packed_index, pack_index, pack_index_kv
     from genefuserust_tpu.utils.synthetic import make_panel, plant_fusion_pairs, write_panel_files
     from genefuserust_tpu_torch.ops import map_read as tm
     from genefuserust_tpu_torch.ops.fused import lane_codes
-    from genefuserust_tpu_torch.ops.index import index_to_torch
+    from genefuserust_tpu_torch.ops.index import build_packed_index, index_to_torch
     from genefuserust_tpu_torch.parallel.engine import TorchEngine
 
     dev = torch.device("cuda")
@@ -263,6 +325,7 @@ def phase_kernels(data: dict) -> dict:
         "probe", lambda: tm.probe(codes, lens, PASS1_STEP, index),
         lambda: tm.probe_plain(codes, lens, PASS1_STEP, index))
     rec["probe"] = (err, ms, pms)
+    data["probe_batch"] = dict(codes=codes, lens=lens, index=index, ms=ms)
     say("3 kernels", kernel="probe", layout="kv2", shape=tuple(pr.shape), stride=PASS1_STEP,
         hits=int((pr[..., 0] >= 0).sum()), ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
         max_abs_err=err)
@@ -309,9 +372,10 @@ def phase_kernels(data: dict) -> dict:
                         rng.integers(0, 2**32, BATCH // 2, dtype=np.uint64)])
     q_d = torch.from_numpy(q.astype(np.uint32).view(np.int32)).to(dev)
     qv_d = torch.ones(BATCH, dtype=torch.bool, device=dev)
-    for layout, p in (("kv4", pack_index_kv(ix, target_load=0.6, slots=2)),
-                      ("kv8", pack_index_kv(ix)), ("split", pack_index(ix))):
-        check(p is not None, f"small panel does not pack as {layout}")
+    for layout in ("kv4", "kv8", "split"):
+        p = build_packed_index(ix, layout=layout)
+        check((p.kv_tbl.shape[1] == int(layout[2:])) if hasattr(p, "kv_tbl")
+              else layout == "split", f"small panel does not pack as {layout}")
         sidx_ = index_to_torch(p, dev)
         out, err, ms, pms = _timed_pair(
             f"probe {layout}", lambda: tm.probe(sc_d, sl_d, 1, sidx_),
@@ -368,20 +432,21 @@ def phase_cli(data: dict, smi_line: str) -> dict:
     r1, r2 = os.path.join(wd, "R1.fq"), os.path.join(wd, "R2.fq")
     write_fastq(r1, b1, q1, "p")
     write_fastq(r2, b2, q2, "p")
+    data["r1"], data["r2"] = r1, r2
     html, js = os.path.join(wd, "out.html"), os.path.join(wd, "out.json")
     # the JAX engine's opt-in wall-time split of host stages (TpuEngine._timed)
     os.environ["GENEFUSE_STAGE_TIMERS"] = "1"
     cuda.reset_launches()
     t0 = time.perf_counter()
-    with quiet(data):
+    with quiet(data), captured_flushes() as flushes:
         engine = cli.run(["-1", r1, "-2", r2, "-f", data["csv"], "-r", data["fa"],
                           "-h", html, "-j", js])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
     n_fusions = len(json.load(open(js))["fusions"])
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched by the CLI run")
+    for k in SCAN_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched by the CLI run")
     check(n_fusions >= 1, "the CLI run reported no fusion")
     # a cold job: its wall time holds the host build and upload of the kv2
     # table, which phase 3 already paid once for the same panel
@@ -393,9 +458,17 @@ def phase_cli(data: dict, smi_line: str) -> dict:
         fusions=n_fusions, launches=json.dumps(launches, separators=(",", ":")),
         ed_jobs=engine.ed_stats["jobs"],
         ed_jobs_in_device_sized_batches=engine.ed_stats["device_sized"],
+        ed_jobs_batched=engine.ed_stats["device"],
         host_stage_s=json.dumps({k: round(v[0], 3) for k, v in engine._timers.items()},
                                 separators=(",", ":")),
         card=repr(smi_line))
+    ed = check_flushes("cli", flushes)
+    data["ed_flushes"] = flushes
+    data["ed_err"] = ed["err"]
+    say("5 cli", ed_flush_sizes=ed["flush_sizes"], checked_flushes=ed["checked_flushes"],
+        checked_jobs=ed["checked_jobs"],
+        jobs_W_Lt=json.dumps(ed["batch_W_Lt"], separators=(",", ":")),
+        kernel_vs_plain="equal", kernel_vs_host="equal", max_abs_err=ed["err"])
     return launches
 
 
@@ -403,7 +476,7 @@ def phase_oracle(data: dict) -> None:
     from genefuserust_tpu.config import Settings
     from genefuserust_tpu.core.read import SequenceRead, SequenceReadPair
     from genefuserust_tpu.core.scanner import HostEngine, Scanner
-    from genefuserust_tpu.ops.hashtable import build_packed_index
+    from genefuserust_tpu_torch.ops.index import build_packed_index
     from genefuserust_tpu_torch.parallel.engine import TorchEngine
 
     b1, q1, _, b2, q2, _ = (a[:ORACLE_PAIRS] for a in data["block"])
@@ -413,6 +486,7 @@ def phase_oracle(data: dict) -> None:
 
     pairs = [SequenceReadPair(read(f"@p{i:08d}", b1[i], q1[i]), read(f"@p{i:08d}", b2[i], q2[i]))
              for i in range(ORACLE_PAIRS)]
+    data["oracle_pairs"] = pairs
     contigs = data["mapper"].contigs
 
     def scan(engine, name):
@@ -438,8 +512,11 @@ def phase_oracle(data: dict) -> None:
 
 
 def _device_kind(name: str) -> str:
-    for kernel in ("probe", "vote", "mask_segments"):
-        if f"{kernel}_kernel" in name:
+    for kernel, sym in (("probe", "probe_kernel"), ("vote", "vote_kernel"),
+                        ("mask_segments", "mask_segments_kernel"),
+                        ("gather_sum", "gather_tile_sums_kernel"),
+                        ("edit_distance", "edit_distance_kernel")):
+        if sym in name:
             return kernel
     if name.startswith("Memcpy HtoD"):
         return "h2d"
@@ -491,6 +568,361 @@ def phase_profile(data: dict) -> None:
                              separators=(",", ":")))
 
 
+def phase_gather(data: dict) -> dict:
+    import torch
+
+    from genefuserust_tpu.config import PASS1_STEP
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.profiling import gather_floor as gf
+
+    # (a) the rows phase 3's probe reads: h1 and h2 of every valid k-mer of
+    # its batch (stride 2), in query order; the last tile is topped up
+    # with the first rows
+    pb = data.pop("probe_batch")
+    km, ok = tm.compute_kmers(pb["codes"], pb["lens"])
+    km, ok = km[:, ::PASS1_STEP], ok[:, ::PASS1_STEP]
+    check(km.shape[1] == (pb["codes"].shape[1] - 16 + PASS1_STEP) // PASS1_STEP,
+          "the k-mer grid differs from the probe's")
+    b1, b2 = tm.buckets(km[ok], pb["index"].shift)
+    rows = torch.stack([b1, b2], dim=1).reshape(-1).to(torch.int32)
+    n_rows = rows.shape[0]
+    rows = torch.cat([rows, rows[: (-n_rows) % gf.TILE]]).contiguous()
+    tbl = pb["index"].table
+    a = gf.measure(rows, tbl)
+    say("8 gather", case="a probe rows", table=tuple(tbl.shape), probe_rows=n_rows,
+        valid_kmers=n_rows // 2, tiles=rows.shape[0] // gf.TILE, floor_ms=f"{a['ms']:.4f}",
+        plain_ms=f"{a['plain_ms']:.4f}", probe_ms=f"{pb['ms']:.4f}",
+        probe_share_of_floor=f"{a['ms'] / pb['ms']:.4f}",
+        ns_per_row=f"{a['ns_per_row']:.4f}", rows_per_s=f"{a['rows_per_s']:.4g}",
+        requested_GBps=f"{a['requested_bytes_per_s'] / 1e9:.2f}",
+        sector_GBps=f"{a['sector_bytes_per_s'] / 1e9:.2f}", max_abs_err=a["max_abs_err"])
+    del pb, km, ok, b1, b2, rows, tbl
+    # (b), (c): the entry point at the TPU kernels' shapes, on the card;
+    # every launch counted is one this path made
+    cuda.reset_launches()
+    res = {}
+    for case, lanes, seed in (("b", 1, 1), ("c", 128, 2)):
+        r = gf.run(["--rows", str(1 << 22), "--width", "128", "--queries", str(1 << 17),
+                    "--lanes", str(lanes), "--seed", str(seed)])
+        res[case] = r
+        say("8 gather", case=f"{case} tpu kernel {2 if lanes == 1 else 3} shape",
+            table=(1 << 22, 128), queries=r["rows"], lanes=lanes, ms=f"{r['ms']:.4f}",
+            plain_ms=f"{r['plain_ms']:.4f}", ns_per_row=f"{r['ns_per_row']:.4f}",
+            requested_GBps=f"{r['requested_bytes_per_s'] / 1e9:.2f}",
+            sector_GBps=f"{r['sector_bytes_per_s'] / 1e9:.2f}", max_abs_err=r["max_abs_err"])
+    launches = cuda.LAUNCHES["gather_sum"]
+    check(launches > 0, "the gather-floor entry point launched no gather_sum kernel")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, err=0, ms=res["b"]["ms"], plain_ms=res["b"]["plain_ms"])
+
+
+def _ed_jobs(n: int, seed: int):
+    """n (a, b) pairs: a of 100-300 random bases, b = a with ~2% edits
+    (half substitutions, a quarter each insertions and deletions)."""
+    rng = np.random.default_rng(seed)
+    bases = "ACGT"
+    abc = np.frombuffer(b"ACGT", np.uint8)
+    jobs = []
+    for L in rng.integers(100, 301, n).tolist():
+        a = abc[rng.integers(0, 4, L)].tobytes().decode()
+        b = list(a)
+        for _ in range(int(rng.binomial(L, 0.02))):
+            p, op = int(rng.integers(0, len(b))), rng.random()
+            if op < 0.5:
+                b[p] = bases[int(rng.integers(0, 4))]
+            elif op < 0.75 and len(b) > 1:
+                del b[p]
+            else:
+                b.insert(p, bases[int(rng.integers(0, 4))])
+        jobs.append((a, "".join(b)))
+    return jobs
+
+
+def phase_edit(data: dict) -> dict:
+    import torch
+
+    from genefuserust_tpu.core.edit_distance import edit_distance
+    from genefuserust_tpu_torch.ops import edit_distance as ted
+    from genefuserust_tpu_torch.parallel import ed_batch
+
+    t0 = time.perf_counter()
+    jobs = _ed_jobs(ED_JOBS, data["seed"])
+    gen_s = time.perf_counter() - t0
+    host, arrays = ed_batch.encode_jobs(jobs)
+    check(not host.any(), "edit_distance: a synthetic job was routed to the host")
+    args = [torch.from_numpy(x).cuda() for x in arrays]
+    W = args[0].shape[1] // 32
+    got, err, ms, pms = _timed_pair(
+        "edit_distance", lambda: ted.edit_distance_batch(*args, W),
+        lambda: ted.edit_distance_plain(*args, W), reps=10, plain_reps=1)
+    ref = [edit_distance(a, b) for a, b in jobs[:2000]]
+    check(got[:2000].cpu().tolist() == ref, "edit_distance: kernel differs from host Myers")
+    say("9 edit", jobs=ED_JOBS, pattern_width=args[0].shape[1], text_width=args[2].shape[1],
+        W=W, mean_distance=f"{got.double().mean().item():.3f}", host_checked=len(ref),
+        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", max_abs_err=err, jobs_s=f"{gen_s:.1f}")
+    return dict(err=err, ms=ms, plain_ms=pms)
+
+
+def sweep_threshold(pool) -> dict:
+    """Wall time of a flush of n of the scan's own jobs, n = 1, 2, 4 ...:
+    host Myers against the batched path (encode, upload, kernel, download,
+    setters), median of 5 -> {n: (host ms, batched ms)} and the crossover,
+    the smallest n from which the batched path wins at every larger n."""
+    import statistics
+
+    import torch
+
+    from genefuserust_tpu.core.edit_distance import edit_distance
+    from genefuserust_tpu_torch.parallel import ed_batch
+
+    dev = torch.device("cuda")
+
+    def host_flush(sub):
+        out = [0] * len(sub)
+        for i, (a, b) in enumerate(sub):
+            out[i] = edit_distance(a, b)
+
+    def batched_flush(sub):
+        out = [0] * len(sub)
+        ed_batch.evaluate_batched(
+            [(a, b, lambda v, i=i: out.__setitem__(i, v)) for i, (a, b) in enumerate(sub)], dev)
+
+    def wall(fn, sub):
+        ts = []
+        for _ in range(5):
+            t = time.perf_counter()
+            fn(sub)
+            ts.append(time.perf_counter() - t)
+        return statistics.median(ts) * 1e3
+
+    # the scans flush fewer jobs than the largest size: repeat them
+    pool = (pool * -(-SWEEP_MAX_JOBS // len(pool)))[:SWEEP_MAX_JOBS]
+    batched_flush(pool)
+    sweep, n = {}, 1
+    while n <= SWEEP_MAX_JOBS:
+        sweep[n] = (wall(host_flush, pool[:n]), wall(batched_flush, pool[:n]))
+        n *= 2
+    wins = [n for n, (h, b) in sweep.items() if b < h]
+    crossover = next((n for n in sweep if all(m in wins for m in sweep if m >= n)), None)
+    return dict(sweep=sweep, crossover=crossover)
+
+
+def phase_rich(data: dict) -> dict:
+    import bench
+    import torch
+
+    from genefuserust_tpu.config import Settings
+    from genefuserust_tpu.core.read import SequenceRead, SequenceReadPair
+    from genefuserust_tpu.core.scanner import HostEngine, Scanner
+    from genefuserust_tpu.core.sequence import reverse_complement
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.parallel import ed_batch
+    from genefuserust_tpu_torch.parallel.engine import TorchEngine
+
+    contigs = data["mapper"].contigs
+    blk = bench.gen_block(data["mapper"], RICH_PAIRS, 150, seed=data["seed"] + 10,
+                          profile="real")
+    rng = np.random.default_rng(data["seed"] + 10)
+    fusions = []
+    for ga, gb, ea, eb in ((3, 17, 5, 9), (11, 24, 12, 3)):
+        lb, rb = data["exons"][ga][ea] - 1, data["exons"][gb][eb] - 1
+        fusions.append(contigs[f"c{ga:02d}"][lb - 400 : lb + 1]
+                       + contigs[f"c{gb:02d}"][rb : rb + 400])
+
+    def read(name, s, q):
+        return SequenceRead(name, s, "+", q)
+
+    pairs = []
+    for i in range(RICH_PAIRS):
+        name = f"@f{i:08d}"
+        if i % 8 == 0:
+            # the junction lies before base 401: R1 [off, off+150) and R2's
+            # span [off+40, off+190) both cross it by at least 20 bases
+            fused = fusions[(i // 8) % 2]
+            off = int(rng.integers(271, 342))
+            r1, r2 = fused[off : off + 150], reverse_complement(fused[off + 40 : off + 190])
+            pairs.append(SequenceReadPair(read(name, r1, "I" * 150), read(name, r2, "I" * 150)))
+        else:
+            pairs.append(SequenceReadPair(*(
+                read(name, side.seq[i, : side.lens[i]].tobytes().decode(),
+                     side.qual[i, : side.lens[i]].tobytes().decode())
+                for side in (blk.left, blk.right))))
+
+    def scan(engine, name):
+        j = os.path.join(data["workdir"], name)
+        with quiet(data):
+            m = Scanner(data["csv"], contigs, "", j, Settings(), engine=engine,
+                        command="rich").scan_pairs(pairs)
+        return strip_json(open(j).read()), m
+
+    t0 = time.perf_counter()
+    host, m_host = scan(HostEngine(), "rich_host.json")
+    host_s = time.perf_counter() - t0
+    eng = TorchEngine(Settings(), device="cuda")
+    eng.use_packed(data["packed_kv2"])
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    with captured_flushes() as flushes:
+        got, m = scan(eng, "rich_torch.json")
+    torch.cuda.synchronize()
+    torch_s = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    check(got == host, "fusion-rich: TorchEngine JSON differs from the host oracle's")
+    check(launches["edit_distance"] > 0 and eng.ed_stats["device"] > 0,
+          f"fusion-rich: no edit distance went through the kernel ({eng.ed_stats})")
+    say("10 rich", pairs=RICH_PAIRS, junction_pairs=RICH_PAIRS // 8, json="equal",
+        fusions=len(m.fusion_results),
+        supporting_reads=sum(len(f.matches) for f in m.fusion_results),
+        ed_jobs=eng.ed_stats["jobs"], ed_device=eng.ed_stats["device"],
+        launches=json.dumps(launches, separators=(",", ":")), torch_s=f"{torch_s:.2f}",
+        host_s=f"{host_s:.1f}")
+    ed = check_flushes("fusion-rich", flushes)
+    data["ed_err"] = max(data["ed_err"], ed["err"])
+    say("10 rich", ed_flush_sizes=ed["flush_sizes"], checked_flushes=ed["checked_flushes"],
+        checked_jobs=ed["checked_jobs"],
+        jobs_W_Lt=json.dumps(ed["batch_W_Lt"], separators=(",", ":")),
+        kernel_vs_plain="equal", kernel_vs_host="equal", max_abs_err=ed["err"])
+    # the sweep over the jobs the two scans flushed, fusion-rich first
+    pool = [job for f in flushes + data.pop("ed_flushes") for job in f]
+    sw = sweep_threshold(pool)
+    say("10 rich", sweep_jobs="phase 10 and phase 5 flushes",
+        mean_job_len=f"{np.mean([len(q) + len(r) for q, r in pool]) / 2:.1f}",
+        sweep_ms=json.dumps({n: [round(h, 3), round(b, 3)] for n, (h, b) in
+                             sw["sweep"].items()}, separators=(",", ":")),
+        crossover_jobs=sw["crossover"], device_min_jobs=ed_batch.DEVICE_MIN_JOBS)
+    return launches
+
+
+def phase_multi(data: dict, smi_line: str) -> None:
+    import torch
+
+    from genefuserust_tpu.config import Settings
+    from genefuserust_tpu.core.mapper import FusionMapper
+    from genefuserust_tpu.core.scanner import HostEngine, Scanner, finish_scan
+    from genefuserust_tpu.io.fastq_block import read_pair_block
+    from genefuserust_tpu_torch import cli
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.parallel.engine import TorchEngine
+
+    wd = data["workdir"]
+    lines = open(data["csv"]).read().splitlines(keepends=True)
+    per_gene = 1 + 20  # a '>' header line, then 20 exon lines
+    genes = [lines[g * per_gene : (g + 1) * per_gene] for g in range(PANEL_GENES)]
+    # 3 CSVs of 10 genes; each planted fusion (G03->G17, G11->G24) stays in
+    # one CSV, and the third CSV holds neither
+    order = [g for g in range(PANEL_GENES) if g not in (17, 24)]
+    order.insert(order.index(3) + 1, 17)
+    order.insert(order.index(11) + 1, 24)
+    csvs = []
+    for k in range(3):
+        path = os.path.join(wd, f"part{k}.csv")
+        with open(path, "w") as f:
+            for g in order[k * 10 : (k + 1) * 10]:
+                f.writelines(genes[g])
+        csvs.append(path)
+    lst = os.path.join(wd, "parts.txt")
+    with open(lst, "w") as f:
+        f.write("".join(c + "\n" for c in csvs))
+    mdir = os.path.join(wd, "multi")
+    os.makedirs(mdir)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        engine = cli.run(["-1", data["r1"], "-2", data["r2"], "-f", lst, "-r", data["fa"],
+                          "-h", os.path.join(mdir, "o.html"), "-j", os.path.join(mdir, "o.json")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    data["log"].write(out.getvalue())
+    check("#Fusion:" not in out.getvalue(), "multi-CSV printed #Fusion: blocks on stdout")
+    for k in SCAN_KERNELS:
+        check(launches[k] > 0, f"multi-CSV: kernel {k} was not launched")
+    n_fus = []
+    for k in range(3):
+        for ext in ("html", "json"):
+            check(os.path.exists(os.path.join(mdir, f"o_part{k}.{ext}")),
+                  f"multi-CSV: report o_part{k}.{ext} missing")
+        n_fus.append(len(json.load(open(os.path.join(mdir, f"o_part{k}.json")))["fusions"]))
+    say("11 multi", csvs=3, genes_per_csv=10, pairs=CLI_PAIRS, wall_s=f"{wall:.2f}",
+        index_s=f"{engine.table_seconds:.2f}", fusions_per_csv=n_fus,
+        launches=json.dumps(launches, separators=(",", ":")), card=repr(smi_line))
+
+    # (ii) the first 4,096 pairs, one pass for the three panels, against the
+    # host oracle per CSV; the CLI run's tables, in CSV order, are reused
+    packs = [e["packed"] for e in engine._tables.values()]
+    check(len(packs) == 3, f"multi-CSV: the CLI built {len(packs)} tables, expected 3")
+    b4 = os.path.join(wd, "b4")
+    os.makedirs(b4)
+    r1, r2 = os.path.join(b4, "R1.fq"), os.path.join(b4, "R2.fq")
+    b1, q1, _, b2, q2, _ = (a[:ORACLE_PAIRS] for a in data["block"])
+    write_fastq(r1, b1, q1, "p")
+    write_fastq(r2, b2, q2, "p")
+    contigs = data["mapper"].contigs
+    eng = TorchEngine(Settings(), device="cuda")
+    mappers = [FusionMapper(contigs, c, Settings(), multi_csv_mode=True) for c in csvs]
+    for m, p in zip(mappers, packs):
+        eng.use_packed(p, mapper=m)
+    with quiet(data):
+        eng.scan_pair_block_multi(mappers, read_pair_block(r1, r2))
+        eng.flush()
+        for k, m in enumerate(mappers):
+            finish_scan(m, "", os.path.join(b4, f"t{k}.json"), "multi", Settings())
+            Scanner(csvs[k], contigs, "", os.path.join(b4, f"h{k}.json"), Settings(),
+                    engine=HostEngine(), multi_csv_mode=True,
+                    command="multi").scan_pairs(data["oracle_pairs"])
+    for k in range(3):
+        t, h = (strip_json(open(os.path.join(b4, f"{x}{k}.json")).read()) for x in "th")
+        check(t == h, f"multi-CSV: part{k} JSON differs from the host oracle's")
+    fus = [len(m.fusion_results) for m in mappers]
+    check(fus[0] > 0 and fus[1] > 0, f"multi-CSV: a planted fusion was not found ({fus})")
+    say("11 multi", pairs=ORACLE_PAIRS, csvs=3, json="equal", fusions=fus)
+
+
+def phase_single(data: dict, smi_line: str) -> None:
+    import torch
+
+    from genefuserust_tpu.config import Settings
+    from genefuserust_tpu.core.scanner import HostEngine, Scanner
+    from genefuserust_tpu_torch import cli
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.parallel.engine import TorchEngine
+
+    wd = data["workdir"]
+    html, js = os.path.join(wd, "se.html"), os.path.join(wd, "se.json")
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    with quiet(data):
+        engine = cli.run(["-1", data["r1"], "-f", data["csv"], "-r", data["fa"],
+                          "-h", html, "-j", js])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    for k in SCAN_KERNELS:
+        check(launches[k] > 0, f"single-end: kernel {k} was not launched")
+    say("12 single", reads=CLI_PAIRS, wall_s=f"{wall:.2f}",
+        index_s=f"{engine.table_seconds:.2f}",
+        fusions=len(json.load(open(js))["fusions"]),
+        launches=json.dumps(launches, separators=(",", ":")), card=repr(smi_line))
+    reads = [p.left for p in data["oracle_pairs"]]
+    contigs = data["mapper"].contigs
+
+    def scan(engine, name):
+        j = os.path.join(wd, name)
+        with quiet(data):
+            m = Scanner(data["csv"], contigs, "", j, Settings(), engine=engine,
+                        command="single").scan_singles(reads)
+        return strip_json(open(j).read()), m
+
+    host, _ = scan(HostEngine(), "se_host.json")
+    eng = TorchEngine(Settings(), device="cuda")
+    eng.use_packed(data["packed_kv2"])
+    got, m = scan(eng, "se_torch.json")
+    check(got == host, "single-end: TorchEngine JSON differs from the host oracle's")
+    say("12 single", reads=ORACLE_PAIRS, json="equal", fusions=len(m.fusion_results))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -525,13 +957,18 @@ def main(argv=None) -> int:
         plant_fusions(mapper.contigs, exons, block[0], block[1], block[3], block[4])
         say("3 kernels", setup="data", panel_and_index_s=f"{index_s:.1f}",
             reads_s=f"{time.perf_counter() - t0:.1f}", pairs=CLI_PAIRS)
-        data = dict(seed=args.seed, workdir=workdir, fa=fa, csv=csv, mapper=mapper,
-                    blk=blk, block=block, log=log)
+        data = dict(seed=args.seed, workdir=workdir, fa=fa, csv=csv, exons=exons,
+                    mapper=mapper, blk=blk, block=block, log=log)
         rec = phase_kernels(data)
         phase_golden(data)
         launches = phase_cli(data, smi_line)
         phase_oracle(data)
         phase_profile(data)
+        gather = phase_gather(data)
+        edit = phase_edit(data)
+        rich_launches = phase_rich(data)
+        phase_multi(data, smi_line)
+        phase_single(data, smi_line)
     finally:
         log.close()
         shutil.rmtree(workdir, ignore_errors=True)
@@ -539,12 +976,21 @@ def main(argv=None) -> int:
         "probe": "genefuserust_tpu/ops/pallas_lookup.py:102",
         "vote": "genefuserust_tpu/ops/map_read.py:396",
         "mask_segments": "genefuserust_tpu/ops/map_read.py:439",
+        "gather_sum": "tools/profiling/profile_dma_ring.py:35, "
+                      "tools/profiling/profile_pallas_gather.py:46",
+        "edit_distance": "genefuserust_tpu/ops/edit_distance.py:43",
     }
+    # launches: each kernel's count over the run of its own path (the CLI
+    # scan, the gather-floor entry point, the fusion-rich scan)
+    rec["gather_sum"] = (gather["err"], gather["ms"], gather["plain_ms"])
+    rec["edit_distance"] = (max(edit["err"], data["ed_err"]), edit["ms"], edit["plain_ms"])
+    launches = dict(launches, gather_sum=gather["launches"],
+                    edit_distance=rich_launches["edit_distance"])
     kernels = [
         dict(name=k, route="cuda", source=f"genefuserust_tpu_torch/csrc/{k}.cu",
              replaces=replaces[k], launches=launches[k], max_abs_err=rec[k][0],
              ms=round(rec[k][1], 6), plain_ms=round(rec[k][2], 6))
-        for k in ("probe", "vote", "mask_segments")
+        for k in replaces
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -1,15 +1,20 @@
-"""Run driver of the port: the single-CSV scan on one torch device.
+"""Run driver of the port: single- and multi-CSV scans on one torch device.
 
-Mirrors `genefuserust_tpu/driver.py` (reference: src/genefuse.rs:14-87).
-A fusion file ending in .csv is one panel: paired-end input goes through
-`Scanner.scan_pair_stream`, single-end input through
-`Scanner.scan_single_stream`, both on `TorchEngine`. A CSV-list file
-(multi-CSV mode) and multi-device meshes are not ported yet.
+Mirrors `genefuserust_tpu/driver.py` (reference: src/genefuse.rs:14-87,
+src/core/fusion_scan.rs:62-330). A fusion file ending in .csv is one
+panel: paired-end input goes through `Scanner.scan_pair_stream`,
+single-end input through `Scanner.scan_single_stream`. Any other fusion
+file is a list of CSV paths (multi-CSV mode): the reads are loaded once,
+paired-end input is scanned against every panel in one pass
+(`scan_pair_block_multi`), single-end input panel by panel, and each
+panel gets its own `{stem}_{csv_stem}.{ext}` reports with logging and the
+stdout fusion blocks suppressed. Multi-device meshes are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import sys
 import time
 from pathlib import Path
@@ -70,15 +75,13 @@ def scan(config: RunConfig, command: str):
     from genefuserust_tpu.io import fasta
     from genefuserust_tpu.io.fastq_block import stream_fastq_blocks, stream_pair_blocks
 
-    if Path(config.fusion_file).suffix != ".csv":
-        raise NotImplementedError(
-            "a CSV-list fusion file (multi-CSV mode) is not ported yet "
-            "(ROADMAP.md, port queue: multi-CSV)"
-        )
     engine = make_engine(
         config.engine, config.settings, config.device, config.mesh, config.thread_num
     )
     contigs = fasta.read_all(config.ref_file, force_upper_case=False)
+    if Path(config.fusion_file).suffix != ".csv":
+        _scan_multi_csv(config, command, engine, contigs)
+        return engine
     scanner = Scanner(
         config.fusion_file, contigs, config.html, config.json, config.settings,
         engine, multi_csv_mode=False, command=command,
@@ -89,3 +92,61 @@ def scan(config: RunConfig, command: str):
     else:
         scanner.scan_single_stream(stream_fastq_blocks(config.r1_file))
     return engine
+
+
+def _scan_multi_csv(config: RunConfig, command: str, engine, contigs) -> None:
+    """Multi-CSV mode (genefuserust_tpu/driver.py:171-248)."""
+    from genefuserust_tpu.core.mapper import FusionMapper
+    from genefuserust_tpu.core.scanner import Scanner, finish_scan
+    from genefuserust_tpu.io.fastq_block import read_fastq_block, read_pair_block
+    from genefuserust_tpu.utils.pbar import prepare_pbar_force, set_multi_csv_mode
+
+    log.info("Reading input seqeunces...")
+    pairs = reads = None
+    if config.r2_file:
+        pairs = read_pair_block(config.r1_file, config.r2_file)
+    else:
+        reads = read_fastq_block(config.r1_file)
+    csv_paths = _jax_driver._read_csv_list(config.fusion_file)
+    html_names = _jax_driver._report_names(config.html, csv_paths)
+    json_names = _jax_driver._report_names(config.json, csv_paths)
+    log.info("Multi csv input mode enabled. Suppress all logging messages while "
+             "doing jobs in parallel.")
+    prev_level = log.level
+    log.setLevel(logging.CRITICAL)
+    set_multi_csv_mode(True)
+    pb = prepare_pbar_force(len(csv_paths))
+    pb.set_message("Scanning fusions given in csv...")
+    try:
+        if pairs is not None and hasattr(engine, "scan_pair_block_multi"):
+            # one pass over the reads serves every panel: merge, pack and
+            # upload are panel-independent
+            mappers = [
+                FusionMapper(contigs, csv, config.settings, multi_csv_mode=True,
+                             index_cache_dir=config.index_cache_dir,
+                             ref_file=config.ref_file)
+                for csv in csv_paths
+            ]
+            engine.scan_pair_block_multi(mappers, pairs)
+            engine.flush()
+            for i, mapper in enumerate(mappers):
+                finish_scan(mapper, html_names[i] if html_names else "",
+                            json_names[i] if json_names else "", command, config.settings)
+                pb.inc(1)
+        else:
+            for i, csv in enumerate(csv_paths):
+                scanner = Scanner(
+                    csv, contigs, html_names[i] if html_names else "",
+                    json_names[i] if json_names else "", config.settings, engine,
+                    multi_csv_mode=True, command=command,
+                    index_cache_dir=config.index_cache_dir, ref_file=config.ref_file,
+                )
+                if pairs is not None:
+                    scanner.scan_pair_block(pairs)
+                else:
+                    scanner.scan_single_block(reads)
+                pb.inc(1)
+    finally:
+        pb.finish_and_clear()
+        set_multi_csv_mode(False)
+        log.setLevel(prev_level)

@@ -7,7 +7,8 @@ the current stream, launches on that stream, allocates nothing and returns
 `cudaGetLastError()`; a nonzero code raises here.
 
 `LAUNCHES` counts the kernel launches made through the wrappers in
-ops/map_read.py, one per launch, so a run can show which kernels it used.
+ops/map_read.py, ops/edit_distance.py and profiling/gather_floor.py, one
+per launch, so a run can show which kernels it used.
 """
 
 from __future__ import annotations
@@ -24,13 +25,13 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("probe.cu", "vote.cu", "mask_segments.cu")
+SOURCES = ("probe.cu", "vote.cu", "mask_segments.cu", "gather_sum.cu", "edit_distance.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-LAUNCHES = {"probe": 0, "vote": 0, "mask_segments": 0}
+LAUNCHES = {"probe": 0, "vote": 0, "mask_segments": 0, "gather_sum": 0, "edit_distance": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -62,20 +63,35 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile csrc/ unless this exact source set is built already -> the
-    library path. The compiler's register/shared-memory report is kept
-    beside it as `<lib>.log`."""
+    library path. One nvcc per source, all started together, then one
+    link. The compiler's register/shared-memory report is kept beside the
+    library as `<lib>.log`."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC, s) for s in SOURCES)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-8000:]}")
+    tmp = f"{so}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{s}.o" for s in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        for s, p, out in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{out[-8000:]}")
+        r = subprocess.run([nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                            "-o", f"{tmp}.tmp", *objs], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stderr[-8000:]}")
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     with open(so + ".log", "w") as f:
-        f.write(r.stdout + r.stderr)
-    os.replace(tmp, so)
+        f.write("".join(logs) + r.stdout + r.stderr)
+    os.replace(f"{tmp}.tmp", so)
     return so
 
 
@@ -90,10 +106,26 @@ def library() -> ctypes.CDLL:
             lib.gf_vote.argtypes = [P, I, I, P, I, I, I, I, I, I, I, I, I, P, P]
             lib.gf_mask_segments.argtypes = [P, P, P, I, I, P, I, I, I, I, I, I,
                                              P, P]
-            for fn in (lib.gf_probe, lib.gf_vote, lib.gf_mask_segments):
+            lib.gf_gather_tile_sums.argtypes = [P, P, I, I, I, P, P]
+            lib.gf_edit_distance_block.argtypes = [I]
+            lib.gf_edit_distance.argtypes = [P, P, P, P, I, I, I, I, I, P, P]
+            for fn in (lib.gf_probe, lib.gf_vote, lib.gf_mask_segments,
+                       lib.gf_gather_tile_sums, lib.gf_edit_distance_block,
+                       lib.gf_edit_distance):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
+    """Raise unless `t` is a contiguous `ndim`-D `dtype` tensor on `device`:
+    what a wrapper checks before it hands a pointer to a kernel."""
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim}-D {dtype}, got {t.dim()}-D {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def _ptr(t):
@@ -150,3 +182,29 @@ def launch_mask_segments(pr, lengths, gp, B, NK, index, mismatch_thr, out) -> No
             index.pos_bias, mismatch_thr, out.data_ptr(), _stream(out),
         )
     _done("mask_segments", err)
+
+
+def launch_gather_tile_sums(idx, tbl, lanes: int, out) -> None:
+    if tbl.data_ptr() % 16:
+        raise ValueError("gather_tile_sums: table rows must be 16-byte aligned")
+    with torch.cuda.device(out.device):
+        err = library().gf_gather_tile_sums(
+            idx.data_ptr(), tbl.data_ptr(), out.shape[0], tbl.shape[1], lanes,
+            out.data_ptr(), _stream(out),
+        )
+    _done("gather_sum", err)
+
+
+def launch_edit_distance(pat, pat_lens, txt, txt_lens, W: int, out) -> None:
+    B, Lp = pat.shape
+    with torch.cuda.device(out.device):
+        lib = library()
+        threads = lib.gf_edit_distance_block(W)
+        if threads == 0:
+            raise ValueError(f"edit_distance: the Eq tables of 32 jobs at W={W} "
+                             "exceed the device's shared memory per block")
+        err = lib.gf_edit_distance(
+            pat.data_ptr(), pat_lens.data_ptr(), txt.data_ptr(), txt_lens.data_ptr(),
+            B, Lp, txt.shape[1], W, threads, out.data_ptr(), _stream(out),
+        )
+    _done("edit_distance", err)

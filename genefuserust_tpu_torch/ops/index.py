@@ -13,14 +13,155 @@ reach the scan:
     `(D, 2)` [contig, pos] pairs.
 
 The single-probe A/B layouts (kvs, kv16) are not ported.
+
+`build_packed_index` is the port's table builder. It mirrors the JAX
+dispatch and packers and reuses their numpy placement, so its tables are
+bit-equal to theirs, but it finds the empty-slot sentinel with
+`absent_key` (O(n), no sort) instead of `hashtable._absent_key`, whose
+`np.unique` over ~30 M keys dominated a kv2 pack on some numpy versions.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
+
+from genefuserust_tpu import native
+from genefuserust_tpu.ops.hashtable import (
+    EMPTY,
+    KV_SLOTS,
+    SLOTS,
+    PackedIndex,
+    PackedIndexKV,
+    _build,
+    _encode_payload,
+    _entries_from_indexer,
+    _kv_budget,
+    _place_2choice,
+    pack_index_kv16,
+    pack_index_kvs,
+)
+
+
+def absent_key(present: np.ndarray) -> int:
+    """Smallest uint32 not in `present` (read as uint32 bit patterns).
+
+    n keys leave at least one of 0..n free, so only keys <= n are marked."""
+    v = np.asarray(present).astype(np.int64).ravel() & 0xFFFFFFFF
+    seen = np.zeros(len(v) + 1, bool)
+    seen[v[v <= len(v)]] = True
+    return int(np.argmin(seen))
+
+
+def _sentinel_keys(table: np.ndarray):
+    """(nb, S, 3) [key, contig, pos] slots -> (keys with the empty slots
+    set to the absent key as int32, the absent key)."""
+    empty = table[:, :, 1] == EMPTY
+    keys = table[:, :, 0].copy()
+    sentinel = absent_key(keys[~empty])
+    keys[empty] = np.int32(sentinel - (1 << 32) if sentinel >= 1 << 31 else sentinel)
+    return keys, sentinel
+
+
+def _pack_kv(indexer, target_load: float = 0.9, slots: int = KV_SLOTS,
+             max_buckets: int = 1 << 27):
+    """`hashtable.pack_index_kv` with `absent_key`: the kv rows, or None when
+    the panel exceeds the payload bit budget or the row cap."""
+    keys, contigs, poss, dupes, max_dupe = _entries_from_indexer(indexer)
+    budget = _kv_budget(contigs, poss, dupes, max_dupe)
+    if budget is None:
+        return None
+    cbits, pbits, pos_bias = budget
+    n_dup = dupes.shape[0]
+    nb = 16
+    while nb * slots * target_load < max(len(keys), 1):
+        nb *= 2
+    if (nb.bit_length() - 1) & 1:
+        nb *= 2
+    table = None
+    while nb <= max_buckets:
+        shift = 32 - int(round(np.log2(nb)))
+        table = native.pack_table(keys, contigs, poss, nb, shift, slots, EMPTY)
+        if table is None:
+            placed = _place_2choice(keys, nb, shift, slots)
+            if placed is not None:
+                table = np.zeros((nb, slots, 3), np.int32)
+                table[:, :, 1] = EMPTY
+                pb, ps = placed
+                table[pb, ps, 0] = keys.astype(np.int32)
+                table[pb, ps, 1] = contigs
+                table[pb, ps, 2] = poss
+        if table is not None:
+            break
+        nb *= 2
+    if table is None:
+        return None
+    tkeys, sentinel = _sentinel_keys(table)
+    payload = _encode_payload(
+        table[:, :, 1].ravel(), table[:, :, 2].ravel(), pbits, pos_bias
+    ).reshape(nb, slots)
+    kv_tbl = np.concatenate([tkeys, payload], axis=1).astype(np.int32)
+    dupes_packed = np.zeros((max(1, n_dup), 8), np.int32)
+    if n_dup:
+        D = dupes.shape[1]
+        dupes_packed[:, :D] = _encode_payload(
+            dupes[:, :, 0].ravel(), dupes[:, :, 1].ravel(), pbits, pos_bias
+        ).reshape(n_dup, D)
+    return PackedIndexKV(kv_tbl, dupes_packed, nb, shift, cbits, pos_bias, max_dupe, sentinel)
+
+
+def _pack_split(indexer) -> PackedIndex:
+    """`hashtable.pack_index` with its device form filled in here, so that
+    `PackedIndex.__post_init__` never searches for the absent key."""
+    keys, contigs, poss, dupes, max_dupe = _entries_from_indexer(indexer)
+    nb = 16
+    while nb * 2 < max(len(keys), 1):
+        nb *= 2
+    while True:
+        shift = 32 - int(round(np.log2(nb)))
+        table = native.pack_table(keys, contigs, poss, nb, shift, SLOTS, EMPTY)
+        if table is None:
+            table = _build(keys, contigs, poss, nb, shift)
+        if table is not None:
+            break
+        nb *= 2
+    keys_tbl, sentinel = _sentinel_keys(table)
+    return PackedIndex(table, dupes, nb, shift, max_dupe, keys_tbl=keys_tbl,
+                       vals_tbl=table[:, :, 1:].reshape(-1, 2).copy(),
+                       empty_key=sentinel)
+
+
+def build_packed_index(indexer, layout: str = None):
+    """The device table in the preferred layout, with the fallbacks of
+    `hashtable.build_packed_index`: kv2 -> kv4 -> kv8 -> split. `layout`
+    or GENEFUSE_TABLE_LAYOUT ('kv2' | 'kv4' | 'kv8' | 'split' | 'kvs' |
+    'kv16') pins one; kvs and kv16 come from the JAX packers, and
+    `index_to_torch` refuses them."""
+    layout = layout or os.environ.get("GENEFUSE_TABLE_LAYOUT", "auto")
+    if layout == "kv16":
+        p = pack_index_kv16(indexer)
+        if p is not None:
+            return p
+    if layout == "kvs":
+        p = pack_index_kvs(indexer)
+        if p is not None:
+            return p
+    if layout in ("auto", "kv2"):
+        p = _pack_kv(indexer, target_load=0.5, slots=1)
+        if p is not None:
+            return p
+    if layout in ("auto", "kv4", "kv2"):
+        p = _pack_kv(indexer, target_load=0.6, slots=2)
+        if p is not None:
+            return p
+    if layout in ("auto", "kv4", "kv2", "kv16", "kvs", "kv8"):
+        p = _pack_kv(indexer)
+        if p is not None:
+            return p
+    return _pack_split(indexer)
 
 
 @dataclasses.dataclass(frozen=True)

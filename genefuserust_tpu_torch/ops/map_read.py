@@ -331,21 +331,10 @@ def mask_segments_plain(pr, lengths, gp, index: TorchIndex, mismatch_thr: int):
 # ---------------- kernel wrappers ----------------
 
 
-def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
-    if t.dtype != dtype or t.dim() != ndim:
-        raise ValueError(
-            f"{name}: expected {ndim}-D {dtype}, got {t.dim()}-D {t.dtype}"
-        )
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_index(index: TorchIndex, device) -> None:
-    _check(index.table, "index.table", torch.int32, 2, device)
-    _check(index.vals, "index.vals", torch.int32, 2, device)
-    _check(index.dupes, "index.dupes", torch.int32, 3 if index.split else 2, device)
+    cuda.check_tensor(index.table, "index.table", torch.int32, 2, device)
+    cuda.check_tensor(index.vals, "index.vals", torch.int32, 2, device)
+    cuda.check_tensor(index.dupes, "index.dupes", torch.int32, 3 if index.split else 2, device)
     if index.split and index.S != 8:
         raise ValueError(f"split keys rows must be 8 slots wide, got {index.S}")
     if not index.split and index.S not in (1, 2, 4):
@@ -356,8 +345,8 @@ def probe(codes, lengths, stride: int, index: TorchIndex):
     """Kernel 1: build every `stride`-th 16-mer of each (B, W) code row and
     probe the table -> (B, NQ, 2) int32 [contig, pos]."""
     dev = codes.device
-    _check(codes, "codes", torch.uint8, 2, dev)
-    _check(lengths, "lengths", torch.int32, 1, dev)
+    cuda.check_tensor(codes, "codes", torch.uint8, 2, dev)
+    cuda.check_tensor(lengths, "lengths", torch.int32, 1, dev)
     _check_index(index, dev)
     B, W = codes.shape
     if W < KMER or lengths.shape[0] != B or stride < 1:
@@ -376,8 +365,8 @@ def probe_kmers(kmers, valid, index: TorchIndex):
     """Kernel 1 over flat queries (the `pallas_lookup` signature): (N,)
     int32 k-mer bit patterns + (N,) bool validity -> (N, 2) int32."""
     dev = kmers.device
-    _check(kmers, "kmers", torch.int32, 1, dev)
-    _check(valid, "valid", torch.bool, 1, dev)
+    cuda.check_tensor(kmers, "kmers", torch.int32, 1, dev)
+    cuda.check_tensor(valid, "valid", torch.bool, 1, dev)
     _check_index(index, dev)
     if valid.shape != kmers.shape:
         raise ValueError("probe_kmers: kmers and valid differ in shape")
@@ -400,7 +389,7 @@ def vote(pr, index: TorchIndex, major_req: int, minor_req: int):
     """Kernel 2: pass-1 probe results (B, NS, 2) -> (B, 5) int32
     [ok, h1, l1, h2, l2]; one block sorts one row's candidates."""
     dev = pr.device
-    _check(pr, "probe results", torch.int32, 3, dev)
+    cuda.check_tensor(pr, "probe results", torch.int32, 3, dev)
     _check_index(index, dev)
     B, NS, two = pr.shape
     P2 = vote_width(NS, index.D)
@@ -419,9 +408,9 @@ def mask_segments(pr, lengths, gp, index: TorchIndex, mismatch_thr: int):
     """Kernel 3: pass-2 probe results (B, NK, 2), lengths and the vote's
     (B, 4) [h1, l1, h2, l2] -> (B, 10) int32 segment rows."""
     dev = pr.device
-    _check(pr, "probe results", torch.int32, 3, dev)
-    _check(lengths, "lengths", torch.int32, 1, dev)
-    _check(gp, "gp", torch.int32, 2, dev)
+    cuda.check_tensor(pr, "probe results", torch.int32, 3, dev)
+    cuda.check_tensor(lengths, "lengths", torch.int32, 1, dev)
+    cuda.check_tensor(gp, "gp", torch.int32, 2, dev)
     _check_index(index, dev)
     B, NK, two = pr.shape
     if two != 2 or lengths.shape[0] != B or tuple(gp.shape) != (B, 4):

@@ -17,7 +17,8 @@ JAX are replaced:
   - there is no compile, so the compile pool, signature memo and the
     shape-reuse memos (`_pad_rows`, `_sticky_width`) go: lanes are padded
     to a multiple of 32 rows and take their exact widths;
-  - edit distances go through this package's EdBatcher.
+  - edit distances go through this package's EdBatcher;
+  - the index table comes from this package's builder (`ops/index.py`).
 
 Results are identical to the host oracle (tests/test_torch_engine.py).
 """
@@ -34,10 +35,10 @@ from genefuserust_tpu.config import KMER, Settings
 from genefuserust_tpu.core.indexer import GenePos, SeqMatch
 from genefuserust_tpu.core.read import SequenceRead, SequenceReadPair
 from genefuserust_tpu.core.sequence import BASE_CODE_LUT
-from genefuserust_tpu.parallel.engine import TpuEngine, _round_up, _tokenize_bytes
+from genefuserust_tpu.parallel.engine import TpuEngine, _round_up, _tokenize_bytes, log
 
 from ..ops.fused import fused_scan_lanes
-from ..ops.index import index_to_torch
+from ..ops.index import build_packed_index, index_to_torch
 from .ed_batch import EdBatcher
 
 
@@ -89,12 +90,12 @@ class TorchEngine(TpuEngine):
         self.device = resolve_device(device)
         self._upload_stream = None
         # edit-distance job counts (see EdBatcher)
-        self.ed_stats = {"jobs": 0, "device_sized": 0}
+        self.ed_stats = {"jobs": 0, "device_sized": 0, "device": 0}
         # host seconds spent building and uploading device index tables
         self.table_seconds = 0.0
 
     def _ed(self) -> EdBatcher:
-        return EdBatcher(stats=self.ed_stats)
+        return EdBatcher(stats=self.ed_stats, device=self.device)
 
     # ------------- uploads -------------
 
@@ -141,9 +142,29 @@ class TorchEngine(TpuEngine):
         return dict(packed=packed, index=index_to_torch(packed, self.device))
 
     def _table_entry(self, mapper) -> dict:
+        """`TpuEngine._table_entry` with the port's table builder: entries
+        are keyed by id(mapper) and pin their mapper; a table installed by
+        `use_packed` without a mapper goes to the first mapper asking."""
+        key = id(mapper)
+        e = self._tables.get(key)
+        if e is not None:
+            assert e.get("mapper") is mapper
+            return e
+        if self._default_entry is not None and (
+            self._prepared_for is None or self._prepared_for is mapper
+        ):
+            e, self._default_entry = self._default_entry, None
+            e["mapper"] = mapper
+            self._tables[key] = e
+            return e
         t0 = time.perf_counter()
-        e = super()._table_entry(mapper)
+        packed = build_packed_index(mapper.indexer)
+        e = self._entry_from_packed(packed)
         self.table_seconds += time.perf_counter() - t0
+        e["mapper"] = mapper
+        self._tables[key] = e
+        log.info("device index ready: %d buckets, %.1f MB%s", packed.n_buckets,
+                 packed.nbytes / 1e6, " (kv rows)" if hasattr(packed, "kv_tbl") else "")
         return e
 
     # ------------- shapes: no compile to amortize -------------

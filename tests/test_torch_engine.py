@@ -164,12 +164,15 @@ def test_cli_matches_jax_host_cli(tmp_path, paired):
 
 def test_port_scan_never_imports_jax(tmp_path):
     ref, csv, r1, r2 = _cli_files(tmp_path)
+    lst = tmp_path / "panels.txt"
+    lst.write_text(csv + "\n")
     code = (
         "import sys\n"
         "from genefuserust_tpu_torch import cli\n"
-        f"cli.main(['-1', {r1!r}, '-2', {r2!r}, '-f', {csv!r}, '-r', {ref!r},\n"
-        f"          '-h', {str(tmp_path / 'o.html')!r}, '-j', {str(tmp_path / 'o.json')!r},\n"
-        "          '--device', 'cpu'])\n"
+        f"for f, o in (({csv!r}, 'o'), ({str(lst)!r}, 'm')):\n"
+        f"    cli.main(['-1', {r1!r}, '-2', {r2!r}, '-f', f, '-r', {ref!r},\n"
+        f"              '-h', {str(tmp_path)!r} + '/' + o + '.html',\n"
+        f"              '-j', {str(tmp_path)!r} + '/' + o + '.json', '--device', 'cpu'])\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "print('NOJAX')\n"
     )
@@ -178,6 +181,7 @@ def test_port_scan_never_imports_jax(tmp_path):
     assert r.returncode == 0, r.stderr[-3000:]
     assert "NOJAX" in r.stdout
     assert (tmp_path / "o.json").exists()
+    assert (tmp_path / "m_panel.json").exists()
 
 
 @pytest.mark.parametrize("layout", ["kvs", "kv16"])
@@ -189,18 +193,124 @@ def test_single_probe_layouts_raise_in_engine(tmp_path, monkeypatch, layout):
               TorchEngine(Settings(), batch_size=32, device="cpu"), "x.json")
 
 
-def test_unported_modes_raise(tmp_path):
-    from genefuserust_tpu_torch import cli
+def test_unported_modes_raise():
     from genefuserust_tpu_torch.driver import make_engine
 
-    ref, csv, r1, r2 = _cli_files(tmp_path)
-    lst = tmp_path / "panels.txt"
-    lst.write_text(csv + "\n")
-    with pytest.raises(NotImplementedError, match="multi-CSV"):
-        cli.main(["-1", r1, "-2", r2, "-f", str(lst), "-r", ref, "--device", "cpu",
-                  "-h", str(tmp_path / "a.html"), "-j", str(tmp_path / "a.json")])
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         make_engine("cuda", Settings(), device="cpu", mesh="4")
+
+
+def _multi_csv_files(tmp_path):
+    """_cli_files plus a second panel CSV and the CSV-list file naming both."""
+    ref, csv, r1, r2 = _cli_files(tmp_path)
+    csv2 = tmp_path / "panel2.csv"
+    csv2.write_text(open(csv).read())
+    lst = tmp_path / "panels.txt"
+    lst.write_text(f"{csv}\n{csv2}\n")
+    return ref, str(lst), r1, r2
+
+
+@pytest.mark.parametrize("paired", [True, False])
+def test_multi_csv_cli_matches_jax_host_cli(tmp_path, capsys, paired):
+    from genefuserust_tpu import cli as jax_cli
+    from genefuserust_tpu_torch import cli
+
+    ref, lst, r1, r2 = _multi_csv_files(tmp_path)
+    reads = ["-1", r1] + (["-2", r2] if paired else [])
+    out = {}
+    for name, main, extra in (("torch", cli.main, ["--device", "cpu"]),
+                              ("host", jax_cli.main, ["--engine", "host"])):
+        d = tmp_path / name
+        d.mkdir()
+        assert main([*reads, "-f", lst, "-r", ref, "-h", str(d / "o.html"),
+                     "-j", str(d / "o.json"), *extra]) == 0
+        assert "#Fusion:" not in capsys.readouterr().out
+        out[name] = [_strip_ts((d / f"o_{stem}.{ext}").read_text())
+                     for stem in ("panel", "panel2") for ext in ("html", "json")]
+    assert out["torch"] == out["host"]
+    assert out["torch"][1].replace("panel.csv", "panel2.csv") == out["torch"][3]
+    assert '"fusions":{"' in out["torch"][1].replace("\n", "").replace("\t", "")
+
+
+def test_fusion_rich_batch_takes_the_batched_edit_distance(tmp_path):
+    """Enough junction pairs in one batch that its flush reaches the CPU's
+    threshold: the batched Myers (plain version on the CPU) carries them,
+    and the report still equals the host oracle's."""
+    from genefuserust_tpu_torch.parallel.ed_batch import CPU_MIN_JOBS
+
+    panel = make_panel()
+    # plant_fusion_pairs' junction moves 7 bp a pair and leaves R1 after
+    # ~14 pairs: cycle the spanning ones under new names
+    spanning = plant_fusion_pairs(panel, n_support=12, n_background=0)
+    pairs = plant_fusion_pairs(panel, n_support=0, n_background=60)
+    for j in range(CPU_MIN_JOBS // 2 + 8):
+        p = spanning[j % len(spanning)]
+        name = f"@SYNTH:rich:{j}"
+        pairs.append(SequenceReadPair(SequenceRead(name, p.left.seq, "+", p.left.quality),
+                                      SequenceRead(name, p.right.seq, "+", p.right.quality)))
+    m_host, j_host = _scan(panel, pairs, tmp_path, HostEngine(), "host.json")
+    eng = TorchEngine(Settings(), device="cpu")
+    m_t, j_t = _scan(panel, pairs, tmp_path, eng, "torch.json")
+    assert j_t == j_host and len(m_t.fusion_results) > 0
+    assert eng.ed_stats["device_sized"] >= CPU_MIN_JOBS
+    assert eng.ed_stats["device"] > 0
+
+
+def _single_end_workload(panel):
+    """Single-end reads: R1 of planted pairs and background, plus the
+    reverse complements of a few (the retry path)."""
+    pairs = plant_fusion_pairs(panel, n_support=9, n_background=120, seed=5)
+    return [p.left for p in pairs] + [p.left.reverse_complement() for p in pairs[:4]]
+
+
+def _scan_reports(panel, reads, tmp_path, engine, tag):
+    _, csv_path = write_panel_files(panel, str(tmp_path))
+    html, js = tmp_path / f"{tag}.html", tmp_path / f"{tag}.json"
+    Scanner(csv_path, panel.contigs, str(html), str(js), Settings(), engine=engine,
+            command="torch-single-end").scan_singles(reads)
+    return _strip_ts(html.read_text()), _strip_ts(js.read_text())
+
+
+def test_single_end_exotic_bytes_route_to_oracle(tmp_path):
+    """Single-end analog of tests/test_edge_paths.py::test_exotic_bytes_route_to_oracle."""
+    panel = make_panel()
+    reads = [p.left for p in plant_fusion_pairs(panel, n_support=5, n_background=10)]
+    for k in (0, 2):
+        s = list(reads[k].seq)
+        s[5], s[40] = "R", "Y"
+        reads[k] = SequenceRead(reads[k].name, "".join(s), "+", reads[k].quality)
+    host = _scan_reports(panel, reads, tmp_path, HostEngine(), "h")
+    got = _scan_reports(panel, reads, tmp_path,
+                        TorchEngine(Settings(), batch_size=16, device="cpu"), "t")
+    assert got == host
+    assert '"fusions":{"' in host[1].replace("\n", "").replace("\t", "")
+
+
+def test_single_end_batch_size_invariance(tmp_path):
+    """Single-end analog of tests/test_determinism.py::test_batch_size_invariance."""
+    panel = make_panel(seed=21)
+    reads = _single_end_workload(panel)
+    ref = _scan_reports(panel, reads, tmp_path,
+                        TorchEngine(Settings(), batch_size=4096, device="cpu"), "b4096")
+    assert '"fusions":{"' in ref[1].replace("\n", "").replace("\t", "")
+    for bs in (17, 64):
+        got = _scan_reports(panel, reads, tmp_path,
+                            TorchEngine(Settings(), batch_size=bs, device="cpu"), f"b{bs}")
+        assert got == ref, f"reports differ at batch_size={bs}"
+
+
+def test_single_end_pipeline_depth_invariance(tmp_path):
+    """Single-end analog of tests/test_determinism.py::test_pipeline_depth_invariance."""
+    panel = make_panel(seed=21)
+    reads = _single_end_workload(panel)
+
+    def run(depth):
+        eng = TorchEngine(Settings(), batch_size=32, device="cpu", pipeline_depth=depth)
+        return _scan_reports(panel, reads, tmp_path, eng, f"d{depth}")[1]
+
+    ref = run(6)
+    for d in (1, 2):
+        assert run(d) == ref, f"JSON differs at pipeline_depth={d}"
 
 
 def test_cuda_device_requires_a_gpu():

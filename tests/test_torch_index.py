@@ -1,0 +1,138 @@
+"""The port's table builder against the JAX package's: `absent_key` equal
+to `hashtable._absent_key`, and every packed table bit-equal for kv2,
+kv4, kv8 and split, with no call of `_absent_key` on the way."""
+
+import numpy as np
+import pytest
+
+from genefuserust_tpu.config import Settings
+from genefuserust_tpu.core.indexer import Indexer
+from genefuserust_tpu.models.fusion import Fusion
+from genefuserust_tpu.ops import hashtable
+from genefuserust_tpu.utils.synthetic import make_panel, write_panel_files
+from genefuserust_tpu_torch.ops import index as tindex
+
+from test_torch_probe import dupe_panel
+
+LAYOUTS = ("kv2", "kv4", "kv8", "split")
+# kv width per layout as the JAX dispatch packs them
+KV_WIDTH = {"kv2": 2, "kv4": 4, "kv8": 8}
+
+
+def _absent_cases():
+    rng = np.random.default_rng(0)
+    big = rng.integers(2**31, 2**32, 500, dtype=np.uint64).astype(np.uint32).view(np.int32)
+    return {
+        "empty": np.zeros(0, np.int32),
+        "zero_to_k": np.arange(37, dtype=np.int32),
+        "zero_to_k_shuffled_dupes": np.concatenate(
+            [rng.permutation(50), rng.integers(0, 50, 40)]).astype(np.int32),
+        "gap_at_5": np.array([0, 1, 2, 3, 4, 6, 7, 6, 0], np.int32),
+        "no_zero": np.array([1, 2, 3], np.int32),
+        "negative_int32": np.concatenate([big, np.array([0, 1, -1, -2], np.int32)]),
+        "only_high": big,
+        "random_wide": rng.integers(-2**31, 2**31, 5000).astype(np.int32),
+        "uint32_input": np.array([0, 1, 2, 0xFFFFFFFF, 4], np.uint32),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_absent_cases()))
+def test_absent_key_matches_jax(case):
+    present = _absent_cases()[case]
+    assert tindex.absent_key(present) == hashtable._absent_key(present)
+
+
+def test_absent_key_edges():
+    assert tindex.absent_key(np.zeros(0, np.int32)) == 0
+    assert tindex.absent_key(np.arange(9, dtype=np.int32)) == 9
+    assert tindex.absent_key(np.array([-1, -2], np.int32)) == 0
+
+
+def _indexer(panel, tmp):
+    _, csv = write_panel_files(panel, str(tmp))
+    ix = Indexer(panel.contigs, Fusion.parse_csv(csv), Settings())
+    ix.make_index()
+    return ix
+
+
+@pytest.fixture(scope="module")
+def indexers(tmp_path_factory):
+    return {
+        "make_panel": _indexer(make_panel(), tmp_path_factory.mktemp("plain")),
+        "dupes": _indexer(dupe_panel(), tmp_path_factory.mktemp("dupes")),
+    }
+
+
+def _fields(p):
+    """Every field that reaches the device or the probe's parameters."""
+    if hasattr(p, "kv_tbl"):
+        return dict(kind="kv", kv_tbl=p.kv_tbl, dupes=p.dupes, n_buckets=p.n_buckets,
+                    shift=p.shift, cbits=p.cbits, pos_bias=p.pos_bias,
+                    max_dupe=p.max_dupe, empty_key=p.empty_key)
+    return dict(kind="split", table=p.table, keys_tbl=p.keys_tbl, vals_tbl=p.vals_tbl,
+                dupes=p.dupes, n_buckets=p.n_buckets, shift=p.shift,
+                max_dupe=p.max_dupe, empty_key=p.empty_key)
+
+
+def _assert_equal(a, b):
+    fa, fb = _fields(a), _fields(b)
+    assert fa.keys() == fb.keys()
+    for k in fa:
+        if isinstance(fa[k], np.ndarray):
+            assert fa[k].dtype == fb[k].dtype and np.array_equal(fa[k], fb[k]), k
+        else:
+            assert fa[k] == fb[k], k
+
+
+@pytest.mark.parametrize("panel", ["make_panel", "dupes"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_build_packed_index_bit_equal(indexers, panel, layout, monkeypatch):
+    ix = indexers[panel]
+    exp = hashtable.build_packed_index(ix, layout=layout)
+
+    def refuse(_):
+        raise AssertionError("the port's builder called hashtable._absent_key")
+
+    monkeypatch.setattr(hashtable, "_absent_key", refuse)
+    got = tindex.build_packed_index(ix, layout=layout)
+    _assert_equal(got, exp)
+    if layout == "split":
+        assert not hasattr(got, "kv_tbl")
+    else:
+        assert got.kv_tbl.shape[1] == KV_WIDTH[layout]
+    if panel == "dupes":
+        c = got.table[:, :, 1] if layout == "split" else None
+        assert got.max_dupe > 1
+        assert c is None or ((c == hashtable.DUPE).any() and (c == hashtable.HIGH).any())
+
+
+@pytest.mark.parametrize("layout", ["kv4", "split"])
+def test_table_layout_env_is_honoured(indexers, layout, monkeypatch):
+    ix = indexers["make_panel"]
+    monkeypatch.setenv("GENEFUSE_TABLE_LAYOUT", layout)
+    got = tindex.build_packed_index(ix)
+    _assert_equal(got, hashtable.build_packed_index(ix))
+    assert _fields(got)["kind"] == ("split" if layout == "split" else "kv")
+    if layout == "kv4":
+        assert got.kv_tbl.shape[1] == 4
+    monkeypatch.delenv("GENEFUSE_TABLE_LAYOUT")
+    assert tindex.build_packed_index(ix).kv_tbl.shape[1] == 2
+
+
+def test_engine_builds_with_the_port_builder(indexers, monkeypatch):
+    from genefuserust_tpu_torch.parallel.engine import TorchEngine
+
+    def refuse(*_):
+        raise AssertionError("the JAX table builder was called")
+
+    monkeypatch.setattr(hashtable, "build_packed_index", refuse)
+    monkeypatch.setattr(hashtable, "_absent_key", refuse)
+
+    class M:
+        indexer = indexers["dupes"]
+
+    eng = TorchEngine(Settings(), device="cpu")
+    m = M()
+    e = eng._table_entry(m)
+    assert eng._table_entry(m) is e and e["mapper"] is m
+    assert e["packed"].kv_tbl.shape[1] == 2 and eng.table_seconds > 0
