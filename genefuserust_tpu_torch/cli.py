@@ -7,8 +7,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from genefuserust_tpu.config import Settings
-
+from .config import Settings
 from .driver import RunConfig, genefuse
 
 

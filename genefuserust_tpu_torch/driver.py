@@ -15,21 +15,53 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import sys
 import time
 from pathlib import Path
+from typing import List, Optional
 
-from genefuserust_tpu import driver as _jax_driver
-from genefuserust_tpu.config import Settings
-from genefuserust_tpu.version import GENEFUSE_VER
+from .config import Settings
+from .version import GENEFUSE_VER
 
-log = _jax_driver.log
+log = logging.getLogger("genefuse")
 
 
 @dataclasses.dataclass
-class RunConfig(_jax_driver.RunConfig):
+class RunConfig:
+    r1_file: str
+    r2_file: str
+    fusion_file: str
+    html: str
+    json: str
+    ref_file: str
+    thread_num: Optional[int] = None
+    settings: Settings = dataclasses.field(default_factory=Settings)
     engine: str = "cuda"  # 'cuda' (TorchEngine) | 'host' (scalar oracle)
+    index_cache_dir: str = ""
+    mesh: str = "auto"  # only one device is supported yet
     device: str = "cuda"  # torch device of TorchEngine
+
+
+def init_logger() -> None:
+    """stderr logging, reference pattern `[{d}] {T} {t} {l}>> {m}`
+    (src/utils/logging.rs:7-40), root level INFO."""
+    h = logging.StreamHandler(sys.stderr)
+    h.setFormatter(
+        logging.Formatter(
+            "[%(asctime)s] %(threadName)s %(name)s %(levelname)s>> %(message)s"
+        )
+    )
+    if not log.handlers:
+        log.addHandler(h)
+    log.setLevel(logging.INFO)
+
+
+def check_file_valid(path: str) -> None:
+    """reference: src/utils/mod.rs:11-29."""
+    if not os.path.isfile(path):
+        print(f"ERROR: file '{path}' doesn't exist, quit now")
+        raise SystemExit(-1)
 
 
 def make_engine(kind: str, settings: Settings, device: str = "cuda",
@@ -40,7 +72,7 @@ def make_engine(kind: str, settings: Settings, device: str = "cuda",
             "(ROADMAP.md, port queue: multi-GPU)"
         )
     if kind == "host":
-        from genefuserust_tpu.core.scanner import HostEngine
+        from .core.scanner import HostEngine
 
         return HostEngine()
     if kind != "cuda":
@@ -56,11 +88,11 @@ def make_engine(kind: str, settings: Settings, device: str = "cuda",
 
 def genefuse(config: RunConfig):
     """Run one scan with the reference's console output -> the engine."""
-    _jax_driver.init_logger()
+    init_logger()
     command = " ".join(sys.argv) if sys.argv else "genefuse-torch"
     for path in (config.ref_file, config.r1_file, config.r2_file, config.fusion_file):
         if path:
-            _jax_driver.check_file_valid(path)
+            check_file_valid(path)
     print(f"\n# {command}\n")
     t0 = time.time()
     engine = scan(config, command)
@@ -71,9 +103,9 @@ def genefuse(config: RunConfig):
 
 def scan(config: RunConfig, command: str):
     """Scan and write the reports -> the engine that ran the scan."""
-    from genefuserust_tpu.core.scanner import Scanner
-    from genefuserust_tpu.io import fasta
-    from genefuserust_tpu.io.fastq_block import stream_fastq_blocks, stream_pair_blocks
+    from .core.scanner import Scanner
+    from .io import fasta
+    from .io.fastq_block import stream_fastq_blocks, stream_pair_blocks
 
     engine = make_engine(
         config.engine, config.settings, config.device, config.mesh, config.thread_num
@@ -95,11 +127,11 @@ def scan(config: RunConfig, command: str):
 
 
 def _scan_multi_csv(config: RunConfig, command: str, engine, contigs) -> None:
-    """Multi-CSV mode (genefuserust_tpu/driver.py:171-248)."""
-    from genefuserust_tpu.core.mapper import FusionMapper
-    from genefuserust_tpu.core.scanner import Scanner, finish_scan
-    from genefuserust_tpu.io.fastq_block import read_fastq_block, read_pair_block
-    from genefuserust_tpu.utils.pbar import prepare_pbar_force, set_multi_csv_mode
+    """Multi-CSV mode (reference: fusion_scan.rs:62-188)."""
+    from .core.mapper import FusionMapper
+    from .core.scanner import Scanner, finish_scan
+    from .io.fastq_block import read_fastq_block, read_pair_block
+    from .utils.pbar import prepare_pbar_force, set_multi_csv_mode
 
     log.info("Reading input seqeunces...")
     pairs = reads = None
@@ -107,9 +139,9 @@ def _scan_multi_csv(config: RunConfig, command: str, engine, contigs) -> None:
         pairs = read_pair_block(config.r1_file, config.r2_file)
     else:
         reads = read_fastq_block(config.r1_file)
-    csv_paths = _jax_driver._read_csv_list(config.fusion_file)
-    html_names = _jax_driver._report_names(config.html, csv_paths)
-    json_names = _jax_driver._report_names(config.json, csv_paths)
+    csv_paths = _read_csv_list(config.fusion_file)
+    html_names = _report_names(config.html, csv_paths)
+    json_names = _report_names(config.json, csv_paths)
     log.info("Multi csv input mode enabled. Suppress all logging messages while "
              "doing jobs in parallel.")
     prev_level = log.level
@@ -150,3 +182,31 @@ def _scan_multi_csv(config: RunConfig, command: str, engine, contigs) -> None:
         pb.finish_and_clear()
         set_multi_csv_mode(False)
         log.setLevel(prev_level)
+
+
+def _read_csv_list(path: str) -> List[str]:
+    """reference: fusion_scan.rs:253-280."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            s = line.strip()
+            if not s:
+                continue
+            if not os.path.isfile(s):
+                print(f"Fusion csv file '{s}' was not found.", file=sys.stderr)
+                raise SystemExit(-1)
+            out.append(s)
+    return out
+
+
+def _report_names(report_file: str, csv_paths: List[str]) -> List[str]:
+    """`{parent}/{stem}_{csv_stem}.{ext}` per CSV (fusion_scan.rs:190-251)."""
+    if not report_file:
+        return []
+    p = Path(report_file)
+    parent = str(p.parent) if str(p.parent) != "." else ""
+    out = []
+    for csv in csv_paths:
+        name = f"{p.stem}_{Path(csv).stem}{p.suffix}"
+        out.append(os.path.join(parent, name) if parent else name)
+    return out

@@ -12,8 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from genefuserust_tpu.config import PASS1_STEP
-
+from ..config import PASS1_STEP
 from .index import TorchIndex
 from .map_read import mask_segments, probe, vote
 from .pack import unpack_seq2

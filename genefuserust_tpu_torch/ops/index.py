@@ -1,9 +1,9 @@
 """Panel index tables as torch tensors.
 
-The JAX package builds its device tables on the host with numpy
-(`genefuserust_tpu.ops.hashtable`); this module carries those arrays over
-unchanged and records the static parameters the probe needs. Two layouts
-reach the scan:
+The tables are built on the host with numpy (`build_packed_index`, on the
+placement code of `ops/hashtable.py`); this module carries those arrays to
+the device unchanged and records the static parameters the probe needs.
+Two layouts reach the scan:
 
   - kv rows (`PackedIndexKV`): `kv_tbl (nb, 2S) int32`, S [key | payload]
     slots per bucket — kv2 (S=1, the product layout), kv4 (S=2), kv8
@@ -14,11 +14,13 @@ reach the scan:
 
 The single-probe A/B layouts (kvs, kv16) are not ported.
 
-`build_packed_index` is the port's table builder. It mirrors the JAX
-dispatch and packers and reuses their numpy placement, so its tables are
-bit-equal to theirs, but it finds the empty-slot sentinel with
-`absent_key` (O(n), no sort) instead of `hashtable._absent_key`, whose
-`np.unique` over ~30 M keys dominated a kv2 pack on some numpy versions.
+`build_packed_index` mirrors the JAX package's dispatch and packers
+(`genefuserust_tpu/ops/hashtable.py`) with the same numpy placement, so
+its tables are bit-equal to theirs, but it finds the empty-slot sentinel
+with `absent_key` (O(n), no sort) instead of the reference's `np.unique`
+over every key, which dominated a kv2 pack on some numpy versions.
+`index_to_torch` also takes the reference's own table records (it reads
+their fields by name), which is how the tests carry them across.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ import os
 import numpy as np
 import torch
 
-from genefuserust_tpu import native
-from genefuserust_tpu.ops.hashtable import (
+from .. import native
+from .hashtable import (
     EMPTY,
     KV_SLOTS,
     SLOTS,
@@ -41,9 +43,10 @@ from genefuserust_tpu.ops.hashtable import (
     _entries_from_indexer,
     _kv_budget,
     _place_2choice,
-    pack_index_kv16,
-    pack_index_kvs,
 )
+
+SINGLE_PROBE_REFUSAL = ("the kvs and kv16 single-probe table layouts are not ported; "
+                        "use kv2, kv4, kv8 or split")
 
 
 def absent_key(present: np.ndarray) -> int:
@@ -68,8 +71,8 @@ def _sentinel_keys(table: np.ndarray):
 
 def _pack_kv(indexer, target_load: float = 0.9, slots: int = KV_SLOTS,
              max_buckets: int = 1 << 27):
-    """`hashtable.pack_index_kv` with `absent_key`: the kv rows, or None when
-    the panel exceeds the payload bit budget or the row cap."""
+    """The reference's `pack_index_kv` with `absent_key`: the kv rows, or
+    None when the panel exceeds the payload bit budget or the row cap."""
     keys, contigs, poss, dupes, max_dupe = _entries_from_indexer(indexer)
     budget = _kv_budget(contigs, poss, dupes, max_dupe)
     if budget is None:
@@ -114,8 +117,8 @@ def _pack_kv(indexer, target_load: float = 0.9, slots: int = KV_SLOTS,
 
 
 def _pack_split(indexer) -> PackedIndex:
-    """`hashtable.pack_index` with its device form filled in here, so that
-    `PackedIndex.__post_init__` never searches for the absent key."""
+    """The reference's `pack_index`, with its device form (keys_tbl,
+    vals_tbl, the absent key) filled in here."""
     keys, contigs, poss, dupes, max_dupe = _entries_from_indexer(indexer)
     nb = 16
     while nb * 2 < max(len(keys), 1):
@@ -135,20 +138,13 @@ def _pack_split(indexer) -> PackedIndex:
 
 
 def build_packed_index(indexer, layout: str = None):
-    """The device table in the preferred layout, with the fallbacks of
-    `hashtable.build_packed_index`: kv2 -> kv4 -> kv8 -> split. `layout`
-    or GENEFUSE_TABLE_LAYOUT ('kv2' | 'kv4' | 'kv8' | 'split' | 'kvs' |
-    'kv16') pins one; kvs and kv16 come from the JAX packers, and
-    `index_to_torch` refuses them."""
+    """The device table in the preferred layout, with the fallbacks of the
+    reference's `build_packed_index`: kv2 -> kv4 -> kv8 -> split. `layout`
+    or GENEFUSE_TABLE_LAYOUT ('kv2' | 'kv4' | 'kv8' | 'split') pins one;
+    the reference's single-probe layouts 'kvs' and 'kv16' raise."""
     layout = layout or os.environ.get("GENEFUSE_TABLE_LAYOUT", "auto")
-    if layout == "kv16":
-        p = pack_index_kv16(indexer)
-        if p is not None:
-            return p
-    if layout == "kvs":
-        p = pack_index_kvs(indexer)
-        if p is not None:
-            return p
+    if layout in ("kvs", "kv16"):
+        raise NotImplementedError(SINGLE_PROBE_REFUSAL)
     if layout in ("auto", "kv2"):
         p = _pack_kv(indexer, target_load=0.5, slots=1)
         if p is not None:
@@ -157,7 +153,7 @@ def build_packed_index(indexer, layout: str = None):
         p = _pack_kv(indexer, target_load=0.6, slots=2)
         if p is not None:
             return p
-    if layout in ("auto", "kv4", "kv2", "kv16", "kvs", "kv8"):
+    if layout in ("auto", "kv4", "kv2", "kv8"):
         p = _pack_kv(indexer)
         if p is not None:
             return p
@@ -193,10 +189,7 @@ def index_to_torch(packed, device) -> TorchIndex:
 
     if hasattr(packed, "kv_tbl"):
         if getattr(packed, "single_probe", False) or packed.kv_tbl.shape[1] == 16:
-            raise NotImplementedError(
-                "the kvs and kv16 single-probe table layouts are not ported; "
-                "use kv2, kv4, kv8 or split"
-            )
+            raise NotImplementedError(SINGLE_PROBE_REFUSAL)
         S = packed.kv_tbl.shape[1] // 2
         nd = packed.dupes.shape[0]
         D = 1 if packed.max_dupe <= 1 or nd == 0 else packed.max_dupe

@@ -26,10 +26,9 @@ from typing import NamedTuple
 
 import torch
 
-from genefuserust_tpu.config import ALLOWED_GAP, KMER, PASS1_STEP, THRESHOLD_LEN
-from genefuserust_tpu.ops.hashtable import DUPE, EMPTY, HIGH
-
+from ..config import ALLOWED_GAP, KMER, PASS1_STEP, THRESHOLD_LEN
 from . import cuda
+from .hashtable import DUPE, EMPTY, HIGH
 from .index import TorchIndex
 
 INT32_MAX = 0x7FFFFFFF
@@ -37,7 +36,10 @@ M32 = 0xFFFFFFFF
 # JAX's invalid candidate (hi = lo = INT32_MAX) as a packed key; sorts after
 # every real candidate
 INVALID_KEY = (INT32_MAX << 32) | INT32_MAX
-MAX_VOTE_KEYS = 16384  # per-row candidate sort buffer of the vote kernel
+MAX_VOTE_KEYS = 16384  # per-row candidate slots (NS * D, rounded up) of the vote kernel
+# valid candidates a row may hold on the vote kernel's warp path (WARP_CAP
+# in csrc/vote.cu)
+VOTE_WARP_KEYS = 256
 
 
 class MapReadResult(NamedTuple):
@@ -381,13 +383,22 @@ def probe_kmers(kmers, valid, index: TorchIndex):
 
 
 def vote_width(NS: int, D: int) -> int:
-    """Sort buffer of the vote kernel: NS*D keys rounded up to a power of 2."""
+    """Key buffer of the vote kernel's block-wide path: NS*D keys rounded
+    up to a power of 2."""
     return 1 << max(0, NS * D - 1).bit_length()
+
+
+def vote_candidates(pr, index: TorchIndex) -> torch.Tensor:
+    """(B, NS, 2) pass-1 probe results -> (B,) int64: the valid candidates
+    of each row, the keys the vote counts. Rows of more than
+    VOTE_WARP_KEYS take the vote kernel's block-wide path."""
+    return expand(index, pr[..., 0], pr[..., 1])[2].sum((1, 2))
 
 
 def vote(pr, index: TorchIndex, major_req: int, minor_req: int):
     """Kernel 2: pass-1 probe results (B, NS, 2) -> (B, 5) int32
-    [ok, h1, l1, h2, l2]; one block sorts one row's candidates."""
+    [ok, h1, l1, h2, l2]. One warp sorts and counts one row's valid
+    candidates; a row of more than VOTE_WARP_KEYS goes to the block."""
     dev = pr.device
     cuda.check_tensor(pr, "probe results", torch.int32, 3, dev)
     _check_index(index, dev)

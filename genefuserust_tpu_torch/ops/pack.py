@@ -1,8 +1,23 @@
-"""2-bit code rows -> per-base codes (port of `ops/pack.py::unpack_seq2_jnp`)."""
+"""Host-side read checks and the device-side unpack of 2-bit code rows
+(port of `ops/pack.py`: `has_exotic` and `unpack_seq2_jnp`)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+OK_BYTES = frozenset(b"ACGTNacgtn")
+
+
+def has_exotic(seq_rows: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """(B,) bool: any byte outside ACGTNacgtn within the read span."""
+    B, L = seq_rows.shape
+    lut = np.ones(256, bool)
+    for ch in OK_BYTES:
+        lut[ch] = False
+    bad = lut[seq_rows]
+    idx = np.arange(L)[None, :] < lens[:, None]
+    return (bad & idx).any(axis=1)
 
 
 def unpack_seq2(packed: torch.Tensor, L: int) -> torch.Tensor:

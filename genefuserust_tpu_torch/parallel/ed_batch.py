@@ -1,6 +1,6 @@
-"""Deferred, batched edit-distance evaluation (JAX-free).
+"""Deferred, batched edit-distance evaluation.
 
-Same interface as `genefuserust_tpu.parallel.ed_batch.EdBatcher`: the
+Same interface as the JAX package's `parallel/ed_batch.py::EdBatcher`: the
 mapper submits (query, ref, setter) jobs during a batch's assembly and
 `flush()` evaluates them. A flush smaller than the device's threshold
 (`DEVICE_MIN_JOBS` on CUDA, `CPU_MIN_JOBS` on the CPU) runs the host
@@ -22,9 +22,7 @@ from typing import Callable, List, Tuple
 import numpy as np
 import torch
 
-from genefuserust_tpu.core.edit_distance import edit_distance
-from genefuserust_tpu.parallel.engine import _round_up
-
+from ..core.edit_distance import edit_distance
 from ..ops.edit_distance import ED_ALPHA, ED_CODE_LUT, ED_MAX_WORDS, edit_distance_batch
 
 # Flushes of at least this many jobs go to the kernel. Over the jobs the
@@ -40,6 +38,10 @@ DEVICE_MIN_JOBS = 8
 # flush size, ~0.25 s a flush of read-half jobs on one CPU thread; host
 # Myers takes ~0.2 ms a job, so the plain version pays only from ~2,048.
 CPU_MIN_JOBS = 2048
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
 
 
 def min_jobs(device) -> int:

@@ -1,12 +1,27 @@
-"""TorchEngine: the batch engine of `genefuserust_tpu.parallel.engine` on
-torch tensors and the CUDA kernels of this package.
+"""TorchEngine: host merge + one-call device scan + host assembly, on torch
+tensors and the CUDA kernels of this package.
 
-The pipeline is the JAX engine's, inherited from `TpuEngine` (whose
-module imports no JAX): the producer thread merges and 2-bit packs each
-batch on the host (native gf_merge_pack_pe2) and uploads it; the main
-thread issues one `fused_scan_lanes` per batch and assembles matches from
-the (cap + 1, 13) result once it has landed. Only the hooks that reached
-JAX are replaced:
+Port of the JAX package's batch engine (`genefuserust_tpu/parallel/
+engine.py::TpuEngine`), which replaces the reference's producer/consumer
+thread pipeline (src/core/pescanner.rs:296-425):
+
+  producer thread: FASTQ byte matrices -> native C++ overlap merge
+        (gf_merge_pack_pe2, bit-exact with fast_merge / read.rs:313-440)
+        -> width-bucketed lane compaction -> 2-bit code pack (+ non-ACGT
+        exception list) -> upload. Quality scores never leave the host.
+  device: one `ops/fused.py::fused_scan_lanes` call per batch: vote pass
+        over the lanes -> survivor compaction in row order -> mask/segment
+        pass over the first `cap` survivors. One (cap + 1, 13) result per
+        batch comes back; the vote bitmap is read only on cap overflow.
+  host assembly: segment -> direction check -> make_match + batched edit
+        distances -> match bins; direction-rejected rows go to a deferred
+        batched reverse-complement retry (pescanner.rs:455-513).
+  Assembly is readiness-gated: up to `pipeline_depth` batches ride the
+  device pipe at once. The single-end path is the same pipeline with one
+  read lane; `scan_pair_block_multi` merges, packs and uploads a batch
+  once for many panels (multi-CSV, fusion_scan.rs:62-188).
+
+What differs from the JAX engine:
 
   - uploads go through pinned host buffers with non-blocking copies; the
     producer thread copies on its own stream and records an event that
@@ -14,32 +29,39 @@ JAX are replaced:
     from reusing the buffers early);
   - the result comes back by a non-blocking copy into pinned memory, and
     readiness is a CUDA event query (no fetch thread);
-  - there is no compile, so the compile pool, signature memo and the
-    shape-reuse memos (`_pad_rows`, `_sticky_width`) go: lanes are padded
-    to a multiple of 32 rows and take their exact widths;
-  - edit distances go through this package's EdBatcher;
-  - the index table comes from this package's builder (`ops/index.py`).
+  - nothing is compiled per shape, so the compile pool and the shape
+    memos go: lanes are padded to a multiple of 32 rows and take their
+    exact widths;
+  - edit distances go through this package's EdBatcher, and the index
+    table comes from this package's builder (`ops/index.py`);
+  - one device only (no mesh).
 
 Results are identical to the host oracle (tests/test_torch_engine.py).
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import time
-from typing import List, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterable, List, Tuple
 
 import numpy as np
 import torch
 
-from genefuserust_tpu.config import KMER, Settings
-from genefuserust_tpu.core.indexer import GenePos, SeqMatch
-from genefuserust_tpu.core.read import SequenceRead, SequenceReadPair
-from genefuserust_tpu.core.sequence import BASE_CODE_LUT
-from genefuserust_tpu.parallel.engine import TpuEngine, _round_up, _tokenize_bytes, log
-
+from .. import native
+from ..config import KMER, MIN_OVERLAP, Settings
+from ..core.indexer import GenePos, SeqMatch
+from ..core.read import SequenceRead, SequenceReadPair
+from ..core.scanner import scan_one_pair
+from ..core.sequence import BASE_CODE_LUT
 from ..ops.fused import fused_scan_lanes
 from ..ops.index import build_packed_index, index_to_torch
-from .ed_batch import EdBatcher
+from ..utils.pbar import prepare_pbar
+from .ed_batch import EdBatcher, _round_up
+
+log = logging.getLogger("genefuse")
 
 
 def resolve_device(device) -> torch.device:
@@ -53,6 +75,16 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def _tokenize_bytes(strings: List[bytes], L: int) -> Tuple[np.ndarray, np.ndarray]:
+    arr = np.zeros((len(strings), L), np.uint8)
+    lens = np.zeros(len(strings), np.int32)
+    for i, s in enumerate(strings):
+        n = len(s)
+        arr[i, :n] = np.frombuffer(s, np.uint8)
+        lens[i] = n
+    return arr, lens
 
 
 class _Result:
@@ -80,19 +112,63 @@ class _Result:
         return self._host.numpy()
 
 
-class TorchEngine(TpuEngine):
+class TorchEngine:
     """Batched paired-end / single-end engine on one torch device."""
+
+    # Stage graph: 0 issue-scan -> 1 assemble -> 2 done. The whole device
+    # scan is ONE call issued at stage 0; assembly waits until the batch's
+    # result has landed (or the pipe is full).
+    _N_STAGES = 2
 
     def __init__(self, settings: Settings, batch_size: int = 65536,
                  device="cuda", pipeline_depth: int = 6):
-        super().__init__(settings, batch_size=batch_size, mesh=None,
-                         pipeline_depth=pipeline_depth)
+        self.settings = settings
+        self.batch_size = batch_size
         self.device = resolve_device(device)
+        # in-flight batch bound (the `-t` analog; see driver.make_engine)
+        self.pipeline_depth = max(1, pipeline_depth)
         self._upload_stream = None
+        self._prepared_for = None
+        self._default_entry = None
+        self._tables = {}  # id(mapper) -> table entry dict
+        self._progress_t0 = None
+        self._progress_n = 0
+        self._queue = []
+        self._producer = None  # merge/pack/upload producer thread pool
+        # producer parallelism: batches are independent and each keeps its
+        # own future, so more workers change only the overlap, not results
+        self._producer_workers = int(os.environ.get("GENEFUSE_PRODUCER_WORKERS", "1"))
+        # deferred RC retries: id(mapper) -> (mapper, [(lane, rc, originals)]),
+        # flushed at a threshold and on engine flush; the output is order-
+        # invariant (deterministic sort before clustering)
+        self._retry_pend = {}
+        self._retry_flush_at = 4096
+        # survivors carried by one batch's result; beyond it _p2_overflow
+        # rescans the rest (the JAX engine's value, from its TPU A/B)
+        self._surv_cap = 1024
+        # opt-in wall-time split of the host stages: label -> [total_s, calls]
+        self._timers = {} if os.environ.get("GENEFUSE_STAGE_TIMERS") else None
         # edit-distance job counts (see EdBatcher)
         self.ed_stats = {"jobs": 0, "device_sized": 0, "device": 0}
         # host seconds spent building and uploading device index tables
         self.table_seconds = 0.0
+
+    def _timed(self, label, fn):
+        """Run fn() and charge its wall time to `label` (no-op unless
+        GENEFUSE_STAGE_TIMERS is set)."""
+        if self._timers is None:
+            return fn()
+        t0 = time.time()
+        r = fn()
+        e = self._timers.setdefault(label, [0.0, 0])
+        e[0] += time.time() - t0
+        e[1] += 1
+        return r
+
+    def _submit_producer(self, fn, *args):
+        if self._producer is None:
+            self._producer = ThreadPoolExecutor(max_workers=self._producer_workers)
+        return self._producer.submit(self._with_upload_stream, fn, *args)
 
     def _ed(self) -> EdBatcher:
         return EdBatcher(stats=self.ed_stats, device=self.device)
@@ -104,8 +180,6 @@ class TorchEngine(TpuEngine):
         if self.device.type == "cpu":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
-
-    _put_repl = _put_batch
 
     def _with_upload_stream(self, produce, *args):
         """Run a producer on the upload stream; the batch carries the event
@@ -121,12 +195,6 @@ class TorchEngine(TpuEngine):
         out["upload_event"] = ev
         return out
 
-    def _st0_produce(self, *args):
-        return self._with_upload_stream(super()._st0_produce, *args)
-
-    def _st0_produce_se(self, *args):
-        return self._with_upload_stream(super()._st0_produce_se, *args)
-
     def _adopt_uploads(self, sh: dict) -> None:
         ev = sh.pop("upload_event", None)
         if ev is None:
@@ -141,10 +209,22 @@ class TorchEngine(TpuEngine):
     def _entry_from_packed(self, packed) -> dict:
         return dict(packed=packed, index=index_to_torch(packed, self.device))
 
+    def use_packed(self, packed, mapper=None) -> None:
+        """Install a pre-built table. With `mapper`, it is bound to that
+        mapper at once; without, the first mapper `_table_entry` sees
+        takes it."""
+        entry = self._entry_from_packed(packed)
+        if mapper is not None:
+            entry["mapper"] = mapper
+            self._tables[id(mapper)] = entry
+        else:
+            self._default_entry = entry
+            self._prepared_for = None
+
     def _table_entry(self, mapper) -> dict:
-        """`TpuEngine._table_entry` with the port's table builder: entries
-        are keyed by id(mapper) and pin their mapper; a table installed by
-        `use_packed` without a mapper goes to the first mapper asking."""
+        """The mapper's table, built at first use: entries are keyed by
+        id(mapper) and pin their mapper, so the id cannot be reused by
+        another mapper while the entry lives."""
         key = id(mapper)
         e = self._tables.get(key)
         if e is not None:
@@ -167,15 +247,294 @@ class TorchEngine(TpuEngine):
                  packed.nbytes / 1e6, " (kv rows)" if hasattr(packed, "kv_tbl") else "")
         return e
 
-    # ------------- shapes: no compile to amortize -------------
+    def _prepare(self, mapper) -> None:
+        self._table_entry(mapper)
 
     def _pad_rows(self, n: int) -> int:
         return max(32, _round_up(n, 32))
 
-    def _sticky_width(self, need: int, tol: int = 32) -> int:
-        return need
+    def _progress(self, n: int) -> None:
+        """Scan progress: a spinner with reads/s on a TTY (reference
+        progress bars: src/aux/pbar.rs), throughput log lines otherwise."""
+        if self._progress_t0 is None:
+            self._progress_t0 = time.time()
+            self._pbar = prepare_pbar(0)
+            self._pbar.set_message("scanning reads...")
+        self._progress_n += n
+        self._pbar.inc(n)
+        dt = time.time() - self._progress_t0
+        if self._pbar.is_hidden() and dt > 0 and self._progress_n % (self.batch_size * 8) < n:
+            log.info("scanned %d reads (%.0f reads/s)", self._progress_n,
+                     self._progress_n / dt)
 
-    # ------------- scan -------------
+    # ------------- public API: object streams -------------
+
+    def scan_pairs(self, mapper, pairs: Iterable) -> None:
+        self._prepare(mapper)
+        batch: List = []
+        for pair in pairs:
+            batch.append(pair)
+            if len(batch) >= self.batch_size:
+                self._pairs_from_objects(mapper, batch)
+                batch = []
+        if batch:
+            self._pairs_from_objects(mapper, batch)
+
+    def scan_singles(self, mapper, reads: Iterable) -> None:
+        self._prepare(mapper)
+        batch: List = []
+        for r in reads:
+            batch.append(r)
+            if len(batch) >= self.batch_size:
+                self._singles_from_objects(mapper, batch)
+                batch = []
+        if batch:
+            self._singles_from_objects(mapper, batch)
+
+    # ------------- public API: block matrices -------------
+
+    def scan_pair_block(self, mapper, block) -> None:
+        """block: io.fastq_block.PairBlock."""
+        self.scan_pair_block_multi([mapper], block)
+
+    def scan_pair_block_multi(self, mappers: List, block) -> None:
+        """Scan one pair block against MANY panels: per batch, one merge,
+        pack and upload (panel-independent) fan out into per-panel scans
+        and assemblies (fusion_scan.rs:62-188 analog)."""
+        for m in mappers:
+            self._prepare(m)
+        n = len(block)
+        lb, rb = block.left, block.right
+        for s in range(0, n, self.batch_size):
+            sl = slice(s, min(n, s + self.batch_size))
+            self._scan_pair_matrices(
+                mappers, lb.seq[sl], lb.qual[sl], lb.lens[sl],
+                rb.seq[sl], rb.qual[sl], rb.lens[sl],
+                lambda i, s=s: (block.left.read_obj(s + i), block.right.read_obj(s + i)),
+            )
+
+    def scan_single_block(self, mapper, rblock) -> None:
+        self._prepare(mapper)
+        n = len(rblock)
+        for s in range(0, n, self.batch_size):
+            sl = slice(s, min(n, s + self.batch_size))
+            self._scan_single_matrices(mapper, rblock.seq[sl], rblock.lens[sl],
+                                       lambda i, s=s: rblock.read_obj(s + i))
+
+    # ------------- object adapters -------------
+
+    def _pairs_from_objects(self, mapper, pairs: List) -> None:
+        Lr = _round_up(
+            max(KMER, max(max(len(p.left.seq), len(p.right.seq)) for p in pairs)), 32
+        )
+        b1, l1 = _tokenize_bytes([p.left.seq.encode("latin-1") for p in pairs], Lr)
+        q1, _ = _tokenize_bytes([p.left.quality.encode("latin-1") for p in pairs], Lr)
+        b2, l2 = _tokenize_bytes([p.right.seq.encode("latin-1") for p in pairs], Lr)
+        q2, _ = _tokenize_bytes([p.right.quality.encode("latin-1") for p in pairs], Lr)
+        self._scan_pair_matrices([mapper], b1, q1, l1, b2, q2, l2,
+                                 lambda i: (pairs[i].left, pairs[i].right))
+
+    def _singles_from_objects(self, mapper, reads: List) -> None:
+        Lr = _round_up(max(KMER, max(len(r.seq) for r in reads)), 32)
+        rows, lens = _tokenize_bytes([r.seq.encode("latin-1") for r in reads], Lr)
+        self._scan_single_matrices(mapper, rows, lens, lambda i: reads[i])
+
+    # ------------- core batch processing -------------
+
+    def _scan_pair_matrices(self, mappers: List, b1, q1, l1, b2, q2, l2,
+                            pair_obj: Callable) -> None:
+        """Paired-end pipeline entry: host merge on the producer thread ->
+        one-call scan -> readiness-gated assembly; flush() drains."""
+        shared = dict(
+            fut=self._submit_producer(self._st0_produce, b1, q1, l1, b2, q2, l2),
+            mappers=list(mappers),
+            pair_obj=pair_obj,
+            orig_B=b1.shape[0],
+            fetched=False,
+            merged_read_cache={},
+        )
+        self._enqueue_batch(shared, mappers)
+
+    def _enqueue_batch(self, shared: dict, mappers: List) -> None:
+        for j, m in enumerate(mappers):
+            self._queue.append(dict(stage=0, mapper=m, tbl=self._table_entry(m),
+                                    shared=shared, count_progress=(j == len(mappers) - 1)))
+        # issue all older batches' scans (oldest first), then assemble
+        # exactly those whose results have landed; the depth cap forces a
+        # blocking assembly only when the pipe is full
+        n_new = len(mappers)
+        for c in list(self._queue[:-n_new]):
+            if c["stage"] == 0:
+                self._advance(c)
+        depth = self.pipeline_depth * max(1, n_new)
+        while self._queue and self._queue[0]["stage"] >= 1:
+            c = self._queue[0]
+            if c["stage"] >= self._N_STAGES:
+                self._queue.pop(0)
+                continue
+            if self._scan_ready(c) or len(self._queue) > depth:
+                self._advance(c)
+            else:
+                break
+
+    def flush(self, mapper=None) -> None:
+        while self._queue or any(v[1] for v in self._retry_pend.values()):
+            # issue pending retry scans first, so that they ride the device
+            # while the queue drains; draining may enqueue fresh retries
+            issued = []
+            for k in list(self._retry_pend):
+                m, items = self._retry_pend.pop(k)
+                if items:
+                    issued.append((m, self._retry_issue(m, items)))
+            while self._queue:
+                c = self._queue.pop(0)
+                while c["stage"] < self._N_STAGES:
+                    self._advance(c)
+            for m, ctxs in issued:
+                ed = self._ed()
+                self._retry_assemble(m, ctxs, ed)
+                ed.flush()
+
+    # ---- stage 0: host merge + compact + pack + upload (panel-
+    # independent; runs on the producer thread) ----
+
+    def _st0_produce(self, b1, q1, l1, b2, q2, l2):
+        """Host merge (native gf_merge_pack_pe2, bit-exact with the
+        fast_merge oracle) + lane compaction + 2-bit pack + upload. The
+        device sees only the code rows it scans (merged lanes at their
+        widths, unmerged reads at read width). Exotic rows are left out of
+        both lanes and go to the scalar oracle in _fetch_merge."""
+        l1 = np.asarray(l1, np.int32).copy()
+        l2 = np.asarray(l2, np.int32).copy()
+        # R1/R2 blocks may have different widths (independently parsed
+        # files); pad both sides to a common L (floor 32 also guards the
+        # MIN_OVERLAP/KMER loops against all-short batches)
+        L = _round_up(max(32, b1.shape[1], b2.shape[1]), 32)
+        if b1.shape[1] != b2.shape[1]:
+            Lin = max(b1.shape[1], b2.shape[1])
+
+            def padw_in(a):
+                if a.shape[1] == Lin:
+                    return a
+                out = np.zeros((a.shape[0], Lin), a.dtype)
+                out[:, : a.shape[1]] = a
+                return out
+
+            b1, q1, b2, q2 = padw_in(b1), padw_in(q1), padw_in(b2), padw_in(q2)
+        res = self._timed("st0.merge_pack",
+                          lambda: native.merge_pack_pe_batch(b1, q1, b2, q2, l1, l2, L))
+        if res is None:  # pure-Python fallback (oracle fast_merge per row)
+            res = native.merge_pack_pe_fallback(b1, q1, b2, q2, l1, l2, L)
+        m_flag = res["m_flag"]
+        m_len = res["m_len"]
+        rwork = res["rwork"]
+        rows_m = np.nonzero(m_flag)[0]
+        n_m = len(rows_m)
+        n_u = len(rwork)
+        mbuf, ubuf = res["mbuf"], res["ubuf"]
+        lens_m = m_len[rows_m]
+        # merged rows split into a p95-width lane and a max-width lane, so
+        # that the long insert-size tail does not widen every row
+        if n_m:
+            Wcap = _round_up(max(KMER, min(2 * L - MIN_OVERLAP, 4 * mbuf.shape[1])), 32)
+            Wlong = min(Wcap, _round_up(max(KMER, int(lens_m.max())), 64))
+            Wshort = min(Wlong, _round_up(max(KMER, int(np.percentile(lens_m, 95))), 32))
+        else:
+            Wshort = Wlong = 32
+        mask_s = lens_m <= Wshort
+        sel_s = np.nonzero(mask_s)[0]
+        sel_l = np.nonzero(~mask_s)[0]
+        # lanes: (kind, sel into the compacted m/u buffers, width)
+        lane_defs = [
+            ("m", sel_s, Wshort),
+            ("m", sel_l, Wlong),
+            ("u", np.arange(n_u), L),
+        ]
+        lane_meta = []
+        bufs, lens_arrs = [], []
+        offs = [0]
+        # local position of each compacted mbuf row within its lane (for
+        # exception remapping)
+        m_pos = np.zeros(max(n_m, 1), np.int64)
+        m_pos[sel_s] = np.arange(len(sel_s))
+        m_pos[sel_l] = np.arange(len(sel_l))
+        m_lane_off = np.zeros(max(n_m, 1), np.int64)
+        for kind, sel, W in lane_defs:
+            n_i = len(sel)
+            P = self._pad_rows(n_i)
+            wi4 = (W + 3) // 4
+            buf = np.zeros((P, wi4), np.uint8)
+            ln = np.zeros(P, np.int32)
+            if kind == "m":
+                if n_i:
+                    wm = min(wi4, mbuf.shape[1])
+                    buf[:n_i, :wm] = mbuf[sel][:, :wm]
+                    ln[:n_i] = lens_m[sel]
+                    m_lane_off[sel] = offs[-1]
+                pair_rows = rows_m[sel]
+            else:
+                if n_i:
+                    buf[:n_i] = ubuf
+                    ln[:n_i] = rwork[:, 2]
+                pair_rows = None
+            lane_meta.append(dict(kind=kind, n=n_i, sel=sel, W=W, w4=wi4,
+                                  pair_rows=pair_rows, off=offs[-1]))
+            bufs.append(buf)
+            lens_arrs.append(ln)
+            offs.append(offs[-1] + P)
+        N = offs[-1]
+        # non-ACGT exceptions remapped into the concatenated row space; pad
+        # entries point past every lane and are dropped
+        m_exc, u_exc = res["m_exc"], res["u_exc"]
+        n_exc = len(m_exc) + len(u_exc)
+        exc = np.full((max(32, self._pad_rows(n_exc)), 2), max(Wlong, L), np.int32)
+        exc[:, 0] = N
+        if len(m_exc):
+            exc[: len(m_exc), 0] = m_lane_off[m_exc[:, 0]] + m_pos[m_exc[:, 0]]
+            exc[: len(m_exc), 1] = m_exc[:, 1]
+        if len(u_exc):
+            exc[len(m_exc) : n_exc, 0] = u_exc[:, 0] + offs[2]
+            exc[len(m_exc) : n_exc, 1] = u_exc[:, 1]
+        out = self._timed("st0.upload", lambda: dict(
+            bufs_d=tuple(self._put_batch(b) for b in bufs),
+            lens_d=tuple(self._put_batch(x) for x in lens_arrs),
+            exc_d=self._put_batch(exc),
+        ))
+        out.update(
+            rows_m=rows_m, m_len=m_len, rwork=rwork, exotic=res["exotic"],
+            mbuf=mbuf, ubuf=ubuf, exc_np=exc[:n_exc], lane_meta=lane_meta,
+            offs=offs, widths=tuple(w for _, _, w in lane_defs), n_m=n_m, n_u=n_u, L=L,
+        )
+        return out
+
+    def _advance(self, c) -> None:
+        if c["stage"] == 0:
+            self._st1_issue_scan(c)
+        elif c["stage"] == 1:
+            self._st3_assemble(c)
+
+    def _scan_ready(self, c) -> bool:
+        f = c.get("scan_f")
+        return f is None or f.ready()
+
+    def _fetch_merge(self, sh: dict) -> None:
+        """Join the producer and route exotic rows to the scalar oracle,
+        once per batch (on the main thread, so match-bin order stays
+        deterministic)."""
+        if sh["fetched"]:
+            return
+        fut = sh.pop("fut")
+        sh.update(self._timed("st1.producer_join", fut.result))
+        exotic = sh["exotic"]
+        if exotic.any():
+            pair_obj = sh["pair_obj"]
+            for i in np.nonzero(exotic)[0].tolist():
+                lr = pair_obj(int(i))
+                for m in sh["mappers"]:
+                    scan_one_pair(m, SequenceReadPair(lr[0], lr[1]))
+        sh["fetched"] = True
+
+    # ---- stage 0 advance: join the producer, issue the one-call scan ----
 
     def _scan(self, tbl, bufs, lens, exc, widths, cap):
         st = self.settings
@@ -200,9 +559,21 @@ class TorchEngine(TpuEngine):
             c["scan_f"] = _Result(out_d)
         c["stage"] = 1
 
-    def _scan_ready(self, c) -> bool:
-        f = c.get("scan_f")
-        return f is None or f.ready()
+    @staticmethod
+    def _locate(sh, sidx: int):
+        """Map a concat-space survivor row to (pair_row, lane_flag) where
+        lane_flag 0 = merged, 1 = R1, 2 = R2."""
+        offs = sh["offs"]
+        rw = sh["rwork"]
+        for li, meta in enumerate(sh["lane_meta"]):
+            if sidx < offs[li + 1]:
+                local = sidx - offs[li]
+                if meta["kind"] == "m":
+                    return int(meta["pair_rows"][local]), 0
+                return int(rw[local, 0]), int(rw[local, 1])
+        raise IndexError(sidx)
+
+    # ---- survivor-cap overflow: pass 2 for survivors beyond `cap` ----
 
     def _p2_overflow(self, c, n_count: int):
         """Pass 2 for the survivors beyond the cap: rescan those rows alone
@@ -241,7 +612,7 @@ class TorchEngine(TpuEngine):
             exc[: len(exc_list)] = exc_list
         out_t, _ = self._scan(
             c["tbl"], (self._put_batch(sbuf),), (self._put_batch(lens),),
-            self._put_repl(exc), (W,), pb,
+            self._put_batch(exc), (W,), pb,
         )
         res = out_t.cpu().numpy()
         rows = []
@@ -251,7 +622,7 @@ class TorchEngine(TpuEngine):
             rows.append(r)
         return rows
 
-    # ------------- assembly -------------
+    # ---- stage 1 advance: take the scan result, assemble matches ----
 
     def _st3_assemble(self, c) -> None:
         mapper = c["mapper"]
@@ -311,21 +682,19 @@ class TorchEngine(TpuEngine):
             self._progress(sh["orig_B"])
         c["stage"] = 2
 
-    def flush(self, mapper=None) -> None:
-        while self._queue or any(v[1] for v in self._retry_pend.values()):
-            issued = []
-            for k in list(self._retry_pend):
-                m, items = self._retry_pend.pop(k)
-                if items:
-                    issued.append((m, self._retry_issue(m, items)))
-            while self._queue:
-                c = self._queue.pop(0)
-                while c["stage"] < self._N_STAGES:
-                    self._advance(c)
-            for m, ctxs in issued:
-                ed = self._ed()
-                self._retry_assemble(m, ctxs, ed)
-                ed.flush()
+    # ---- deferred reverse-complement retries ----
+
+    def _enqueue_retries(self, mapper, items) -> None:
+        """Queue [(lane, rc_read, originals)] for a later batched retry
+        (originals are materialized so the source block can be dropped).
+        Flushes when the pending set is large."""
+        key = id(mapper)
+        if key not in self._retry_pend:
+            self._retry_pend[key] = (mapper, [])
+        pend = self._retry_pend[key][1]
+        pend.extend(items)
+        if len(pend) >= self._retry_flush_at:
+            self._drain_retries(mapper)
 
     def _drain_retries(self, mapper=None) -> None:
         keys = list(self._retry_pend) if mapper is None else [id(mapper)]
@@ -366,10 +735,94 @@ class TorchEngine(TpuEngine):
             exc[: len(er), 1] = ec
             out_d, _ = self._scan(
                 tbl, (self._put_batch(buf),), (self._put_batch(ln),),
-                self._put_repl(exc), (W,), PAD,
+                self._put_batch(exc), (W,), PAD,
             )
             ctxs.append((ch, _Result(out_d)))
         return ctxs
+
+    def _retry_assemble(self, mapper, ctxs, ed_batcher=None) -> None:
+        """Consume _retry_issue results. Survivors come back compacted in
+        ascending row order, so matches are appended in item order."""
+        for ch, fetch in ctxs:
+            out = fetch.get()
+            body = out[:-1]
+            n = int(out[-1, 0])
+            for k in range(min(n, len(body))):
+                r = body[k]
+                i = int(r[0])
+                if i >= len(ch) or not (r[2] and r[3]):
+                    continue
+                lane, rc_read, originals = ch[i]
+                mapping = _mapping(r)
+                if not mapper.indexer.in_required_direction(mapping):
+                    continue
+                m = mapper.make_match(rc_read, mapping, ed_batcher=ed_batcher)
+                m.original_reads = originals
+                if lane != 0:
+                    # merged-lane RC matches keep reversed=False
+                    # (faithful: pescanner.rs:465-468 vs :487-490)
+                    m.reversed = True
+                mapper.add_match(m)
+
+    # ------------- single-end -------------
+
+    def _scan_single_matrices(self, mapper, rows, lens, read_at: Callable) -> None:
+        """Single-end pipeline entry: the paired path's scan and assembly
+        with a single read lane (no merge; the host pack is numpy)."""
+        rows = np.ascontiguousarray(rows)
+        lens = np.asarray(lens, np.int32).copy()
+        shared = dict(
+            fut=self._submit_producer(self._st0_produce_se, rows, lens),
+            mappers=[mapper],
+            read_at=read_at,
+            se=True,
+            orig_B=len(lens),
+            fetched=False,
+            merged_read_cache={},
+        )
+        self._enqueue_batch(shared, [mapper])
+
+    def _st0_produce_se(self, rows, lens):
+        """Single-end producer: 2-bit pack + non-ACGT exception capture +
+        upload. One 'u'-kind lane; exotic bytes need no oracle routing
+        here (without a merge no byte comparison runs, so invalid codes
+        already match the oracle's k-mer encoding)."""
+        B, Lin = rows.shape
+        L = _round_up(max(32, Lin), 32)
+        w4 = (L + 3) // 4
+        codes = BASE_CODE_LUT[rows]
+        col = np.arange(Lin)[None, :]
+        er, ec = np.nonzero((codes == 255) & (col < lens[:, None]))
+        codes = np.where(codes == 255, 0, codes).astype(np.uint8)
+        if Lin != 4 * w4:
+            codes = np.concatenate([codes, np.zeros((B, 4 * w4 - Lin), np.uint8)], axis=1)
+        packed = (codes[:, 0::4] | (codes[:, 1::4] << 2)
+                  | (codes[:, 2::4] << 4) | (codes[:, 3::4] << 6))
+        P = self._pad_rows(B)
+        buf = np.zeros((P, w4), np.uint8)
+        buf[:B] = packed
+        ln = np.zeros(P, np.int32)
+        ln[:B] = lens
+        rwork = np.stack([np.arange(B, dtype=np.int32), np.ones(B, np.int32), lens], axis=1)
+        n_exc = len(er)
+        exc = np.full((max(32, self._pad_rows(n_exc)), 2), L, np.int32)
+        exc[:, 0] = P
+        exc[:n_exc, 0] = er
+        exc[:n_exc, 1] = ec
+        out = self._timed("st0.upload", lambda: dict(
+            bufs_d=(self._put_batch(buf),),
+            lens_d=(self._put_batch(ln),),
+            exc_d=self._put_batch(exc),
+        ))
+        out.update(
+            rows_m=np.zeros(0, np.int64), m_len=np.zeros(B, np.int32), rwork=rwork,
+            exotic=np.zeros(B, bool), mbuf=np.zeros((0, 1), np.uint8), ubuf=packed,
+            exc_np=exc[:n_exc],
+            lane_meta=[dict(kind="u", n=B, sel=np.arange(B), W=L, w4=w4,
+                            pair_rows=None, off=0)],
+            offs=[0, P], widths=(L,), n_m=0, n_u=B, L=L,
+        )
+        return out
 
 
 def _mapping(r) -> List[SeqMatch]:

@@ -1,5 +1,7 @@
 """TorchEngine and the port's CLI against the host oracle and the JAX
-engine: same matches, same fusions, byte-identical reports."""
+engine: same matches, same fusions, byte-identical reports. TorchEngine
+runs under the port's own Scanner; the oracle and the JAX engine under
+the JAX package's."""
 
 import os
 import re
@@ -20,6 +22,8 @@ from genefuserust_tpu.utils.synthetic import (
     write_fastq_files,
     write_panel_files,
 )
+from genefuserust_tpu_torch.config import Settings as PortSettings
+from genefuserust_tpu_torch.core.scanner import Scanner as PortScanner
 from genefuserust_tpu_torch.parallel.engine import TorchEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -81,10 +85,19 @@ WORKLOADS = {
 }
 
 
+def _scanner(engine):
+    """The port's Scanner and Settings for TorchEngine, the JAX package's
+    for its own engines."""
+    if isinstance(engine, TorchEngine):
+        return PortScanner, PortSettings
+    return Scanner, Settings
+
+
 def _scan(panel, items, tmp_path, engine, name, single_end=False):
     _, csv_path = write_panel_files(panel, str(tmp_path))
-    scanner = Scanner(csv_path, panel.contigs, "", str(tmp_path / name), Settings(),
-                      engine=engine, command="torch-equality-test")
+    scanner_cls, settings = _scanner(engine)
+    scanner = scanner_cls(csv_path, panel.contigs, "", str(tmp_path / name), settings(),
+                          engine=engine, command="torch-equality-test")
     mapper = scanner.scan_singles(items) if single_end else scanner.scan_pairs(items)
     text = (tmp_path / name).read_text()
     return mapper, "\n".join(l for l in text.splitlines() if not l.startswith('\t"time"'))
@@ -106,7 +119,7 @@ def test_engine_matches_host_and_jax(tmp_path, workload):
     items = _items(panel, build, se)
     m_host, j_host = _scan(panel, items, tmp_path, HostEngine(), "host.json", se)
     results = {}
-    for name, eng in (("torch", TorchEngine(Settings(), batch_size=batch, device="cpu")),
+    for name, eng in (("torch", TorchEngine(PortSettings(), batch_size=batch, device="cpu")),
                       ("jax", TpuEngine(Settings(), batch_size=batch))):
         if cap is not None:
             eng._surv_cap = cap
@@ -127,11 +140,11 @@ def test_goldens(tmp_path, cap):
     panel = make_panel(seed=33)
     pairs = plant_fusion_pairs(panel, n_support=7, n_background=80, seed=9)
     _, csv_path = write_panel_files(panel, str(tmp_path))
-    eng = TorchEngine(Settings(), batch_size=64, device="cpu")
+    eng = TorchEngine(PortSettings(), batch_size=64, device="cpu")
     eng._surv_cap = cap
     html, js = str(tmp_path / "g.html"), str(tmp_path / "g.json")
-    Scanner(csv_path, panel.contigs, html, js, Settings(), engine=eng,
-            command="golden-run").scan_pairs(pairs)
+    PortScanner(csv_path, panel.contigs, html, js, PortSettings(), engine=eng,
+                command="golden-run").scan_pairs(pairs)
     assert _strip_ts(open(js).read()) == open(os.path.join(GOLDEN_DIR, "planted.json")).read()
     assert _strip_ts(open(html).read()) == open(os.path.join(GOLDEN_DIR, "planted.html")).read()
     assert eng.ed_stats["jobs"] > 0
@@ -174,6 +187,9 @@ def test_port_scan_never_imports_jax(tmp_path):
         f"              '-h', {str(tmp_path)!r} + '/' + o + '.html',\n"
         f"              '-j', {str(tmp_path)!r} + '/' + o + '.json', '--device', 'cpu'])\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "ref = [m for m in sys.modules\n"
+        "       if m == 'genefuserust_tpu' or m.startswith('genefuserust_tpu.')]\n"
+        "assert not ref, ref\n"
         "print('NOJAX')\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -190,14 +206,14 @@ def test_single_probe_layouts_raise_in_engine(tmp_path, monkeypatch, layout):
     monkeypatch.setenv("GENEFUSE_TABLE_LAYOUT", layout)
     with pytest.raises(NotImplementedError, match="kvs and kv16"):
         _scan(panel, plant_fusion_pairs(panel, n_support=2, n_background=2), tmp_path,
-              TorchEngine(Settings(), batch_size=32, device="cpu"), "x.json")
+              TorchEngine(PortSettings(), batch_size=32, device="cpu"), "x.json")
 
 
 def test_unported_modes_raise():
     from genefuserust_tpu_torch.driver import make_engine
 
     with pytest.raises(NotImplementedError, match="multi-GPU"):
-        make_engine("cuda", Settings(), device="cpu", mesh="4")
+        make_engine("cuda", PortSettings(), device="cpu", mesh="4")
 
 
 def _multi_csv_files(tmp_path):
@@ -249,7 +265,7 @@ def test_fusion_rich_batch_takes_the_batched_edit_distance(tmp_path):
         pairs.append(SequenceReadPair(SequenceRead(name, p.left.seq, "+", p.left.quality),
                                       SequenceRead(name, p.right.seq, "+", p.right.quality)))
     m_host, j_host = _scan(panel, pairs, tmp_path, HostEngine(), "host.json")
-    eng = TorchEngine(Settings(), device="cpu")
+    eng = TorchEngine(PortSettings(), device="cpu")
     m_t, j_t = _scan(panel, pairs, tmp_path, eng, "torch.json")
     assert j_t == j_host and len(m_t.fusion_results) > 0
     assert eng.ed_stats["device_sized"] >= CPU_MIN_JOBS
@@ -266,8 +282,9 @@ def _single_end_workload(panel):
 def _scan_reports(panel, reads, tmp_path, engine, tag):
     _, csv_path = write_panel_files(panel, str(tmp_path))
     html, js = tmp_path / f"{tag}.html", tmp_path / f"{tag}.json"
-    Scanner(csv_path, panel.contigs, str(html), str(js), Settings(), engine=engine,
-            command="torch-single-end").scan_singles(reads)
+    scanner_cls, settings = _scanner(engine)
+    scanner_cls(csv_path, panel.contigs, str(html), str(js), settings(), engine=engine,
+                command="torch-single-end").scan_singles(reads)
     return _strip_ts(html.read_text()), _strip_ts(js.read_text())
 
 
@@ -281,7 +298,7 @@ def test_single_end_exotic_bytes_route_to_oracle(tmp_path):
         reads[k] = SequenceRead(reads[k].name, "".join(s), "+", reads[k].quality)
     host = _scan_reports(panel, reads, tmp_path, HostEngine(), "h")
     got = _scan_reports(panel, reads, tmp_path,
-                        TorchEngine(Settings(), batch_size=16, device="cpu"), "t")
+                        TorchEngine(PortSettings(), batch_size=16, device="cpu"), "t")
     assert got == host
     assert '"fusions":{"' in host[1].replace("\n", "").replace("\t", "")
 
@@ -291,11 +308,11 @@ def test_single_end_batch_size_invariance(tmp_path):
     panel = make_panel(seed=21)
     reads = _single_end_workload(panel)
     ref = _scan_reports(panel, reads, tmp_path,
-                        TorchEngine(Settings(), batch_size=4096, device="cpu"), "b4096")
+                        TorchEngine(PortSettings(), batch_size=4096, device="cpu"), "b4096")
     assert '"fusions":{"' in ref[1].replace("\n", "").replace("\t", "")
     for bs in (17, 64):
         got = _scan_reports(panel, reads, tmp_path,
-                            TorchEngine(Settings(), batch_size=bs, device="cpu"), f"b{bs}")
+                            TorchEngine(PortSettings(), batch_size=bs, device="cpu"), f"b{bs}")
         assert got == ref, f"reports differ at batch_size={bs}"
 
 
@@ -305,7 +322,7 @@ def test_single_end_pipeline_depth_invariance(tmp_path):
     reads = _single_end_workload(panel)
 
     def run(depth):
-        eng = TorchEngine(Settings(), batch_size=32, device="cpu", pipeline_depth=depth)
+        eng = TorchEngine(PortSettings(), batch_size=32, device="cpu", pipeline_depth=depth)
         return _scan_reports(panel, reads, tmp_path, eng, f"d{depth}")[1]
 
     ref = run(6)
@@ -317,7 +334,7 @@ def test_cuda_device_requires_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="cuda"):
-        TorchEngine(Settings(), device="cuda")
+        TorchEngine(PortSettings(), device="cuda")
 
 
 @pytest.mark.cuda
@@ -329,7 +346,7 @@ def test_cuda_engine_matches_host(tmp_path, workload):
     panel = make_panel()
     items = _items(panel, build, se)
     _, j_host = _scan(panel, items, tmp_path, HostEngine(), "host.json", se)
-    eng = TorchEngine(Settings(), batch_size=batch, device="cuda")
+    eng = TorchEngine(PortSettings(), batch_size=batch, device="cuda")
     if cap is not None:
         eng._surv_cap = cap
     assert _scan(panel, items, tmp_path, eng, "cuda.json", se)[1] == j_host

@@ -194,6 +194,135 @@ def test_extract_segments_ties_and_last_position():
     assert (es[0], ee[0]) == (5, 29)  # the first of two equal chains
 
 
+# ---------------- the pass-1 vote on hand-built rows ----------------
+
+
+def _jax_vote(pr, packed, major_req=40, minor_req=20):
+    """map_read_pass1's vote after the probe, in JAX: expand, (contig,
+    pos - 2s), top2_votes and the gate -> (B, 5) [ok, h1, l1, h2, l2]."""
+    import jax.numpy as jnp
+
+    from genefuserust_tpu.config import PASS1_STEP
+    from genefuserust_tpu.ops import map_read as jm
+
+    c, p = jnp.asarray(pr[..., 0]), jnp.asarray(pr[..., 1])
+    if hasattr(packed, "kv_tbl"):
+        cc, cp, cv = jm.expand_candidates_kv(c, p, jnp.asarray(packed.dupes), packed.max_dupe,
+                                             packed.cbits, packed.pos_bias)
+    else:
+        cc, cp, cv = jm.expand_candidates(c, p, jnp.asarray(packed.dupes), packed.max_dupe)
+    B, NS, D = cc.shape
+    i_idx = jnp.arange(NS, dtype=jnp.int32)[None, :, None] * PASS1_STEP
+    h1, l1, c1, h2, l2, c2 = jm.top2_votes(cc.reshape(B, -1), (cp - i_idx).reshape(B, -1),
+                                           cv.reshape(B, -1))
+    ok = (c1 * PASS1_STEP >= major_req) & (c2 * PASS1_STEP >= minor_req)
+    return np.stack([np.asarray(x).astype(np.int32) for x in (ok, h1, l1, h2, l2)], axis=1)
+
+
+PAD_KEY = 2**63 - 1
+
+
+def _votable(k):
+    return k != 0 and (k >> 32) != 0x7FFFFFFF
+
+
+def _kernel_vote(keys, P, step=2, major_req=40, minor_req=20):
+    """The vote kernel (csrc/vote.cu) on one row's n valid keys, step for
+    step: for n <= 256 the warp path (bitonic network over K registers x
+    32 lanes, run ends from the ballot masks of run starts), else the
+    block path (sort, run lengths by binary search) -> [ok, h1, l1, h2, l2]."""
+    n = len(keys)
+    if n <= tm.VOTE_WARP_KEYS:
+        K = next(k for k in (1, 2, 4, 8) if 32 * k >= n)
+        N = 32 * K
+        v = [[PAD_KEY] * 32 for _ in range(K)]
+        for e, key in enumerate(keys):
+            v[e // 32][e % 32] = key
+        for ls in range(1, N.bit_length()):
+            for lj in range(ls - 1, -1, -1):
+                size, j = 1 << ls, 1 << lj
+                if j >= 32:
+                    jr = j >> 5
+                    for k in range(K):
+                        if k & jr:
+                            continue
+                        asc = (k * 32) & size == 0
+                        for lane in range(32):
+                            a, b = v[k][lane], v[k | jr][lane]
+                            v[k][lane], v[k | jr][lane] = (min(a, b), max(a, b)) if asc \
+                                else (max(a, b), min(a, b))
+                else:
+                    new = [row[:] for row in v]
+                    for k in range(K):
+                        for lane in range(32):
+                            other, e = v[k][lane ^ j], k * 32 + lane
+                            keep_min = ((e & size) == 0) == ((e & j) == 0)
+                            new[k][lane] = min(v[k][lane], other) if keep_min \
+                                else max(v[k][lane], other)
+                    v = new
+        start = [[(v[k][lane - 1] != v[k][lane]) if lane else
+                  (k == 0 or v[k - 1][31] != v[k][0]) for lane in range(32)] for k in range(K)]
+        starts = [sum(1 << lane for lane in range(32) if start[k][lane]) for k in range(K)]
+        sc = {}
+        for k in range(K):
+            for lane in range(32):
+                if start[k][lane] and _votable(v[k][lane]):
+                    e, nxt = k * 32 + lane, N
+                    for kk in range(K - 1, k, -1):
+                        if starts[kk]:
+                            nxt = kk * 32 + (starts[kk] & -starts[kk]).bit_length() - 1
+                    above = starts[k] & ~((2 << lane) - 1) & 0xFFFFFFFF
+                    if above:
+                        nxt = k * 32 + (above & -above).bit_length() - 1
+                    sc[e] = ((nxt - e) << 32) | (N - 1 - e)
+        flat = [v[e // 32][e % 32] for e in range(N)]
+    else:
+        N = 1 << (n - 1).bit_length()
+        flat = sorted(keys) + [PAD_KEY] * (N - n)
+        sc = {}
+        for i in range(n):
+            if (i == 0 or flat[i - 1] != flat[i]) and _votable(flat[i]):
+                cnt = sum(1 for x in flat[i:n] if x == flat[i])
+                sc[i] = (cnt << 32) | (N - 1 - i)
+    best1 = max(sc.values(), default=-1)
+    e1 = N - 1 - (best1 & 0xFFFFFFFF) if best1 >= 0 else 0
+    best2 = max((x for e, x in sc.items() if e != e1), default=-1)
+    e2 = N - 1 - (best2 & 0xFFFFFFFF) if best2 >= 0 else 0
+    smin = tm.INVALID_KEY if n == 0 else (min(flat[0], tm.INVALID_KEY) if n < P else flat[0])
+    c1, g1 = (best1 >> 32, flat[e1]) if best1 >= 0 else (0, smin)
+    c2, g2 = (best2 >> 32, flat[e2]) if best2 >= 0 else (0, smin)
+
+    def i32(x):
+        return (x + 2**31) % 2**32 - 2**31
+
+    return [int(c1 * step >= major_req and c2 * step >= minor_req),
+            i32(g1 >> 32), i32(g1), i32(g2 >> 32), i32(g2)]
+
+
+@pytest.mark.parametrize("layout", ["kv2", "split"])
+def test_vote_plain_matches_jax_on_edge_rows(layout):
+    """vote_plain against JAX's top2_votes + gate on vote_edge_rows, and
+    the kernel's algorithm (mirrored in Python) against both."""
+    from genefuserust_tpu_torch.utils.synthetic import vote_edge_rows
+
+    pr, packed, names = vote_edge_rows(seed=5, layout=layout)
+    index = index_to_torch(packed, "cpu")
+    got = tm.vote_plain(pr, index, 40, 20).numpy()
+    exp = _jax_vote(pr.numpy(), packed)
+    assert (got == exp).all(), [names[i] for i in np.nonzero((got != exp).any(1))[0]]
+    keys, cv = tm._keys_at(index, pr, 2)
+    B, P = pr.shape[0], pr.shape[1] * index.D
+    for b in range(B):
+        valid = keys[b].reshape(-1)[cv[b].reshape(-1)].tolist()
+        assert _kernel_vote(valid, P) == got[b].tolist(), names[b]
+    n = tm.vote_candidates(pr, index)
+    assert (n > tm.VOTE_WARP_KEYS).any() and (n == 0).any()
+    assert got[:, 0].any() and not got[:, 0].all()
+    # key 0 only: both entries missing, filled with the smallest key, 0
+    assert got[names.index("only_key_0")].tolist() == [0, 0, 0, 0, 0]
+    assert got[names.index("no_valid")].tolist() == [0] + [tm.INT32_MAX] * 4
+
+
 # ---------------- the passes on a panel with dupes ----------------
 
 
@@ -365,3 +494,10 @@ def test_vote_and_mask_kernels_match_plain(panel_ix, layout, cuda_device):
     exp_b = tm.map_read_batch(ct, lt, cpu)
     for g, e in zip(got_b, exp_b):
         assert torch.equal(g.cpu(), e)
+    # hand-built rows: the warp path's register widths and the block path
+    from genefuserust_tpu_torch.utils.synthetic import vote_edge_rows
+
+    epr, epacked, _ = vote_edge_rows(seed=5, layout=layout)
+    eidx = index_to_torch(epacked, "cpu")
+    assert torch.equal(tm.vote(epr.to(cuda_device), index_to_torch(epacked, cuda_device),
+                               40, 20).cpu(), tm.vote_plain(epr, eidx, 40, 20))
