@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (genefuserust_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--probe-sweep]
 
 Phases, one result line each; any failure raises and exits non-zero:
 
@@ -8,24 +8,29 @@ Phases, one result line each; any failure raises and exits non-zero:
   2 build    compile the csrc/ kernels with nvcc (sm_90a)
   3 kernels  each kernel against its plain PyTorch version, on the card,
              bit-equal, at main-path shapes: the probe over a 65,536-row
-             batch against a 15.2 Mbp panel's kv2 table (2^26 rows), the
-             vote on the same batch, mask+segments on the 1,024 rows the
-             scan hands it; the probe on a small panel packed kv4, kv8 and
-             split. Kernel and plain times from CUDA events.
+             batch against a 15.2 Mbp panel's kv2 table (2^26 rows), with
+             the table rows its lookup needs (32-byte sectors: one for a
+             key in its h1 row, two for any other) and the rows the kernel
+             counts itself loading; the vote on the same batch, mask+segments on the
+             1,024 rows the scan hands it; the probe on a small panel
+             packed kv4, kv8 and split. Kernel and plain times from CUDA
+             events.
   4 golden   tests/goldens/planted.{json,html} through TorchEngine, byte
              for byte (timestamps stripped), at survivor cap 1024 and 2
   5 cli      262,144 read pairs (plus two planted fusions) through the
              port's CLI: every kernel launched, >= 1 fusion reported; the
              edit-distance flushes it made, re-encoded, kernel bit-equal
-             to plain and to host Myers
+             to plain and to host Myers; the Myers kernel timed on the
+             largest of them and on the one nearest 100 jobs
   6 oracle   the first 4,096 pairs: TorchEngine's JSON equal to the host
              oracle's, with the kv2 and the split table
   7 profile  the same 262,144 pairs through a warm TorchEngine, the kv2
              table already on the card, under torch.profiler: device time
              by kernel and the device's busy share of the scan's wall time
   8 gather   the gather-floor probe (profiling/gather_floor.py) bit-equal
-             to its plain version: (a) over the kv2 table, reading exactly
-             the rows phase 3's probe reads, against the probe's time;
+             to its plain version: (a) over the kv2 table, against the
+             probe's time, reading (a1) both rows of every valid k-mer of
+             phase 3's batch and (a2) the rows its lookup needs;
              (b) and (c) through its entry point at the two TPU kernels'
              shapes, int32[2^22, 128], 2^17 indices, 1 and 128 lanes
   9 edit     the Myers kernel bit-equal to its plain version on 65,536
@@ -43,6 +48,11 @@ Phases, one result line each; any failure raises and exits non-zero:
 
 The last three lines are the kernels' JSON record, nvidia-smi's
 name/power line and the contract line {"ok": true, "device": {...}}.
+
+--probe-sweep runs phases 1-3, then the probe's launch-shape sweep on
+phase 3's batch (queries a thread x table-row cache policy x block size,
+each shape a build of csrc/probe.cu with -D overrides, each held
+bit-equal to plain), prints it and stops: no contract line.
 Imports torch, numpy and the port (genefuserust_tpu_torch) only: nothing
 of jax, of the JAX package (genefuserust_tpu) or of bench.py; its reads
 come from the port's copy of the generator (utils/synthetic.gen_block).
@@ -71,9 +81,14 @@ CLI_PAIRS = 4 * BATCH
 ORACLE_PAIRS = 4_096
 RICH_PAIRS = 8_192
 ED_JOBS = 65_536
-# kernels the build compiles: probe 4 (split, kv2/kv4/kv8), vote,
-# mask_segments, gather_sum 3 (vector widths), edit_distance 4 (word bounds)
-N_COMPILED = 13
+# kernels the build compiles: probe 4 (kv2, kv4, kv8, split), vote,
+# mask_segments, gather_sum 3 (vector widths), edit_distance 1
+N_COMPILED = 10
+# the probe's launch-shape sweep (--probe-sweep): queries a thread, table-row
+# cache policy (PROBE_POLICY in csrc/probe.cu), threads a block
+PROBE_SWEEP_Q = (1, 2, 4, 8)
+PROBE_POLICIES = ("nc", "cg", "nc_l1_no_allocate")
+PROBE_SWEEP_THREADS = (128, 256, 512)
 # the kernels of the scan path (phases 5, 11, 12)
 SCAN_KERNELS = ("probe", "vote", "mask_segments")
 SWEEP_MAX_JOBS = 4096
@@ -83,6 +98,8 @@ SWEEP_MAX_JOBS = 4096
 # rate is no higher, so the bound stays a lower bound).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
+# bytes a random read moves from DRAM at least (one sector)
+SECTOR = 32
 # int32 operations counted per unit of work, read off the plain versions:
 # probe, a k-mer's 2-bit shift-in per base and per valid query two hashes,
 # two key compares and the payload decode; vote, a sample's decode and a
@@ -121,6 +138,30 @@ def dupe_row_bytes(pr, index) -> int:
     from genefuserust_tpu_torch.ops.hashtable import DUPE
 
     return int((pr[..., 0] == DUPE).sum()) * index.D * (8 if index.split else 4)
+
+
+def probe_rows(km, ok, index) -> dict:
+    """The table rows a lookup of the valid k-mers `km[ok]` needs, from the
+    plain version's buckets and the table alone: one row for a key that
+    lies in its h1 row, two for any other (a hit in h2, or a miss). Also
+    the hits and the hits found at h1, and each row's bytes in 32-byte
+    DRAM sectors (a table ten times the L2 moves whole sectors)."""
+    import torch
+
+    from genefuserust_tpu_torch.ops import map_read as tm
+
+    k = km[ok]
+    b1, b2 = tm.buckets(k, index.shift)
+    ki = tm._i32(k)[:, None]
+    in_h1 = (index.table[b1][:, : index.S] == ki).any(1)
+    c, _ = tm.lookup(index, k, torch.ones_like(in_h1))
+    hit = c != tm.EMPTY
+    row_bytes = 4 * index.table.shape[1]
+    return dict(valid=int(k.shape[0]), in_h1=int(in_h1.sum()), hits=int(hit.sum()),
+                hits_at_h1=int((hit & in_h1).sum()),
+                rows=int(2 * k.shape[0] - in_h1.sum()),
+                sector_bytes_per_row=-(-row_bytes // SECTOR) * SECTOR,
+                b1=b1, b2=b2, in_h1_mask=in_h1)
 
 
 def quiet(data: dict):
@@ -165,7 +206,7 @@ def check_flushes(name: str, flushes) -> dict:
 
     big = [f for f in flushes if len(f) >= ed_batch.DEVICE_MIN_JOBS]
     check(big, f"{name}: no edit-distance flush reached DEVICE_MIN_JOBS")
-    widths, jobs, err = [], 0, 0
+    widths, jobs, err, encoded = [], 0, 0, []
     for pairs in big:
         host, arrays = ed_batch.encode_jobs(pairs)
         if arrays is None:
@@ -180,9 +221,41 @@ def check_flushes(name: str, flushes) -> dict:
         exp = [edit_distance(q, r) for (q, r), h in zip(pairs, host) if not h]
         check(got.cpu().tolist() == exp, f"{name}: Myers kernel differs from host Myers")
         widths.append((len(exp), W, args[2].shape[1]))
+        encoded.append((args, ref))
         jobs += len(exp)
     return dict(flush_sizes=[len(f) for f in flushes], checked_flushes=len(widths),
-                checked_jobs=jobs, batch_W_Lt=widths, err=err)
+                checked_jobs=jobs, batch_W_Lt=widths, err=err, encoded=encoded)
+
+
+def myers_bound(args) -> dict:
+    """Each job's pattern and text bytes and two lengths in, a distance
+    out; a text step per text base over the pattern's words."""
+    pl, tl = args[1].long(), args[3].long()
+    return bound(int((pl + tl).sum()) + 12 * pl.shape[0],
+                 OPS["myers_word_step"] * int((tl * ((pl + 31) // 32)).sum()))
+
+
+def time_flushes(encoded) -> list:
+    """The Myers kernel and its plain version timed on two of a scan's
+    flushes, as the scan encoded them: the largest, and the one nearest
+    100 jobs -> one record each."""
+    from genefuserust_tpu_torch.ops import edit_distance as ted
+
+    sizes = [a[1].shape[0] for a, _ in encoded]
+    picks = [("largest", max(range(len(sizes)), key=lambda i: sizes[i])),
+             ("nearest_100", min(range(len(sizes)), key=lambda i: abs(sizes[i] - 100)))]
+    out = []
+    for which, i in picks:
+        args, ref = encoded[i]
+        W = args[0].shape[1] // 32
+        _, err, ms, pms = _timed_pair(f"Myers ({which} flush)",
+                                      lambda: ted.edit_distance_batch(*args, W),
+                                      lambda: ted.edit_distance_plain(*args, W), exp=ref,
+                                      plain_reps=1)
+        out.append(dict(flush=which, jobs=sizes[i], W=W, Lt=args[2].shape[1],
+                        ms=round(ms, 6), plain_ms=round(pms, 6), **myers_bound(args)))
+        out[-1]["bound_ms"] = round(out[-1]["bound_ms"], 6)
+    return out
 
 
 # ---------------- data ----------------
@@ -358,16 +431,39 @@ def phase_kernels(data: dict) -> dict:
         "probe", lambda: tm.probe(codes, lens, PASS1_STEP, index),
         lambda: tm.probe_plain(codes, lens, PASS1_STEP, index))
     B, W = codes.shape
-    valid_q = int(tm.compute_kmers(codes, lens)[1][:, ::PASS1_STEP].sum())
-    # codes and lengths in, two table rows per valid query, the results out
+    km, kok = tm.compute_kmers(codes, lens)
+    rows = probe_rows(km[:, ::PASS1_STEP], kok[:, ::PASS1_STEP], index)
+    del km, kok
+    # codes and lengths in, one 32-byte sector per table row the lookup
+    # needs, the results out
     rec["probe"] = dict(err=err, ms=ms, plain_ms=pms, **bound(
-        B * W + 4 * B + 2 * valid_q * 4 * index.table.shape[1] + pr.numel() * 4,
-        OPS["probe_base"] * B * W + OPS["probe_query"] * valid_q))
-    data["probe_batch"] = dict(codes=codes, lens=lens, index=index, ms=ms)
+        B * W + 4 * B + rows["rows"] * rows["sector_bytes_per_row"] + pr.numel() * 4,
+        OPS["probe_base"] * B * W + OPS["probe_query"] * rows["valid"]))
+    # the table rows the kernel loads, counted by the kernel itself: it
+    # loads h2 only for keys not in h1, so exactly the rows needed
+    loaded = probe_row_loads(codes, lens, index, pr)
+    check(loaded == rows["rows"],
+          f"probe: the kernel loaded {loaded} table rows, the lookup needs {rows['rows']}")
+    rec["probe"].update(shape=f"kv2 table {tuple(index.table.shape)}, {B}x{W} codes, stride "
+                              f"{PASS1_STEP}", rows_needed=rows["rows"], rows_loaded=loaded,
+                        h1_hit_share=round(rows["hits_at_h1"] / max(1, rows["hits"]), 6))
+    data["probe_batch"] = dict(rows=rows, index=index, ms=ms)
+    if data["probe_sweep"]:
+        sweep = sweep_probe(codes, lens, index, pr)
+        best = min(sweep, key=sweep.get)
+        say("3 kernels", kernel="probe",
+            sweep="queries a thread, row cache policy, threads a block",
+            sweep_ms=json.dumps({k: round(v, 4) for k, v in sweep.items()},
+                                separators=(",", ":")),
+            best=repr(best), best_ms=f"{sweep[best]:.4f}", equal=True)
     say("3 kernels", kernel="probe", layout="kv2", shape=tuple(pr.shape), stride=PASS1_STEP,
-        hits=int((pr[..., 0] >= 0).sum()), valid_queries=valid_q, ms=f"{ms:.4f}",
+        hits=int((pr[..., 0] >= 0).sum()), valid_queries=rows["valid"],
+        lookup_hits=rows["hits"], hits_at_h1=rows["hits_at_h1"],
+        h1_hit_share=f"{rec['probe']['h1_hit_share']:.4f}", rows_needed=rows["rows"],
+        rows_loaded=rec["probe"]["rows_loaded"], ms=f"{ms:.4f}",
         plain_ms=f"{pms:.4f}", bound_ms=f"{rec['probe']['bound_ms']:.4f}",
-        bound_by=rec["probe"]["bound_by"], max_abs_err=err)
+        bound_by=rec["probe"]["bound_by"], bound_share=f"{rec['probe']['bound_ms'] / ms:.4f}",
+        max_abs_err=err)
     v, err, ms, pms = _timed_pair(
         "vote", lambda: tm.vote(pr, index, 40, 20),
         lambda: tm.vote_plain(pr, index, 40, 20))
@@ -377,6 +473,7 @@ def phase_kernels(data: dict) -> dict:
         pr.numel() * 4 + dupe_row_bytes(pr, index) + v.numel() * 4,
         OPS["vote_sample"] * pr.shape[0] * pr.shape[1]
         + OPS["vote_candidate"] * int(n_cand.sum())))
+    rec["vote"]["shape"] = f"{pr.shape[0]}x{pr.shape[1]} samples, D {index.D}"
     ok = v[:, 0] != 0
     say("3 kernels", kernel="vote", rows=v.shape[0], samples=pr.shape[1], D=index.D,
         candidate_slots=pr.shape[1] * index.D,
@@ -417,6 +514,7 @@ def phase_kernels(data: dict) -> dict:
         pr1.numel() * 4 + slens.numel() * 4 + gp.numel() * 4 + dupe_row_bytes(pr1, index)
         + seg.numel() * 4,
         OPS["mask_candidate"] * cand2 + OPS["mask_base"] * int(slens.long().sum())))
+    rec["mask_segments"]["shape"] = f"{seg.shape[0]} survivors, width {scodes.shape[1]}"
     say("3 kernels", kernel="mask_segments", rows=seg.shape[0], width=scodes.shape[1],
         two_segment_rows=int((seg[:, 0] & seg[:, 1]).sum()), ms=f"{ms:.4f}",
         plain_ms=f"{pms:.4f}", bound_ms=f"{rec['mask_segments']['bound_ms']:.5f}",
@@ -456,6 +554,69 @@ def phase_kernels(data: dict) -> dict:
             flat_queries=BATCH, flat_hits=int((flat[:, 0] != -3).sum()),
             flat_ms=f"{fms:.4f}", flat_plain_ms=f"{fpms:.4f}", max_abs_err=max(err, ferr))
     return rec
+
+
+def probe_row_loads(codes, lens, index, exp) -> int:
+    """One launch of the kv2 probe of phase 3's batch with the kernel's row
+    counter on, held bit-equal to `exp` -> the table rows it loaded."""
+    import torch
+
+    from genefuserust_tpu_torch.config import PASS1_STEP
+    from genefuserust_tpu_torch.ops import cuda
+
+    B, W = codes.shape
+    NQ = exp.shape[1]
+    out = torch.empty_like(exp)
+    loads = torch.zeros(1, dtype=torch.int64, device=exp.device)
+    cuda.launch_probe(codes, lens, None, None, B * NQ, W, PASS1_STEP, NQ, index, out,
+                      row_loads=loads)
+    check(torch.equal(out, exp), "probe with its row counter differs from plain")
+    return int(loads)
+
+
+def sweep_probe(codes, lens, index, exp, reps=40) -> dict:
+    """The kv2 probe of phase 3's batch at every launch shape of the sweep
+    (queries a thread x row cache policy x block size), each a build of
+    csrc/probe.cu with -D overrides, all built at once, each held
+    bit-equal to `exp` -> {"q,policy,threads": mean ms}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from genefuserust_tpu_torch.config import PASS1_STEP
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
+
+    shapes = [(q, pol, t) for q in PROBE_SWEEP_Q for pol in range(len(PROBE_POLICIES))
+              for t in PROBE_SWEEP_THREADS]
+
+    def build(shape):
+        q, pol, t = shape
+        return cuda.build(("probe.cu",), (f"PROBE_Q={q}", f"PROBE_POLICY={pol}",
+                                          f"PROBE_THREADS={t}"))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 4) as ex:
+        paths = list(ex.map(build, shapes))
+    say("3 kernels", kernel="probe", sweep_builds=len(paths),
+        build_s=f"{time.perf_counter() - t0:.1f}")
+    B, W = codes.shape
+    NQ = exp.shape[1]
+    out = torch.empty_like(exp)
+    res = {}
+    for (q, pol, t), path in zip(shapes, paths):
+        lib = cuda.load(path)
+
+        def run():
+            cuda.launch_probe(codes, lens, None, None, B * NQ, W, PASS1_STEP, NQ, index, out,
+                              lib=lib)
+
+        out.fill_(0)
+        run()
+        torch.cuda.synchronize()
+        check(torch.equal(out, exp), f"probe at shape {(q, pol, t)} differs from plain")
+        res[f"{q},{PROBE_POLICIES[pol]},{t}"] = event_ms(run, reps)
+    return res
 
 
 def phase_golden(data: dict) -> None:
@@ -537,6 +698,11 @@ def phase_cli(data: dict, smi_line: str) -> dict:
         checked_jobs=ed["checked_jobs"],
         jobs_W_Lt=json.dumps(ed["batch_W_Lt"], separators=(",", ":")),
         kernel_vs_plain="equal", kernel_vs_host="equal", max_abs_err=ed["err"])
+    # the Myers kernel at the main path's own shapes
+    data["ed_main"] = time_flushes(ed["encoded"])
+    for r in data["ed_main"]:
+        say("5 cli", kernel="edit_distance", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
+                                                 for k, v in r.items()})
     return launches
 
 
@@ -639,33 +805,35 @@ def phase_profile(data: dict) -> None:
 def phase_gather(data: dict) -> dict:
     import torch
 
-    from genefuserust_tpu_torch.config import PASS1_STEP
     from genefuserust_tpu_torch.ops import cuda
-    from genefuserust_tpu_torch.ops import map_read as tm
     from genefuserust_tpu_torch.profiling import gather_floor as gf
 
-    # (a) the rows phase 3's probe reads: h1 and h2 of every valid k-mer of
-    # its batch (stride 2), in query order; the last tile is topped up
-    # with the first rows
+    # (a) phase 3's batch (stride 2) on the kv2 table, in query order: (a1)
+    # h1 and h2 of every valid k-mer, what a probe that loads both rows
+    # reads; (a2) the rows the lookup needs, h1 of every valid k-mer and h2
+    # only where the key is not in h1. The last tile is topped up with the
+    # first rows.
     pb = data.pop("probe_batch")
-    km, ok = tm.compute_kmers(pb["codes"], pb["lens"])
-    km, ok = km[:, ::PASS1_STEP], ok[:, ::PASS1_STEP]
-    check(km.shape[1] == (pb["codes"].shape[1] - 16 + PASS1_STEP) // PASS1_STEP,
-          "the k-mer grid differs from the probe's")
-    b1, b2 = tm.buckets(km[ok], pb["index"].shift)
-    rows = torch.stack([b1, b2], dim=1).reshape(-1).to(torch.int32)
-    n_rows = rows.shape[0]
-    rows = torch.cat([rows, rows[: (-n_rows) % gf.TILE]]).contiguous()
+    r = pb["rows"]
     tbl = pb["index"].table
-    a = gf.measure(rows, tbl)
-    say("8 gather", case="a probe rows", table=tuple(tbl.shape), probe_rows=n_rows,
-        valid_kmers=n_rows // 2, tiles=rows.shape[0] // gf.TILE, floor_ms=f"{a['ms']:.4f}",
-        plain_ms=f"{a['plain_ms']:.4f}", probe_ms=f"{pb['ms']:.4f}",
-        probe_share_of_floor=f"{a['ms'] / pb['ms']:.4f}",
-        ns_per_row=f"{a['ns_per_row']:.4f}", rows_per_s=f"{a['rows_per_s']:.4g}",
-        requested_GBps=f"{a['requested_bytes_per_s'] / 1e9:.2f}",
-        sector_GBps=f"{a['sector_bytes_per_s'] / 1e9:.2f}", max_abs_err=a["max_abs_err"])
-    del pb, km, ok, b1, b2, rows, tbl
+    h2 = torch.where(r["in_h1_mask"], -1, r["b2"])
+    for case, pairs in (("a1 both rows", torch.stack([r["b1"], r["b2"]], 1)),
+                        ("a2 rows needed", torch.stack([r["b1"], h2], 1))):
+        rows = pairs.reshape(-1)
+        rows = rows[rows >= 0].to(torch.int32)
+        n_rows = rows.shape[0]
+        check(n_rows == (2 * r["valid"] if case[:2] == "a1" else r["rows"]),
+              f"gather ({case}): row count differs from phase 3's")
+        rows = torch.cat([rows, rows[: (-n_rows) % gf.TILE]]).contiguous()
+        a = gf.measure(rows, tbl)
+        say("8 gather", case=case, table=tuple(tbl.shape), rows=n_rows,
+            valid_kmers=r["valid"], tiles=rows.shape[0] // gf.TILE, floor_ms=f"{a['ms']:.4f}",
+            plain_ms=f"{a['plain_ms']:.4f}", probe_ms=f"{pb['ms']:.4f}",
+            floor_over_probe=f"{a['ms'] / pb['ms']:.4f}",
+            ns_per_row=f"{a['ns_per_row']:.4f}", rows_per_s=f"{a['rows_per_s']:.4g}",
+            requested_GBps=f"{a['requested_bytes_per_s'] / 1e9:.2f}",
+            sector_GBps=f"{a['sector_bytes_per_s'] / 1e9:.2f}", max_abs_err=a["max_abs_err"])
+    del pb, r, rows, tbl, h2
     # (b), (c): the entry point at the TPU kernels' shapes, on the card;
     # every launch counted is one this path made
     cuda.reset_launches()
@@ -690,37 +858,16 @@ def phase_gather(data: dict) -> dict:
         OPS["gather_element"] * b["rows"] * b["width"]))
 
 
-def _ed_jobs(n: int, seed: int):
-    """n (a, b) pairs: a of 100-300 random bases, b = a with ~2% edits
-    (half substitutions, a quarter each insertions and deletions)."""
-    rng = np.random.default_rng(seed)
-    bases = "ACGT"
-    abc = np.frombuffer(b"ACGT", np.uint8)
-    jobs = []
-    for L in rng.integers(100, 301, n).tolist():
-        a = abc[rng.integers(0, 4, L)].tobytes().decode()
-        b = list(a)
-        for _ in range(int(rng.binomial(L, 0.02))):
-            p, op = int(rng.integers(0, len(b))), rng.random()
-            if op < 0.5:
-                b[p] = bases[int(rng.integers(0, 4))]
-            elif op < 0.75 and len(b) > 1:
-                del b[p]
-            else:
-                b.insert(p, bases[int(rng.integers(0, 4))])
-        jobs.append((a, "".join(b)))
-    return jobs
-
-
 def phase_edit(data: dict) -> dict:
     import torch
 
     from genefuserust_tpu_torch.core.edit_distance import edit_distance
     from genefuserust_tpu_torch.ops import edit_distance as ted
     from genefuserust_tpu_torch.parallel import ed_batch
+    from genefuserust_tpu_torch.profiling.ed_ab import ed_jobs
 
     t0 = time.perf_counter()
-    jobs = _ed_jobs(ED_JOBS, data["seed"])
+    jobs = ed_jobs(ED_JOBS, data["seed"])
     gen_s = time.perf_counter() - t0
     host, arrays = ed_batch.encode_jobs(jobs)
     check(not host.any(), "edit_distance: a synthetic job was routed to the host")
@@ -731,12 +878,8 @@ def phase_edit(data: dict) -> dict:
         lambda: ted.edit_distance_plain(*args, W), reps=10, plain_reps=1)
     ref = [edit_distance(a, b) for a, b in jobs[:2000]]
     check(got[:2000].cpu().tolist() == ref, "edit_distance: kernel differs from host Myers")
-    pl, tl = args[1].long(), args[3].long()
-    # each job's pattern and text bytes and two lengths in, a distance out;
-    # a text step per text base over the pattern's words
-    rec = dict(err=err, ms=ms, plain_ms=pms, **bound(
-        int((pl + tl).sum()) + 12 * ED_JOBS,
-        OPS["myers_word_step"] * int((tl * ((pl + 31) // 32)).sum())))
+    rec = dict(err=err, ms=ms, plain_ms=pms, **myers_bound(args))
+    rec["shape"] = f"{ED_JOBS} synthetic jobs of 100-300 bases, W {W}"
     say("9 edit", jobs=ED_JOBS, pattern_width=args[0].shape[1], text_width=args[2].shape[1],
         W=W, mean_distance=f"{got.double().mean().item():.3f}", host_checked=len(ref),
         ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", bound_ms=f"{rec['bound_ms']:.4f}",
@@ -1005,6 +1148,8 @@ def phase_single(data: dict, smi_line: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--probe-sweep", action="store_true",
+                    help="phases 1-3 and the probe's launch-shape sweep, then stop")
     args = ap.parse_args(argv)
     import torch
 
@@ -1037,8 +1182,12 @@ def main(argv=None) -> int:
         say("3 kernels", setup="data", panel_and_index_s=f"{index_s:.1f}",
             reads_s=f"{time.perf_counter() - t0:.1f}", pairs=CLI_PAIRS)
         data = dict(seed=args.seed, workdir=workdir, fa=fa, csv=csv, exons=exons,
-                    mapper=mapper, blk=blk, block=block, log=log)
+                    mapper=mapper, blk=blk, block=block, log=log,
+                    probe_sweep=args.probe_sweep)
         rec = phase_kernels(data)
+        if args.probe_sweep:
+            print(smi_line)
+            return 0
         phase_golden(data)
         launches = phase_cli(data, smi_line)
         phase_oracle(data)
@@ -1059,20 +1208,23 @@ def main(argv=None) -> int:
                       "tools/profiling/profile_pallas_gather.py:46",
         "edit_distance": "genefuserust_tpu/ops/edit_distance.py:43",
     }
-    # launches: each kernel's count over the run of its own path (the CLI
-    # scan, the gather-floor entry point, the fusion-rich scan). No single
-    # PyTorch call computes any of these functions (library_ms null): see
-    # PERF.md's kernel table for each reason.
-    rec["gather_sum"] = gather
-    rec["edit_distance"] = dict(edit, err=max(edit["err"], data["ed_err"]))
-    launches = dict(launches, gather_sum=gather["launches"],
-                    edit_distance=rich_launches["edit_distance"])
+    # launches: each kernel's count over phase 5's CLI scan, the main path;
+    # gather_sum is off it, so its count is that of its own entry point
+    # (phase 8). No single PyTorch call computes any of these functions
+    # (library_ms null): see PERF.md's kernel table for each reason.
+    rec["gather_sum"] = dict(gather, shape="int32[2^22, 128] table, 2^17 rows, 1 lane")
+    rec["edit_distance"] = dict(edit, err=max(edit["err"], data["ed_err"]),
+                                main_path_flushes=data["ed_main"],
+                                fusion_rich_launches=rich_launches["edit_distance"])
+    launches = dict(launches, gather_sum=gather["launches"])
+    extra = ("shape", "rows_needed", "rows_loaded", "h1_hit_share", "main_path_flushes",
+             "fusion_rich_launches")
     kernels = [
         dict(name=k, route="cuda", source=f"genefuserust_tpu_torch/csrc/{k}.cu",
              replaces=replaces[k], launches=launches[k], max_abs_err=rec[k]["err"],
              ms=round(rec[k]["ms"], 6), plain_ms=round(rec[k]["plain_ms"], 6),
              bound_ms=round(rec[k]["bound_ms"], 6), bound_by=rec[k]["bound_by"],
-             library_ms=None)
+             library_ms=None, **{x: rec[k][x] for x in extra if x in rec[k]})
         for k in replaces
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-// Shared device helpers of the scan kernels: constants, table-row loads,
-// payload decode, dupe expansion and the packed gplong key.
+// Shared device helpers of the scan kernels: constants, payload decode,
+// dupe expansion and the packed gplong key.
 //
 // Conventions follow genefuserust_tpu/ops/hashtable.py: a lookup yields
 // (contig, pos) with contig >= 0 regular, DUPE (pos = dupe row), HIGH
@@ -20,23 +20,6 @@ constexpr int ALLOWED_GAP = 10;
 constexpr int THRESHOLD_LEN = 20;
 // JAX's invalid candidate (hi = lo = INT32_MAX) as a packed key
 constexpr long long INVALID_KEY = 0x7FFFFFFF7FFFFFFFLL;
-
-// N consecutive int32 of a table row, loaded as 8- or 16-byte vectors
-// (rows are 8*S bytes wide and the wrapper checks 16-byte alignment).
-template <int N>
-__device__ __forceinline__ void load_row(const int32_t* p, int32_t (&v)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i) {
-      int4 t = __ldg(reinterpret_cast<const int4*>(p) + i);
-      v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z; v[4 * i + 3] = t.w;
-    }
-  } else {
-    static_assert(N == 2, "rows of 2, 4, 8 or 16 int32");
-    int2 t = __ldg(reinterpret_cast<const int2*>(p));
-    v[0] = t.x; v[1] = t.y;
-  }
-}
 
 __device__ __forceinline__ void decode(uint32_t pay, int cbits, int pos_bias,
                                        int32_t& contig, int32_t& pos) {

@@ -4,123 +4,342 @@
 // (pallas_lookup / _lookup_kernel) and the XLA probes it stood for,
 // ops/map_read.py compute_kmers + kv_lookup (kv rows) / hash_lookup (split).
 //
-// What bounds it on the H100: each valid query makes two random row loads
-// (8*S bytes each; 8 bytes for the kv2 product layout) from a table of up
-// to 2^26 rows = 512 MB, ten times the 50 MB L2, so nearly every load is a
-// DRAM round trip: the kernel is bound by memory latency and by DRAM
-// sector traffic (32 B moved per 8 B row), not by arithmetic.
+// What bounds it on the H100: random table rows. A table of up to 2^26
+// rows = 512 MB is ten times the 50 MB L2, so nearly every row load is a
+// DRAM round trip that moves a whole 32-byte sector (8-byte kv2 rows
+// included): the kernel is bound by DRAM sectors and by how many misses
+// the SMs keep in flight, not by arithmetic.
 //
-// What the simple design does about it: one thread per query and a large
-// grid keep tens of thousands of independent loads in flight to hide the
-// latency; both bucket loads are issued before either is compared, as one
-// 8- or 16-byte vector load each; invalid queries (a 255 code in the
-// window, or past the read) make no table load at all. The k-mer is built
-// from the thread's 16 code bytes, which neighbouring threads share
-// through L1.
+// What the design does about it:
+//  - h1 first. Keys are unique across both rows and their slots, and the
+//    split rule is first-match h1, so a query whose key lies in its h1 row
+//    never needs the h2 row: h2 is loaded only for the others. For kv rows
+//    this equals `p1 | p2` (empty slots hold the absent-key sentinel with
+//    payload 0, so a query equal to the sentinel still decodes to a miss).
+//  - Q queries a thread. Each thread takes Q queries of a tile of T*Q and
+//    issues all their h1 loads before it compares any, then all their h2
+//    loads; the split layout's vals fetch stays one dependent load after
+//    the slot is known. Table rows are read with a cache policy POL
+//    (ld.global.nc, ld.global.cg, or ld.global.nc with L1::no_allocate).
+//    Blocks are persistent: the grid is sized to the card (resident
+//    blocks per SM x SMs) and walks the tiles. Q, POL and T are fixed at
+//    build time (PROBE_Q, PROBE_POLICY, PROBE_THREADS below); a launch-shape
+//    sweep rebuilds this file with -D overrides.
+//  - Each code row is read once. A tile's rows are staged in shared memory
+//    with 16-byte loads: each 16 code bytes become one word of 2-bit bases
+//    (shifted in at 2 bits per base, first base highest) and a 16-bit mask
+//    of 255 codes. A k-mer is the 32 bits at its offset across two
+//    neighbouring words; it is valid when its window holds no mask bit (the
+//    last 255 lies before the window) and it starts at or before len - 16.
+//    Codes are 0-3, or 255 for a base that is not ACGT.
+// Invalid queries make no table load at all.
 #include "common.cuh"
 
 namespace gf {
 
-template <bool SPLIT, int S>
-__global__ void probe_kernel(const uint8_t* __restrict__ codes,
-                             const int32_t* __restrict__ lengths,
-                             const int32_t* __restrict__ kmers,
-                             const uint8_t* __restrict__ kvalid, long long n, int W,
-                             int stride, int NQ, const int32_t* __restrict__ tbl,
-                             const int32_t* __restrict__ vals, int shift, int cbits,
-                             int pos_bias, int2* __restrict__ out) {
-  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= n) return;
-  uint32_t k = 0;
-  bool valid;
-  if (codes != nullptr) {
-    const long long b = q / NQ;
-    const int j = (int)(q - b * NQ) * stride;
-    valid = j <= __ldg(lengths + b) - KMER;
-    if (valid) {
-      const uint8_t* row = codes + b * W + j;
-#pragma unroll
-      for (int t = 0; t < KMER; ++t) {
-        const uint32_t c = __ldg(row + t);
-        valid &= c != 255u;
-        k = (k << 2) | (c == 255u ? 0u : c);
-      }
-    }
+enum { POL_NC = 0, POL_CG = 1, POL_NA = 2 };
+
+template <int POL>
+__device__ __forceinline__ int2 ld_row2(const int32_t* p) {
+  const int2* q = reinterpret_cast<const int2*>(p);
+  if constexpr (POL == POL_NC) {
+    return __ldg(q);
+  } else if constexpr (POL == POL_CG) {
+    return __ldcg(q);
   } else {
-    k = (uint32_t)__ldg(kmers + q);
-    valid = __ldg(kvalid + q) != 0;
+    int2 v;
+    asm("ld.global.nc.L1::no_allocate.v2.s32 {%0, %1}, [%2];"
+        : "=r"(v.x), "=r"(v.y) : "l"(q));
+    return v;
   }
-  int32_t oc = EMPTY, op = 0;
-  if (valid) {
-    const uint32_t b1 = (k * 0x9E3779B1u) >> shift;
-    const uint32_t b2 = ((k ^ (k >> 15)) * 0x85EBCA6Bu + 0xC2B2AE35u) >> shift;
-    const int32_t ki = (int32_t)k;
+}
+
+template <int POL>
+__device__ __forceinline__ int4 ld_row4(const int32_t* p) {
+  const int4* q = reinterpret_cast<const int4*>(p);
+  if constexpr (POL == POL_NC) {
+    return __ldg(q);
+  } else if constexpr (POL == POL_CG) {
+    return __ldcg(q);
+  } else {
+    int4 v;
+    asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(q));
+    return v;
+  }
+}
+
+// N consecutive int32 of a table row (8*S bytes; 16-byte aligned rows)
+template <int N, int POL>
+__device__ __forceinline__ void load_row(const int32_t* p, int32_t (&v)[N]) {
+  if constexpr (N == 2) {
+    const int2 t = ld_row2<POL>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    static_assert(N % 4 == 0, "rows of 2, 4, 8 or 16 int32");
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const int4 t = ld_row4<POL>(p + 4 * i);
+      v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z; v[4 * i + 3] = t.w;
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t hash1(uint32_t k, int shift) {
+  return (k * 0x9E3779B1u) >> shift;
+}
+
+__device__ __forceinline__ uint32_t hash2(uint32_t k, int shift) {
+  return ((k ^ (k >> 15)) * 0x85EBCA6Bu + 0xC2B2AE35u) >> shift;
+}
+
+// Row bucket*RW matched against key ki: kv rows -> the payload sum of the
+// matching slots (at most one real one) and whether any slot matched;
+// split key rows -> the first matching slot.
+template <bool SPLIT, int S, int RW>
+__device__ __forceinline__ bool match_row(const int32_t (&r)[RW], int32_t ki, uint32_t& pay,
+                                          int& slot) {
+  bool found = false;
+  if constexpr (SPLIT) {
+    slot = -1;
+#pragma unroll
+    for (int s = S - 1; s >= 0; --s)
+      if (r[s] == ki) slot = s;
+    found = slot >= 0;
+  } else {
+    uint32_t p = 0;
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      if (r[s] == ki) { p += (uint32_t)r[S + s]; found = true; }
+    pay = p;
+  }
+  return found;
+}
+
+// The lookup of a thread's Q queries: every h1 load first, then the h2
+// loads of the queries whose key is not in h1, then (split) the vals.
+template <bool SPLIT, int S, int Q, int POL>
+__device__ __forceinline__ void lookup_q(const uint32_t (&k)[Q], const bool (&valid)[Q],
+                                         const int32_t* __restrict__ tbl,
+                                         const int32_t* __restrict__ vals, int shift,
+                                         int cbits, int pos_bias, int2 (&res)[Q],
+                                         unsigned& rows) {
+  constexpr int RW = SPLIT ? S : 2 * S;
+  int32_t row[Q][RW];
+  uint32_t pay[Q], bucket[Q];
+  int slot[Q];
+  bool need2[Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    bucket[i] = hash1(k[i], shift);
+    if (valid[i]) load_row<RW, POL>(tbl + (size_t)bucket[i] * RW, row[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    pay[i] = 0; slot[i] = -1;
+    need2[i] = valid[i] && !match_row<SPLIT, S, RW>(row[i], (int32_t)k[i], pay[i], slot[i]);
+    rows += (unsigned)valid[i] + (unsigned)need2[i];
+  }
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    if (need2[i]) {
+      bucket[i] = hash2(k[i], shift);
+      load_row<RW, POL>(tbl + (size_t)bucket[i] * RW, row[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+    if (need2[i]) match_row<SPLIT, S, RW>(row[i], (int32_t)k[i], pay[i], slot[i]);
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    int32_t oc = EMPTY, op = 0;
     if constexpr (SPLIT) {
-      int32_t r1[S], r2[S];
-      load_row<S>(tbl + (long long)b1 * S, r1);
-      load_row<S>(tbl + (long long)b2 * S, r2);
-      int slot = -1;
-      uint32_t bucket = b1;
-#pragma unroll
-      for (int s = S - 1; s >= 0; --s)
-        if (r2[s] == ki) { slot = s; bucket = b2; }
-#pragma unroll
-      for (int s = S - 1; s >= 0; --s)
-        if (r1[s] == ki) { slot = s; bucket = b1; }
-      if (slot >= 0) {
-        const int2 v = __ldg(reinterpret_cast<const int2*>(vals) +
-                             (long long)bucket * S + slot);
+      if (valid[i] && slot[i] >= 0) {
+        const int2 v = ld_row2<POL>(vals + ((size_t)bucket[i] * S + slot[i]) * 2);
         oc = v.x; op = v.y;
       }
     } else {
-      int32_t r1[2 * S], r2[2 * S];
-      load_row<2 * S>(tbl + (long long)b1 * 2 * S, r1);
-      load_row<2 * S>(tbl + (long long)b2 * 2 * S, r2);
-      uint32_t p1 = 0, p2 = 0;
+      if (valid[i]) decode(pay[i], cbits, pos_bias, oc, op);
+    }
+    res[i] = make_int2(oc, op);
+  }
+}
+
+// 16 code bytes -> (2-bit bases, first base in the top bits; mask of 255
+// codes, first base in bit 15). Bytes at or past `nbytes` read as 255.
+__device__ __forceinline__ uint2 pack_chunk(const uint8_t* __restrict__ codes,
+                                            long long nbytes, long long ci) {
+  uint32_t b[16];
+  const long long at = ci * 16;
+  if (at + 16 <= nbytes) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(codes + at));
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
-        if (r1[s] == ki) p1 += (uint32_t)r1[S + s];
-        if (r2[s] == ki) p2 += (uint32_t)r2[S + s];
+    for (int t = 0; t < 16; ++t) b[t] = (w[t >> 2] >> (8 * (t & 3))) & 0xFFu;
+  } else {
+#pragma unroll
+    for (int t = 0; t < 16; ++t) b[t] = at + t < nbytes ? __ldg(codes + at + t) : 255u;
+  }
+  uint32_t pk = 0, mk = 0;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    const bool bad = b[t] == 255u;
+    pk = (pk << 2) | (bad ? 0u : (b[t] & 3u));
+    mk = (mk << 1) | (bad ? 1u : 0u);
+  }
+  return make_uint2(pk, mk);
+}
+
+// Query q of a tile: (row q / NQ, k-mer (q % NQ) * stride) of the (B, W)
+// code rows, or kmers[q] with validity kvalid[q] when codes is NULL. When
+// row_loads is not NULL, the table rows the launch loads are added to it.
+template <bool SPLIT, int S, int Q, int POL, int T>
+__global__ void __launch_bounds__(512)
+probe_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ lengths,
+             const int32_t* __restrict__ kmers, const uint8_t* __restrict__ kvalid,
+             unsigned n, int W, int stride, int NQ, int nch_max,
+             const int32_t* __restrict__ tbl, const int32_t* __restrict__ vals, int shift,
+             int cbits, int pos_bias, int2* __restrict__ out,
+             unsigned long long* __restrict__ row_loads) {
+  extern __shared__ uint2 chunks[];  // [nch_max] staged code words, then row lengths
+  int* slen = reinterpret_cast<int*>(chunks + nch_max);
+  const unsigned tid = threadIdx.x, per_tile = T * Q;
+  unsigned rows = 0;
+  const unsigned ntiles = (n + per_tile - 1) / per_tile;
+  const long long nbytes = codes != nullptr ? (long long)(n / NQ) * W : 0;
+  for (unsigned tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const unsigned q0 = tile * per_tile;
+    uint32_t k[Q];
+    bool valid[Q];
+    if (codes != nullptr) {
+      const unsigned ra = q0 / NQ, rb = (min(n, q0 + per_tile) - 1) / NQ;
+      const long long c0 = (long long)ra * W >> 4;
+      const int nch = (int)((((long long)(rb + 1) * W + 15) >> 4) - c0) + 1;
+      __syncthreads();  // the previous tile's readers are done
+      for (int i = tid; i < nch; i += T) chunks[i] = pack_chunk(codes, nbytes, c0 + i);
+      for (unsigned r = tid; r <= rb - ra; r += T) slen[r] = __ldg(lengths + ra + r);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < Q; ++i) {
+        const unsigned q = q0 + i * T + tid;
+        k[i] = 0;
+        valid[i] = false;
+        if (q < n) {
+          const unsigned row = q / NQ;
+          const int j = (int)(q - row * NQ) * stride;
+          const int g = (int)((long long)row * W + j - c0 * 16);
+          const uint2 a = chunks[g >> 4], b = chunks[(g >> 4) + 1];
+          const int o = g & 15;
+          k[i] = __funnelshift_l(b.x, a.x, 2 * o);
+          const uint32_t bad = (((a.y << 16) | b.y) << o) >> 16;
+          valid[i] = bad == 0 && j <= slen[row - ra] - KMER;
+        }
       }
-      decode(p1 | p2, cbits, pos_bias, oc, op);
+    } else {
+#pragma unroll
+      for (int i = 0; i < Q; ++i) {
+        const unsigned q = q0 + i * T + tid;
+        valid[i] = q < n && __ldg(kvalid + q) != 0;
+        k[i] = valid[i] ? (uint32_t)__ldg(kmers + q) : 0u;
+      }
+    }
+    int2 res[Q];
+    lookup_q<SPLIT, S, Q, POL>(k, valid, tbl, vals, shift, cbits, pos_bias, res, rows);
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      const unsigned q = q0 + i * T + tid;
+      if (q < n) out[q] = res[i];
     }
   }
-  out[q] = make_int2(oc, op);
+  if (row_loads != nullptr) {  // every thread of the block gets here
+    rows = __reduce_add_sync(0xFFFFFFFFu, rows);
+    if ((tid & 31) == 0 && rows) atomicAdd(row_loads, (unsigned long long)rows);
+  }
 }
 
 }  // namespace gf
 
+#ifndef PROBE_Q
+#define PROBE_Q 4  // queries a thread
+#endif
+#ifndef PROBE_POLICY
+#define PROBE_POLICY 1  // table-row cache policy: 0 nc, 1 cg, 2 nc + L1::no_allocate
+#endif
+#ifndef PROBE_THREADS
+#define PROBE_THREADS 256  // threads a block
+#endif
+static_assert(PROBE_Q >= 1 && PROBE_THREADS % 32 == 0 && PROBE_THREADS <= 512 &&
+                  PROBE_POLICY >= 0 && PROBE_POLICY <= 2,
+              "a probe launch shape the kernel does not take");
+
+namespace {
+
+struct ProbeArgs {
+  const uint8_t* codes;
+  const int32_t* lengths;
+  const int32_t* kmers;
+  const uint8_t* kvalid;
+  unsigned n;
+  int W, stride, NQ;
+  const int32_t* tbl;
+  const int32_t* vals;
+  int shift, cbits, pos_bias;
+  int2* out;
+  unsigned long long* row_loads;
+};
+
+template <bool SPLIT, int S>
+int probe_launch(const ProbeArgs& a, cudaStream_t st) {
+  constexpr int Q = PROBE_Q, T = PROBE_THREADS;
+  auto kern = gf::probe_kernel<SPLIT, S, Q, PROBE_POLICY, T>;
+  int nch_max = 0;
+  size_t smem = 0;
+  if (a.codes != nullptr) {
+    // rows a tile of T*Q queries can touch, and their 16-byte chunks
+    // (+1 for the straddled first chunk, +1 for the last k-mer's neighbour)
+    const long long rows_max = ((long long)T * Q - 1) / a.NQ + 2;
+    nch_max = (int)((rows_max * a.W + 15) / 16 + 2);
+    smem = (size_t)nch_max * sizeof(uint2) + (size_t)rows_max * sizeof(int);
+  }
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, T, smem)) !=
+          cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const unsigned tiles = (a.n + (unsigned)(T * Q) - 1) / (unsigned)(T * Q);
+  const unsigned grid = tiles < (unsigned)(per_sm * sms) ? tiles : (unsigned)(per_sm * sms);
+  kern<<<grid, T, smem, st>>>(a.codes, a.lengths, a.kmers, a.kvalid, a.n, a.W, a.stride, a.NQ,
+                              nch_max, a.tbl, a.vals, a.shift, a.cbits, a.pos_bias, a.out,
+                              a.row_loads);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // codes != NULL: query q = (row q / NQ, k-mer (q % NQ) * stride) of the
-// (B, W) code rows. codes == NULL: query q is kmers[q] with validity
-// valid[q]. split: tbl = keys (nb, 8), vals = (nb*8, 2); else tbl = kv rows
-// (nb, 2S). out: (n, 2) int32 [contig, pos].
+// (n / NQ, W) code rows, 16-byte aligned. codes == NULL: query q is
+// kmers[q] with validity valid[q]. split: tbl = keys (nb, 8), vals =
+// (nb*8, 2); else tbl = kv rows (nb, 2S). out: (n, 2) int32 [contig, pos].
+// row_loads: NULL, or a device counter the launch adds its table row
+// loads to (h1 rows, h2 rows; not the split layout's vals).
 extern "C" int gf_probe(const void* codes, const void* lengths, const void* kmers,
                         const void* valid, long long n, int W, int stride, int NQ,
                         const void* tbl, const void* vals, int split, int S, int shift,
-                        int cbits, int pos_bias, void* out, void* stream) {
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+                        int cbits, int pos_bias, void* out, void* row_loads, void* stream) {
+  if (n < 0 || n >= (1LL << 31) || NQ < 1) return (int)cudaErrorInvalidValue;
+  const ProbeArgs a{(const uint8_t*)codes, (const int32_t*)lengths, (const int32_t*)kmers,
+                    (const uint8_t*)valid, (unsigned)n, W, stride, NQ,
+                    (const int32_t*)tbl, (const int32_t*)vals, shift, cbits, pos_bias,
+                    (int2*)out, (unsigned long long*)row_loads};
   cudaStream_t st = (cudaStream_t)stream;
-  auto c = (const uint8_t*)codes;
-  auto l = (const int32_t*)lengths;
-  auto km = (const int32_t*)kmers;
-  auto kv = (const uint8_t*)valid;
-  auto t = (const int32_t*)tbl;
-  auto v = (const int32_t*)vals;
-  auto o = (int2*)out;
-  if (split && S == 8)
-    gf::probe_kernel<true, 8><<<blocks, threads, 0, st>>>(c, l, km, kv, n, W, stride, NQ,
-                                                           t, v, shift, cbits, pos_bias, o);
-  else if (!split && S == 1)
-    gf::probe_kernel<false, 1><<<blocks, threads, 0, st>>>(c, l, km, kv, n, W, stride, NQ,
-                                                            t, v, shift, cbits, pos_bias, o);
-  else if (!split && S == 2)
-    gf::probe_kernel<false, 2><<<blocks, threads, 0, st>>>(c, l, km, kv, n, W, stride, NQ,
-                                                            t, v, shift, cbits, pos_bias, o);
-  else if (!split && S == 4)
-    gf::probe_kernel<false, 4><<<blocks, threads, 0, st>>>(c, l, km, kv, n, W, stride, NQ,
-                                                            t, v, shift, cbits, pos_bias, o);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (split && S == 8) return probe_launch<true, 8>(a, st);
+  if (!split && S == 1) return probe_launch<false, 1>(a, st);
+  if (!split && S == 2) return probe_launch<false, 2>(a, st);
+  if (!split && S == 4) return probe_launch<false, 4>(a, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -53,32 +53,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
-def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(os.listdir(CSRC)):
-        with open(os.path.join(CSRC, name), "rb") as f:
+def library_path(sources=SOURCES, defines=(), csrc=CSRC) -> str:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *sources, *defines)).encode())
+    for name in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, name), "rb") as f:
             h.update(name.encode() + f.read())
     return os.path.join(BUILD_DIR, f"libgfkernels_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile csrc/ unless this exact source set is built already -> the
-    library path. One nvcc per source, all started together, then one
-    link. The compiler's register/shared-memory report is kept beside the
-    library as `<lib>.log`."""
-    so = library_path()
+def build(sources=SOURCES, defines=(), csrc=CSRC) -> str:
+    """Compile `sources` of `csrc` (with `-D` `defines`) unless this exact
+    build exists already -> the library path. One nvcc per source, all
+    started together, then one link. The compiler's register/shared-memory
+    report is kept beside the library as `<lib>.log`. The defaults build
+    the port's library; a profiling script may build variants."""
+    so = library_path(sources, defines, csrc)
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}"
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}"
     nvcc = _nvcc()
-    objs = [f"{tmp}.{s}.o" for s in SOURCES]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)],
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    objs = [f"{tmp}.{s}.o" for s in sources]
+    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", o, os.path.join(csrc, s)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for s, o in zip(SOURCES, objs)]
+             for s, o in zip(sources, objs)]
     logs = [p.communicate()[0] for p in procs]
     try:
-        for s, p, out in zip(SOURCES, procs, logs):
+        for s, p, out in zip(sources, procs, logs):
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{out[-8000:]}")
         r = subprocess.run([nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -95,25 +97,33 @@ def build() -> str:
     return so
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each entry point's arguments (all return a CUDA error code)
+_ARGTYPES = {
+    "gf_probe": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                 _P, _P, _P],
+    "gf_vote": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "gf_mask_segments": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "gf_gather_tile_sums": [_P, _P, _I, _I, _I, _P, _P],
+    "gf_edit_distance": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+}
+
+
+def load(path: str) -> ctypes.CDLL:
+    """Load a built library and declare the entry points it has."""
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _ARGTYPES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            P, I = ctypes.c_void_p, ctypes.c_int
-            lib.gf_probe.argtypes = [P, P, P, P, ctypes.c_longlong, I, I, I,
-                                     P, P, I, I, I, I, I, P, P]
-            lib.gf_vote.argtypes = [P, I, I, P, I, I, I, I, I, I, I, I, I, P, P]
-            lib.gf_mask_segments.argtypes = [P, P, P, I, I, P, I, I, I, I, I, I,
-                                             P, P]
-            lib.gf_gather_tile_sums.argtypes = [P, P, I, I, I, P, P]
-            lib.gf_edit_distance_block.argtypes = [I]
-            lib.gf_edit_distance.argtypes = [P, P, P, P, I, I, I, I, I, P, P]
-            for fn in (lib.gf_probe, lib.gf_vote, lib.gf_mask_segments,
-                       lib.gf_gather_tile_sums, lib.gf_edit_distance_block,
-                       lib.gf_edit_distance):
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = load(build())
         return _lib
 
 
@@ -148,16 +158,22 @@ def _dupe_args(index):
     return (d.shape[1] * d.shape[2] if index.split else d.shape[1]), index.D
 
 
-def launch_probe(codes, lengths, kmers, valid, n, W, stride, NQ, index, out) -> None:
-    if index.table.data_ptr() % 16:
-        raise ValueError("probe: table rows must be 16-byte aligned")
+def launch_probe(codes, lengths, kmers, valid, n, W, stride, NQ, index, out,
+                 row_loads=None, lib=None) -> None:
+    """`row_loads`: None, or a one-element int64 tensor on the card that the
+    launch adds its table row loads to. `lib`: a variant build of probe.cu
+    (a launch-shape sweep), else the port's library."""
+    if index.table.data_ptr() % 16 or (codes is not None and codes.data_ptr() % 16):
+        raise ValueError("probe: table rows and code rows must be 16-byte aligned")
+    if n >= 1 << 31:
+        raise ValueError(f"probe: {n} queries exceed the kernel's 2^31")
     dev = out.device
     with torch.cuda.device(dev):
-        err = library().gf_probe(
+        err = (lib or library()).gf_probe(
             _ptr(codes), _ptr(lengths), _ptr(kmers), _ptr(valid), n, W, stride, NQ,
             index.table.data_ptr(), index.vals.data_ptr() if index.split else None,
             int(index.split), index.S, index.shift, index.cbits, index.pos_bias,
-            out.data_ptr(), _stream(out),
+            out.data_ptr(), _ptr(row_loads), _stream(out),
         )
     _done("probe", err)
 
@@ -198,13 +214,8 @@ def launch_gather_tile_sums(idx, tbl, lanes: int, out) -> None:
 def launch_edit_distance(pat, pat_lens, txt, txt_lens, W: int, out) -> None:
     B, Lp = pat.shape
     with torch.cuda.device(out.device):
-        lib = library()
-        threads = lib.gf_edit_distance_block(W)
-        if threads == 0:
-            raise ValueError(f"edit_distance: the Eq tables of 32 jobs at W={W} "
-                             "exceed the device's shared memory per block")
-        err = lib.gf_edit_distance(
+        err = library().gf_edit_distance(
             pat.data_ptr(), pat_lens.data_ptr(), txt.data_ptr(), txt_lens.data_ptr(),
-            B, Lp, txt.shape[1], W, threads, out.data_ptr(), _stream(out),
+            B, Lp, txt.shape[1], W, out.data_ptr(), _stream(out),
         )
     _done("edit_distance", err)

@@ -345,7 +345,13 @@ def _check_index(index: TorchIndex, device) -> None:
 
 def probe(codes, lengths, stride: int, index: TorchIndex):
     """Kernel 1: build every `stride`-th 16-mer of each (B, W) code row and
-    probe the table -> (B, NQ, 2) int32 [contig, pos]."""
+    probe the table -> (B, NQ, 2) int32 [contig, pos]. Codes are 0-3, or
+    255 for a base that is not ACGT. The kernel loads a k-mer's h2 row only
+    when its key is not in its h1 row (keys are unique across both rows,
+    `tests/test_torch_index.py`), which equals the plain version's lookup.
+    On the card the kernel reads `codes` in 16-byte chunks, so `codes` must
+    start on a 16-byte boundary: a fresh tensor does, a row-offset view
+    (`codes[1:]`) may not and is refused."""
     dev = codes.device
     cuda.check_tensor(codes, "codes", torch.uint8, 2, dev)
     cuda.check_tensor(lengths, "lengths", torch.int32, 1, dev)
@@ -356,6 +362,9 @@ def probe(codes, lengths, stride: int, index: TorchIndex):
                          f"lengths={tuple(lengths.shape)} stride={stride}")
     if dev.type == "cpu":
         return probe_plain(codes, lengths, stride, index)
+    if codes.data_ptr() % 16:
+        raise ValueError("probe: codes must start on a 16-byte boundary on the card "
+                         "(pass a fresh tensor, not a row-offset view)")
     NQ = (W - KMER + stride) // stride
     out = torch.empty((B, NQ, 2), dtype=torch.int32, device=dev)
     if B:

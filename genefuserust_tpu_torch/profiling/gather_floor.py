@@ -20,6 +20,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -67,12 +68,28 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+# enqueue time that event_ms covers by holding the stream busy, and the
+# clock rate its busy wait is sized at (above the card's, so it overshoots)
+COVER_S = 0.05
+SLEEP_HZ = 2e9
+
+
 def event_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over `reps` runs after a warm-up."""
+    """Mean device milliseconds of fn() over `reps` runs after two warm-up
+    runs. While the runs are enqueued the stream is held busy
+    (`torch.cuda._sleep`, for twice the enqueue time the second warm-up
+    run took), so a kernel that is shorter than its host call is timed at
+    the device's pace, not the host's. Runs that take more than COVER_S to
+    enqueue (plain versions of many small ops) are timed as they come."""
     fn()
+    t = time.perf_counter()
+    fn()
+    host_s = (time.perf_counter() - t) * reps
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    if host_s < COVER_S:
+        torch.cuda._sleep(int(2 * host_s * SLEEP_HZ) + 1)
     t0.record()
     for _ in range(reps):
         fn()

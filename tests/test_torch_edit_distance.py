@@ -1,6 +1,8 @@
 """The port's batched Myers (plain version) against the JAX package's
 `edit_distance_batch` and the host Myers, and the port's EdBatcher below
-and above its threshold for the device. Integer outputs: bit-equal."""
+and above its threshold for the device. A Python mirror of the kernel's
+wavefront (W lanes a job, lane w at iteration i on text step i - w) is
+held to the same references. Integer outputs: bit-equal."""
 
 import numpy as np
 import pytest
@@ -119,6 +121,133 @@ def test_wrapper_checks_inputs():
     assert ted.edit_distance_batch(*t, W).tolist() == [1]
 
 
+M32 = 0xFFFFFFFF
+
+
+def _wavefront(pc, pl, tc, tl, W):
+    """Mirror of csrc/edit_distance.cu: floor(32 / W) jobs a warp, W lanes
+    a job, lane w owning word w (its 11 Eq words, Pv, Mv). At iteration i
+    lane w does text step i - w, reading that step's symbol itself; the
+    add's carry and hin_p / hin_m reach it, packed in one word, from lane
+    w - 1's previous iteration (a shuffle up by one lane; lane 0 of a job
+    starts them at 0, 1, 0). Lanes above the score's word idle; a warp
+    runs to the largest steps + top_word of its jobs. uint32 in uint64
+    masked."""
+    B, Lp = pc.shape
+    Lt = tc.shape[1]
+    J = 32 // W
+    nw = -(-B // J)
+    lane = np.arange(32)
+    g, w = lane // W, lane % W
+    b = np.arange(nw)[:, None] * J + g
+    live = (g < J) & (b < B)
+    bb = np.where(live, b, 0)
+    m = np.where(live, pl[bb], 0).astype(np.int64)
+    n = np.where(live, tl[bb], 0).astype(np.int64)
+    e = np.zeros((nw, 32, 11), np.uint64)
+    mp = np.minimum(m, Lp) - 32 * w
+    for i in range(32):
+        s = np.minimum(pc[bb, np.minimum(32 * w + i, Lp - 1)], 10).astype(np.int64)
+        has = live & (i < mp)
+        np.put_along_axis(e, s[..., None], np.take_along_axis(e, s[..., None], 2)
+                          | np.where(has, 1 << i, 0).astype(np.uint64)[..., None], 2)
+    top = np.maximum(m - 1, 0)
+    top_word = np.minimum(top >> 5, W - 1)
+    top_bit = (1 << (top & 31)).astype(np.uint64)
+    nb = np.clip(m - 32 * w, 0, 32)
+    pv = ((1 << nb) - 1).astype(np.uint64)
+    mv = np.zeros_like(pv)
+    score = m.copy()
+    steps = np.where(live & (m > 0), np.minimum(n, Lt), 0)
+    works = live & (w <= top_word)
+    iters = np.where(steps > 0, steps + top_word, 0).max(1)
+    msg = np.zeros((nw, 32), np.uint64)
+    for i in range(int(iters.max(initial=0))):
+        j = i - w
+        up = np.concatenate([msg[:, :1], msg[:, :-1]], 1)
+        up = np.where(w == 0, 2, up).astype(np.uint64)
+        sym = np.minimum(tc[bb, np.clip(j, 0, Lt - 1)], 10)
+        carry, hin_p, hin_m = up & 1, (up >> 1) & 1, up >> 2
+        act = (i < iters)[:, None] & works & (j >= 0) & (j < steps)
+        eqw = np.take_along_axis(e, sym.astype(np.int64)[..., None], 2)[..., 0]
+        xv = eqw | mv
+        x = eqw & pv
+        s1 = (x + pv) & M32
+        s2 = (s1 + carry) & M32
+        cout = ((s1 < x) | (s2 < s1)).astype(np.uint64)
+        xh = (s2 ^ pv) | eqw
+        ph = (mv | ~(xh | pv)) & M32
+        mh = pv & xh
+        delta = np.where(ph & top_bit, 1, np.where(mh & top_bit, -1, 0))
+        score = np.where(act & (w == top_word), score + delta, score)
+        ph_sh = ((ph << 1) & M32) | hin_p
+        mh_sh = ((mh << 1) & M32) | hin_m
+        pv = np.where(act, (mh_sh | ~(xv | ph_sh)) & M32, pv)
+        mv = np.where(act, ph_sh & xv, mv)
+        msg = np.where(act, cout | ((ph >> 31) << 1) | ((mh >> 31) << 2), msg)
+    score = np.where(m == 0, n, score)
+    score = np.where(n == 0, m, score)
+    out = np.zeros(B, np.int32)
+    at = live & (w == top_word)
+    out[b[at]] = score[at]
+    return out
+
+
+def _edge_pairs(seed=4):
+    """Pattern lengths 31-33 and 63-65 (the pattern is the shorter side
+    as the batcher encodes it, but the mirror takes any), texts shorter
+    and longer than the pattern, and the empty sides."""
+    rng = np.random.default_rng(seed)
+    rnd = lambda L: "".join(BASES[i] for i in rng.integers(0, 5, L))
+    pairs = [("", ""), ("", "ACGT"), ("ACGT", ""), ("N", "N")]
+    for la in (31, 32, 33, 63, 64, 65):
+        a = rnd(la)
+        for lb in (1, la // 2, la - 1, la, la + 1, 2 * la + 7):
+            b = list(a[:lb]) + list(rnd(max(0, lb - la)))
+            for _ in range(int(rng.integers(0, 4))):
+                b[int(rng.integers(0, len(b)))] = BASES[int(rng.integers(0, 5))]
+            pairs.append((a, "".join(b)))
+            pairs.append((a, rnd(lb)))
+    return pairs
+
+
+@pytest.mark.parametrize("workload", ["random_300", "carries_and_empty", "edges"])
+def test_wavefront_mirror_matches_jax_and_host(workload):
+    pairs = {"random_300": _random_pairs, "carries_and_empty": _carry_pairs,
+             "edges": _edge_pairs}[workload]()
+    args = _encode(pairs)
+    got = _wavefront(*args)
+    assert np.array_equal(got, _jax(*args))
+    assert np.array_equal(got, [edit_distance(a, b) for a, b in pairs])
+
+
+@pytest.mark.parametrize("W", range(1, 11))
+def test_wavefront_mirror_at_every_word_count(W):
+    # patterns up to 32 W bases at each W (odd ones included), W also
+    # above what the patterns need, rows wider than the sequences
+    rng = np.random.default_rng(W)
+    rnd = lambda L: "".join(BASES[i] for i in rng.integers(0, 5, L))
+    top = 32 * W
+    lens = sorted({1, 31, 32, 33, top - 1, top} & set(range(1, top + 1)))
+    pairs = [(rnd(la), rnd(lb)) for la in lens for lb in (1, la // 2 + 1, la + 9)]
+    pairs += [("", rnd(5)), (rnd(5), "")]
+    args = _encode(pairs, Lp=top, Lt=top + 20)[:4] + (W,)
+    got = _wavefront(*args)
+    assert np.array_equal(got, _jax(*args))
+    assert np.array_equal(got, _port(*args))
+    assert np.array_equal(got, [edit_distance(a, b) for a, b in pairs])
+
+
+def test_wavefront_mirror_with_text_longer_than_its_row():
+    # a text length above Lt: steps stop at the row's end, as in JAX
+    pairs = _carry_pairs(seed=5)[:40]
+    pc, pl, tc, tl, W = _encode(pairs)
+    tl = tl + 17
+    got = _wavefront(pc, pl, tc, tl, W)
+    assert np.array_equal(got, _jax(pc, pl, tc, tl, W))
+    assert np.array_equal(got, _port(pc, pl, tc, tl, W))
+
+
 def _jobs(n, seed):
     """n mutated pairs of 90-160 bases (some truncated, some lowercase),
     four of them replaced by jobs that must stay on the host: an exotic
@@ -181,6 +310,22 @@ def test_ed_batcher_threshold_follows_the_device():
     assert 1 < ed_batch.DEVICE_MIN_JOBS < ed_batch.CPU_MIN_JOBS
 
 
+@pytest.mark.parametrize("lo,hi", [(80, 110), (100, 300)])
+def test_ab_jobs_are_batched_and_equal_host(lo, hi):
+    # the A/B script's and phase 9's jobs: all go to the kernel, whose plain
+    # version equals host Myers on them
+    from genefuserust_tpu_torch.profiling.ed_ab import ed_jobs
+
+    jobs = ed_jobs(40, seed=3, lo=lo, hi=hi)
+    assert all(lo <= len(a) <= hi for a, _ in jobs)
+    assert any(a != b for a, b in jobs)
+    host, arrays = ed_batch.encode_jobs(jobs)
+    assert not host.any()
+    args = [torch.from_numpy(x) for x in arrays]
+    got = ted.edit_distance_batch(*args, args[0].shape[1] // 32)
+    assert got.tolist() == [edit_distance(a, b) for a, b in jobs]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -189,12 +334,29 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", ["random_300", "carries_and_empty"])
+@pytest.mark.parametrize("workload", ["random_300", "carries_and_empty", "edges"])
 @pytest.mark.parametrize("W_extra", [0, 3, 20])
 def test_ed_kernel_matches_plain(workload, W_extra, cuda_device):
-    pairs = _random_pairs() if workload == "random_300" else _carry_pairs()
+    pairs = {"random_300": _random_pairs, "carries_and_empty": _carry_pairs,
+             "edges": _edge_pairs}[workload]()
     pc, pl, tc, tl, W = _encode(pairs)
     W += W_extra
+    cpu = [torch.from_numpy(x) for x in (pc, pl, tc, tl)]
+    got = ted.edit_distance_batch(*(x.to(cuda_device) for x in cpu), W)
+    assert torch.equal(got.cpu(), ted.edit_distance_batch(*cpu, W))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [*range(1, 11), 31, 32])
+def test_ed_kernel_matches_plain_at_every_word_count(W, cuda_device):
+    rng = np.random.default_rng(W)
+    rnd = lambda L: "".join(BASES[i] for i in rng.integers(0, 5, L))
+    top = 32 * W
+    lens = sorted({1, 31, 32, 33, 63, 64, 65, top - 1, top} & set(range(1, top + 1)))
+    pairs = [(rnd(la), rnd(lb)) for la in lens for lb in (1, la // 2 + 1, la + 9)]
+    pairs += [("", rnd(5)), (rnd(5), "")] * 40
+    pc, pl, tc, tl, _ = _encode(pairs, Lp=top, Lt=top + 20)
+    tl[::7] += 25  # texts longer than their rows
     cpu = [torch.from_numpy(x) for x in (pc, pl, tc, tl)]
     got = ted.edit_distance_batch(*(x.to(cuda_device) for x in cpu), W)
     assert torch.equal(got.cpu(), ted.edit_distance_batch(*cpu, W))

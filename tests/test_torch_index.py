@@ -136,3 +136,30 @@ def test_engine_builds_with_the_port_builder(indexers, monkeypatch):
     e = eng._table_entry(m)
     assert eng._table_entry(m) is e and e["mapper"] is m
     assert e["packed"].kv_tbl.shape[1] == 2 and eng.table_seconds > 0
+
+
+@pytest.mark.parametrize("panel", ["make_panel", "dupes"])
+@pytest.mark.parametrize("layout", ["kv2", "kv4", "kv8"])
+def test_kv_tables_hold_each_key_in_one_slot_of_its_two_rows(indexers, panel, layout):
+    # the invariant that makes the probe's h1-first lookup equal to the
+    # plain version's p1 | p2: each panel key matches exactly one slot
+    # across its h1 and h2 rows, and every empty slot holds the sentinel
+    # with payload 0
+    from genefuserust_tpu_torch.ops.hashtable import _entries_from_indexer
+
+    p = tindex.build_packed_index(indexers[panel], layout=layout)
+    S = p.kv_tbl.shape[1] // 2
+    keys = np.unique(_entries_from_indexer(indexers[panel])[0].astype(np.uint32))
+    tkeys, pay = p.kv_tbl[:, :S], p.kv_tbl[:, S:]
+    sentinel = np.uint32(p.empty_key).view(np.int32)
+    ki = keys.view(np.int32)[:, None]
+    b1 = hashtable.h1_np(keys, p.shift)
+    b2 = hashtable.h2_np(keys, p.shift)
+    n1 = (tkeys[b1] == ki).sum(1)
+    n2 = np.where(b2 != b1, (tkeys[b2] == ki).sum(1), 0)
+    assert ((n1 + n2) == 1).all()
+    empty = tkeys == sentinel
+    assert (pay[empty] == 0).all()
+    assert (pay[~empty] != 0).all()
+    assert int((~empty).sum()) == len(keys)
+    assert not (keys == np.uint32(p.empty_key)).any()

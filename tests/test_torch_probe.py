@@ -1,7 +1,12 @@
 """The port's table probe (kernel 1's plain version) against the JAX
 package: `pallas_lookup` in interpret mode for the split layout, and
-`kv_lookup` / `hash_lookup` for the kv2, kv4, kv8 and split tables. All
-outputs are integers, so equal means bit-equal."""
+`kv_lookup` / `hash_lookup` for the kv2, kv4, kv8 and split tables. A
+Python mirror of the kernel's steps (code rows staged as 2-bit words and a
+255 mask, k-mers read across two words, h1 first, Q queries a thread) is
+held to the same references on edge rows and edge queries. All outputs are
+integers, so equal means bit-equal."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -20,6 +25,9 @@ from genefuserust_tpu.ops.hashtable import (
     pack_index_kvs,
 )
 from genefuserust_tpu.utils.synthetic import make_panel, write_panel_files
+from genefuserust_tpu_torch.config import KMER
+from genefuserust_tpu_torch.core.sequence import encode_bases
+from genefuserust_tpu_torch.ops import cuda as tcuda
 from genefuserust_tpu_torch.ops import map_read as tm
 from genefuserust_tpu_torch.ops.index import index_to_torch
 
@@ -170,6 +178,261 @@ def test_probe_wrapper_checks_inputs(indexer):
         tm.probe(codes[:, ::2], torch.zeros(4, dtype=torch.int32), 2, index)
 
 
+# ---------------- a mirror of the kernel's steps (csrc/probe.cu) ----------------
+
+M32 = 0xFFFFFFFF
+
+
+def _h1(k, shift):
+    return ((k * 0x9E3779B1) & M32) >> shift
+
+
+def _h2(k, shift):
+    return (((k ^ (k >> 15)) * 0x85EBCA6B + 0xC2B2AE35) & M32) >> shift
+
+
+def _mirror_lookup(index, k, valid):
+    """The kernel's lookup of uint64 k-mers: the h1 row of every valid
+    query, the h2 row only of the valid queries whose key is not in h1,
+    then (split) the vals of the slot -> ((n, 2) int32, rows loaded)."""
+    tbl, S = index.table.numpy(), index.S
+    ki = k.astype(np.uint32).view(np.int32)[:, None]
+    b1, b2 = (h(k, index.shift).astype(np.int64) for h in (_h1, _h2))
+    r1 = tbl[np.where(valid, b1, 0)]
+    m1 = r1[:, :S] == ki
+    need2 = valid & ~m1.any(1)
+    r2 = tbl[np.where(need2, b2, 0)]
+    m2 = r2[:, :S] == ki
+    rows = int(valid.sum() + need2.sum())
+    if index.split:
+        # first matching slot, h1's row unless the key was not there
+        m = np.where(need2[:, None], m2, m1)
+        found = valid & m.any(1)
+        flat = np.where(need2, b2, b1) * S + m.argmax(1)
+        v = index.vals.numpy()[np.where(found, flat, 0)]
+        c = np.where(found, v[:, 0], EMPTY)
+        pos = np.where(found, v[:, 1], 0)
+        return np.stack([c, pos], 1).astype(np.int32), rows
+    pay1 = np.where(m1, r1[:, S:].astype(np.int64) & M32, 0).sum(1) & M32
+    pay2 = np.where(m2, r2[:, S:].astype(np.int64) & M32, 0).sum(1) & M32
+    pay = torch.from_numpy(np.where(need2, pay2, pay1))
+    c, pos = tm._decode(pay, index.cbits, index.pos_bias)
+    v = torch.from_numpy(valid)
+    out = torch.stack([torch.where(v, c, EMPTY), torch.where(v, pos, 0)], 1)
+    return out.numpy(), rows
+
+
+def _stage(flat, c0, nch):
+    """Chunks c0 .. c0+nch-1 of 16 code bytes -> (2-bit bases, first base
+    highest; 255 mask, first base in bit 15), as uint64. Bytes past the
+    end read as 255."""
+    at = (c0 + np.arange(nch))[:, None] * 16 + np.arange(16)
+    b = np.where(at < len(flat), flat[np.minimum(at, len(flat) - 1)], 255).astype(np.uint64)
+    bad = b == 255
+    code = np.where(bad, 0, b & 3)
+    pk = (code << (2 * (15 - np.arange(16, dtype=np.uint64)))).sum(1)
+    mk = (bad.astype(np.uint64) << (15 - np.arange(16, dtype=np.uint64))).sum(1)
+    return pk, mk
+
+
+def _kernel_probe(codes, lengths, stride, index, T=64, Q=4):
+    """Mirror of the kernel over (B, W) code rows: tiles of T*Q queries,
+    thread t's i-th query q0 + i*T + t; the tile's rows staged once as
+    2-bit words, each k-mer the 32 bits at its offset across two words and
+    valid when its window holds no 255 bit and j <= len - 16 ->
+    ((B, NQ, 2) int32, rows loaded)."""
+    B, W = codes.shape
+    NQ = (W - KMER + stride) // stride
+    n, flat = B * NQ, codes.reshape(-1)
+    out, loaded = np.zeros((n, 2), np.int32), 0
+    for q0 in range(0, n, T * Q):
+        ra, rb = q0 // NQ, (min(n, q0 + T * Q) - 1) // NQ
+        c0 = ra * W >> 4
+        pk, mk = _stage(flat, c0, (((rb + 1) * W + 15) >> 4) - c0 + 1)
+        q = (q0 + np.arange(Q)[:, None] * T + np.arange(T)).reshape(-1)
+        q = q[q < n]
+        row = q // NQ
+        j = (q - row * NQ) * stride
+        g = row * W + j - c0 * 16
+        c, o = g >> 4, (g & 15).astype(np.uint64)
+        k = (((pk[c] << np.uint64(32)) | pk[c + 1]) >> (np.uint64(32) - 2 * o)) & M32
+        bad = ((((mk[c] << np.uint64(16)) | mk[c + 1]) << o) & M32) >> np.uint64(16)
+        valid = (bad == 0) & (j <= lengths[row].astype(np.int64) - KMER)
+        out[q], rows = _mirror_lookup(index, k, valid)
+        loaded += rows
+    return out.reshape(B, NQ, 2), loaded
+
+
+def _rows_needed(index, codes, lengths, stride):
+    """Rows a lookup needs, from the plain version: one per valid k-mer
+    whose key lies in its h1 row, two for any other."""
+    km, ok = tm.compute_kmers(torch.from_numpy(codes), torch.from_numpy(lengths))
+    k = km[:, ::stride][ok[:, ::stride]]
+    b1, _ = tm.buckets(k, index.shift)
+    in_h1 = (index.table[b1][:, : index.S] == tm._i32(k)[:, None]).any(1)
+    return int(2 * k.shape[0] - in_h1.sum())
+
+
+def _edge_codes(ix, W=45, seed=8):
+    """Code rows: a single 255 at every position, lengths 0, 15, 16, 17
+    and W, all-T rows (k-mers >= 2^31), rows of panel sequence (hits,
+    dupes) and random rows with 255s. W = 45 keeps rows off the 16-byte
+    chunk grid."""
+    rng = np.random.default_rng(seed)
+    rows, lens = [], []
+    panel = dupe_panel()
+    seqs = [panel.contigs[chrom][start:end] for _, chrom, start, end in panel.genes]
+    for p in range(W):
+        r = encode_bases(seqs[p % len(seqs)][40 * p : 40 * p + W])
+        r[p] = 255
+        rows.append(r)
+        lens.append(W)
+    for L in (0, 15, 16, 17, W):
+        rows.append(encode_bases(seqs[0][1000 + L : 1000 + L + W]))
+        lens.append(L)
+    rows.append(np.full(W, 3, np.uint8))
+    lens.append(W)
+    for _ in range(60):
+        s = seqs[int(rng.integers(0, len(seqs)))]
+        at = int(rng.integers(0, len(s) - W))
+        rows.append(encode_bases(s[at : at + W]))
+        lens.append(int(rng.integers(KMER, W + 1)))
+    rnd = rng.integers(0, 4, (40, W), dtype=np.uint8)
+    rnd[rng.random(rnd.shape) < 0.03] = 255
+    rows += list(rnd)
+    lens += rng.integers(0, W + 1, 40).tolist()
+    return np.stack(rows).astype(np.uint8), np.asarray(lens, np.int32)
+
+
+def _edge_queries(ix, packed, seed=9):
+    """Flat uint32 queries: real keys, random ones (half >= 2^31), the
+    absent-key sentinel, keys placed in h2 while their h1 row is full,
+    and keys with h1 == h2 (in the table or not) -> (packed, queries,
+    names). Where no key in h2 has a full h1 row (the split layout's
+    8-slot rows at this load), the empty slots of 50 such h1 rows are
+    filled with keys absent from the panel, in a copy of the table."""
+    rng = np.random.default_rng(seed)
+    index = index_to_torch(packed, "cpu")
+    tbl, S = index.table.numpy(), index.S
+    keys = np.asarray(ix.uniq_keys).astype(np.uint64)
+    sentinel = np.uint64(packed.empty_key)
+    b1, b2 = _h1(keys, index.shift), _h2(keys, index.shift)
+    ki = keys.astype(np.uint32).view(np.int32)[:, None]
+    in_h1 = (tbl[b1][:, :S] == ki).any(1)
+    empty = np.int64(sentinel).astype(np.uint32).view(np.int32)
+    h1_full = (tbl[b1][:, :S] != empty).all(1)
+    if not (~in_h1 & h1_full).any():
+        assert packed.keys_tbl is not None  # the split layout
+        kt = packed.keys_tbl.copy()
+        fresh = np.setdiff1d(rng.integers(0, 2**32, 4096, dtype=np.uint64), keys)
+        fresh = fresh[fresh != sentinel].astype(np.uint32).view(np.int32)
+        rows = np.unique(b1[~in_h1])[:50]
+        slots = kt[rows] == empty
+        kt[rows[np.nonzero(slots)[0]], np.nonzero(slots)[1]] = fresh[: slots.sum()]
+        packed = dataclasses.replace(packed, keys_tbl=kt)
+        tbl = kt
+        h1_full = (tbl[b1][:, :S] != empty).all(1)
+    rnd = rng.integers(0, 2**32, 200000, dtype=np.uint64)
+    same = rnd[_h1(rnd, index.shift) == _h2(rnd, index.shift)]
+    groups = {
+        "real": rng.choice(keys, 500),
+        "random": rnd[:500],
+        "sentinel": np.array([sentinel] * 3, np.uint64),
+        "h2_with_h1_full": keys[~in_h1 & h1_full][:200],
+        "h1_equals_h2": np.concatenate([keys[b1 == b2], same[:50]]),
+    }
+    for name in ("h2_with_h1_full", "h1_equals_h2"):
+        assert len(groups[name]), name
+    names = np.concatenate([[k] * len(v) for k, v in groups.items()])
+    return packed, np.concatenate(list(groups.values())).astype(np.uint64), names
+
+
+def _packed(ix, layout):
+    return pack_index(ix) if layout == "split" else pack_index_kv(ix, **KV_LAYOUTS[layout])
+
+
+def _jax_lookup(packed, layout, k, valid):
+    import jax.numpy as jnp
+
+    from genefuserust_tpu.ops.map_read import hash_lookup, kv_lookup
+
+    if layout == "split":
+        c, p = hash_lookup((jnp.asarray(packed.keys_tbl), jnp.asarray(packed.vals_tbl)),
+                           packed.shift, jnp.asarray(k), jnp.asarray(valid))
+    else:
+        c, p = kv_lookup(jnp.asarray(packed.kv_tbl), packed.shift, packed.cbits,
+                         packed.pos_bias, jnp.asarray(k), jnp.asarray(valid))
+    return np.asarray(c), np.asarray(p)
+
+
+def _assert_like_jax(got, c, p):
+    """Contig everywhere; pos where JAX found a hit (JAX leaves an invalid
+    kv query's pos as its row-0 probe decoded, the port reports 0)."""
+    assert (got[..., 0] == c).all()
+    hit = c != EMPTY
+    assert (got[..., 1][hit] == p[hit]).all()
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("layout", ["split", *sorted(KV_LAYOUTS)])
+def test_kernel_mirror_matches_jax_on_edge_rows(indexer, layout, stride):
+    import jax.numpy as jnp
+
+    from genefuserust_tpu.ops.map_read import compute_kmers
+
+    packed = _packed(indexer, layout)
+    index = index_to_torch(packed, "cpu")
+    codes, lengths = _edge_codes(indexer)
+    for T, Q in ((32, 1), (64, 4), (32, 8)):
+        got, loaded = _kernel_probe(codes, lengths, stride, index, T, Q)
+        plain = tm.probe_plain(torch.from_numpy(codes), torch.from_numpy(lengths), stride, index)
+        assert np.array_equal(got, plain.numpy())
+        # h2 rows only for the valid k-mers whose key is not in h1
+        assert loaded == _rows_needed(index, codes, lengths, stride)
+    km, ok = compute_kmers(jnp.asarray(codes), jnp.asarray(lengths))
+    c, p = _jax_lookup(packed, layout, km[:, ::stride], ok[:, ::stride])
+    _assert_like_jax(got, c, p)
+    # every kind of result is exercised
+    assert (c >= 0).any() and (c == -1).any() and (c == EMPTY).any()
+
+
+@pytest.mark.parametrize("layout", ["split", *sorted(KV_LAYOUTS)])
+def test_kernel_mirror_matches_jax_on_edge_queries(indexer, layout):
+    packed, q, names = _edge_queries(indexer, _packed(indexer, layout))
+    index = index_to_torch(packed, "cpu")
+    valid = np.random.default_rng(10).random(q.shape) < 0.9
+    valid[names != "random"] = True
+    got, loaded = _mirror_lookup(index, q, valid)
+    c, p = _jax_lookup(packed, layout, q.astype(np.uint32), valid)
+    _assert_like_jax(got, c, p)
+    flat = tm.probe_kmers(torch.from_numpy(q.astype(np.uint32).view(np.int32)),
+                          torch.from_numpy(valid), index)
+    assert np.array_equal(got, flat.numpy())
+    assert (got[names == "sentinel", 0] == EMPTY).all()
+    assert (got[names == "h2_with_h1_full", 0] != EMPTY).all()
+    assert (q >= 2**31).any()
+    if layout == "split":
+        from genefuserust_tpu.ops.pallas_lookup import TILE, pallas_lookup
+        import jax.numpy as jnp
+
+        pad = np.zeros(-len(q) % TILE, np.uint64)
+        qq = np.concatenate([q, pad]).astype(np.uint32).view(np.int32)
+        exp = np.asarray(pallas_lookup(jnp.asarray(qq), jnp.asarray(packed.keys_tbl),
+                                       jnp.asarray(packed.vals_tbl), packed.shift,
+                                       interpret=True))[: len(q)]
+        assert np.array_equal(got[valid], exp[valid])
+
+
+def test_variant_builds_are_named_apart():
+    # a launch-shape sweep builds probe.cu with -D overrides beside the
+    # port's library, never in its place
+    base = tcuda.library_path()
+    variant = tcuda.library_path(("probe.cu",), ("PROBE_Q=2", "PROBE_POLICY=0"))
+    assert variant != base
+    assert variant != tcuda.library_path(("probe.cu",), ("PROBE_Q=2", "PROBE_POLICY=1"))
+    assert variant == tcuda.library_path(("probe.cu",), ("PROBE_Q=2", "PROBE_POLICY=0"))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -180,8 +443,7 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["split", *sorted(KV_LAYOUTS)])
 def test_probe_kernel_matches_plain(indexer, layout, cuda_device):
-    packed = (pack_index(indexer) if layout == "split"
-              else pack_index_kv(indexer, **KV_LAYOUTS[layout]))
+    packed = _packed(indexer, layout)
     rng = np.random.default_rng(6)
     codes = rng.integers(0, 4, (300, 192), dtype=np.uint8)
     codes[rng.random(codes.shape) < 0.01] = 255
@@ -189,12 +451,39 @@ def test_probe_kernel_matches_plain(indexer, layout, cuda_device):
     q = _queries(indexer, 5000, seed=7)
     valid = rng.random(q.shape) < 0.9
     cpu, dev = index_to_torch(packed, "cpu"), index_to_torch(packed, cuda_device)
+    ecodes, elens = _edge_codes(indexer)
+    epacked, eq, _ = _edge_queries(indexer, packed)
+    for c, ln in ((codes, lengths), (ecodes, elens)):
+        for stride in (1, 2):
+            exp = tm.probe(torch.from_numpy(c), torch.from_numpy(ln), stride, cpu)
+            got = tm.probe(torch.from_numpy(c).to(cuda_device),
+                           torch.from_numpy(ln).to(cuda_device), stride, dev)
+            assert torch.equal(got.cpu(), exp)
+    for p, qq, vv in ((packed, q, valid), (epacked, eq, np.ones(len(eq), bool))):
+        args = (torch.from_numpy(_as_i32(qq)), torch.from_numpy(vv))
+        exp = tm.probe_kmers(*args, index_to_torch(p, "cpu"))
+        got = tm.probe_kmers(*(a.to(cuda_device) for a in args), index_to_torch(p, cuda_device))
+        assert torch.equal(got.cpu(), exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["split", *sorted(KV_LAYOUTS)])
+def test_probe_kernel_loads_the_rows_needed(indexer, layout, cuda_device):
+    # the kernel's own count of its table row loads: h2 only for keys not in h1
+    packed = _packed(indexer, layout)
+    cpu, dev = index_to_torch(packed, "cpu"), index_to_torch(packed, cuda_device)
+    codes, lengths = _edge_codes(indexer)
+    c_d, l_d = torch.from_numpy(codes).to(cuda_device), torch.from_numpy(lengths).to(cuda_device)
     for stride in (1, 2):
         exp = tm.probe(torch.from_numpy(codes), torch.from_numpy(lengths), stride, cpu)
-        got = tm.probe(torch.from_numpy(codes).to(cuda_device),
-                       torch.from_numpy(lengths).to(cuda_device), stride, dev)
-        assert torch.equal(got.cpu(), exp)
-    args = (torch.from_numpy(_as_i32(q)), torch.from_numpy(valid))
-    exp = tm.probe_kmers(*args, cpu)
-    got = tm.probe_kmers(*(a.to(cuda_device) for a in args), dev)
-    assert torch.equal(got.cpu(), exp)
+        B, W = codes.shape
+        NQ = exp.shape[1]
+        out = torch.empty((B, NQ, 2), dtype=torch.int32, device=cuda_device)
+        loads = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+        tcuda.launch_probe(c_d, l_d, None, None, B * NQ, W, stride, NQ, dev, out, row_loads=loads)
+        assert torch.equal(out.cpu(), exp)
+        assert int(loads) == _rows_needed(cpu, codes, lengths, stride)
+    # a row-offset view of the codes is refused on the card
+    wide = torch.zeros((4, 45), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        tm.probe(wide[1:], torch.zeros(3, dtype=torch.int32, device=cuda_device), 1, dev)
