@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (genefuserust_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--probe-sweep]
+    python3 chip_smoke.py [--seed N] [--probe-sweep | --gather-sweep]
 
 Phases, one result line each; any failure raises and exits non-zero:
 
@@ -53,6 +53,11 @@ name/power line and the contract line {"ok": true, "device": {...}}.
 phase 3's batch (queries a thread x table-row cache policy x block size,
 each shape a build of csrc/probe.cu with -D overrides, each held
 bit-equal to plain), prints it and stops: no contract line.
+--gather-sweep runs phases 1-3, then the gather's launch-shape sweep
+(blocks a tile x row loads a thread: at (a2) for rows narrower than 16
+bytes, at (b) and at rows of 256, 512 and 1,024 int32 for rows of whole
+16 bytes; each shape a build of csrc/gather_sum.cu with -D overrides,
+each held bit-equal to plain), prints it and stops: no contract line.
 Imports torch, numpy and the port (genefuserust_tpu_torch) only: nothing
 of jax, of the JAX package (genefuserust_tpu) or of bench.py; its reads
 come from the port's copy of the generator (utils/synthetic.gen_block).
@@ -82,13 +87,24 @@ ORACLE_PAIRS = 4_096
 RICH_PAIRS = 8_192
 ED_JOBS = 65_536
 # kernels the build compiles: probe 4 (kv2, kv4, kv8, split), vote,
-# mask_segments, gather_sum 3 (vector widths), edit_distance 1
-N_COMPILED = 10
+# mask_segments 2 (kv, split), gather_sum 3 (vector widths), edit_distance 1
+N_COMPILED = 11
 # the probe's launch-shape sweep (--probe-sweep): queries a thread, table-row
 # cache policy (PROBE_POLICY in csrc/probe.cu), threads a block
 PROBE_SWEEP_Q = (1, 2, 4, 8)
 PROBE_POLICIES = ("nc", "cg", "nc_l1_no_allocate")
 PROBE_SWEEP_THREADS = (128, 256, 512)
+# the gather's launch-shape sweep (--gather-sweep): blocks a tile x row
+# loads a thread, for the narrow rows' shape at (a2) and for the wide rows'
+# at the TPU ring tool's row widths (whole 128 int32; 128 is (b)), each on
+# a 2 GiB table
+GATHER_SWEEP_BLOCKS = (1, 2, 4, 8)
+GATHER_SWEEP_LOADS = (4, 8, 16, 32)
+GATHER_SWEEP_WIDTHS = (128, 256, 512, 1024)
+GATHER_SWEEP_TABLE_BYTES = 1 << 31
+# phase 3 times mask+segments again on its survivors padded to this width,
+# past the engine's widest lane for 150-base pairs (Wcap 288)
+MASK_WIDE = 320
 # the kernels of the scan path (phases 5, 11, 12)
 SCAN_KERNELS = ("probe", "vote", "mask_segments")
 SWEEP_MAX_JOBS = 4096
@@ -519,6 +535,20 @@ def phase_kernels(data: dict) -> dict:
         two_segment_rows=int((seg[:, 0] & seg[:, 1]).sum()), ms=f"{ms:.4f}",
         plain_ms=f"{pms:.4f}", bound_ms=f"{rec['mask_segments']['bound_ms']:.5f}",
         bound_by=rec["mask_segments"]["bound_by"], max_abs_err=err)
+    # the same survivors, their code rows padded with 255 to MASK_WIDE: the
+    # k-mers past a read are invalid, so the rows equal width 192's
+    wide = torch.full((scodes.shape[0], MASK_WIDE), 255, dtype=torch.uint8, device=dev)
+    wide[:, : scodes.shape[1]] = scodes
+    prw = tm.probe(wide, slens, 1, index)
+    segw, errw, msw, pmsw = _timed_pair(
+        f"mask_segments (width {MASK_WIDE})", lambda: tm.mask_segments(prw, slens, gp, index, 10),
+        lambda: tm.mask_segments_plain(prw, slens, gp, index, 10))
+    check(torch.equal(segw, seg), f"mask_segments at width {MASK_WIDE} differs from width 192's")
+    rec["mask_segments"]["err"] = max(err, errw)
+    rec["mask_segments"]["wide"] = dict(width=MASK_WIDE, ms=round(msw, 6), plain_ms=round(pmsw, 6))
+    say("3 kernels", kernel="mask_segments", rows=segw.shape[0], width=MASK_WIDE, ms=f"{msw:.4f}",
+        plain_ms=f"{pmsw:.4f}", equal_to_width_192=True, max_abs_err=errw)
+    del wide, prw
 
     # the other table layouts, on a small panel
     panel = make_panel(seed=data["seed"])
@@ -616,6 +646,80 @@ def sweep_probe(codes, lens, index, exp, reps=40) -> dict:
         torch.cuda.synchronize()
         check(torch.equal(out, exp), f"probe at shape {(q, pol, t)} differs from plain")
         res[f"{q},{PROBE_POLICIES[pol]},{t}"] = event_ms(run, reps)
+    return res
+
+
+def probe_gather_rows(pb) -> dict:
+    """Phase 3's batch (stride 2) on the kv2 table, in query order, as
+    gather rows: (a1) h1 and h2 of every valid k-mer, what a probe that
+    loads both rows reads; (a2) the rows the lookup needs, h1 of every
+    valid k-mer and h2 only where the key is not in h1. The last tile is
+    topped up with the first rows -> {case: (indices, rows)}."""
+    import torch
+
+    from genefuserust_tpu_torch.profiling import gather_floor as gf
+
+    r = pb["rows"]
+    h2 = torch.where(r["in_h1_mask"], -1, r["b2"])
+    out = {}
+    for case, pairs in (("a1 both rows", torch.stack([r["b1"], r["b2"]], 1)),
+                        ("a2 rows needed", torch.stack([r["b1"], h2], 1))):
+        rows = pairs.reshape(-1)
+        rows = rows[rows >= 0].to(torch.int32)
+        n_rows = rows.shape[0]
+        check(n_rows == (2 * r["valid"] if case[:2] == "a1" else r["rows"]),
+              f"gather ({case}): row count differs from phase 3's")
+        out[case] = torch.cat([rows, rows[: (-n_rows) % gf.TILE]]).contiguous(), n_rows
+    return out
+
+
+def sweep_gather(data: dict, reps=40) -> dict:
+    """The gather at every launch shape of the sweep (blocks a tile x row
+    loads a thread), each a build of csrc/gather_sum.cu with -D overrides,
+    all built at once, each held bit-equal to the plain version: the narrow
+    rows' shape at (a2), the wide rows' at (b) and the wider rows ->
+    {case: {"blocks,loads": mean ms}}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.profiling import gather_floor as gf
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
+
+    shapes = {kind: [(f"{c},{u}", (f"GATHER_{kind}_BLOCKS={c}", f"GATHER_{kind}_LOADS={u}"))
+                     for c in GATHER_SWEEP_BLOCKS for u in GATHER_SWEEP_LOADS]
+              for kind in ("NARROW", "WIDE")}
+    builds = [d for kind in shapes.values() for _, d in kind]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 4) as ex:
+        paths = dict(zip(builds, ex.map(lambda d: cuda.build(("gather_sum.cu",), d), builds)))
+    say("8 gather", sweep_builds=len(paths), build_s=f"{time.perf_counter() - t0:.1f}")
+    pb = data["probe_batch"]
+    inputs = {"a2": ("NARROW", lambda: (probe_gather_rows(pb)["a2 rows needed"][0],
+                                        pb["index"].table))}
+    for w in GATHER_SWEEP_WIDTHS:  # (b), as phase 8 makes it, at W 128
+        inputs["b" if w == 128 else f"W {w}"] = ("WIDE", lambda w=w: gf.random_inputs(
+            GATHER_SWEEP_TABLE_BYTES // (4 * w), w, 1 << 17, seed=1))
+    res = {}
+    for case, (kind, make) in inputs.items():
+        idx, tbl = make()
+        exp = gf.tile_row_sums(idx, tbl)
+        out = torch.empty_like(exp)
+        res[case] = {}
+        for name, defines in shapes[kind]:
+            lib = cuda.load(paths[defines])
+
+            def run():
+                cuda.launch_gather_tile_sums(idx, tbl, 1, out, lib=lib)
+
+            out.fill_(0)
+            run()
+            torch.cuda.synchronize()
+            check(torch.equal(out, exp), f"gather ({case}) at shape {name} differs from plain")
+            res[case][name] = event_ms(run, reps)
+        del idx, tbl, exp, out
+        torch.cuda.empty_cache()
     return res
 
 
@@ -816,15 +920,7 @@ def phase_gather(data: dict) -> dict:
     pb = data.pop("probe_batch")
     r = pb["rows"]
     tbl = pb["index"].table
-    h2 = torch.where(r["in_h1_mask"], -1, r["b2"])
-    for case, pairs in (("a1 both rows", torch.stack([r["b1"], r["b2"]], 1)),
-                        ("a2 rows needed", torch.stack([r["b1"], h2], 1))):
-        rows = pairs.reshape(-1)
-        rows = rows[rows >= 0].to(torch.int32)
-        n_rows = rows.shape[0]
-        check(n_rows == (2 * r["valid"] if case[:2] == "a1" else r["rows"]),
-              f"gather ({case}): row count differs from phase 3's")
-        rows = torch.cat([rows, rows[: (-n_rows) % gf.TILE]]).contiguous()
+    for case, (rows, n_rows) in probe_gather_rows(pb).items():
         a = gf.measure(rows, tbl)
         say("8 gather", case=case, table=tuple(tbl.shape), rows=n_rows,
             valid_kmers=r["valid"], tiles=rows.shape[0] // gf.TILE, floor_ms=f"{a['ms']:.4f}",
@@ -833,7 +929,7 @@ def phase_gather(data: dict) -> dict:
             ns_per_row=f"{a['ns_per_row']:.4f}", rows_per_s=f"{a['rows_per_s']:.4g}",
             requested_GBps=f"{a['requested_bytes_per_s'] / 1e9:.2f}",
             sector_GBps=f"{a['sector_bytes_per_s'] / 1e9:.2f}", max_abs_err=a["max_abs_err"])
-    del pb, r, rows, tbl, h2
+    del pb, r, rows, tbl
     # (b), (c): the entry point at the TPU kernels' shapes, on the card;
     # every launch counted is one this path made
     cuda.reset_launches()
@@ -1148,8 +1244,11 @@ def phase_single(data: dict, smi_line: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--probe-sweep", action="store_true",
-                    help="phases 1-3 and the probe's launch-shape sweep, then stop")
+    sweeps = ap.add_mutually_exclusive_group()
+    sweeps.add_argument("--probe-sweep", action="store_true",
+                        help="phases 1-3 and the probe's launch-shape sweep, then stop")
+    sweeps.add_argument("--gather-sweep", action="store_true",
+                        help="phases 1-3 and the gather's launch-shape sweep, then stop")
     args = ap.parse_args(argv)
     import torch
 
@@ -1185,7 +1284,14 @@ def main(argv=None) -> int:
                     mapper=mapper, blk=blk, block=block, log=log,
                     probe_sweep=args.probe_sweep)
         rec = phase_kernels(data)
-        if args.probe_sweep:
+        if args.gather_sweep:
+            for case, res in sweep_gather(data).items():
+                best = min(res, key=res.get)
+                say("8 gather", case=case, sweep="blocks a tile, row loads a thread",
+                    sweep_ms=json.dumps({k: round(v, 4) for k, v in res.items()},
+                                        separators=(",", ":")),
+                    best=repr(best), best_ms=f"{res[best]:.4f}", equal=True)
+        if args.probe_sweep or args.gather_sweep:
             print(smi_line)
             return 0
         phase_golden(data)
@@ -1217,7 +1323,7 @@ def main(argv=None) -> int:
                                 main_path_flushes=data["ed_main"],
                                 fusion_rich_launches=rich_launches["edit_distance"])
     launches = dict(launches, gather_sum=gather["launches"])
-    extra = ("shape", "rows_needed", "rows_loaded", "h1_hit_share", "main_path_flushes",
+    extra = ("shape", "wide", "rows_needed", "rows_loaded", "h1_hit_share", "main_path_flushes",
              "fusion_rich_launches")
     kernels = [
         dict(name=k, route="cuda", source=f"genefuserust_tpu_torch/csrc/{k}.cu",

@@ -200,11 +200,13 @@ def launch_mask_segments(pr, lengths, gp, B, NK, index, mismatch_thr, out) -> No
     _done("mask_segments", err)
 
 
-def launch_gather_tile_sums(idx, tbl, lanes: int, out) -> None:
+def launch_gather_tile_sums(idx, tbl, lanes: int, out, lib=None) -> None:
+    """`lib`: a variant build of gather_sum.cu (a launch-shape sweep), else
+    the port's library."""
     if tbl.data_ptr() % 16:
         raise ValueError("gather_tile_sums: table rows must be 16-byte aligned")
     with torch.cuda.device(out.device):
-        err = library().gf_gather_tile_sums(
+        err = (lib or library()).gf_gather_tile_sums(
             idx.data_ptr(), tbl.data_ptr(), out.shape[0], tbl.shape[1], lanes,
             out.data_ptr(), _stream(out),
         )

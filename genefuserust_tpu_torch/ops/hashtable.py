@@ -241,10 +241,11 @@ def _entries_from_indexer(indexer):
     # panel is nil — its true max dupe count (5) already rounds to 8 —
     # and BENCH_r05 records the re-measurement on normalized shapes.
     max_dupe = max(max_dupe, min(8, 1 << (int(thr) - 1).bit_length()))
-    # dupe-row count is a traced SHAPE: floor 2048 + even pow2 exponent —
+    # dupe-row count is a traced SHAPE: floor 4096 + even pow2 exponent —
     # real panel splits spread n_dup across 128..2048 (round 5: part of 8
-    # distinct table signatures = 810 s of multi-CSV warmup); the floor
-    # costs at most 64 KB per table
+    # distinct table signatures = 810 s of multi-CSV warmup); at the usual
+    # max_dupe of 8 the floor's 4096 rows of (contig, pos) pairs are
+    # 256 KB, held only by the split layout (the kv packers keep n_dup rows)
     nd_rows = max(4096, 1 << (max(1, n_dup) - 1).bit_length())
     if (nd_rows.bit_length() - 1) & 1:
         nd_rows *= 2

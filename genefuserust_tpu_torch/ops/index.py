@@ -26,6 +26,7 @@ their fields by name), which is how the tests carry them across.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 
 import numpy as np
@@ -44,6 +45,8 @@ from .hashtable import (
     _kv_budget,
     _place_2choice,
 )
+
+log = logging.getLogger("genefuse")
 
 SINGLE_PROBE_REFUSAL = ("the kvs and kv16 single-probe table layouts are not ported; "
                         "use kv2, kv4, kv8 or split")
@@ -72,7 +75,10 @@ def _sentinel_keys(table: np.ndarray):
 def _pack_kv(indexer, target_load: float = 0.9, slots: int = KV_SLOTS,
              max_buckets: int = 1 << 27):
     """The reference's `pack_index_kv` with `absent_key`: the kv rows, or
-    None when the panel exceeds the payload bit budget or the row cap."""
+    None when the panel exceeds the payload bit budget or the row cap.
+    Where the reference's rounding of the bucket count to an even power of
+    two alone passes `max_buckets`, the layout is given up as there, and a
+    warning names it."""
     keys, contigs, poss, dupes, max_dupe = _entries_from_indexer(indexer)
     budget = _kv_budget(contigs, poss, dupes, max_dupe)
     if budget is None:
@@ -84,6 +90,9 @@ def _pack_kv(indexer, target_load: float = 0.9, slots: int = KV_SLOTS,
         nb *= 2
     if (nb.bit_length() - 1) & 1:
         nb *= 2
+        if nb // 2 <= max_buckets < nb:
+            log.warning("kv%d table layout given up: %d buckets round up to %d, above "
+                        "max_buckets %d", 2 * slots, nb // 2, nb, max_buckets)
     table = None
     while nb <= max_buckets:
         shift = 32 - int(round(np.log2(nb)))

@@ -40,6 +40,9 @@ MAX_VOTE_KEYS = 16384  # per-row candidate slots (NS * D, rounded up) of the vot
 # valid candidates a row may hold on the vote kernel's warp path (WARP_CAP
 # in csrc/vote.cu)
 VOTE_WARP_KEYS = 256
+# widest code row the mask+segments kernel takes: it keeps a chain end in
+# 16 bits (MASK_MAX_L in csrc/mask_segments.cu)
+MASK_MAX_WIDTH = 0xFFFF
 
 
 class MapReadResult(NamedTuple):
@@ -426,7 +429,8 @@ def vote(pr, index: TorchIndex, major_req: int, minor_req: int):
 
 def mask_segments(pr, lengths, gp, index: TorchIndex, mismatch_thr: int):
     """Kernel 3: pass-2 probe results (B, NK, 2), lengths and the vote's
-    (B, 4) [h1, l1, h2, l2] -> (B, 10) int32 segment rows."""
+    (B, 4) [h1, l1, h2, l2] -> (B, 10) int32 segment rows. One warp
+    works one row; the card takes rows of up to MASK_MAX_WIDTH bases."""
     dev = pr.device
     cuda.check_tensor(pr, "probe results", torch.int32, 3, dev)
     cuda.check_tensor(lengths, "lengths", torch.int32, 1, dev)
@@ -437,6 +441,9 @@ def mask_segments(pr, lengths, gp, index: TorchIndex, mismatch_thr: int):
         raise ValueError("mask_segments: bad shapes")
     if dev.type == "cpu":
         return mask_segments_plain(pr, lengths, gp, index, mismatch_thr)
+    if NK + KMER - 1 > MASK_MAX_WIDTH:
+        raise ValueError(f"mask_segments: code rows of {NK + KMER - 1} bases exceed the "
+                         f"kernel's {MASK_MAX_WIDTH}")
     out = torch.empty((B, 10), dtype=torch.int32, device=dev)
     if B:
         cuda.launch_mask_segments(pr, lengths, gp, B, NK, index, mismatch_thr, out)

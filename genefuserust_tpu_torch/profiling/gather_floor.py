@@ -119,6 +119,16 @@ def measure(idx, tbl, lanes: int = 1, reps: int = 20, plain_reps: int = 3) -> di
                 plain_ms=plain_ms, **rates(idx.shape[0], tbl.shape[1], ms))
 
 
+def random_inputs(rows: int, width: int, queries: int, seed: int, device="cuda"):
+    """A random int32[rows, width] table and `queries` row indices, made on
+    `device` from the seed -> (idx, tbl)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    tbl = torch.randint(-2**31, 2**31, (rows, width), dtype=torch.int32, device=device,
+                        generator=g)
+    idx = torch.randint(0, rows, (queries,), dtype=torch.int32, device=device, generator=g)
+    return idx, tbl
+
+
 def run(argv=None) -> dict:
     """The command line's work: build a random table and indices on the
     card from the seed, print the card and the measurement -> the
@@ -132,13 +142,8 @@ def run(argv=None) -> dict:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("gather_floor needs a CUDA device")
-    dev = torch.device("cuda")
     print(f"card: {card_line()}", flush=True)
-    g = torch.Generator(device=dev).manual_seed(args.seed)
-    tbl = torch.randint(-2**31, 2**31, (args.rows, args.width), dtype=torch.int32,
-                        device=dev, generator=g)
-    idx = torch.randint(0, args.rows, (args.queries,), dtype=torch.int32, device=dev,
-                        generator=g)
+    idx, tbl = random_inputs(args.rows, args.width, args.queries, args.seed)
     r = measure(idx, tbl, args.lanes)
     print(" ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
                    for k, v in r.items()), flush=True)

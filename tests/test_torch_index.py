@@ -163,3 +163,33 @@ def test_kv_tables_hold_each_key_in_one_slot_of_its_two_rows(indexers, panel, la
     assert (pay[~empty] != 0).all()
     assert int((~empty).sum()) == len(keys)
     assert not (keys == np.uint32(p.empty_key)).any()
+
+
+@pytest.mark.parametrize("panel", ["make_panel", "dupes"])
+def test_pow4_rounding_past_max_buckets_is_named(indexers, panel, caplog):
+    # the reference gives a kv layout up silently when rounding its bucket
+    # count to an even power of two alone passes max_buckets; the port gives
+    # it up too, with a warning, and packs bit-equal tables below the cap
+    from genefuserust_tpu_torch.ops.hashtable import _entries_from_indexer
+
+    ix = indexers[panel]
+    n = len(_entries_from_indexer(ix)[0])
+    forced = 0
+    for layout, (load, slots) in {"kv2": (0.5, 1), "kv4": (0.6, 2), "kv8": (0.9, 4)}.items():
+        nb = 16
+        while nb * slots * load < n:
+            nb *= 2
+        if not (nb.bit_length() - 1) & 1:
+            continue  # no rounding for this layout at this key count
+        forced += 1
+        caplog.clear()
+        with caplog.at_level("WARNING", logger="genefuse"):
+            got = tindex._pack_kv(ix, load, slots, max_buckets=nb)
+        assert got is None and hashtable.pack_index_kv(ix, load, slots, max_buckets=nb) is None
+        assert f"{layout} table layout given up" in caplog.text
+        caplog.clear()
+        with caplog.at_level("WARNING", logger="genefuse"):
+            got = tindex._pack_kv(ix, load, slots, max_buckets=2 * nb)
+        _assert_equal(got, hashtable.pack_index_kv(ix, load, slots, max_buckets=2 * nb))
+        assert "given up" not in caplog.text
+    assert forced

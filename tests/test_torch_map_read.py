@@ -12,6 +12,7 @@ from genefuserust_tpu.models.fusion import Fusion
 from genefuserust_tpu.ops.hashtable import pack_index, pack_index_kv
 from genefuserust_tpu.utils.synthetic import make_panel, write_panel_files
 from genefuserust_tpu_torch.ops import map_read as tm
+from genefuserust_tpu_torch.ops.hashtable import DUPE, EMPTY, HIGH
 from genefuserust_tpu_torch.ops.index import index_to_torch
 
 LAYOUTS = {
@@ -115,32 +116,140 @@ def test_gplong_pm1_matches_jax_across_contig_boundary():
     assert tm.gplong(torch.tensor([[2]]), pos.to(torch.int64) - 4).item() == (2 << 32) | 0xFFFFFFFD
 
 
-def _walk(mask, length, target):
-    """The CUDA kernel's serial segment walk, line for line (csrc/
-    mask_segments.cu segment_walk), so its rules are checked here too."""
-    lim = min(length, len(mask))
-    prev = last_blocked = hid = cur_end = -1
-    best_len, best_start, best_end = -1, -1, 0
-    for t in range(lim):
-        m = mask[t]
-        if m > target:
-            last_blocked = t
-            continue
-        if m != target:
-            continue
-        linked = prev >= 0 and t - prev <= 10 and last_blocked <= prev
-        head = not linked and t < length - 1
-        prev = t
-        if not (linked or head):
-            continue
-        if head:
-            if hid >= 0 and cur_end - hid > best_len:
-                best_len, best_start, best_end = cur_end - hid, hid, cur_end
-            hid = t
-        cur_end = t
-    if hid >= 0 and cur_end - hid > best_len:
-        best_len, best_start, best_end = cur_end - hid, hid, cur_end
-    return best_len > 20, best_start, best_end
+# ---------------- a mirror of the mask+segments kernel ----------------
+#
+# csrc/mask_segments.cu step for step: one warp a read, 32-bit words of
+# per-base bits (bit j of word w is base 32w + j), ballots of the k-mer
+# flags a chunk of 32 at a time, the 16-wide window as four shift-ORs of
+# (this word, previous word), the chain rules as ALLOWED_GAP shift steps on
+# two words, chain heads carried by a warp max-scan, and the longest chain
+# by a warp max over keys packed as (length + 1, 0xFFFF - end).
+
+M32 = 0xFFFFFFFF
+M64 = (1 << 64) - 1
+
+
+def _ballots(bits, nw):
+    """(n,) bool -> nw 32-bit words, one ballot per chunk of 32 lanes."""
+    padded = np.zeros(nw * 32, bool)
+    padded[: len(bits)] = bits
+    w = padded.reshape(nw, 32).astype(np.uint64) << np.arange(32, dtype=np.uint64)
+    return [int(x) for x in w.sum(1)]
+
+
+def _window16(f, pf):
+    """Mask word of one flag bitmap: base t is set when one of the 16
+    k-mers t-15..t is, from k-mer words (this, previous)."""
+    v = (f << 32) | pf
+    for s in (1, 2, 4, 8):
+        v |= v << s
+    return (v >> 32) & M32
+
+
+def _below(w, lim):
+    """Word w's bits of the bases t < lim."""
+    lo = 32 * w
+    return M32 if lim >= lo + 32 else (1 << (lim - lo)) - 1 if lim > lo else 0
+
+
+def _linked(ok, pok, blk, pblk):
+    """This word's ok bases with an ok base at most ALLOWED_GAP before and
+    no blocked base between, from (this, previous) words."""
+    o, b, z = (ok << 32) | pok, (blk << 32) | pblk, 0
+    for _ in range(10):
+        z = ((o | (z & ~b)) << 1) & M64
+    return ok & (z >> 32)
+
+
+def _next_linked(lk, nlk, ok, nok):
+    """This word's bases whose next ok base is a linked one, from (this,
+    next) words of the linked and ok bits."""
+    lv, ov, n = (nlk << 32) | lk, (nok << 32) | ok, 0
+    for _ in range(10):
+        n = (lv | (n & ~ov)) >> 1
+    return n & M32
+
+
+def _kernel_segments(m3, m2, length, L, target):
+    """One read's (valid, start, end) for `target` from its mask words
+    (m3: mask 3, m2: mask >= 2), as the kernel's segment step runs."""
+    nw = len(m3)
+    lim = min(length, L)
+
+    def ok_blk(w):
+        if w < 0 or w >= nw:
+            return 0, 0
+        inb = _below(w, lim)
+        if target == 3:
+            return m3[w] & inb, 0
+        return m2[w] & ~m3[w] & inb, m3[w] & inb
+
+    lk = [_linked(ok_blk(w)[0], ok_blk(w - 1)[0], ok_blk(w)[1], ok_blk(w - 1)[1])
+          for w in range(nw)] + [0]
+    best, carry = 0, -1
+    for w0 in range(0, nw, 32):
+        heads, ends, last = [], [], []
+        for lane in range(32):
+            w = w0 + lane
+            h = e = 0
+            if w < nw:
+                ok, nok = ok_blk(w)[0], ok_blk(w + 1)[0]
+                h = ok & ~lk[w] & _below(w, length - 1)
+                e = (lk[w] | h) & ~_next_linked(lk[w], lk[w + 1], ok, nok)
+            heads.append(h)
+            ends.append(e)
+            last.append(32 * w + h.bit_length() - 1 if h else -1)
+        scan = last[:]
+        for o in (1, 2, 4, 8, 16):
+            scan = [max(scan[i], scan[i - o]) if i >= o else scan[i] for i in range(32)]
+        for lane in range(32):
+            w, e = w0 + lane, ends[lane]
+            before = max(carry, scan[lane - 1] if lane else -1)
+            while e:
+                b = (e & -e).bit_length() - 1
+                e &= e - 1
+                hb = heads[lane] & (M32 >> (31 - b))
+                head = 32 * w + hb.bit_length() - 1 if hb else before
+                n = 32 * w + b - head
+                best = max(best, ((n + 1) << 16) | (0xFFFF - (32 * w + b)))
+        carry = max(carry, scan[31])
+    if best == 0:
+        return 0, -1, 0
+    n, end = (best >> 16) - 1, 0xFFFF - (best & 0xFFFF)
+    return int(n > 20), end - n, end
+
+
+def _kernel_mask_segments(pr, lengths, gp, index, mismatch_thr=10):
+    """The kernel on (B, NK, 2) probe results -> (B, 10) int32 rows. A
+    k-mer's flag (3 on a candidate within +-1 of the top key, else 2 within
+    +-1 of the second) is its candidates' max, as the kernel forms it from
+    the probe row and the dupe row it names; the rest runs on words."""
+    B, NK = pr.shape[:2]
+    L = NK + 15
+    nw = -(-L // 32)
+    keys, cv = tm._keys_at(index, pr, 1)
+    g1 = tm.gplong(gp[:, 0], gp[:, 1])[:, None, None]
+    g2 = tm.gplong(gp[:, 2], gp[:, 3])[:, None, None]
+    f3 = (cv & ((keys - g1).abs() <= 1)).any(-1).numpy()
+    f2 = f3 | (cv & ((keys - g2).abs() <= 1)).any(-1).numpy()
+    out = np.zeros((B, 10), np.int32)
+    for b in range(B):
+        n = int(lengths[b])
+        lim = min(n, L)
+        F3, F2 = _ballots(f3[b], nw), _ballots(f2[b], nw)
+        m3 = [_window16(F3[c], F3[c - 1] if c else 0) for c in range(nw)]
+        m2 = [_window16(F2[c], F2[c - 1] if c else 0) for c in range(nw)]
+        miss = sum(bin(~m2[c] & _below(c, lim)).count("1") for c in range(nw))
+        ok = int(miss <= mismatch_thr)
+        (v3, s3, e3), (v2, s2, e2) = (_kernel_segments(m3, m2, n, L, t) for t in (3, 2))
+        out[b] = [v3 & ok, v2 & ok, s3, s2, e3, e2, *gp[b, [0, 2, 1, 3]].tolist()]
+    return out
+
+
+def _mask_bits(mask):
+    """(L,) mask values 0/2/3 -> the kernel's (m3, m2) words."""
+    nw = -(-len(mask) // 32)
+    return _ballots(mask == 3, nw), _ballots(mask >= 2, nw)
 
 
 def _segment_masks():
@@ -185,13 +294,58 @@ def test_extract_segments_ties_and_last_position():
         gv, gs, ge = (x.numpy() for x in tm.extract_segments(
             torch.from_numpy(mask), torch.from_numpy(lengths), target))
         assert (gv == ev).all() and (gs == es).all() and (ge == ee).all()
-        walk = np.array([_walk(m, int(n), target) for m, n in zip(mask, lengths)])
-        assert (walk[:, 0] == ev).all() and (walk[:, 1] == es).all()
-        assert (walk[:, 2] == ee).all()
+        words = np.array([_kernel_segments(*_mask_bits(m), int(n), mask.shape[1], target)
+                          for m, n in zip(mask, lengths)])
+        assert (words[:, 0] == ev).all() and (words[:, 1] == es).all()
+        assert (words[:, 2] == ee).all()
         assert ev.any() and (~ev).any()
     ev, es, ee = (np.asarray(x) for x in extract_segments(
         jnp.asarray(mask[:2]), jnp.asarray(lengths[:2]), 3))
     assert (es[0], ee[0]) == (5, 29)  # the first of two equal chains
+
+
+def _edge_masks(L, seed):
+    """Masks of width L: random runs, and at every word edge and at the
+    warp-chunk edge (base 1024) chains of one target spaced 9-12 apart,
+    targets blocked by a higher flag in each gap, lengths on both sides
+    of word and chunk edges."""
+    rng = np.random.default_rng(seed)
+    runs = rng.choice([0, 2, 3], p=[0.35, 0.35, 0.3], size=(48, -(-L // 7)))
+    mask = np.repeat(runs, 7, axis=1)[:, :L].astype(np.int32)
+    noise = rng.random(mask.shape) < 0.03
+    mask[noise] = rng.choice([0, 2, 3], size=noise.sum())
+    edges = [0, 1, 31, 32, 33, 63, 64, 65, 1023, 1024, 1025, L - 1, L]
+    lengths = np.resize(np.array([e for e in edges if e <= L], np.int32), len(mask))
+    rows, lens = [mask], [lengths]
+    centre = 1024 if L > 1024 else L // 64 * 32  # a word edge, the chunk edge past 1024
+    for gap in (9, 10, 11, 12):
+        for target, between in ((3, 0), (2, 0), (2, 3)):
+            m = np.zeros(L, np.int32)
+            for t in range(max(0, centre - 5 * gap), L, gap):
+                m[t] = target
+                if between and t + gap // 2 < L:
+                    m[t + gap // 2] = between
+            rows.append(m[None])
+            lens.append(np.array([L], np.int32))
+    return np.concatenate(rows), np.concatenate(lens)
+
+
+@pytest.mark.parametrize("L", [31, 32, 33, 63, 64, 65, 192, 1056, 1100])
+def test_kernel_segments_mirror_matches_jax_at_word_edges(L):
+    import jax.numpy as jnp
+
+    from genefuserust_tpu.ops.map_read import extract_segments
+
+    mask, lengths = _edge_masks(L, seed=L)
+    for target in (3, 2):
+        ev, es, ee = (np.asarray(x) for x in extract_segments(
+            jnp.asarray(mask), jnp.asarray(lengths), target))
+        got = np.array([_kernel_segments(*_mask_bits(m), int(n), L, target)
+                        for m, n in zip(mask, lengths)])
+        assert (got[:, 0] == ev).all() and (got[:, 1] == es).all()
+        assert (got[:, 2] == ee).all()
+    if L >= 192:
+        assert ev.any() and (~ev).any()
 
 
 # ---------------- the pass-1 vote on hand-built rows ----------------
@@ -461,6 +615,161 @@ def test_lookup_expand_matches_jax(panel_ix, layout):
     assert cv.shape[-1] > 1 and cv[..., 1:].any()  # some dupe rows expanded
 
 
+# ---------------- pass 2 on hand-built probe results ----------------
+
+MASK_WIDTHS = [31, 32, 33, 46, 47, 48, 63, 64, 65, 78, 79, 80, 192, 320, 1100]
+EDGE_LENGTHS = [0, 1, 31, 32, 33, 63, 64, 65]
+
+
+def _mask_edge_rows(index, L, seed):
+    """Pass-2 probe results built by hand at code width L -> (pr (B, NK, 2)
+    int32, lengths (B,) int32, gp (B, 4) int32 [h1, l1, h2, l2], names).
+
+    A k-mer flagged 3 holds a hit within +-1 of the top key, flagged 2 one
+    of the second key; an unflagged k-mer a miss, a high dupe, a hit 2-10
+    off the top key or a dupe row that matches neither. Rows: two equal
+    chains, a target at the last in-bounds base, gaps of 10 and 11 for both
+    targets, a higher flag inside a gap, two segments, 10 and 11
+    mismatches, keys met only in dupe rows (slot 0 and a later slot), no
+    flag, all flagged, and random runs at lengths on word edges."""
+    NK = L - 15
+    rng = np.random.default_rng(seed)
+    nd = index.dupes.shape[0]
+    cc, cp, cv = (x.numpy() for x in tm.expand(
+        index, torch.full((nd,), DUPE, dtype=torch.int32), torch.arange(nd, dtype=torch.int32)))
+    multi = np.nonzero(cv[:, 1])[0]
+    ra, rb, rc = (int(multi[k]) for k in (0, -1, len(multi) // 2))
+    plain = ((1, 5000), (2, 2**31 - 3))  # the second key's pos + i wraps int32
+    h, t = NK // 2, NK // 3
+    i0, i1 = min(5, NK - 2), min(h + 3, NK - 1)
+    dupe_keys = ((int(cc[ra, 1]), int(cp[ra, 1]) - i0), (int(cc[rb, 0]), int(cp[rb, 0]) - i1))
+    # (first k-mer, last k-mer, flag) spans: a k-mer flags bases i..i+15
+    designs = [
+        ("equal_chains", [(0, 9, 3), (40, 49, 3), (10, 39, 2), (50, NK - 1, 2)], L, plain, ()),
+        ("last_base", [(0, 20, 3), (50, 50, 3)], 51, plain, ()),
+        ("gap_10", [(0, 19, 3), (44, NK - 1, 3)], L, plain, ()),
+        ("gap_11", [(0, 19, 3), (45, NK - 1, 3)], L, plain, ()),
+        ("gap_10_second", [(0, 19, 2), (44, NK - 1, 2)], L, plain, ()),
+        ("gap_11_second", [(0, 19, 2), (45, NK - 1, 2)], L, plain, ()),
+        ("higher_in_gap", [(0, 19, 2), (30, 30, 3), (40, NK - 1, 2)], L, plain, ()),
+        ("two_segments", [(0, h - 16, 3), (h, NK - 1, 2)], L, plain, ()),
+        ("mismatch_10", [(0, t, 3), (t + 26, NK - 1, 3)], L, plain, ()),
+        ("mismatch_11", [(0, t, 3), (t + 27, NK - 1, 3)], L, plain, ()),
+        ("dupe_keys", [(0, h - 16, 3), (h, NK - 1, 2)], L, dupe_keys,
+         ((i0, ra), (i0 + 1, ra), (i1, rb))),
+        ("no_flag", [], L, plain, ()),
+        ("all_3", [(0, NK - 1, 3)], L, dupe_keys, ((i0, ra),)),
+    ]
+    for k in range(12):
+        spans, a = [], 0
+        while a < NK:
+            n = int(rng.integers(1, 40))
+            spans.append((a, a + n - 1, int(rng.choice([0, 2, 3], p=[0.4, 0.3, 0.3]))))
+            a += n
+        n = EDGE_LENGTHS[k % len(EDGE_LENGTHS)] if k < len(EDGE_LENGTHS) else L - k % 2
+        designs.append((f"random_{k}", spans, n, dupe_keys if k % 2 else plain,
+                        ((i0, ra),) if k % 2 else ()))
+    pr = np.zeros((len(designs), NK, 2), np.int64)
+    pr[..., 0] = EMPTY
+    lengths, gp, names = [], [], []
+    for r, (name, spans, n, (g1, g2), dupes_at) in enumerate(designs):
+        flag = np.zeros(NK, np.int64)
+        for a, b, f in spans:
+            flag[max(a, 0) : min(b, NK - 1) + 1] = f
+        for i, f in enumerate(flag):
+            if f:
+                c, lo = g1 if f == 3 else g2
+                pr[r, i] = (c, lo + i + int(rng.integers(-1, 2)))
+            else:
+                pr[r, i] = [(EMPTY, 0), (HIGH, 0), (g1[0], g1[1] + i + int(rng.integers(2, 11))),
+                            (DUPE, rc)][int(rng.integers(4))]
+        for i, row in dupes_at:
+            pr[r, i] = (DUPE, row)
+        lengths.append(min(n, L))
+        gp.append((g1[0], g1[1], g2[0], g2[1]))
+        names.append(name)
+    wrap = np.vectorize(lambda x: (x + 2**31) % 2**32 - 2**31)
+    return (torch.from_numpy(wrap(pr).astype(np.int32)),
+            torch.tensor(lengths, dtype=torch.int32),
+            torch.from_numpy(wrap(np.array(gp, np.int64)).astype(np.int32)), names)
+
+
+def _jax_pass2(pr, lengths, gp, packed, mismatch_thr=10):
+    """JAX map_read_pass2, unjitted, on given probe results: its k-mer
+    build and table lookup return `pr`; the dupe expansion, `_eq_pm1`, the
+    mask, the mismatch count and `extract_segments` run as they are ->
+    (B, 10) int32 rows in the kernel's column order."""
+    from unittest import mock
+
+    import jax.numpy as jnp
+
+    from genefuserust_tpu.ops import map_read as jm
+
+    B, NK = pr.shape[:2]
+    t1, t2, dupes, kw = _jax_tables(packed)
+    found = (jnp.asarray(pr[..., 0].numpy()), jnp.asarray(pr[..., 1].numpy()))
+    kmers = (jnp.zeros((B, NK), jnp.uint32), jnp.ones((B, NK), bool))
+    with mock.patch.object(jm, "compute_kmers", lambda *_: kmers), \
+            mock.patch.object(jm, "kv_lookup", lambda *_: found), \
+            mock.patch.object(jm, "hash_lookup", lambda *_: found):
+        r = jm.map_read_pass2.__wrapped__(
+            jnp.zeros((B, NK + 15), jnp.uint8), jnp.asarray(lengths.numpy()),
+            *(jnp.asarray(gp[:, k].numpy()) for k in range(4)), t1, t2, dupes,
+            packed.shift, packed.max_dupe, mismatch_thr, **kw)
+    return np.concatenate([np.asarray(r.seg_valid).astype(np.int32), *(
+        np.asarray(x) for x in (r.seg_start, r.seg_end, r.seg_contig, r.seg_pos))], axis=1)
+
+
+@pytest.fixture(scope="module")
+def mask_cases(panel_ix):
+    """Per layout (kv2, split): the packed panel, its CPU index, and per
+    width of MASK_WIDTHS the edge rows with JAX's rows for them. JAX runs
+    once a layout, on every width's rows with their k-mers padded to the
+    widest as misses: a miss flags no base, and no base at or past a
+    row's width is within its length, so the padding changes no output."""
+    cases = {}
+    for layout in ("kv2", "split"):
+        packed = _packed(panel_ix[1], layout)
+        index = index_to_torch(packed, "cpu")
+        rows = {L: _mask_edge_rows(index, L, seed=L) for L in MASK_WIDTHS}
+        NK = max(MASK_WIDTHS) - 15
+        pad = [torch.cat([pr, torch.tensor([EMPTY, 0], dtype=torch.int32).expand(
+            pr.shape[0], NK - pr.shape[1], 2)], 1) for pr, *_ in rows.values()]
+        exp = _jax_pass2(torch.cat(pad), *(torch.cat([r[k] for r in rows.values()])
+                                          for k in (1, 2)), packed)
+        ends = np.cumsum([0] + [r[0].shape[0] for r in rows.values()])
+        cases[layout] = packed, index, {L: (*rows[L], exp[a:b]) for L, a, b in
+                                        zip(rows, ends[:-1], ends[1:])}
+    return cases
+
+
+@pytest.mark.parametrize("L", MASK_WIDTHS)
+@pytest.mark.parametrize("layout", ["kv2", "split"])
+def test_mask_mirror_matches_jax_pass2_on_edge_rows(mask_cases, layout, L):
+    """The kernel's steps (mirrored in Python) and mask_segments_plain
+    against JAX map_read_pass2 after its lookup, on hand-built rows."""
+    _, index, rows = mask_cases[layout]
+    pr, lengths, gp, names, exp = rows[L]
+    plain = tm.mask_segments_plain(pr, lengths, gp, index, 10).numpy()
+    bad = [names[i] for i in np.nonzero((plain != exp).any(1))[0]]
+    assert not bad, f"mask_segments_plain differs from JAX on {bad}"
+    got = _kernel_mask_segments(pr, lengths, gp, index)
+    bad = [names[i] for i in np.nonzero((got != exp).any(1))[0]]
+    assert not bad, f"the kernel mirror differs from JAX on {bad}"
+    if L >= 192:
+        row = dict(zip(names, exp))
+        assert row["equal_chains"][[0, 2, 4]].tolist() == [1, 0, 24]
+        assert row["last_base"][4] == 35 and row["no_flag"][[0, 2, 4]].tolist() == [0, -1, 0]
+        assert row["gap_10"][[0, 2, 4]].tolist() == [1, 0, L - 1]
+        assert row["gap_11"][[0, 2, 4]].tolist() == [1, 45, L - 1]
+        assert row["gap_10_second"][[1, 3, 5]].tolist() == [1, 0, L - 1]
+        assert row["gap_11_second"][[1, 3, 5]].tolist() == [1, 45, L - 1]
+        assert row["higher_in_gap"][[1, 3, 5]].tolist() == [1, 46, L - 1]
+        assert row["two_segments"][:2].tolist() == [1, 1]
+        assert row["dupe_keys"][:2].tolist() == [1, 1]
+        assert row["mismatch_10"][0] == 1 and row["mismatch_11"][0] == 0
+
+
 # ---------------- kernels 2 and 3 on the card ----------------
 
 
@@ -501,3 +810,24 @@ def test_vote_and_mask_kernels_match_plain(panel_ix, layout, cuda_device):
     eidx = index_to_torch(epacked, "cpu")
     assert torch.equal(tm.vote(epr.to(cuda_device), index_to_torch(epacked, cuda_device),
                                40, 20).cpu(), tm.vote_plain(epr, eidx, 40, 20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", MASK_WIDTHS)
+@pytest.mark.parametrize("layout", ["kv2", "split"])
+def test_mask_kernel_matches_plain_on_edge_rows(panel_ix, layout, L, cuda_device):
+    # the hand-built pass-2 rows of every width, kernel against plain and
+    # against the Python mirror of its steps
+    packed = _packed(panel_ix[1], layout)
+    cpu, dev = index_to_torch(packed, "cpu"), index_to_torch(packed, cuda_device)
+    pr, lengths, gp, names = _mask_edge_rows(cpu, L, seed=L)
+    exp = tm.mask_segments_plain(pr, lengths, gp, cpu, 10)
+    got = tm.mask_segments(pr.to(cuda_device), lengths.to(cuda_device), gp.to(cuda_device),
+                           dev, 10).cpu()
+    bad = [names[i] for i in torch.nonzero((got != exp).any(1)).flatten().tolist()]
+    assert not bad, f"mask_segments kernel differs from plain on {bad}"
+    assert np.array_equal(got.numpy(), _kernel_mask_segments(pr, lengths, gp, cpu))
+    # rows past the kernel's 16-bit chain ends are refused, never cut
+    wide = torch.zeros((1, tm.MASK_MAX_WIDTH - 14, 2), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="exceed"):
+        tm.mask_segments(wide, lengths[:1].to(cuda_device), gp[:1].to(cuda_device), dev, 10)
