@@ -45,6 +45,21 @@ Phases, one result line each; any failure raises and exits non-zero:
              first 4,096 pairs each CSV's JSON equal to the host oracle's
  12 single   R1 of the 262,144 pairs through the CLI, and the first 4,096
              reads' JSON equal to the host oracle's
+ 13 sharded  the contig-sharded index on 4 shards of the one card: the
+             first 65,536 pairs (16 planted junction pairs among them) and
+             their R1 alone through the driver with a 4-entry device list,
+             the pairs also through the CLI with --mesh 1; JSON and HTML
+             equal to TorchEngine's single-table scan of the same reads,
+             and on the first 4,096 pairs/reads to the host oracle's. The
+             split probe, the vote's counts mode, the merge, the flags and
+             mask+segments from flags bit-equal to plain at the scan's
+             largest batch, timed. Then the wide paths: a 4,200-base and a
+             70,000-base read among 62 others, single-end and as R1 of
+             pairs, through TorchEngine and the sharded engine, reports
+             equal to the host oracle's; at the largest wide call of each
+             engine (kv2 table; 4 split shard tables) the vote in both
+             modes, mask+segments, the flags and mask+segments from flags
+             bit-equal to plain, the wide paths timed.
 
 The last three lines are the kernels' JSON record, nvidia-smi's
 name/power line and the contract line {"ok": true, "device": {...}}.
@@ -86,9 +101,13 @@ CLI_PAIRS = 4 * BATCH
 ORACLE_PAIRS = 4_096
 RICH_PAIRS = 8_192
 ED_JOBS = 65_536
-# kernels the build compiles: probe 4 (kv2, kv4, kv8, split), vote,
-# mask_segments 2 (kv, split), gather_sum 3 (vector widths), edit_distance 1
-N_COMPILED = 11
+SHARDS = 4  # phase 13: shard tables of the smoke panel, all on the one card
+SHARD_PAIRS = BATCH
+# kernels the build compiles: probe 4 (kv2, kv4, kv8, split), vote 3 (the
+# vote, its wide path, the shards' merge), mask_segments 8 (kv and split,
+# each narrow and wide; the shards' flags, kv and split; from flags, narrow
+# and wide), gather_sum 3 (vector widths), edit_distance 1
+N_COMPILED = 19
 # the probe's launch-shape sweep (--probe-sweep): queries a thread, table-row
 # cache policy (PROBE_POLICY in csrc/probe.cu), threads a block
 PROBE_SWEEP_Q = (1, 2, 4, 8)
@@ -107,6 +126,10 @@ GATHER_SWEEP_TABLE_BYTES = 1 << 31
 MASK_WIDE = 320
 # the kernels of the scan path (phases 5, 11, 12)
 SCAN_KERNELS = ("probe", "vote", "mask_segments")
+# phase 13's kernels of the sharded path (the split probe, the sharded
+# stages) and of the wide-row paths (LAUNCHES keys)
+SHARD_KERNELS = ("probe_split", "vote_counts", "merge_top2", "shard_flags", "mask_from_flags")
+WIDE_KERNELS = ("vote_wide", "vote_counts_wide", "mask_segments_wide", "mask_from_flags_wide")
 SWEEP_MAX_JOBS = 4096
 # The card's peaks for the kernels' bounds (NVIDIA's data sheet for the
 # H100 SXM at 700 W): HBM bytes/s, and the 32-bit rate outside the tensor
@@ -123,7 +146,8 @@ SECTOR = 32
 # +-1 tests and, per base, the 16-k-mer max and the chain step; gather, an
 # add per element; Myers, ~20 per text step and word (ops/edit_distance.py)
 OPS = dict(probe_base=2, probe_query=16, vote_sample=2, vote_candidate=4,
-           mask_candidate=4, mask_base=20, gather_element=1, myers_word_step=20)
+           mask_candidate=4, mask_base=20, gather_element=1, myers_word_step=20,
+           merge_candidate=4)
 _TS = re.compile(r"\d{4}-\d{2}-\d{2} \d{2}:\d{2}:\d{2}\.\d+ \+00:00")
 
 
@@ -837,6 +861,7 @@ def phase_oracle(data: dict) -> None:
     t0 = time.perf_counter()
     host, m_host = scan(HostEngine(), "host.json")
     host_s = time.perf_counter() - t0
+    data["oracle_host_json"] = host
     for layout in ("kv2", "split"):
         eng = TorchEngine(Settings(), device="cuda")
         eng.use_packed(data["packed_kv2"] if layout == "kv2" else
@@ -1234,11 +1259,384 @@ def phase_single(data: dict, smi_line: str) -> None:
         return strip_json(open(j).read()), m
 
     host, _ = scan(HostEngine(), "se_host.json")
+    data["single_host_json"] = host
     eng = TorchEngine(Settings(), device="cuda")
     eng.use_packed(data["packed_kv2"])
     got, m = scan(eng, "se_torch.json")
     check(got == host, "single-end: TorchEngine JSON differs from the host oracle's")
     say("12 single", reads=ORACLE_PAIRS, json="equal", fusions=len(m.fusion_results))
+
+
+@contextlib.contextmanager
+def largest_sharded_call():
+    """Record the inputs (cloned) of the largest sharded_map_read call that
+    the sharded engine makes inside the block -> a list that holds, after
+    the block, one (codes, lengths, indexes); the calls run unchanged."""
+    from genefuserust_tpu_torch.parallel import sharded_engine
+
+    calls, fn = [], sharded_engine.sharded_map_read
+
+    def keep_largest(codes, lengths, indexes, *args):
+        if not calls or codes.numel() > calls[0][0].numel():
+            calls[:] = [(codes.clone(), lengths.clone(), indexes)]
+        return fn(codes, lengths, indexes, *args)
+
+    sharded_engine.sharded_map_read = keep_largest
+    try:
+        yield calls
+    finally:
+        sharded_engine.sharded_map_read = fn
+
+
+@contextlib.contextmanager
+def largest_wide_launches():
+    """Record the inputs (cloned) of the largest launch of the gated vote
+    and of mask+segments on their wide-row paths made inside the block ->
+    {"vote": (pr, index, major_req, minor_req), "mask_segments": (pr,
+    lengths, gp, index, mismatch_thr)}; the launches run unchanged."""
+    from genefuserust_tpu_torch.ops import cuda
+
+    got, vote, mask = {}, cuda.launch_vote, cuda.launch_mask_segments
+
+    def keep(name, args):
+        if name not in got or args[0].numel() > got[name][0].numel():
+            got[name] = args
+
+    def vote_rec(pr, B, NS, index, step, major_req, minor_req, P2, out, counts=False,
+                 wide_rows=None):
+        if wide_rows is not None and not counts:
+            keep("vote", (pr.clone(), index, major_req, minor_req))
+        vote(pr, B, NS, index, step, major_req, minor_req, P2, out, counts, wide_rows)
+
+    def mask_rec(pr, lengths, gp, B, NK, index, mismatch_thr, out, scratch=None):
+        if scratch is not None:
+            keep("mask_segments", (pr.clone(), lengths.clone(), gp.clone(), index, mismatch_thr))
+        mask(pr, lengths, gp, B, NK, index, mismatch_thr, out, scratch)
+
+    cuda.launch_vote, cuda.launch_mask_segments = vote_rec, mask_rec
+    try:
+        yield got
+    finally:
+        cuda.launch_vote, cuda.launch_mask_segments = vote, mask
+
+
+def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3):
+    """Each kernel of sharded_map_read against its plain version at one
+    call's inputs, timed, with its bound -> (records probe_split,
+    vote_counts, merge_top2, shard_flags, mask_from_flags; the per-shard
+    stride-2 and stride-1 probe results, the merged gp and the segments)."""
+    import torch
+
+    from genefuserust_tpu_torch.config import PASS1_STEP
+    from genefuserust_tpu_torch.ops import map_read as tm
+
+    S = len(indexes)
+    B, W = codes.shape
+    NK = W - 15
+    rec = {}
+    km, kok = tm.compute_kmers(codes, lens)
+    cpu_rows = [probe_rows(km[:, ::PASS1_STEP], kok[:, ::PASS1_STEP], ix) for ix in indexes]
+    del km, kok
+    prs, err, ms, pms = _timed_pair(
+        f"probe (split, {S} shards, {B}x{W})",
+        lambda: torch.stack([tm.probe(codes, lens, PASS1_STEP, ix) for ix in indexes]),
+        lambda: torch.stack([tm.probe_plain(codes, lens, PASS1_STEP, ix) for ix in indexes]),
+        reps=reps, plain_reps=plain_reps)
+    NS = prs.shape[2]
+    rows = sum(r["rows"] for r in cpu_rows)
+    hits = sum(r["hits"] for r in cpu_rows)
+    # per shard: codes, lengths, one sector a table row needed and one a
+    # hit's vals, the results
+    rec["probe_split"] = dict(err=err, ms=ms, plain_ms=pms, **bound(
+        S * (B * W + 4 * B + B * NS * 8) + (rows + hits) * SECTOR,
+        S * OPS["probe_base"] * B * W + OPS["probe_query"] * sum(r["valid"] for r in cpu_rows)))
+    rec["probe_split"].update(
+        shape=f"{S} split shards of {tuple(indexes[0].table.shape)} keys, {B}x{W} codes, "
+              f"stride {PASS1_STEP}", rows_needed=rows, hits=hits)
+    votes, err, ms, pms = _timed_pair(
+        f"vote_counts ({B}x{NS})",
+        lambda: torch.stack([tm.vote_counts(pr, ix) for pr, ix in zip(prs, indexes)]),
+        lambda: torch.stack([tm.vote_counts_plain(pr, ix) for pr, ix in zip(prs, indexes)]),
+        reps=reps, plain_reps=plain_reps)
+    cands = [tm.vote_candidates(pr, ix) for pr, ix in zip(prs, indexes)]
+    rec["vote_counts"] = dict(err=err, ms=ms, plain_ms=pms, **bound(
+        sum(pr.numel() * 4 + dupe_row_bytes(pr, ix) for pr, ix in zip(prs, indexes))
+        + votes.numel() * 4,
+        OPS["vote_sample"] * S * B * NS + OPS["vote_candidate"] * sum(int(c.sum()) for c in cands)))
+    rec["vote_counts"]["shape"] = (f"{S} shards x {B}x{NS} samples, D {indexes[0].D}, "
+                                   f"most valid keys a row {max(int(c.max()) for c in cands)}")
+    merged, err, ms, pms = _timed_pair(
+        f"merge_top2 ({B} rows)", lambda: tm.merge_top2(votes, 40, 20),
+        lambda: tm.merge_top2_plain(votes, 40, 20), reps=reps, plain_reps=plain_reps)
+    rec["merge_top2"] = dict(err=err, ms=ms, plain_ms=pms, **bound(
+        votes.numel() * 4 + merged.numel() * 4, OPS["merge_candidate"] * 2 * S * B))
+    rec["merge_top2"]["shape"] = f"({S}, {B}, 6) counts rows"
+    gp = merged[:, 1:5].contiguous()
+    pr1s = [tm.probe(codes, lens, 1, ix) for ix in indexes]
+
+    def flags(fn):
+        words = torch.zeros((B, tm.flag_words(NK), 2), dtype=torch.int32, device=codes.device)
+        for pr1, ix in zip(pr1s, indexes):
+            if fn is tm.shard_flags:
+                fn(pr1, gp, ix, words)
+            else:
+                words |= fn(pr1, gp, ix)
+        return words
+
+    words, err, ms, pms = _timed_pair(f"shard_flags ({B}x{NK})", lambda: flags(tm.shard_flags),
+                                      lambda: flags(tm.shard_flags_plain), reps=reps,
+                                      plain_reps=plain_reps)
+    cand2 = sum(int(tm.expand(ix, pr1[..., 0], pr1[..., 1])[2].sum())
+                for pr1, ix in zip(pr1s, indexes))
+    rec["shard_flags"] = dict(err=err, ms=ms, plain_ms=pms, **bound(
+        sum(pr1.numel() * 4 + dupe_row_bytes(pr1, ix) for pr1, ix in zip(pr1s, indexes))
+        + S * gp.numel() * 4 + words.numel() * 4, OPS["mask_candidate"] * cand2))
+    rec["shard_flags"]["shape"] = f"{S} shards x {B}x{NK} k-mers"
+    seg, err, ms, pms = _timed_pair(
+        f"mask_from_flags ({B}x{W})", lambda: tm.mask_from_flags(words, lens, gp, NK, 10),
+        lambda: tm.mask_from_flags_plain(words, lens, gp, NK, 10), reps=reps,
+        plain_reps=plain_reps)
+    rec["mask_from_flags"] = dict(err=err, ms=ms, plain_ms=pms, **bound(
+        words.numel() * 4 + lens.numel() * 4 + gp.numel() * 4 + seg.numel() * 4,
+        OPS["mask_base"] * int(lens.long().sum())))
+    rec["mask_from_flags"]["shape"] = f"{B} rows, width {W}"
+    return rec, dict(prs=prs, pr1s=pr1s, gp=gp, seg=seg)
+
+
+def say_kernel(rec: dict, k: str) -> None:
+    r = rec[k]
+    say("13 sharded", kernel=k, shape=repr(r["shape"]), ms=f"{r['ms']:.4f}",
+        plain_ms=f"{r['plain_ms']:.4f}", bound_ms=f"{r['bound_ms']:.5f}",
+        bound_by=r["bound_by"], bound_share=f"{r['bound_ms'] / r['ms']:.4f}",
+        max_abs_err=r["err"])
+
+
+def phase_sharded(data: dict, smi_line: str) -> dict:
+    import torch
+
+    from genefuserust_tpu_torch import driver
+    from genefuserust_tpu_torch.config import Settings
+    from genefuserust_tpu_torch.core.read import SequenceRead, SequenceReadPair
+    from genefuserust_tpu_torch.core.scanner import HostEngine, Scanner
+    from genefuserust_tpu_torch.core.sequence import reverse_complement
+    from genefuserust_tpu_torch import cli
+    from genefuserust_tpu_torch.io.fastq_block import stream_fastq_blocks, stream_pair_blocks
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.parallel.engine import TorchEngine
+    from genefuserust_tpu_torch.parallel.sharded_engine import ShardedIndexEngine
+    from genefuserust_tpu_torch.utils.synthetic import long_reads
+
+    wd = os.path.join(data["workdir"], "sharded")
+    os.makedirs(wd)
+    b1, q1, _, b2, q2, _ = (a[:SHARD_PAIRS] for a in data["block"])
+    r1, r2 = os.path.join(wd, "R1.fq"), os.path.join(wd, "R2.fq")
+    write_fastq(r1, b1, q1, "p")
+    write_fastq(r2, b2, q2, "p")
+    contigs = data["mapper"].contigs
+    devices = ["cuda:0"] * SHARDS
+
+    def report(name):
+        return (_TS.sub("<ts>", open(os.path.join(wd, f"{name}.html")).read()),
+                strip_json(open(os.path.join(wd, f"{name}.json")).read()))
+
+    def config(name, paired, **kw):
+        return driver.RunConfig(r1_file=r1, r2_file=r2 if paired else "", fusion_file=data["csv"],
+                                html=os.path.join(wd, f"{name}.html"),
+                                json=os.path.join(wd, f"{name}.json"), ref_file=data["fa"],
+                                **kw)
+
+    # (i) the main path: 4 shards on the card, through the driver; its
+    # largest sharded map_read is kept for the kernel checks of (vi)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    with largest_sharded_call() as calls, quiet(data):
+        eng = driver.scan(config("sh4", True, engine="sharded-index", devices=devices),
+                          "sharded")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    for k in ("probe", "vote_counts", "merge_top2", "shard_flags", "mask_from_flags"):
+        check(launches[k] > 0, f"sharded: kernel {k} was not launched by the scan")
+    check(launches["vote"] == launches["mask_segments"] == 0,
+          "sharded: the single-table vote or mask+segments ran in the sharded scan")
+    n_fus = len(json.load(open(os.path.join(wd, "sh4.json")))["fusions"])
+    check(n_fus >= 1, "sharded: the scan reported no fusion")
+    say("13 sharded", shards=SHARDS, devices=",".join(devices), pairs=SHARD_PAIRS,
+        table_bytes=eng.table_bytes, table_mb=f"{eng.table_bytes / 2**20:.1f}",
+        pack_s=f"{eng.table_seconds:.2f}", wall_s=f"{wall:.2f}",
+        pairs_per_s_excl_tables=f"{SHARD_PAIRS / (wall - eng.table_seconds):.0f}",
+        fusions=n_fus, launches=json.dumps(launches, separators=(",", ":")),
+        ed_jobs=eng.ed_stats["jobs"], card=repr(smi_line))
+    # (ii) the real CLI, one shard; (iii) the single-table TorchEngine
+    t0 = time.perf_counter()
+    with quiet(data):
+        cli.run(["-1", r1, "-2", r2, "-f", data["csv"], "-r", data["fa"], "--engine",
+                 "sharded-index", "--mesh", "1", "-h", os.path.join(wd, "sh1.html"),
+                 "-j", os.path.join(wd, "sh1.json")])
+    cli_s = time.perf_counter() - t0
+
+    def torch_scan(name, paired):
+        teng = TorchEngine(Settings(), device="cuda")
+        teng.use_packed(data["packed_kv2"])
+        with quiet(data):
+            sc = Scanner(data["csv"], contigs, os.path.join(wd, f"{name}.html"),
+                         os.path.join(wd, f"{name}.json"), Settings(), engine=teng,
+                         command="sharded")
+            if paired:
+                sc.scan_pair_stream(stream_pair_blocks(r1, r2))
+            else:
+                sc.scan_single_stream(stream_fastq_blocks(r1))
+        torch.cuda.synchronize()
+
+    torch_scan("t", True)
+    ref = report("t")
+    for name in ("sh4", "sh1"):
+        # the CLI's reports name its command line, the others "sharded"
+        got = tuple(t.replace(" ".join(sys.argv), "sharded") for t in report(name))
+        check(got[1] == ref[1], f"sharded ({name}): JSON differs from TorchEngine's")
+        check(got[0] == ref[0], f"sharded ({name}): HTML differs from TorchEngine's")
+    # (iv) single-end: R1 alone, 4 shards through the driver
+    t0 = time.perf_counter()
+    with quiet(data):
+        se_eng = driver.scan(config("se4", False, engine="sharded-index", devices=devices),
+                             "sharded")
+    torch.cuda.synchronize()
+    se_wall = time.perf_counter() - t0
+    torch_scan("tse", False)
+    got, ref_se = report("se4"), report("tse")
+    check(got == ref_se, "sharded single-end: reports differ from TorchEngine's")
+    say("13 sharded", pairs=SHARD_PAIRS, json_html_vs_torch_engine="equal",
+        cli_mesh_1="equal", cli_mesh_1_s=f"{cli_s:.2f}", single_end_reads=SHARD_PAIRS,
+        single_end_wall_s=f"{se_wall:.2f}", single_end_pack_s=f"{se_eng.table_seconds:.2f}",
+        single_end="equal")
+    # (v) the host oracle's subsets (phases 6 and 12 scanned them), on the
+    # main path's shard tables
+    sub = ShardedIndexEngine(Settings(), devices=devices)
+    sub.use_tables(eng._indexes)
+
+    def oracle(name, items, paired):
+        # phase 6's command for pairs, phase 12's for reads
+        j = os.path.join(wd, name)
+        with quiet(data):
+            sc = Scanner(data["csv"], contigs, "", j, Settings(), engine=sub,
+                         command="oracle" if paired else "single")
+            (sc.scan_pairs if paired else sc.scan_singles)(items)
+        return strip_json(open(j).read())
+
+    check(oracle("o4.json", data["oracle_pairs"], True) == data["oracle_host_json"],
+          "sharded: the 4,096-pair JSON differs from the host oracle's")
+    check(oracle("o4se.json", [p.left for p in data["oracle_pairs"]], False)
+          == data["single_host_json"], "sharded: the 4,096-read JSON differs from the host's")
+    say("13 sharded", oracle_pairs=ORACLE_PAIRS, oracle_reads=ORACLE_PAIRS, json="equal")
+
+    # (vi) each kernel of the path against its plain version, at the
+    # scan's largest batch
+    rec, aux = sharded_kernels(*calls[0])
+    del aux, calls[:]
+    for k in SHARD_KERNELS:
+        say_kernel(rec, k)
+    launches["probe_split"] = launches["probe"]
+
+    # (vii) the wide paths: a 4,200-base and a 70,000-base read from the
+    # junction of the first planted fusion (G03 exon 6 -> G17 exon 10)
+    lb, rb = data["exons"][3][5] - 1, data["exons"][17][9] - 1
+    # (a seed apart from the panel's: the same generator stream would
+    # repeat a gene's bases in the read's random middle)
+    span, wide = long_reads(contigs["c03"][lb - 2200 : lb + 1], contigs["c17"][rb : rb + 2200],
+                            seed=data["seed"] + 1000)
+    planted = np.linspace(0, ORACLE_PAIRS - 1, 16).astype(np.int64).tolist()
+    base = [data["oracle_pairs"][i] for i in planted] + data["oracle_pairs"][1:47]
+    se_items = [p.left for p in base]
+    pe_items = list(base)
+    for k, r in enumerate((span, wide)):
+        read = SequenceRead(f"@long{k}", r, "+", "I" * len(r))
+        mate = SequenceRead(f"@long{k}", reverse_complement(r[-300:-150]), "+", "I" * 150)
+        se_items.insert(1 + 20 * k, read)
+        pe_items.insert(1 + 20 * k, SequenceReadPair(read, mate))
+    cuda.reset_launches()
+    with largest_wide_launches() as kv_calls, largest_sharded_call() as sh_calls:
+        for paired, items in ((False, se_items), (True, pe_items)):
+            reps = {}
+            for name, engine in (("host", HostEngine()),
+                                 ("torch", TorchEngine(Settings(), device="cuda")),
+                                 ("sharded", ShardedIndexEngine(Settings(), devices=devices))):
+                if name == "torch":
+                    engine.use_packed(data["packed_kv2"])
+                elif name == "sharded":
+                    engine.use_tables(eng._indexes)
+                with quiet(data):
+                    sc = Scanner(data["csv"], contigs, os.path.join(wd, f"w{name}.html"),
+                                 os.path.join(wd, f"w{name}.json"), Settings(), engine=engine,
+                                 command="wide")
+                    (sc.scan_pairs if paired else sc.scan_singles)(items)
+                torch.cuda.synchronize()
+                reps[name] = report(f"w{name}")
+            for name in ("torch", "sharded"):
+                check(reps[name] == reps["host"],
+                      f"wide reads ({'paired' if paired else 'single-end'}): {name} reports "
+                      "differ from the host oracle's")
+    wide_launches = dict(cuda.LAUNCHES)
+    for k in WIDE_KERNELS:
+        check(wide_launches[k] > 0, f"wide reads: kernel {k} was not launched")
+    say("13 sharded", wide_reads="4200,70000", single_end="equal", paired="equal",
+        engines="TorchEngine,ShardedIndexEngine", vs="host oracle",
+        launches=json.dumps(wide_launches, separators=(",", ":")))
+    # the wide kernels at the wide scans' largest calls: TorchEngine's on
+    # the kv2 table, the sharded engine's on the 4 split shard tables
+    pr, kv2, major_req, minor_req = kv_calls["vote"]
+    v, err, ms, pms = _timed_pair("vote (wide rows, kv2)",
+                                  lambda: tm.vote(pr, kv2, major_req, minor_req),
+                                  lambda: tm.vote_plain(pr, kv2, major_req, minor_req),
+                                  reps=5, plain_reps=1)
+    wn = tm.vote_candidates(pr, kv2)
+    rec["vote_wide"] = dict(err=err, ms=ms, plain_ms=pms, **bound(
+        pr.numel() * 4 + dupe_row_bytes(pr, kv2) + v.numel() * 4,
+        OPS["vote_sample"] * pr.shape[0] * pr.shape[1] + OPS["vote_candidate"] * int(wn.sum())))
+    rec["vote_wide"]["shape"] = (f"kv2, {pr.shape[0]}x{pr.shape[1]} samples, D {kv2.D}, "
+                                 f"most valid keys a row {int(wn.max())}")
+    check(torch.equal(tm.vote_counts(pr, kv2), tm.vote_counts_plain(pr, kv2)),
+          "wide rows: the vote's counts mode differs from plain on the kv2 table")
+    pr1, wlens, wgp, kv2, thr = kv_calls["mask_segments"]
+    wseg, err, ms, pms = _timed_pair(
+        "mask_segments (wide rows, kv2)", lambda: tm.mask_segments(pr1, wlens, wgp, kv2, thr),
+        lambda: tm.mask_segments_plain(pr1, wlens, wgp, kv2, thr), reps=5, plain_reps=1)
+    check(int(wseg[:, 4:6].max()) > tm.MASK_MAX_WIDTH, "wide rows: no chain ends past 65,535")
+    wcand = int(tm.expand(kv2, pr1[..., 0], pr1[..., 1])[2].sum())
+    rec["mask_segments_wide"] = dict(err=err, ms=ms, plain_ms=pms, **bound(
+        pr1.numel() * 4 + wlens.numel() * 4 + wgp.numel() * 4 + dupe_row_bytes(pr1, kv2)
+        + wseg.numel() * 4,
+        OPS["mask_candidate"] * wcand + OPS["mask_base"] * int(wlens.long().sum())))
+    rec["mask_segments_wide"]["shape"] = (f"kv2, {pr1.shape[0]} rows, width "
+                                          f"{pr1.shape[1] + 15}")
+    # the one table's flags, then mask from flags: equal to mask+segments
+    words = tm.shard_flags(pr1, wgp, kv2, torch.zeros(
+        (pr1.shape[0], tm.flag_words(pr1.shape[1]), 2), dtype=torch.int32, device=pr1.device))
+    check(torch.equal(words, tm.shard_flags_plain(pr1, wgp, kv2)),
+          "wide rows: shard_flags differs from plain on the kv2 table")
+    check(torch.equal(tm.mask_from_flags(words, wlens, wgp, pr1.shape[1], thr), wseg),
+          "wide rows: mask_from_flags differs from mask+segments on the kv2 table")
+    del pr, v, pr1, wlens, wgp, wseg, words, kv_calls
+    codes, lens, indexes = sh_calls[0]
+    srec, aux = sharded_kernels(codes, lens, indexes, reps=5, plain_reps=1)
+    check(int(aux["seg"][:, 4:6].max()) > tm.MASK_MAX_WIDTH,
+          "wide rows (shards): no chain ends past 65,535")
+    # the gated vote and mask+segments on each split shard at those rows
+    for spr, spr1, ix in zip(aux["prs"], aux["pr1s"], indexes):
+        check(torch.equal(tm.vote(spr, ix, 40, 20), tm.vote_plain(spr, ix, 40, 20)),
+              "wide rows: the gated vote differs from plain on a split shard table")
+        check(torch.equal(tm.mask_segments(spr1, lens, aux["gp"], ix, 10),
+                          tm.mask_segments_plain(spr1, lens, aux["gp"], ix, 10)),
+              "wide rows: mask+segments differs from plain on a split shard table")
+    del aux, sh_calls[:]
+    rec["vote_counts_wide"] = srec["vote_counts"]
+    rec["mask_from_flags_wide"] = srec["mask_from_flags"]
+    for k in WIDE_KERNELS:
+        say_kernel(rec, k)
+    say("13 sharded", wide_checked="vote,vote_counts,mask_segments,shard_flags,mask_from_flags",
+        tables="kv2,split", equal=True)
+    launches.update({k: wide_launches[k] for k in WIDE_KERNELS})
+    return dict(rec=rec, launches=launches)
 
 
 def main(argv=None) -> int:
@@ -1303,6 +1701,7 @@ def main(argv=None) -> int:
         rich_launches = phase_rich(data)
         phase_multi(data, smi_line)
         phase_single(data, smi_line)
+        sharded = phase_sharded(data, smi_line)
     finally:
         log.close()
         shutil.rmtree(workdir, ignore_errors=True)
@@ -1313,7 +1712,20 @@ def main(argv=None) -> int:
         "gather_sum": "tools/profiling/profile_dma_ring.py:35, "
                       "tools/profiling/profile_pallas_gather.py:46",
         "edit_distance": "genefuserust_tpu/ops/edit_distance.py:43",
+        "probe_split": "genefuserust_tpu/ops/pallas_lookup.py:102",
+        "vote_counts": "genefuserust_tpu/parallel/sharded_index.py:209",
+        "merge_top2": "genefuserust_tpu/parallel/sharded_index.py:273",
+        "shard_flags": "genefuserust_tpu/parallel/sharded_index.py:230",
+        "mask_from_flags": "genefuserust_tpu/parallel/sharded_index.py:242",
+        "vote_wide": "genefuserust_tpu/ops/map_read.py:396",
+        "vote_counts_wide": "genefuserust_tpu/parallel/sharded_index.py:209",
+        "mask_segments_wide": "genefuserust_tpu/ops/map_read.py:439",
+        "mask_from_flags_wide": "genefuserust_tpu/parallel/sharded_index.py:242",
     }
+    sources = dict(probe_split="probe", vote_counts="vote", merge_top2="vote",
+                   vote_wide="vote", vote_counts_wide="vote", shard_flags="mask_segments",
+                   mask_from_flags="mask_segments", mask_segments_wide="mask_segments",
+                   mask_from_flags_wide="mask_segments")
     # launches: each kernel's count over phase 5's CLI scan, the main path;
     # gather_sum is off it, so its count is that of its own entry point
     # (phase 8). No single PyTorch call computes any of these functions
@@ -1323,10 +1735,15 @@ def main(argv=None) -> int:
                                 main_path_flushes=data["ed_main"],
                                 fusion_rich_launches=rich_launches["edit_distance"])
     launches = dict(launches, gather_sum=gather["launches"])
+    # phase 13's kernels: launches over its 4-shard paired scan (probe_split
+    # and the sharded stages) and over its wide-read scans (the wide paths)
+    rec.update(sharded["rec"])
+    launches.update({k: sharded["launches"][k] for k in sharded["rec"]})
     extra = ("shape", "wide", "rows_needed", "rows_loaded", "h1_hit_share", "main_path_flushes",
-             "fusion_rich_launches")
+             "fusion_rich_launches", "hits")
     kernels = [
-        dict(name=k, route="cuda", source=f"genefuserust_tpu_torch/csrc/{k}.cu",
+        dict(name=k, route="cuda",
+             source=f"genefuserust_tpu_torch/csrc/{sources.get(k, k)}.cu",
              replaces=replaces[k], launches=launches[k], max_abs_err=rec[k]["err"],
              ms=round(rec[k]["ms"], 6), plain_ms=round(rec[k]["plain_ms"], 6),
              bound_ms=round(rec[k]["bound_ms"], 6), bound_by=rec[k]["bound_by"],

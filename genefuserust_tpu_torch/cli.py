@@ -1,6 +1,6 @@
 """CLI of the port: the reference's flags (src/argparse.rs:3-130), plus
-`--engine cuda|host` and `--device`. `-h` is the HTML report path, so the
-help flag is `--help`."""
+`--engine cuda|sharded-index|host`, `--device` and `--mesh`. `-h` is the
+HTML report path, so the help flag is `--help`."""
 
 from __future__ import annotations
 
@@ -36,16 +36,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="enable to output long deletions")
     p.add_argument("-U", "--output_untranslated_fusions", action="store_true",
                    help="enable to output untranslatable fusions")
-    p.add_argument("--engine", choices=["cuda", "host"], default="cuda",
-                   help="compute engine: batched torch/CUDA pipeline (default) or "
-                   "the scalar host oracle")
+    p.add_argument("--engine", choices=["cuda", "sharded-index", "host"], default="cuda",
+                   help="compute engine: batched torch/CUDA pipeline (default), the "
+                   "contig-sharded index (panels beyond one device), or the scalar "
+                   "host oracle")
     p.add_argument("--device", default="cuda",
-                   help="torch device of the cuda engine, default cuda "
-                   "(cpu runs the kernels' plain versions)")
+                   help="torch device of the cuda and sharded-index engines, default "
+                   "cuda (cpu runs the kernels' plain versions)")
     p.add_argument("--index-cache", default="",
                    help="directory for the on-disk panel index cache")
     p.add_argument("--mesh", default="auto",
-                   help="device count; only one device is supported yet")
+                   help="device count: sharded-index takes one shard a device ('auto': "
+                   "every device); the cuda engine runs on one device only yet")
     return p
 
 

@@ -36,6 +36,16 @@
 // the order irrelevant), bitonic-sorts just those, and reduces as above.
 // That barrier costs about nothing: a block retires only when its last
 // warp is done anyway. Nothing but the (B, 5) result goes to device memory.
+//
+// Rows too wide for shared memory (NS * D past MAX_BLOCK_KEYS, code rows
+// of more than ~4,096 bases): the wrapper hands the kernel a list instead,
+// the flagged rows go there, and vote_wide_kernel takes them, one block a
+// row, with its keys in a global scratch slice of its own; the sort, the
+// run lengths and the tie rule are block_vote's.
+//
+// Counts mode (the contig-sharded index): the same vote, its two entries
+// written as [c1, h1, l1, c2, h2, l2] with no gate; merge_top2_kernel then
+// merges the shards' entries and applies the gate.
 #include <climits>
 
 #include "common.cuh"
@@ -47,6 +57,9 @@ constexpr int VOTE_WARPS = VOTE_THREADS / 32;
 constexpr int WARP_CAP = 256;  // valid keys a warp sorts in registers (8 a lane)
 constexpr unsigned FULL = 0xffffffffu;
 constexpr long long PAD_KEY = LLONG_MAX;  // sorts after every candidate
+constexpr int MAX_BLOCK_KEYS = 16384;  // the block path's keys in shared memory (128 KB)
+constexpr int VOTE_WIDE_THREADS = 512;
+constexpr int MAX_SHARDS = 8;  // merge_top2_kernel keeps 2 * S candidates in registers
 
 // a key that may be voted for: not gplong 0 and not an INT32_MAX contig
 __device__ __forceinline__ bool votable(long long k) {
@@ -76,15 +89,25 @@ __device__ __forceinline__ long long block_max(long long v, long long* red) {
 
 // Scores are (count << 32) | (N - 1 - index) of a run start, -1 for none:
 // the max is the largest count, then the smallest key. A missing entry
-// gets count 0 and the smallest slot key.
+// gets count 0 and the smallest slot key. The row is [ok, h1, l1, h2, l2],
+// or in counts mode [c1, h1, l1, c2, h2, l2].
 __device__ __forceinline__ void write_vote(int32_t* o, long long best1, long long g1,
                                            long long best2, long long g2,
                                            long long slot_min, int step, int major_req,
-                                           int minor_req) {
+                                           int minor_req, bool counts) {
   const int c1 = best1 < 0 ? 0 : (int)(best1 >> 32);
   const int c2 = best2 < 0 ? 0 : (int)(best2 >> 32);
   if (best1 < 0) g1 = slot_min;
   if (best2 < 0) g2 = slot_min;
+  if (counts) {
+    o[0] = c1;
+    o[1] = (int32_t)(g1 >> 32);
+    o[2] = (int32_t)(uint32_t)g1;
+    o[3] = c2;
+    o[4] = (int32_t)(g2 >> 32);
+    o[5] = (int32_t)(uint32_t)g2;
+    return;
+  }
   o[0] = (c1 * step >= major_req) && (c2 * step >= minor_req);
   o[1] = (int32_t)(g1 >> 32);
   o[2] = (int32_t)(uint32_t)g1;
@@ -153,7 +176,7 @@ __device__ __forceinline__ long long key_at(const long long (&v)[K], int e) {
 // The vote of one read whose n <= 32 * K valid keys are in `slice`.
 template <int K>
 __device__ __forceinline__ void warp_vote(const long long* slice, int n, int P, int lane,
-                                          int step, int major_req, int minor_req,
+                                          int step, int major_req, int minor_req, bool counts,
                                           int32_t* o) {
   constexpr int N = 32 * K;
   constexpr int LOG_N = K == 1 ? 5 : K == 2 ? 6 : K == 4 ? 7 : 8;
@@ -230,7 +253,8 @@ __device__ __forceinline__ void warp_vote(const long long* slice, int n, int P, 
   const long long g1 = key_at<K>(v, e1), g2 = key_at<K>(v, e2);
   const long long first = __shfl_sync(FULL, v[0], 0);
   if (lane == 0)
-    write_vote(o, best1, g1, best2, g2, slot_min(first, n, P), step, major_req, minor_req);
+    write_vote(o, best1, g1, best2, g2, slot_min(first, n, P), step, major_req, minor_req,
+               counts);
 }
 
 // first index in [lo, n) whose key exceeds k (keys ascending)
@@ -253,11 +277,13 @@ __device__ __forceinline__ long long run_score(const long long* keys, int i, int
 }
 
 // The vote of one read by the whole block, over its valid keys only;
-// `keys` holds at least next_pow2(NS * D) slots.
+// `keys` (shared memory, or a block's slice of global scratch) holds at
+// least next_pow2(NS * D) slots.
 __device__ void block_vote(const int2* __restrict__ row, int NS,
                            const int32_t* __restrict__ dupes, int dstride, int D, bool split,
                            int cbits, int pos_bias, int step, int major_req, int minor_req,
-                           long long* keys, long long* red, int* count, int32_t* o) {
+                           bool counts, long long* keys, long long* red, int* count,
+                           int32_t* o) {
   const int P = NS * D;
   if (threadIdx.x == 0) *count = 0;
   __syncthreads();
@@ -298,22 +324,25 @@ __device__ void block_vote(const int2* __restrict__ row, int NS,
   if (threadIdx.x == 0) {
     const int i2 = best2 < 0 ? 0 : Pn - 1 - (int)(best2 & 0xFFFFFFFFLL);
     write_vote(o, best1, keys[i1], best2, keys[i2], slot_min(keys[0], n, P), step,
-               major_req, minor_req);
+               major_req, minor_req, counts);
   }
   __syncthreads();
 }
 
+// wide_rows: NULL, or [count, rows...]: the rows past the warp path are
+// listed there for vote_wide_kernel instead of taken by the block here.
 __global__ void __launch_bounds__(VOTE_THREADS)
 vote_kernel(const int32_t* __restrict__ pr, int B, int NS,
             const int32_t* __restrict__ dupes, int dstride, int D, bool split, int cbits,
-            int pos_bias, int step, int major_req, int minor_req,
-            int32_t* __restrict__ out) {
+            int pos_bias, int step, int major_req, int minor_req, bool counts,
+            int* __restrict__ wide_rows, int32_t* __restrict__ out) {
   extern __shared__ long long smem[];
   __shared__ long long red[33];
   __shared__ int over_row[VOTE_WARPS];
   __shared__ int count;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * VOTE_WARPS + warp;
+  const int cols = counts ? 6 : 5;
   const int2* rows = reinterpret_cast<const int2*>(pr);
   bool over = false;
   if (b < B) {
@@ -322,35 +351,123 @@ vote_kernel(const int32_t* __restrict__ pr, int B, int NS,
                                pos_bias, step, lane, slice);
     __syncwarp();
     const int P = NS * D;
-    int32_t* o = out + (long long)b * 5;
-    if (n <= 32) warp_vote<1>(slice, n, P, lane, step, major_req, minor_req, o);
-    else if (n <= 64) warp_vote<2>(slice, n, P, lane, step, major_req, minor_req, o);
-    else if (n <= 128) warp_vote<4>(slice, n, P, lane, step, major_req, minor_req, o);
-    else if (n <= WARP_CAP) warp_vote<8>(slice, n, P, lane, step, major_req, minor_req, o);
+    int32_t* o = out + (long long)b * cols;
+    if (n <= 32) warp_vote<1>(slice, n, P, lane, step, major_req, minor_req, counts, o);
+    else if (n <= 64) warp_vote<2>(slice, n, P, lane, step, major_req, minor_req, counts, o);
+    else if (n <= 128) warp_vote<4>(slice, n, P, lane, step, major_req, minor_req, counts, o);
+    else if (n <= WARP_CAP) warp_vote<8>(slice, n, P, lane, step, major_req, minor_req, counts, o);
     else over = true;
   }
   if (lane == 0) over_row[warp] = over ? b : -1;
   if (!__syncthreads_or(over)) return;
+  if (wide_rows != nullptr) {
+    if (threadIdx.x < VOTE_WARPS && over_row[threadIdx.x] >= 0)
+      wide_rows[1 + atomicAdd(wide_rows, 1)] = over_row[threadIdx.x];
+    return;
+  }
   // the warp slices are free now: the block-wide path reuses them
   for (int w = 0; w < VOTE_WARPS; ++w) {
     const int ob = over_row[w];
     if (ob >= 0)
       block_vote(rows + (long long)ob * NS, NS, dupes, dstride, D, split, cbits, pos_bias,
-                 step, major_req, minor_req, smem, red, &count, out + (long long)ob * 5);
+                 step, major_req, minor_req, counts, smem, red, &count,
+                 out + (long long)ob * cols);
   }
+}
+
+// The rows vote_kernel listed: block g takes list entries g, g + grid, ...
+// with its keys in scratch[g * P2, (g + 1) * P2).
+__global__ void __launch_bounds__(VOTE_WIDE_THREADS)
+vote_wide_kernel(const int32_t* __restrict__ pr, int NS, const int32_t* __restrict__ dupes,
+                 int dstride, int D, bool split, int cbits, int pos_bias, int step,
+                 int major_req, int minor_req, bool counts, const int* __restrict__ wide_rows,
+                 long long* __restrict__ scratch, long long P2, int32_t* __restrict__ out) {
+  __shared__ long long red[33];
+  __shared__ int count;
+  const int cols = counts ? 6 : 5;
+  const int2* rows = reinterpret_cast<const int2*>(pr);
+  long long* keys = scratch + blockIdx.x * P2;
+  const int n_rows = wide_rows[0];
+  for (int i = blockIdx.x; i < n_rows; i += gridDim.x) {
+    const int b = wide_rows[1 + i];
+    block_vote(rows + (long long)b * NS, NS, dupes, dstride, D, split, cbits, pos_bias, step,
+               major_req, minor_req, counts, keys, red, &count, out + (long long)b * cols);
+  }
+}
+
+// The contig-sharded index's top-2 merge and gate, one thread a row
+// (genefuserust_tpu/parallel/sharded_index.py _merge_top2 and the gate of
+// build_sharded_map_read). Its 2S candidates, [c1 of shards 0..S-1, c2 of
+// shards 0..S-1], are ordered by count descending, then (hi, lo unsigned)
+// ascending; a count <= 0 ties with every other such entry and sorts after
+// the rest; ties keep the candidates' order (a stable sort: JAX's sort
+// leaves the order of those ties open, and they reach only rows the gate
+// fails). The first two are the top two: -> [ok, h1, l1, h2, l2].
+__device__ __forceinline__ bool merge_before(int ca, int ha, int la, int cb, int hb, int lb) {
+  if ((ca > 0) != (cb > 0)) return ca > 0;
+  if (ca <= 0) return false;
+  if (ca != cb) return ca > cb;
+  if (ha != hb) return ha < hb;
+  return (uint32_t)la < (uint32_t)lb;
+}
+
+__global__ void merge_top2_kernel(const int32_t* __restrict__ votes, int S, int B, int step,
+                                  int major_req, int minor_req, int32_t* __restrict__ out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  int c[2 * MAX_SHARDS], h[2 * MAX_SHARDS], l[2 * MAX_SHARDS];
+#pragma unroll
+  for (int k = 0; k < 2 * MAX_SHARDS; ++k) {
+    if (k < 2 * S) {
+      const int32_t* v = votes + ((long long)(k % S) * B + b) * 6 + (k < S ? 0 : 3);
+      c[k] = __ldg(v);
+      h[k] = __ldg(v + 1);
+      l[k] = __ldg(v + 2);
+    }
+  }
+  int i1 = 0;
+#pragma unroll
+  for (int k = 1; k < 2 * MAX_SHARDS; ++k)
+    if (k < 2 * S && merge_before(c[k], h[k], l[k], c[i1], h[i1], l[i1])) i1 = k;
+  int i2 = i1 == 0 ? 1 : 0;
+#pragma unroll
+  for (int k = 0; k < 2 * MAX_SHARDS; ++k)
+    if (k < 2 * S && k != i1 && merge_before(c[k], h[k], l[k], c[i2], h[i2], l[i2])) i2 = k;
+  // registers are indexed by constants only: pick the two entries by a scan
+  int g1c = 0, g1h = 0, g1l = 0, g2c = 0, g2h = 0, g2l = 0;
+#pragma unroll
+  for (int k = 0; k < 2 * MAX_SHARDS; ++k) {
+    if (k == i1) { g1c = c[k]; g1h = h[k]; g1l = l[k]; }
+    if (k == i2) { g2c = c[k]; g2h = h[k]; g2l = l[k]; }
+  }
+  g1c = max(g1c, 0);
+  g2c = max(g2c, 0);
+  int32_t* o = out + (long long)b * 5;
+  o[0] = (g1c * step >= major_req) && (g2c * step >= minor_req);
+  o[1] = g1h;
+  o[2] = g1l;
+  o[3] = g2h;
+  o[4] = g2l;
 }
 
 }  // namespace gf
 
 // pr: (B, NS, 2) int32 pass-1 probe results (sample s at k-mer s*step).
 // dupes: split (nd, D, 2) pairs / kv (nd, 8) payloads, row stride dstride.
-// out: (B, 5) int32 [ok, h1, l1, h2, l2]. P2: power of two >= NS*D, the
-// block-wide path's key buffer.
+// out: (B, 5) int32 [ok, h1, l1, h2, l2], or with counts (B, 6) int32
+// [c1, h1, l1, c2, h2, l2]. P2: power of two >= NS*D, the block-wide
+// path's key buffer. wide_rows: NULL, or a zeroed (1 + B) int32 list
+// that the rows past the warp path go to, for gf_vote_wide (needed when
+// P2 > MAX_BLOCK_KEYS: the block path's keys would not fit in shared
+// memory).
 extern "C" int gf_vote(const void* pr, int B, int NS, const void* dupes, int dstride,
                        int D, int split, int cbits, int pos_bias, int step,
-                       int major_req, int minor_req, int P2, void* out, void* stream) {
-  const size_t n_keys = P2 > gf::VOTE_WARPS * gf::WARP_CAP ? (size_t)P2
-                                                           : (size_t)gf::VOTE_WARPS * gf::WARP_CAP;
+                       int major_req, int minor_req, int P2, int counts, void* wide_rows,
+                       void* out, void* stream) {
+  if (wide_rows == nullptr && P2 > gf::MAX_BLOCK_KEYS) return (int)cudaErrorInvalidValue;
+  const size_t warp_keys = (size_t)gf::VOTE_WARPS * gf::WARP_CAP;
+  const size_t n_keys =
+      wide_rows == nullptr && (size_t)P2 > warp_keys ? (size_t)P2 : warp_keys;
   const size_t smem = n_keys * sizeof(long long);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -360,6 +477,33 @@ extern "C" int gf_vote(const void* pr, int B, int NS, const void* dupes, int dst
   const int grid = (B + gf::VOTE_WARPS - 1) / gf::VOTE_WARPS;
   gf::vote_kernel<<<grid, gf::VOTE_THREADS, smem, (cudaStream_t)stream>>>(
       (const int32_t*)pr, B, NS, (const int32_t*)dupes, dstride, D, split != 0, cbits,
-      pos_bias, step, major_req, minor_req, (int32_t*)out);
+      pos_bias, step, major_req, minor_req, counts != 0, (int*)wide_rows, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// The rows gf_vote listed in wide_rows, on `grid` blocks; scratch holds
+// grid * P2 int64 keys (P2: power of two >= NS*D). Other arguments as
+// gf_vote's.
+extern "C" int gf_vote_wide(const void* pr, int NS, const void* dupes, int dstride, int D,
+                            int split, int cbits, int pos_bias, int step, int major_req,
+                            int minor_req, int counts, const void* wide_rows, void* scratch,
+                            long long P2, int grid, void* out, void* stream) {
+  if (grid < 1 || P2 < (long long)NS * D) return (int)cudaErrorInvalidValue;
+  gf::vote_wide_kernel<<<grid, gf::VOTE_WIDE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)pr, NS, (const int32_t*)dupes, dstride, D, split != 0, cbits, pos_bias,
+      step, major_req, minor_req, counts != 0, (const int*)wide_rows, (long long*)scratch, P2,
+      (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// votes: (S, B, 6) int32 counts-mode rows of S shards; out: (B, 5) int32
+// [ok, h1, l1, h2, l2] with ok = c1 * step >= major_req && c2 * step >=
+// minor_req on the merged counts.
+extern "C" int gf_merge_top2(const void* votes, int S, int B, int step, int major_req,
+                             int minor_req, void* out, void* stream) {
+  if (S < 1 || S > gf::MAX_SHARDS || B < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  gf::merge_top2_kernel<<<(B + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)votes, S, B, step, major_req, minor_req, (int32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,13 @@ file is a list of CSV paths (multi-CSV mode): the reads are loaded once,
 paired-end input is scanned against every panel in one pass
 (`scan_pair_block_multi`), single-end input panel by panel, and each
 panel gets its own `{stem}_{csv_stem}.{ext}` reports with logging and the
-stdout fusion blocks suppressed. Multi-device meshes are not ported yet.
+stdout fusion blocks suppressed.
+
+Engines: 'cuda' (`TorchEngine`, one device; `--mesh` above 1 raises until
+multi-GPU data parallelism is ported), 'sharded-index'
+(`ShardedIndexEngine`, the panel's table split by contig over `--mesh`
+devices, one shard each, or over an explicit device list) and 'host' (the
+scalar oracle).
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import os
 import sys
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 from .config import Settings
 from .version import GENEFUSE_VER
@@ -37,10 +43,13 @@ class RunConfig:
     ref_file: str
     thread_num: Optional[int] = None
     settings: Settings = dataclasses.field(default_factory=Settings)
-    engine: str = "cuda"  # 'cuda' (TorchEngine) | 'host' (scalar oracle)
+    engine: str = "cuda"  # 'cuda' (TorchEngine) | 'sharded-index' | 'host' (scalar oracle)
     index_cache_dir: str = ""
-    mesh: str = "auto"  # only one device is supported yet
-    device: str = "cuda"  # torch device of TorchEngine
+    mesh: str = "auto"  # cuda: one device only yet; sharded-index: the shard count
+    device: str = "cuda"  # torch device (type) of the engine
+    # sharded-index: one device per shard, in place of --mesh (a device may
+    # repeat: several shards on one card)
+    devices: Optional[Sequence[str]] = None
 
 
 def init_logger() -> None:
@@ -65,18 +74,25 @@ def check_file_valid(path: str) -> None:
 
 
 def make_engine(kind: str, settings: Settings, device: str = "cuda",
-                mesh: str = "auto", thread_num=None):
+                mesh: str = "auto", thread_num=None, devices=None):
+    if kind == "host":
+        from .core.scanner import HostEngine
+
+        return HostEngine()
+    if kind == "sharded-index":
+        # contig-sharded index for panels beyond one device's memory
+        from .parallel.mesh import resolve_mesh
+        from .parallel.sharded_engine import ShardedIndexEngine
+
+        return ShardedIndexEngine(
+            settings, devices=list(devices) if devices else resolve_mesh(mesh, device))
+    if kind != "cuda":
+        raise ValueError(f"unknown engine {kind!r}")
     if mesh not in ("", "auto", "1"):
         raise NotImplementedError(
             f"--mesh {mesh}: multi-GPU data parallelism is not ported yet "
             "(ROADMAP.md, port queue: multi-GPU)"
         )
-    if kind == "host":
-        from .core.scanner import HostEngine
-
-        return HostEngine()
-    if kind != "cuda":
-        raise ValueError(f"unknown engine {kind!r}")
     from .parallel.engine import TorchEngine
 
     # -t bounds the batches in flight, as in the JAX driver
@@ -108,7 +124,8 @@ def scan(config: RunConfig, command: str):
     from .io.fastq_block import stream_fastq_blocks, stream_pair_blocks
 
     engine = make_engine(
-        config.engine, config.settings, config.device, config.mesh, config.thread_num
+        config.engine, config.settings, config.device, config.mesh, config.thread_num,
+        config.devices,
     )
     contigs = fasta.read_all(config.ref_file, force_upper_case=False)
     if Path(config.fusion_file).suffix != ".csv":

@@ -8,7 +8,11 @@ the current stream, launches on that stream, allocates nothing and returns
 
 `LAUNCHES` counts the kernel launches made through the wrappers in
 ops/map_read.py, ops/edit_distance.py and profiling/gather_floor.py, one
-per launch, so a run can show which kernels it used.
+per launch, so a run can show which kernels it used. The vote kernel
+counts as "vote" in its gated mode and as "vote_counts" in its counts
+mode (the contig-sharded index). The wide-row paths count apart from
+their kernels' main paths: "vote_wide" and "vote_counts_wide" (the two
+modes of the wide vote), "mask_segments_wide" and "mask_from_flags_wide".
 """
 
 from __future__ import annotations
@@ -31,7 +35,9 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-LAUNCHES = {"probe": 0, "vote": 0, "mask_segments": 0, "gather_sum": 0, "edit_distance": 0}
+LAUNCHES = {"probe": 0, "vote": 0, "mask_segments": 0, "gather_sum": 0, "edit_distance": 0,
+            "vote_counts": 0, "vote_wide": 0, "vote_counts_wide": 0, "mask_segments_wide": 0,
+            "merge_top2": 0, "shard_flags": 0, "mask_from_flags": 0, "mask_from_flags_wide": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -102,8 +108,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "gf_probe": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                  _P, _P, _P],
-    "gf_vote": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    "gf_mask_segments": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "gf_vote": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "gf_vote_wide": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                     ctypes.c_longlong, _I, _P, _P],
+    "gf_merge_top2": [_P, _I, _I, _I, _I, _I, _P, _P],
+    "gf_mask_segments": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "gf_shard_flags": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    "gf_mask_from_flags": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "gf_gather_tile_sums": [_P, _P, _I, _I, _I, _P, _P],
     "gf_edit_distance": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
@@ -178,26 +189,78 @@ def launch_probe(codes, lengths, kmers, valid, n, W, stride, NQ, index, out,
     _done("probe", err)
 
 
-def launch_vote(pr, B, NS, index, step, major_req, minor_req, P2, out) -> None:
+def launch_vote(pr, B, NS, index, step, major_req, minor_req, P2, out, counts=False,
+                wide_rows=None) -> None:
+    """`counts`: write (B, 6) [c1, h1, l1, c2, h2, l2] rows, no gate.
+    `wide_rows`: None, or a zeroed (1 + B) int32 list that the rows past the
+    warp path go to for `launch_vote_wide` (their keys would not fit in
+    shared memory)."""
     dstride, D = _dupe_args(index)
     with torch.cuda.device(out.device):
         err = library().gf_vote(
             pr.data_ptr(), B, NS, index.dupes.data_ptr(), dstride, D,
             int(index.split), index.cbits, index.pos_bias, step,
-            major_req, minor_req, P2, out.data_ptr(), _stream(out),
+            major_req, minor_req, P2, int(counts), _ptr(wide_rows), out.data_ptr(),
+            _stream(out),
         )
-    _done("vote", err)
+    _done("vote_counts" if counts else "vote", err)
 
 
-def launch_mask_segments(pr, lengths, gp, B, NK, index, mismatch_thr, out) -> None:
+def launch_vote_wide(pr, NS, index, step, major_req, minor_req, counts, wide_rows, scratch,
+                     P2, out) -> None:
+    """The rows `launch_vote` listed in `wide_rows`, one block a row on
+    scratch.numel() // P2 blocks, each sorting in its own P2 int64 keys of
+    `scratch`."""
+    dstride, D = _dupe_args(index)
+    with torch.cuda.device(out.device):
+        err = library().gf_vote_wide(
+            pr.data_ptr(), NS, index.dupes.data_ptr(), dstride, D, int(index.split),
+            index.cbits, index.pos_bias, step, major_req, minor_req, int(counts),
+            wide_rows.data_ptr(), scratch.data_ptr(), P2, scratch.numel() // P2,
+            out.data_ptr(), _stream(out),
+        )
+    _done("vote_counts_wide" if counts else "vote_wide", err)
+
+
+def launch_merge_top2(votes, step, major_req, minor_req, out) -> None:
+    S, B, _ = votes.shape
+    with torch.cuda.device(out.device):
+        err = library().gf_merge_top2(votes.data_ptr(), S, B, step, major_req, minor_req,
+                                      out.data_ptr(), _stream(out))
+    _done("merge_top2", err)
+
+
+def launch_mask_segments(pr, lengths, gp, B, NK, index, mismatch_thr, out,
+                         scratch=None) -> None:
+    """`scratch`: None for code rows of at most 65,535 bases; for wider
+    rows the kernel's words, 4 * B * ceil(L / 32) int32."""
     dstride, D = _dupe_args(index)
     with torch.cuda.device(out.device):
         err = library().gf_mask_segments(
             pr.data_ptr(), lengths.data_ptr(), gp.data_ptr(), B, NK,
             index.dupes.data_ptr(), dstride, D, int(index.split), index.cbits,
-            index.pos_bias, mismatch_thr, out.data_ptr(), _stream(out),
+            index.pos_bias, mismatch_thr, _ptr(scratch), out.data_ptr(), _stream(out),
         )
-    _done("mask_segments", err)
+    _done("mask_segments" if scratch is None else "mask_segments_wide", err)
+
+
+def launch_shard_flags(pr, gp, B, NK, index, words) -> None:
+    dstride, D = _dupe_args(index)
+    with torch.cuda.device(words.device):
+        err = library().gf_shard_flags(
+            pr.data_ptr(), gp.data_ptr(), B, NK, index.dupes.data_ptr(), dstride, D,
+            int(index.split), index.cbits, index.pos_bias, words.data_ptr(), _stream(words),
+        )
+    _done("shard_flags", err)
+
+
+def launch_mask_from_flags(words, lengths, gp, B, NK, mismatch_thr, out, scratch=None) -> None:
+    with torch.cuda.device(out.device):
+        err = library().gf_mask_from_flags(
+            words.data_ptr(), lengths.data_ptr(), gp.data_ptr(), B, NK, mismatch_thr,
+            _ptr(scratch), out.data_ptr(), _stream(out),
+        )
+    _done("mask_from_flags" if scratch is None else "mask_from_flags_wide", err)
 
 
 def launch_gather_tile_sums(idx, tbl, lanes: int, out, lib=None) -> None:

@@ -9,6 +9,18 @@ tensors and runs the plain version for CPU tensors:
   vote           expand + gplong + top2_votes + gate     (csrc/vote.cu)
   mask_segments  expand + flags + mask + extract_segments (csrc/mask_segments.cu)
 
+The contig-sharded index (parallel/sharded_index.py) takes the vote and
+pass 2 apart at their seams, with a wrapper and plain version each:
+
+  vote_counts      the vote's two entries with their counts, no gate (vote.cu)
+  merge_top2       the shards' entries merged, then the gate        (vote.cu)
+  shard_flags      one shard's per-k-mer flags ORed into bit planes (mask_segments.cu)
+  mask_from_flags  mask + extract_segments from those planes        (mask_segments.cu)
+
+The vote and mask+segments have no width limit: rows too wide for the
+vote's shared memory, or for mask+segments' 16-bit chain ends, take wide
+paths on the card.
+
 gplong (the reference's i64 `contig<<32 | pos bits`) is carried as ONE
 int64 here instead of the JAX package's two int32 planes. JAX forms the
 low half as `pos - i` in wrapping int32 with no borrow into the contig,
@@ -36,13 +48,21 @@ M32 = 0xFFFFFFFF
 # JAX's invalid candidate (hi = lo = INT32_MAX) as a packed key; sorts after
 # every real candidate
 INVALID_KEY = (INT32_MAX << 32) | INT32_MAX
-MAX_VOTE_KEYS = 16384  # per-row candidate slots (NS * D, rounded up) of the vote kernel
+# per-row candidate slots (NS * D, rounded up) that the vote kernel's block
+# path sorts in shared memory (MAX_BLOCK_KEYS in csrc/vote.cu); wider rows
+# take the wide path, their keys in global scratch
+MAX_VOTE_KEYS = 16384
+# scratch of the vote's wide path: blocks of next_pow2(NS * D) int64 keys
+# each, as many as fit in this many bytes (at least one, at most one a row)
+VOTE_WIDE_SCRATCH_BYTES = 64 << 20
 # valid candidates a row may hold on the vote kernel's warp path (WARP_CAP
 # in csrc/vote.cu)
 VOTE_WARP_KEYS = 256
-# widest code row the mask+segments kernel takes: it keeps a chain end in
-# 16 bits (MASK_MAX_L in csrc/mask_segments.cu)
+# widest code row of the mask+segments kernels' main path, which keeps a
+# chain end in 16 bits (MASK_MAX_L in csrc/mask_segments.cu); wider rows
+# take the wide path (64-bit chain keys, words in global scratch)
 MASK_MAX_WIDTH = 0xFFFF
+MAX_SHARDS = 8  # shards merge_top2's kernel takes (MAX_SHARDS in csrc/vote.cu)
 
 
 class MapReadResult(NamedTuple):
@@ -295,42 +315,120 @@ def _keys_at(index: TorchIndex, pr: torch.Tensor, step: int):
     return gplong(cc, cp.to(torch.int64) - i), cv
 
 
-def vote_plain(pr, index: TorchIndex, major_req: int, minor_req: int):
-    """Plain twin of the vote kernel: pass-1 probe results (B, NS, 2) ->
-    (B, 5) int32 [ok, h1, l1, h2, l2]."""
+def vote_counts_plain(pr, index: TorchIndex):
+    """Plain twin of the vote kernel's counts mode: pass-1 probe results
+    (B, NS, 2) -> (B, 6) int32 [c1, h1, l1, c2, h2, l2], no gate."""
     B = pr.shape[0]
     keys, cv = _keys_at(index, pr, PASS1_STEP)
     g1, c1, g2, c2 = top2_votes(keys.reshape(B, -1), cv.reshape(B, -1))
-    ok = (c1 * PASS1_STEP >= major_req) & (c2 * PASS1_STEP >= minor_req)
     h1, l1 = _hi_lo(g1)
     h2, l2 = _hi_lo(g2)
-    return torch.stack([ok.to(torch.int32), h1, l1, h2, l2], dim=1)
+    return torch.stack([c1.to(torch.int32), h1, l1, c2.to(torch.int32), h2, l2], dim=1)
 
 
-def mask_segments_plain(pr, lengths, gp, index: TorchIndex, mismatch_thr: int):
-    """Plain twin of the mask+segments kernel: full-stride probe results
-    (B, NK, 2), lengths and the vote's [h1, l1, h2, l2] -> (B, 10) int32
-    [valid0, valid1, start0, start1, end0, end1, h1, h2, l1, l2]."""
-    B, NK = pr.shape[:2]
-    L = NK + KMER - 1
+def _gate(c1, c2, major_req: int, minor_req: int):
+    return (c1 * PASS1_STEP >= major_req) & (c2 * PASS1_STEP >= minor_req)
+
+
+def vote_plain(pr, index: TorchIndex, major_req: int, minor_req: int):
+    """Plain twin of the vote kernel: pass-1 probe results (B, NS, 2) ->
+    (B, 5) int32 [ok, h1, l1, h2, l2]."""
+    v = vote_counts_plain(pr, index)
+    ok = _gate(v[:, 0], v[:, 3], major_req, minor_req)
+    return torch.cat([ok.to(torch.int32)[:, None], v[:, 1:3], v[:, 4:6]], dim=1)
+
+
+def merge_top2_plain(votes, major_req: int, minor_req: int):
+    """Plain twin of the merge kernel (`_merge_top2` and the gate of the
+    JAX sharded map_read): S shards' counts-mode rows (S, B, 6) -> (B, 5)
+    int32 [ok, h1, l1, h2, l2]. A row's 2S candidates, [c1 of shards
+    0..S-1, c2 of shards 0..S-1], sort by count descending, then (hi, lo
+    unsigned) ascending; counts <= 0 tie with each other after the rest.
+    The sort is stable: JAX's is not, so where fewer than two counts are
+    positive the missing entry's (hi, lo) may differ from JAX's; the gate
+    fails such a row."""
+    c = torch.cat([votes[:, :, 0], votes[:, :, 3]], 0).T
+    h = torch.cat([votes[:, :, 1], votes[:, :, 4]], 0).T
+    lo = torch.cat([votes[:, :, 2], votes[:, :, 5]], 0).T
+    off = c <= 0
+    big = 1 << 32
+    order = torch.arange(c.shape[1], device=c.device).expand(c.shape).contiguous()
+    # a stable sort a key, the least significant first
+    for key in (lo.to(torch.int64) & M32, h.to(torch.int64), -c.to(torch.int64)):
+        k = torch.where(off, big, key).gather(1, order)
+        order = order.gather(1, torch.sort(k, dim=1, stable=True).indices)
+    c, h, lo = (x.gather(1, order[:, :2]) for x in (c, h, lo))
+    ok = _gate(c[:, 0].clamp_min(0), c[:, 1].clamp_min(0), major_req, minor_req)
+    return torch.stack([ok.to(torch.int32), h[:, 0], lo[:, 0], h[:, 1], lo[:, 1]], dim=1)
+
+
+def _pass2_flags(pr, gp, index: TorchIndex):
+    """Full-stride probe results (B, NK, 2) and [h1, l1, h2, l2] -> (B, NK)
+    flags: 3 on a candidate within +-1 of the top key, else 2 within +-1
+    of the second, the max over the dupe slots."""
     keys, cv = _keys_at(index, pr, 1)
     keys = torch.where(cv, keys, 0)
     g1 = gplong(gp[:, 0], gp[:, 1])[:, None, None]
     g2 = gplong(gp[:, 2], gp[:, 3])[:, None, None]
     m1 = cv & ((keys - g1).abs() <= 1)
     m2 = cv & ((keys - g2).abs() <= 1)
-    flag = torch.where(m1, 3, torch.where(m2, 2, 0)).amax(-1)
+    return torch.where(m1, 3, torch.where(m2, 2, 0)).amax(-1)
+
+
+def _segments_from_flags(flag, lengths, gp, mismatch_thr: int):
+    """(B, NK) k-mer flags -> the (B, 10) rows: the 16-wide window into a
+    per-base mask, the mismatch count and the segments of targets 3, 2."""
+    B, NK = flag.shape
+    L = NK + KMER - 1
     pad = torch.zeros((B, KMER - 1), dtype=flag.dtype, device=flag.device)
     padded = torch.cat([pad, flag, pad], 1)
     mask = padded[:, KMER - 1 : KMER - 1 + L]
     for j in range(1, KMER):
         mask = torch.maximum(mask, padded[:, KMER - 1 - j : KMER - 1 - j + L])
-    within = torch.arange(L, device=pr.device)[None, :] < lengths[:, None]
+    within = torch.arange(L, device=flag.device)[None, :] < lengths[:, None]
     read_ok = ((mask < 2) & within).sum(1) <= mismatch_thr
     v3, s3, e3 = extract_segments(mask, lengths, 3)
     v2, s2, e2 = extract_segments(mask, lengths, 2)
     cols = [v3 & read_ok, v2 & read_ok, s3, s2, e3, e2, gp[:, 0], gp[:, 2], gp[:, 1], gp[:, 3]]
     return torch.stack([c.to(torch.int32) for c in cols], dim=1)
+
+
+def mask_segments_plain(pr, lengths, gp, index: TorchIndex, mismatch_thr: int):
+    """Plain twin of the mask+segments kernel: full-stride probe results
+    (B, NK, 2), lengths and the vote's [h1, l1, h2, l2] -> (B, 10) int32
+    [valid0, valid1, start0, start1, end0, end1, h1, h2, l1, l2]."""
+    return _segments_from_flags(_pass2_flags(pr, gp, index), lengths, gp, mismatch_thr)
+
+
+def flag_words(NK: int) -> int:
+    """Words a row of the pass-2 flag planes holds: one a 32 bases of its
+    code row, as the mask kernels' words."""
+    return (NK + KMER - 1 + 31) // 32
+
+
+def shard_flags_plain(pr, gp, index: TorchIndex):
+    """Plain twin of the sharded flags kernel: one shard's flags as (B, nw,
+    2) int32 words [flag 3, flag >= 2], bit j of word c = k-mer 32c + j."""
+    flag = _pass2_flags(pr, gp, index)
+    B, NK = flag.shape
+    nw = flag_words(NK)
+    f = torch.zeros((B, nw * 32), dtype=flag.dtype, device=flag.device)
+    f[:, :NK] = flag
+    sh = torch.arange(32, device=flag.device)
+    planes = [((f == 3).to(torch.int64).view(B, nw, 32) << sh).sum(-1),
+              ((f >= 2).to(torch.int64).view(B, nw, 32) << sh).sum(-1)]
+    return _i32(torch.stack(planes, dim=-1))
+
+
+def mask_from_flags_plain(words, lengths, gp, NK: int, mismatch_thr: int):
+    """Plain twin of mask+segments from flags: merged flag words (B, nw, 2)
+    -> the (B, 10) rows of mask_segments_plain."""
+    B = words.shape[0]
+    bits = (words.to(torch.int64)[..., None] >> torch.arange(32, device=words.device)) & 1
+    f3 = bits[:, :, 0].reshape(B, -1)[:, :NK]
+    f2 = bits[:, :, 1].reshape(B, -1)[:, :NK]
+    flag = torch.where(f3 != 0, 3, torch.where(f2 != 0, 2, 0))
+    return _segments_from_flags(flag, lengths, gp, mismatch_thr)
 
 
 # ---------------- kernel wrappers ----------------
@@ -407,30 +505,80 @@ def vote_candidates(pr, index: TorchIndex) -> torch.Tensor:
     return expand(index, pr[..., 0], pr[..., 1])[2].sum((1, 2))
 
 
-def vote(pr, index: TorchIndex, major_req: int, minor_req: int):
-    """Kernel 2: pass-1 probe results (B, NS, 2) -> (B, 5) int32
-    [ok, h1, l1, h2, l2]. One warp sorts and counts one row's valid
-    candidates; a row of more than VOTE_WARP_KEYS goes to the block."""
+def _vote(pr, index: TorchIndex, major_req: int, minor_req: int, counts: bool):
     dev = pr.device
     cuda.check_tensor(pr, "probe results", torch.int32, 3, dev)
     _check_index(index, dev)
     B, NS, two = pr.shape
-    P2 = vote_width(NS, index.D)
-    if two != 2 or P2 > MAX_VOTE_KEYS:
-        raise ValueError(f"vote: {NS} samples x {index.D} candidates exceed "
-                         f"the {MAX_VOTE_KEYS}-key sort buffer")
+    if two != 2:
+        raise ValueError(f"vote: probe results must be (B, NS, 2), got {tuple(pr.shape)}")
     if dev.type == "cpu":
+        if counts:
+            return vote_counts_plain(pr, index)
         return vote_plain(pr, index, major_req, minor_req)
+    out = torch.empty((B, 6 if counts else 5), dtype=torch.int32, device=dev)
+    if not B:
+        return out
+    P2 = vote_width(NS, index.D)
+    if P2 <= MAX_VOTE_KEYS:
+        cuda.launch_vote(pr, B, NS, index, PASS1_STEP, major_req, minor_req, P2, out, counts)
+        return out
+    wide_rows = torch.zeros(1 + B, dtype=torch.int32, device=dev)
+    cuda.launch_vote(pr, B, NS, index, PASS1_STEP, major_req, minor_req, P2, out, counts,
+                     wide_rows)
+    blocks = max(1, min(B, VOTE_WIDE_SCRATCH_BYTES // (8 * P2)))
+    scratch = torch.empty(blocks * P2, dtype=torch.int64, device=dev)
+    cuda.launch_vote_wide(pr, NS, index, PASS1_STEP, major_req, minor_req, counts, wide_rows,
+                          scratch, P2, out)
+    return out
+
+
+def vote(pr, index: TorchIndex, major_req: int, minor_req: int):
+    """Kernel 2: pass-1 probe results (B, NS, 2) -> (B, 5) int32
+    [ok, h1, l1, h2, l2]. One warp sorts and counts one row's valid
+    candidates; a row of more than VOTE_WARP_KEYS goes to the block. When
+    the rows are too wide for the block's keys to fit in shared memory
+    (vote_width past MAX_VOTE_KEYS), those rows are listed instead, and a
+    second launch sorts each in a global scratch slice."""
+    return _vote(pr, index, major_req, minor_req, counts=False)
+
+
+def vote_counts(pr, index: TorchIndex):
+    """The vote kernel's counts mode: (B, NS, 2) -> (B, 6) int32 [c1, h1,
+    l1, c2, h2, l2], the top-2 keys with their counts and no gate."""
+    return _vote(pr, index, 0, 0, counts=True)
+
+
+def merge_top2(votes, major_req: int, minor_req: int):
+    """The shards' counts-mode rows (S, B, 6), on one device -> (B, 5)
+    int32 [ok, h1, l1, h2, l2]: the global top two and the gate, one
+    thread a row (merge_top2_plain has the order)."""
+    dev = votes.device
+    cuda.check_tensor(votes, "votes", torch.int32, 3, dev)
+    S, B, six = votes.shape
+    if six != 6 or not 1 <= S <= MAX_SHARDS:
+        raise ValueError(f"merge_top2: (S, B, 6) with 1 <= S <= {MAX_SHARDS}, "
+                         f"got {tuple(votes.shape)}")
+    if dev.type == "cpu":
+        return merge_top2_plain(votes, major_req, minor_req)
     out = torch.empty((B, 5), dtype=torch.int32, device=dev)
     if B:
-        cuda.launch_vote(pr, B, NS, index, PASS1_STEP, major_req, minor_req, P2, out)
+        cuda.launch_merge_top2(votes, PASS1_STEP, major_req, minor_req, out)
     return out
+
+
+def _mask_scratch(B: int, NK: int, dev):
+    """The wide path's words (None for rows of at most MASK_MAX_WIDTH)."""
+    if NK + KMER - 1 <= MASK_MAX_WIDTH:
+        return None
+    return torch.empty(4 * B * flag_words(NK), dtype=torch.int32, device=dev)
 
 
 def mask_segments(pr, lengths, gp, index: TorchIndex, mismatch_thr: int):
     """Kernel 3: pass-2 probe results (B, NK, 2), lengths and the vote's
     (B, 4) [h1, l1, h2, l2] -> (B, 10) int32 segment rows. One warp
-    works one row; the card takes rows of up to MASK_MAX_WIDTH bases."""
+    works one row; rows wider than MASK_MAX_WIDTH bases take the wide
+    path (64-bit chain keys, the words in global scratch)."""
     dev = pr.device
     cuda.check_tensor(pr, "probe results", torch.int32, 3, dev)
     cuda.check_tensor(lengths, "lengths", torch.int32, 1, dev)
@@ -441,12 +589,50 @@ def mask_segments(pr, lengths, gp, index: TorchIndex, mismatch_thr: int):
         raise ValueError("mask_segments: bad shapes")
     if dev.type == "cpu":
         return mask_segments_plain(pr, lengths, gp, index, mismatch_thr)
-    if NK + KMER - 1 > MASK_MAX_WIDTH:
-        raise ValueError(f"mask_segments: code rows of {NK + KMER - 1} bases exceed the "
-                         f"kernel's {MASK_MAX_WIDTH}")
     out = torch.empty((B, 10), dtype=torch.int32, device=dev)
     if B:
-        cuda.launch_mask_segments(pr, lengths, gp, B, NK, index, mismatch_thr, out)
+        cuda.launch_mask_segments(pr, lengths, gp, B, NK, index, mismatch_thr, out,
+                                  _mask_scratch(B, NK, dev))
+    return out
+
+
+def shard_flags(pr, gp, index: TorchIndex, words):
+    """One shard's pass-2 flags ORed into `words` (B, flag_words(NK), 2)
+    int32 in place, -> words. pr: its full-stride probe results (B, NK,
+    2); gp: the merged (B, 4) [h1, l1, h2, l2]. One warp a (row, chunk of
+    32 k-mers) ballots them."""
+    dev = pr.device
+    cuda.check_tensor(pr, "probe results", torch.int32, 3, dev)
+    cuda.check_tensor(gp, "gp", torch.int32, 2, dev)
+    cuda.check_tensor(words, "words", torch.int32, 3, dev)
+    _check_index(index, dev)
+    B, NK, two = pr.shape
+    if two != 2 or tuple(gp.shape) != (B, 4) or tuple(words.shape) != (B, flag_words(NK), 2):
+        raise ValueError("shard_flags: bad shapes")
+    if dev.type == "cpu":
+        return words.bitwise_or_(shard_flags_plain(pr, gp, index))
+    if B:
+        cuda.launch_shard_flags(pr, gp, B, NK, index, words)
+    return words
+
+
+def mask_from_flags(words, lengths, gp, NK: int, mismatch_thr: int):
+    """Mask+segments from merged flag words (B, flag_words(NK), 2) -> the
+    (B, 10) rows of mask_segments; wide rows as there."""
+    dev = words.device
+    cuda.check_tensor(words, "words", torch.int32, 3, dev)
+    cuda.check_tensor(lengths, "lengths", torch.int32, 1, dev)
+    cuda.check_tensor(gp, "gp", torch.int32, 2, dev)
+    B = words.shape[0]
+    if (NK < 1 or tuple(words.shape) != (B, flag_words(NK), 2) or lengths.shape[0] != B
+            or tuple(gp.shape) != (B, 4)):
+        raise ValueError("mask_from_flags: bad shapes")
+    if dev.type == "cpu":
+        return mask_from_flags_plain(words, lengths, gp, NK, mismatch_thr)
+    out = torch.empty((B, 10), dtype=torch.int32, device=dev)
+    if B:
+        cuda.launch_mask_from_flags(words, lengths, gp, B, NK, mismatch_thr, out,
+                                    _mask_scratch(B, NK, dev))
     return out
 
 

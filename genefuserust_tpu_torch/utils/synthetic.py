@@ -274,6 +274,25 @@ def gen_block(mapper, n: int, read_len: int = 150, seed: int = 2) -> PairMatrix:
 DUPE_MOTIF = "ACGTTGCAACGGTTACGATCCAGTTACG"
 
 
+def long_reads(left: str, right: str, seed: int, span: int = 4200,
+               wide: int = 70000) -> Tuple[str, str]:
+    """Two reads past the scan kernels' main paths, from a junction: `left`
+    ends at it and `right` starts at it (at least span // 2 bases each).
+
+    -> (a `span`-base read across the junction, half from each side: wider
+    than the vote's shared-memory sort from 4,096 bases; a `wide`-base
+    read: 2,000 bases of `left`'s end, random bases, 2,000 of `right`'s
+    start ending 2,000 bases before the read's end, so that its chains end
+    past 65,535 bases, and its random middle fails the mismatch test
+    before the reference's quadratic segment walk)."""
+    rng = np.random.default_rng(seed)
+    h = span // 2
+    spanning = left[-h:] + right[: span - h]
+    middle = wide - 6000
+    return spanning, (left[-2000:] + random_seq(rng, middle) + right[:2000]
+                      + random_seq(rng, 2000))
+
+
 def dupe_panel(seed: int = 11) -> SyntheticPanel:
     """make_panel with a 28 bp motif planted 3x in GENE1 (dupe entries) and
     8x in GENE2 (high-level dupes)."""

@@ -63,6 +63,15 @@ def test_port_file_imports_nothing_of_jax_or_the_reference(relpath):
         assert forbidden_imports(f.read(), relpath) == []
 
 
+def test_scan_covers_every_module_of_the_port():
+    """The walk reaches the modules of each slice, the sharded index's and
+    the entry point included."""
+    files = set(_port_files())
+    for rel in ("parallel/mesh.py", "parallel/sharded_index.py", "parallel/sharded_engine.py",
+                "parallel/engine.py", "ops/map_read.py", "ops/cuda.py", "entry.py", "driver.py"):
+        assert os.path.join(PORT, rel) in files, rel
+
+
 PLANTED = {
     "import_jax": ("import jax\n", f"{PORT}/ops/x.py"),
     "jax_numpy_in_function": ("def f():\n    import jax.numpy as jnp\n", f"{PORT}/x.py"),

@@ -170,9 +170,12 @@ def _next_linked(lk, nlk, ok, nok):
     return n & M32
 
 
-def _kernel_segments(m3, m2, length, L, target):
+def _kernel_segments(m3, m2, length, L, target, wide=False):
     """One read's (valid, start, end) for `target` from its mask words
-    (m3: mask 3, m2: mask >= 2), as the kernel's segment step runs."""
+    (m3: mask 3, m2: mask >= 2), as the kernel's segment step runs; `wide`
+    packs the chain keys as the wide path does, (length + 1) << 32 |
+    (0xFFFFFFFF - end), for rows past 65,535 bases."""
+    sh, maxe = (32, M32) if wide else (16, 0xFFFF)
     nw = len(m3)
     lim = min(length, L)
 
@@ -211,19 +214,20 @@ def _kernel_segments(m3, m2, length, L, target):
                 hb = heads[lane] & (M32 >> (31 - b))
                 head = 32 * w + hb.bit_length() - 1 if hb else before
                 n = 32 * w + b - head
-                best = max(best, ((n + 1) << 16) | (0xFFFF - (32 * w + b)))
+                best = max(best, ((n + 1) << sh) | (maxe - (32 * w + b)))
         carry = max(carry, scan[31])
     if best == 0:
         return 0, -1, 0
-    n, end = (best >> 16) - 1, 0xFFFF - (best & 0xFFFF)
+    n, end = (best >> sh) - 1, maxe - (best & maxe)
     return int(n > 20), end - n, end
 
 
-def _kernel_mask_segments(pr, lengths, gp, index, mismatch_thr=10):
+def _kernel_mask_segments(pr, lengths, gp, index, mismatch_thr=10, wide=False):
     """The kernel on (B, NK, 2) probe results -> (B, 10) int32 rows. A
     k-mer's flag (3 on a candidate within +-1 of the top key, else 2 within
     +-1 of the second) is its candidates' max, as the kernel forms it from
-    the probe row and the dupe row it names; the rest runs on words."""
+    the probe row and the dupe row it names; the rest runs on words
+    (`wide`: with the wide path's chain keys)."""
     B, NK = pr.shape[:2]
     L = NK + 15
     nw = -(-L // 32)
@@ -241,7 +245,8 @@ def _kernel_mask_segments(pr, lengths, gp, index, mismatch_thr=10):
         m2 = [_window16(F2[c], F2[c - 1] if c else 0) for c in range(nw)]
         miss = sum(bin(~m2[c] & _below(c, lim)).count("1") for c in range(nw))
         ok = int(miss <= mismatch_thr)
-        (v3, s3, e3), (v2, s2, e2) = (_kernel_segments(m3, m2, n, L, t) for t in (3, 2))
+        (v3, s3, e3), (v2, s2, e2) = (_kernel_segments(m3, m2, n, L, t, wide=wide)
+                                      for t in (3, 2))
         out[b] = [v3 & ok, v2 & ok, s3, s2, e3, e2, *gp[b, [0, 2, 1, 3]].tolist()]
     return out
 
@@ -827,7 +832,14 @@ def test_mask_kernel_matches_plain_on_edge_rows(panel_ix, layout, L, cuda_device
     bad = [names[i] for i in torch.nonzero((got != exp).any(1)).flatten().tolist()]
     assert not bad, f"mask_segments kernel differs from plain on {bad}"
     assert np.array_equal(got.numpy(), _kernel_mask_segments(pr, lengths, gp, cpu))
-    # rows past the kernel's 16-bit chain ends are refused, never cut
-    wide = torch.zeros((1, tm.MASK_MAX_WIDTH - 14, 2), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="exceed"):
-        tm.mask_segments(wide, lengths[:1].to(cuda_device), gp[:1].to(cuda_device), dev, 10)
+    # the same rows moved past the 16-bit chain ends (misses in front, the
+    # hits' positions moved with them) take the wide path, equal to plain
+    off = tm.MASK_MAX_WIDTH
+    moved = pr.clone()
+    moved[..., 1] += torch.where(pr[..., 0] >= 0, off, 0).to(torch.int32)
+    front = torch.tensor([EMPTY, 0], dtype=torch.int32).expand(pr.shape[0], off, 2)
+    wpr, wlen = torch.cat([front, moved], 1), lengths + off
+    wexp = tm.mask_segments_plain(wpr, wlen, gp, cpu, 10)
+    wgot = tm.mask_segments(wpr.to(cuda_device), wlen.to(cuda_device), gp.to(cuda_device),
+                            dev, 10).cpu()
+    assert torch.equal(wgot, wexp) and (wexp[:, 4] > tm.MASK_MAX_WIDTH).any()
