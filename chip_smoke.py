@@ -60,6 +60,21 @@ Phases, one result line each; any failure raises and exits non-zero:
              engine (kv2 table; 4 split shard tables) the vote in both
              modes, mask+segments, the flags and mask+segments from flags
              bit-equal to plain, the wide paths timed.
+ 14 multi-device
+             data parallelism on the one card: (a) the 262,144 pairs
+             through the driver with RunConfig.devices = 4 entries of
+             cuda:0 (one table, 4 upload and 4 compute streams, one
+             65,536-pair batch an entry): JSON and HTML equal to phase
+             5's, phase 5's launches, then warm scans timed beside phase
+             7's; (b) dryrun_multichip(4) on 4 entries of the card;
+             (c) --mesh 2 through the CLI exits with the JAX driver's
+             message, --mesh auto is the one-device engine with phase 5's
+             launches and reports; (d) a world-size-1 NCCL group and one
+             all_reduce on the card; (e) the probe bit-equal to plain on a
+             batch of one 250,000-base row and 63 of 150 bases, strides 2
+             and 1, timed with its bound and its own row count, then those
+             reads with their mates through TorchEngine, reports equal to
+             the CPU engine's.
 
 The last three lines are the kernels' JSON record, nvidia-smi's
 name/power line and the contract line {"ok": true, "device": {...}}.
@@ -103,6 +118,9 @@ RICH_PAIRS = 8_192
 ED_JOBS = 65_536
 SHARDS = 4  # phase 13: shard tables of the smoke panel, all on the one card
 SHARD_PAIRS = BATCH
+MESH_ENTRIES = 4  # phase 14: TorchEngine entries, all on the one card
+LONG_READ = 250_000  # phase 14 (e): past what staging a tile's rows whole allowed
+LONG_BATCH = 64
 # kernels the build compiles: probe 4 (kv2, kv4, kv8, split), vote 3 (the
 # vote, its wide path, the shards' merge), mask_segments 8 (kv and split,
 # each narrow and wide; the shards' flags, kv and split; from flags, narrow
@@ -610,9 +628,10 @@ def phase_kernels(data: dict) -> dict:
     return rec
 
 
-def probe_row_loads(codes, lens, index, exp) -> int:
-    """One launch of the kv2 probe of phase 3's batch with the kernel's row
-    counter on, held bit-equal to `exp` -> the table rows it loaded."""
+def probe_row_loads(codes, lens, index, exp, stride=None) -> int:
+    """One launch of the kv2 probe of a batch (default stride: pass 1's)
+    with the kernel's row counter on, held bit-equal to `exp` -> the table
+    rows it loaded."""
     import torch
 
     from genefuserust_tpu_torch.config import PASS1_STEP
@@ -622,7 +641,7 @@ def probe_row_loads(codes, lens, index, exp) -> int:
     NQ = exp.shape[1]
     out = torch.empty_like(exp)
     loads = torch.zeros(1, dtype=torch.int64, device=exp.device)
-    cuda.launch_probe(codes, lens, None, None, B * NQ, W, PASS1_STEP, NQ, index, out,
+    cuda.launch_probe(codes, lens, None, None, B * NQ, W, stride or PASS1_STEP, NQ, index, out,
                       row_loads=loads)
     check(torch.equal(out, exp), "probe with its row counter differs from plain")
     return int(loads)
@@ -801,6 +820,8 @@ def phase_cli(data: dict, smi_line: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
+    data["cli_reports"] = (_TS.sub("<ts>", open(html).read()), strip_json(open(js).read()))
+    data["cli_wall_s"], data["cli_launches"] = wall, launches
     n_fusions = len(json.load(open(js))["fusions"])
     for k in SCAN_KERNELS:
         check(launches[k] > 0, f"kernel {k} was not launched by the CLI run")
@@ -908,6 +929,7 @@ def phase_profile(data: dict) -> None:
 
     scan()  # the engine's first batches: pinned buffers, streams, allocator
     warm = [scan() for _ in range(2)]
+    data["warm_1"] = warm
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_s = scan()
     spans, by_kind = [], {}
@@ -1639,6 +1661,226 @@ def phase_sharded(data: dict, smi_line: str) -> dict:
     return dict(rec=rec, launches=launches)
 
 
+def probe_long_rows(data: dict, codes, lens, reps=10, plain_reps=1) -> dict:
+    """The probe on a batch with a row past what staging a tile's rows whole
+    allowed, bit-equal to plain at strides 2 and 1, timed with its bound ->
+    the stride-2 record (the stride-1 ms beside it)."""
+    import torch
+
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.ops.index import index_to_torch
+
+    index = index_to_torch(data["packed_kv2"], codes.device)
+    rec = {}
+    for stride in (2, 1):
+        pr, err, ms, pms = _timed_pair(
+            f"probe ({codes.shape[1]}-base rows, stride {stride})",
+            lambda: tm.probe(codes, lens, stride, index),
+            lambda: tm.probe_plain(codes, lens, stride, index), reps=reps, plain_reps=plain_reps)
+        km, kok = tm.compute_kmers(codes, lens)
+        rows = probe_rows(km[:, ::stride], kok[:, ::stride], index)
+        del km, kok
+        B, W = codes.shape
+        rec[stride] = dict(err=err, ms=ms, plain_ms=pms, **bound(
+            B * W + 4 * B + rows["rows"] * rows["sector_bytes_per_row"] + pr.numel() * 4,
+            OPS["probe_base"] * B * W + OPS["probe_query"] * rows["valid"]))
+        rec[stride]["shape"] = (f"kv2 table {tuple(index.table.shape)}, {B}x{W} codes (one "
+                                f"row of {int(lens.max())} bases, {B - 1} of 150), stride {stride}")
+        loaded = probe_row_loads(codes, lens, index, pr, stride)
+        check(loaded == rows["rows"], f"probe (long rows, stride {stride}): the kernel loaded "
+              f"{loaded} table rows, the lookup needs {rows['rows']}")
+        say("14 multi-device", kernel="probe", rows=f"1x{int(lens.max())}+{B - 1}x150",
+            width=W, stride=stride, valid_queries=rows["valid"], rows_needed=rows["rows"],
+            rows_loaded=loaded, ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+            bound_ms=f"{rec[stride]['bound_ms']:.5f}", bound_by=rec[stride]["bound_by"],
+            bound_share=f"{rec[stride]['bound_ms'] / ms:.4f}", max_abs_err=err)
+        del pr
+    del index
+    torch.cuda.empty_cache()
+    return dict(rec[2], err=max(rec[2]["err"], rec[1]["err"]), stride1_ms=rec[1]["ms"],
+                stride1_bound_ms=rec[1]["bound_ms"])
+
+
+def phase_multi_device(data: dict, smi_line: str) -> dict:
+    """Phase 14: TorchEngine over a device list of 4 entries of the card,
+    the multi-device dry run, --mesh through the CLI, a world-size-1 NCCL
+    group, and the probe on a 250,000-base row -> the long-row probe's
+    record and its launches."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from genefuserust_tpu_torch import cli, driver
+    from genefuserust_tpu_torch.config import Settings
+    from genefuserust_tpu_torch.core.read import SequenceRead, SequenceReadPair
+    from genefuserust_tpu_torch.core.scanner import Scanner
+    from genefuserust_tpu_torch.core.sequence import encode_bases, reverse_complement
+    from genefuserust_tpu_torch.entry import dryrun_multichip
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.parallel import distributed
+    from genefuserust_tpu_torch.parallel.engine import TorchEngine
+    from genefuserust_tpu_torch.utils.synthetic import long_reads
+
+    wd = os.path.join(data["workdir"], "multi_device")
+    os.makedirs(wd)
+    devices = ["cuda:0"] * MESH_ENTRIES
+
+    def report(name):
+        return (_TS.sub("<ts>", open(os.path.join(wd, f"{name}.html")).read()),
+                strip_json(open(os.path.join(wd, f"{name}.json")).read()))
+
+    # (a) the 262,144 pairs through the driver on 4 entries of the card: one
+    # table, 4 upload and 4 compute streams, one 65,536-pair batch an entry
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    with quiet(data):
+        eng = driver.scan(driver.RunConfig(
+            r1_file=data["r1"], r2_file=data["r2"], fusion_file=data["csv"],
+            html=os.path.join(wd, "mesh.html"), json=os.path.join(wd, "mesh.json"),
+            ref_file=data["fa"], devices=devices), " ".join(sys.argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    for k in SCAN_KERNELS:
+        check(launches[k] == data["cli_launches"][k],
+              f"multi-device: kernel {k} launched {launches[k]} times, phase 5 "
+              f"{data['cli_launches'][k]}")
+    check(len(eng.devices) == MESH_ENTRIES and len(eng._tables) == 1
+          and all(len(t["indexes"]) == 1 for t in eng._tables.values()),
+          "multi-device: expected 4 entries and one table copy on the card")
+    check(eng.entry_batches == [1] * MESH_ENTRIES,
+          f"multi-device: batches per entry {eng.entry_batches}, expected one each")
+    got = report("mesh")
+    check(got[1] == data["cli_reports"][1], "multi-device: JSON differs from phase 5's")
+    check(got[0] == data["cli_reports"][0], "multi-device: HTML differs from phase 5's")
+    # warm: the kv2 table already on the card, as in phase 7
+    mapper, blk = data["mapper"], data["blk"]
+    weng = TorchEngine(Settings(), devices=devices)
+    weng.use_packed(data["packed_kv2"], mapper=mapper)
+
+    def scan() -> float:
+        t = time.perf_counter()
+        weng.scan_pair_block(mapper, blk)
+        weng.flush(mapper)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    scan()
+    warm = [scan() for _ in range(2)]
+    n = len(blk.left.seq)
+    say("14 multi-device", entries=",".join(devices), pairs=n, json="equal", html="equal",
+        vs="phase 5 (one device)", wall_s=f"{wall:.2f}",
+        phase5_wall_s=f"{data['cli_wall_s']:.2f}", index_s=f"{eng.table_seconds:.2f}",
+        batches_per_entry=",".join(map(str, eng.entry_batches)),
+        launches=json.dumps({k: launches[k] for k in SCAN_KERNELS}, separators=(",", ":")),
+        warm_scan_s=",".join(f"{w:.3f}" for w in warm),
+        warm_pairs_per_s=",".join(f"{n / w:.0f}" for w in warm),
+        phase7_warm_scan_s=",".join(f"{w:.3f}" for w in data["warm_1"]),
+        phase7_warm_pairs_per_s=",".join(f"{n / w:.0f}" for w in data["warm_1"]),
+        card=repr(smi_line))
+    del weng, eng
+    torch.cuda.empty_cache()
+
+    # (b) the dry run of the four multi-device paths on 4 entries of the card
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        dryrun_multichip(MESH_ENTRIES)
+    torch.cuda.synchronize()
+    check(f"dryrun_multichip({MESH_ENTRIES}): ok" in out.getvalue(),
+          "multi-device: dryrun_multichip did not report ok")
+    say("14 multi-device", dryrun_multichip=MESH_ENTRIES, paths="pe,se,sharded-index,multi-csv",
+        equal=True, seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # (c) --mesh through the CLI: 2 on a one-card machine exits with the JAX
+    # driver's message; auto is the single-device engine with its launches
+    args = ["-1", data["r1"], "-2", data["r2"], "-f", data["csv"], "-r", data["fa"],
+            "-h", os.path.join(wd, "auto.html"), "-j", os.path.join(wd, "auto.json")]
+    if torch.cuda.device_count() == 1:
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                cli.run([*args, "--mesh", "2"])
+            check(False, "multi-device: --mesh 2 on one card did not exit")
+        except SystemExit:
+            pass
+        # the CLI's command header, then the JAX driver's message
+        check(out.getvalue().strip().splitlines()[-1] == "ERROR: --mesh 2 requested but only 1 "
+              "devices are available, quit now", f"multi-device: --mesh 2 said {out.getvalue()!r}")
+    cuda.reset_launches()
+    with quiet(data):
+        aeng = cli.run([*args, "--mesh", "auto"])
+    torch.cuda.synchronize()
+    auto = dict(cuda.LAUNCHES)
+    check(len(aeng.devices) == 1 and aeng._entries[0].stream is None,
+          "multi-device: --mesh auto on one card is not the single-device engine")
+    check(all(auto[k] == data["cli_launches"][k] for k in SCAN_KERNELS),
+          f"multi-device: --mesh auto launches differ from phase 5's: {auto}")
+    check(report("auto") == data["cli_reports"], "multi-device: --mesh auto reports differ")
+    say("14 multi-device", cli_mesh_2="exits with the JAX driver's message"
+        if torch.cuda.device_count() == 1 else "not checked (more than one card)",
+        cli_mesh_auto="one device", launches=json.dumps(
+            {k: auto[k] for k in SCAN_KERNELS}, separators=(",", ":")))
+    del aeng
+
+    # (d) a world-size-1 NCCL group and one all_reduce on the card
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    check(distributed.init(init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                           backend="nccl"), "multi-device: distributed.init made no group")
+    try:
+        x = torch.arange(8, dtype=torch.int64, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        check(x.tolist() == list(range(8)), f"multi-device: all_reduce gave {x.tolist()}")
+        mesh = distributed.make_mesh()
+        say("14 multi-device", nccl_world_size=dist.get_world_size(),
+            backend=dist.get_backend(), all_reduce="equal", mesh=repr(mesh.shape))
+    finally:
+        dist.destroy_process_group()
+
+    # (e) a 250,000-base read (2,000 bases each side of the first planted
+    # junction around a random middle) and 63 reads of 150 bases: the probe
+    # against plain, then the pairs through TorchEngine on the card and on
+    # the CPU
+    contigs = mapper.contigs
+    lb, rb = data["exons"][3][5] - 1, data["exons"][17][9] - 1
+    _, longr = long_reads(contigs["c03"][lb - 2200 : lb + 1], contigs["c17"][rb : rb + 2200],
+                          seed=data["seed"] + 2000, wide=LONG_READ)
+    base = data["oracle_pairs"][: LONG_BATCH - 1]
+    W = -(-LONG_READ // 32) * 32
+    codes = np.full((LONG_BATCH, W), 255, np.uint8)
+    codes[0, :LONG_READ] = encode_bases(longr)
+    for i, p in enumerate(base):
+        codes[i + 1, : len(p.left.seq)] = encode_bases(p.left.seq)
+    lens = np.array([LONG_READ] + [len(p.left.seq) for p in base], np.int32)
+    rec = probe_long_rows(data, torch.from_numpy(codes).cuda(), torch.from_numpy(lens).cuda())
+    read = SequenceRead("@long250k", longr, "+", "I" * LONG_READ)
+    mate = SequenceRead("@long250k", reverse_complement(longr[-300:-150]), "+", "I" * 150)
+    items = [SequenceReadPair(read, mate)] + base
+    reps = {}
+    for name in ("cpu", "cuda"):
+        leng = TorchEngine(Settings(), device=name)
+        leng.use_packed(data["packed_kv2"])
+        if name == "cuda":
+            cuda.reset_launches()
+        with quiet(data):
+            Scanner(data["csv"], contigs, os.path.join(wd, f"l{name}.html"),
+                    os.path.join(wd, f"l{name}.json"), Settings(), engine=leng,
+                    command="long").scan_pairs(items)
+        torch.cuda.synchronize()
+        reps[name] = report(f"l{name}")
+    long_launches = dict(cuda.LAUNCHES)
+    check(reps["cuda"] == reps["cpu"],
+          "multi-device: the 250,000-base scan's reports differ from --device cpu's")
+    check(long_launches["probe"] > 0, "multi-device: the long-read scan launched no probe")
+    say("14 multi-device", long_read=LONG_READ, pairs=len(items), reports_vs_cpu="equal",
+        launches=json.dumps(long_launches, separators=(",", ":")))
+    return dict(rec=rec, launches=long_launches["probe"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -1702,6 +1944,7 @@ def main(argv=None) -> int:
         phase_multi(data, smi_line)
         phase_single(data, smi_line)
         sharded = phase_sharded(data, smi_line)
+        multi_device = phase_multi_device(data, smi_line)
     finally:
         log.close()
         shutil.rmtree(workdir, ignore_errors=True)
@@ -1721,8 +1964,9 @@ def main(argv=None) -> int:
         "vote_counts_wide": "genefuserust_tpu/parallel/sharded_index.py:209",
         "mask_segments_wide": "genefuserust_tpu/ops/map_read.py:439",
         "mask_from_flags_wide": "genefuserust_tpu/parallel/sharded_index.py:242",
+        "probe_long": "genefuserust_tpu/ops/pallas_lookup.py:102",
     }
-    sources = dict(probe_split="probe", vote_counts="vote", merge_top2="vote",
+    sources = dict(probe_split="probe", probe_long="probe", vote_counts="vote", merge_top2="vote",
                    vote_wide="vote", vote_counts_wide="vote", shard_flags="mask_segments",
                    mask_from_flags="mask_segments", mask_segments_wide="mask_segments",
                    mask_from_flags_wide="mask_segments")
@@ -1739,8 +1983,11 @@ def main(argv=None) -> int:
     # and the sharded stages) and over its wide-read scans (the wide paths)
     rec.update(sharded["rec"])
     launches.update({k: sharded["launches"][k] for k in sharded["rec"]})
+    # phase 14 (e): the probe on the 250,000-base row, launches over its scan
+    rec["probe_long"] = multi_device["rec"]
+    launches["probe_long"] = multi_device["launches"]
     extra = ("shape", "wide", "rows_needed", "rows_loaded", "h1_hit_share", "main_path_flushes",
-             "fusion_rich_launches", "hits")
+             "fusion_rich_launches", "hits", "stride1_ms", "stride1_bound_ms")
     kernels = [
         dict(name=k, route="cuda",
              source=f"genefuserust_tpu_torch/csrc/{sources.get(k, k)}.cu",

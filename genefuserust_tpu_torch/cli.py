@@ -46,8 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--index-cache", default="",
                    help="directory for the on-disk panel index cache")
     p.add_argument("--mesh", default="auto",
-                   help="device count: sharded-index takes one shard a device ('auto': "
-                   "every device); the cuda engine runs on one device only yet")
+                   help="device count ('auto': every device): the cuda engine gives each "
+                   "device whole batches in turn, with the table on each; sharded-index "
+                   "takes one shard a device")
     return p
 
 

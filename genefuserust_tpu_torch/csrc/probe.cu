@@ -25,8 +25,14 @@
 //    blocks per SM x SMs) and walks the tiles. Q, POL and T are fixed at
 //    build time (PROBE_Q, PROBE_POLICY, PROBE_THREADS below); a launch-shape
 //    sweep rebuilds this file with -D overrides.
-//  - Each code row is read once. A tile's rows are staged in shared memory
-//    with 16-byte loads: each 16 code bytes become one word of 2-bit bases
+//  - Code bytes are read about once. A tile's queries are consecutive
+//    (row, k-mer) pairs, so the bytes they touch are one span of the (B, W)
+//    rows: from the first query's k-mer to the last one's end. Only that
+//    span is staged, never a crossed row whole, so the shared memory a tile
+//    takes is bounded by its T*Q queries (about stride bytes each, plus up
+//    to 15 unqueried bytes at the end of each row it crosses), whatever W
+//    is. It is staged with 16-byte loads: each 16 code bytes become one
+//    word of 2-bit bases
 //    (shifted in at 2 bits per base, first base highest) and a 16-bit mask
 //    of 255 codes. A k-mer is the 32 bits at its offset across two
 //    neighbouring words; it is valid when its window holds no mask bit (the
@@ -212,9 +218,14 @@ probe_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ leng
     uint32_t k[Q];
     bool valid[Q];
     if (codes != nullptr) {
-      const unsigned ra = q0 / NQ, rb = (min(n, q0 + per_tile) - 1) / NQ;
-      const long long c0 = (long long)ra * W >> 4;
-      const int nch = (int)((((long long)(rb + 1) * W + 15) >> 4) - c0) + 1;
+      // the span from the first query's k-mer to the last one's second
+      // chunk; `base` is its first chunk's byte offset in row ra, so a
+      // query's offset into the span stays 32-bit
+      const unsigned ql = min(n, q0 + per_tile) - 1;
+      const unsigned ra = q0 / NQ, rb = ql / NQ;
+      const long long c0 = ((long long)ra * W + (long long)(q0 - ra * NQ) * stride) >> 4;
+      const int base = (int)(c0 * 16 - (long long)ra * W);
+      const int nch = (((int)(rb - ra) * W + (int)(ql - rb * NQ) * stride - base) >> 4) + 2;
       __syncthreads();  // the previous tile's readers are done
       for (int i = tid; i < nch; i += T) chunks[i] = pack_chunk(codes, nbytes, c0 + i);
       for (unsigned r = tid; r <= rb - ra; r += T) slen[r] = __ldg(lengths + ra + r);
@@ -227,7 +238,7 @@ probe_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ leng
         if (q < n) {
           const unsigned row = q / NQ;
           const int j = (int)(q - row * NQ) * stride;
-          const int g = (int)((long long)row * W + j - c0 * 16);
+          const int g = (int)(row - ra) * W + j - base;
           const uint2 a = chunks[g >> 4], b = chunks[(g >> 4) + 1];
           const int o = g & 15;
           k[i] = __funnelshift_l(b.x, a.x, 2 * o);
@@ -295,10 +306,16 @@ int probe_launch(const ProbeArgs& a, cudaStream_t st) {
   int nch_max = 0;
   size_t smem = 0;
   if (a.codes != nullptr) {
-    // rows a tile of T*Q queries can touch, and their 16-byte chunks
-    // (+1 for the straddled first chunk, +1 for the last k-mer's neighbour)
+    // rows a tile of T*Q queries can touch, and the 16-byte chunks of its
+    // span: T*Q - 1 steps of `stride` bases, plus the W - NQ*stride bases
+    // after a row's last k-mer start at each row boundary it crosses (+3:
+    // the straddled first chunk, the partial last one, and the last k-mer's
+    // neighbour)
     const long long rows_max = ((long long)T * Q - 1) / a.NQ + 2;
-    nch_max = (int)((rows_max * a.W + 15) / 16 + 2);
+    const long long tail = a.W - (long long)a.NQ * a.stride;
+    const long long span =
+        (long long)a.stride * (T * Q - 1) + (rows_max - 1) * (tail > 0 ? tail : 0);
+    nch_max = (int)(span / 16 + 3);
     smem = (size_t)nch_max * sizeof(uint2) + (size_t)rows_max * sizeof(int);
   }
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -10,11 +10,12 @@ paired-end input is scanned against every panel in one pass
 panel gets its own `{stem}_{csv_stem}.{ext}` reports with logging and the
 stdout fusion blocks suppressed.
 
-Engines: 'cuda' (`TorchEngine`, one device; `--mesh` above 1 raises until
-multi-GPU data parallelism is ported), 'sharded-index'
-(`ShardedIndexEngine`, the panel's table split by contig over `--mesh`
-devices, one shard each, or over an explicit device list) and 'host' (the
-scalar oracle).
+Engines: 'cuda' (`TorchEngine` over `--mesh` devices, whole batches in
+turn with the table on each, or over an explicit device list; one device
+when the mesh resolves to one), 'sharded-index' (`ShardedIndexEngine`,
+the panel's table split by contig over `--mesh` devices, one shard each,
+or over an explicit device list) and 'host' (the scalar oracle).
+`--mesh` resolves as in the JAX driver (`parallel/mesh.py::resolve_mesh`).
 """
 
 from __future__ import annotations
@@ -45,10 +46,11 @@ class RunConfig:
     settings: Settings = dataclasses.field(default_factory=Settings)
     engine: str = "cuda"  # 'cuda' (TorchEngine) | 'sharded-index' | 'host' (scalar oracle)
     index_cache_dir: str = ""
-    mesh: str = "auto"  # cuda: one device only yet; sharded-index: the shard count
+    mesh: str = "auto"  # cuda: the data-parallel devices; sharded-index: the shard count
     device: str = "cuda"  # torch device (type) of the engine
-    # sharded-index: one device per shard, in place of --mesh (a device may
-    # repeat: several shards on one card)
+    # in place of --mesh (API only): cuda, the entries that take batches in
+    # turn; sharded-index, one device per shard. A device may repeat:
+    # several entries or shards on one card
     devices: Optional[Sequence[str]] = None
 
 
@@ -79,25 +81,23 @@ def make_engine(kind: str, settings: Settings, device: str = "cuda",
         from .core.scanner import HostEngine
 
         return HostEngine()
+    if kind not in ("cuda", "sharded-index"):
+        raise ValueError(f"unknown engine {kind!r}")
+    from .parallel.mesh import resolve_mesh
+
+    devs = list(devices) if devices else resolve_mesh(mesh, device)
     if kind == "sharded-index":
         # contig-sharded index for panels beyond one device's memory
-        from .parallel.mesh import resolve_mesh
         from .parallel.sharded_engine import ShardedIndexEngine
 
-        return ShardedIndexEngine(
-            settings, devices=list(devices) if devices else resolve_mesh(mesh, device))
-    if kind != "cuda":
-        raise ValueError(f"unknown engine {kind!r}")
-    if mesh not in ("", "auto", "1"):
-        raise NotImplementedError(
-            f"--mesh {mesh}: multi-GPU data parallelism is not ported yet "
-            "(ROADMAP.md, port queue: multi-GPU)"
-        )
+        return ShardedIndexEngine(settings, devices=devs)
     from .parallel.engine import TorchEngine
 
+    if not devices and len(devs) == 1:
+        devs = [device]  # one device: the one asked for (cuda:1 stays cuda:1)
     # -t bounds the batches in flight, as in the JAX driver
     return TorchEngine(
-        settings, device=device,
+        settings, devices=devs,
         pipeline_depth=6 if thread_num is None else max(2, min(16, thread_num)),
     )
 

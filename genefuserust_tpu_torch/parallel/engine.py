@@ -34,7 +34,19 @@ What differs from the JAX engine:
     exact widths;
   - edit distances go through this package's EdBatcher, and the index
     table comes from this package's builder (`ops/index.py`);
-  - one device only (no mesh).
+  - several devices take whole batches in turn, where the JAX engine
+    splits each batch over a mesh (`TpuEngine(mesh=...)`, jit's SPMD
+    partitioning of one batch, tables replicated;
+    genefuserust_tpu/parallel/engine.py:175-199). `devices` is a list of
+    torch devices, which may repeat one: batch k goes to entry k mod n,
+    each entry with its own upload and compute stream on its device, and
+    each mapper's table sits once on each distinct device. A batch runs
+    `fused_scan_lanes` exactly as on one device (the same survivor cap and
+    compaction), its survivor-cap overflow rescans on its own entry, the
+    reverse-complement retries and the edit distances run on entry 0, and
+    assembly takes the batches in order, so the reports do not depend on
+    the number of entries or on which finishes first. One entry is the
+    single-device engine: it scans on the current stream.
 
 Results are identical to the host oracle (tests/test_torch_engine.py).
 """
@@ -77,6 +89,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _indexed(dev: torch.device) -> torch.device:
+    """A CUDA device with its index ("cuda" -> "cuda:<current>"), so that
+    one card named two ways holds one table copy."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _tokenize_bytes(strings: List[bytes], L: int) -> Tuple[np.ndarray, np.ndarray]:
     arr = np.zeros((len(strings), L), np.uint8)
     lens = np.zeros(len(strings), np.int32)
@@ -112,8 +132,24 @@ class _Result:
         return self._host.numpy()
 
 
+class _Entry:
+    """One entry of the engine's device list. Entries are told apart by
+    position, not by device: a list may name one card several times, and
+    each entry then has its own streams on it. `stream` is None for a
+    CPU device and for the single-device engine (the current stream)."""
+
+    __slots__ = ("device", "stream", "upload_stream", "batches")
+
+    def __init__(self, device: torch.device, own_stream: bool):
+        self.device = device
+        self.stream = torch.cuda.Stream(device) if own_stream else None
+        self.upload_stream = None  # made by the producer thread at first use
+        self.batches = 0
+
+
 class TorchEngine:
-    """Batched paired-end / single-end engine on one torch device."""
+    """Batched paired-end / single-end engine on one torch device, or on a
+    list of them (whole batches in turn)."""
 
     # Stage graph: 0 issue-scan -> 1 assemble -> 2 done. The whole device
     # scan is ONE call issued at stage 0; assembly waits until the batch's
@@ -121,13 +157,19 @@ class TorchEngine:
     _N_STAGES = 2
 
     def __init__(self, settings: Settings, batch_size: int = 65536,
-                 device="cuda", pipeline_depth: int = 6):
+                 device="cuda", pipeline_depth: int = 6, devices=None):
         self.settings = settings
         self.batch_size = batch_size
-        self.device = resolve_device(device)
+        devs = [_indexed(resolve_device(d)) for d in (devices or [device])]
+        if not devs:
+            raise ValueError("TorchEngine: empty device list")
+        self._entries = [_Entry(d, len(devs) > 1 and d.type == "cuda") for d in devs]
+        self.devices = devs
+        # entry 0: edit distances and reverse-complement retries
+        self.device = devs[0]
+        self._n_batches = 0
         # in-flight batch bound (the `-t` analog; see driver.make_engine)
         self.pipeline_depth = max(1, pipeline_depth)
-        self._upload_stream = None
         self._prepared_for = None
         self._default_entry = None
         self._tables = {}  # id(mapper) -> table entry dict
@@ -165,41 +207,55 @@ class TorchEngine:
         e[1] += 1
         return r
 
-    def _submit_producer(self, fn, *args):
+    def _submit_producer(self, entry: _Entry, fn, *args):
         if self._producer is None:
             self._producer = ThreadPoolExecutor(max_workers=self._producer_workers)
-        return self._producer.submit(self._with_upload_stream, fn, *args)
+        return self._producer.submit(self._with_upload_stream, entry, fn, *args)
+
+    def _next_entry(self) -> _Entry:
+        """The entry of the next batch: batch k goes to entry k mod n."""
+        e = self._entries[self._n_batches % len(self._entries)]
+        self._n_batches += 1
+        e.batches += 1
+        return e
+
+    @property
+    def entry_batches(self) -> List[int]:
+        """Batches placed on each entry of the device list so far."""
+        return [e.batches for e in self._entries]
 
     def _ed(self) -> EdBatcher:
         return EdBatcher(stats=self.ed_stats, device=self.device)
 
     # ------------- uploads -------------
 
-    def _put_batch(self, x):
+    def _put_batch(self, x, device: torch.device):
         t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.device.type == "cpu":
+        if device.type == "cpu":
             return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return t.pin_memory().to(device, non_blocking=True)
 
-    def _with_upload_stream(self, produce, *args):
-        """Run a producer on the upload stream; the batch carries the event
-        that orders its uploads before the scan."""
-        if self.device.type == "cpu":
-            return produce(*args)
-        if self._upload_stream is None:
-            self._upload_stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(self._upload_stream):
-            out = produce(*args)
+    def _with_upload_stream(self, entry: _Entry, produce, *args):
+        """Run a producer on its entry's upload stream; the batch carries
+        the event that orders its uploads before the scan."""
+        if entry.device.type == "cpu":
+            return produce(*args, entry=entry)
+        if entry.upload_stream is None:
+            entry.upload_stream = torch.cuda.Stream(entry.device)
+        with torch.cuda.stream(entry.upload_stream):
+            out = produce(*args, entry=entry)
             ev = torch.cuda.Event()
-            ev.record(self._upload_stream)
+            ev.record(entry.upload_stream)
         out["upload_event"] = ev
         return out
 
     def _adopt_uploads(self, sh: dict) -> None:
+        """Order the batch's uploads before the work on the current stream
+        (the batch's entry's, inside `torch.cuda.stream(entry.stream)`)."""
         ev = sh.pop("upload_event", None)
         if ev is None:
             return
-        cur = torch.cuda.current_stream(self.device)
+        cur = torch.cuda.current_stream(sh["entry"].device)
         cur.wait_event(ev)
         for t in (*sh["bufs_d"], *sh["lens_d"], sh["exc_d"]):
             t.record_stream(cur)
@@ -207,7 +263,13 @@ class TorchEngine:
     # ------------- index -------------
 
     def _entry_from_packed(self, packed) -> dict:
-        return dict(packed=packed, index=index_to_torch(packed, self.device))
+        """The table entry of a packed index: one copy on each distinct
+        device of the list."""
+        indexes = {}
+        for e in self._entries:
+            if e.device not in indexes:
+                indexes[e.device] = index_to_torch(packed, e.device)
+        return dict(packed=packed, indexes=indexes)
 
     def use_packed(self, packed, mapper=None) -> None:
         """Install a pre-built table. With `mapper`, it is bound to that
@@ -345,8 +407,10 @@ class TorchEngine:
                             pair_obj: Callable) -> None:
         """Paired-end pipeline entry: host merge on the producer thread ->
         one-call scan -> readiness-gated assembly; flush() drains."""
+        entry = self._next_entry()
         shared = dict(
-            fut=self._submit_producer(self._st0_produce, b1, q1, l1, b2, q2, l2),
+            fut=self._submit_producer(entry, self._st0_produce, b1, q1, l1, b2, q2, l2),
+            entry=entry,
             mappers=list(mappers),
             pair_obj=pair_obj,
             orig_B=b1.shape[0],
@@ -398,12 +462,14 @@ class TorchEngine:
     # ---- stage 0: host merge + compact + pack + upload (panel-
     # independent; runs on the producer thread) ----
 
-    def _st0_produce(self, b1, q1, l1, b2, q2, l2):
+    def _st0_produce(self, b1, q1, l1, b2, q2, l2, entry=None):
         """Host merge (native gf_merge_pack_pe2, bit-exact with the
-        fast_merge oracle) + lane compaction + 2-bit pack + upload. The
-        device sees only the code rows it scans (merged lanes at their
-        widths, unmerged reads at read width). Exotic rows are left out of
-        both lanes and go to the scalar oracle in _fetch_merge."""
+        fast_merge oracle) + lane compaction + 2-bit pack + upload to the
+        batch's entry (default: entry 0). The device sees only the code
+        rows it scans (merged lanes at their widths, unmerged reads at read
+        width). Exotic rows are left out of both lanes and go to the scalar
+        oracle in _fetch_merge."""
+        dev = (entry or self._entries[0]).device
         l1 = np.asarray(l1, np.int32).copy()
         l2 = np.asarray(l2, np.int32).copy()
         # R1/R2 blocks may have different widths (independently parsed
@@ -496,9 +562,9 @@ class TorchEngine:
             exc[len(m_exc) : n_exc, 0] = u_exc[:, 0] + offs[2]
             exc[len(m_exc) : n_exc, 1] = u_exc[:, 1]
         out = self._timed("st0.upload", lambda: dict(
-            bufs_d=tuple(self._put_batch(b) for b in bufs),
-            lens_d=tuple(self._put_batch(x) for x in lens_arrs),
-            exc_d=self._put_batch(exc),
+            bufs_d=tuple(self._put_batch(b, dev) for b in bufs),
+            lens_d=tuple(self._put_batch(x, dev) for x in lens_arrs),
+            exc_d=self._put_batch(exc, dev),
         ))
         out.update(
             rows_m=rows_m, m_len=m_len, rwork=rwork, exotic=res["exotic"],
@@ -537,9 +603,11 @@ class TorchEngine:
     # ---- stage 0 advance: join the producer, issue the one-call scan ----
 
     def _scan(self, tbl, bufs, lens, exc, widths, cap):
+        """fused_scan_lanes on the device that `exc` lies on, with the
+        table's copy there."""
         st = self.settings
         return fused_scan_lanes(
-            bufs, lens, exc, tbl["index"], widths=widths, cap=cap,
+            bufs, lens, exc, tbl["indexes"][exc.device], widths=widths, cap=cap,
             major_req=st.major_gene_key_requirement,
             minor_req=st.minor_gene_key_requirement,
             mismatch_thr=st.mismatch_threshold,
@@ -550,13 +618,14 @@ class TorchEngine:
         self._fetch_merge(sh)
         c["scan_d"] = c["okw_d"] = c["scan_f"] = None
         if sh["n_m"] or sh["n_u"]:
-            self._adopt_uploads(sh)
-            out_d, okw_d = self._scan(
-                c["tbl"], sh["bufs_d"], sh["lens_d"], sh["exc_d"], sh["widths"],
-                self._surv_cap,
-            )
-            c["scan_d"], c["okw_d"] = out_d, okw_d
-            c["scan_f"] = _Result(out_d)
+            with torch.cuda.stream(sh["entry"].stream):
+                self._adopt_uploads(sh)
+                out_d, okw_d = self._scan(
+                    c["tbl"], sh["bufs_d"], sh["lens_d"], sh["exc_d"], sh["widths"],
+                    self._surv_cap,
+                )
+                c["scan_d"], c["okw_d"] = out_d, okw_d
+                c["scan_f"] = _Result(out_d)
         c["stage"] = 1
 
     @staticmethod
@@ -577,9 +646,12 @@ class TorchEngine:
 
     def _p2_overflow(self, c, n_count: int):
         """Pass 2 for the survivors beyond the cap: rescan those rows alone
-        (identical votes, hence identical segments)."""
+        (identical votes, hence identical segments), on the batch's own
+        entry."""
         sh = c["shared"]
-        okw = c["okw_d"].cpu().numpy().view(np.uint32)
+        entry = sh["entry"]
+        with torch.cuda.stream(entry.stream):
+            okw = c["okw_d"].cpu().numpy().view(np.uint32)
         bits = np.unpackbits(
             okw.view(np.uint8).reshape(-1, 4), axis=1, bitorder="little"
         ).reshape(-1)
@@ -610,11 +682,13 @@ class TorchEngine:
         exc[:, 0] = pb + 8
         if exc_list:
             exc[: len(exc_list)] = exc_list
-        out_t, _ = self._scan(
-            c["tbl"], (self._put_batch(sbuf),), (self._put_batch(lens),),
-            self._put_batch(exc), (W,), pb,
-        )
-        res = out_t.cpu().numpy()
+        dev = entry.device
+        with torch.cuda.stream(entry.stream):
+            out_t, _ = self._scan(
+                c["tbl"], (self._put_batch(sbuf, dev),), (self._put_batch(lens, dev),),
+                self._put_batch(exc, dev), (W,), pb,
+            )
+            res = out_t.cpu().numpy()
         rows = []
         for k in range(int(res[-1, 0])):
             r = res[k].copy()
@@ -709,9 +783,12 @@ class TorchEngine:
 
     def _retry_issue(self, mapper, items):
         """Rescan direction-rejected reads reverse-complemented through the
-        single-lane scan (pescanner.rs:455-513). items: [(lane, rc_read,
-        original_reads)] -> [(chunk, result)] for _retry_assemble."""
+        single-lane scan (pescanner.rs:455-513), on entry 0 whichever entry
+        finished last. items: [(lane, rc_read, original_reads)] ->
+        [(chunk, result)] for _retry_assemble."""
         tbl = self._table_entry(mapper)
+        entry = self._entries[0]
+        dev = entry.device
         ctxs = []
         CHUNK = self._retry_flush_at
         for s in range(0, len(items), CHUNK):
@@ -733,11 +810,12 @@ class TorchEngine:
             exc[:, 0] = PAD
             exc[: len(er), 0] = er
             exc[: len(er), 1] = ec
-            out_d, _ = self._scan(
-                tbl, (self._put_batch(buf),), (self._put_batch(ln),),
-                self._put_batch(exc), (W,), PAD,
-            )
-            ctxs.append((ch, _Result(out_d)))
+            with torch.cuda.stream(entry.stream):
+                out_d, _ = self._scan(
+                    tbl, (self._put_batch(buf, dev),), (self._put_batch(ln, dev),),
+                    self._put_batch(exc, dev), (W,), PAD,
+                )
+                ctxs.append((ch, _Result(out_d)))
         return ctxs
 
     def _retry_assemble(self, mapper, ctxs, ed_batcher=None) -> None:
@@ -771,8 +849,10 @@ class TorchEngine:
         with a single read lane (no merge; the host pack is numpy)."""
         rows = np.ascontiguousarray(rows)
         lens = np.asarray(lens, np.int32).copy()
+        entry = self._next_entry()
         shared = dict(
-            fut=self._submit_producer(self._st0_produce_se, rows, lens),
+            fut=self._submit_producer(entry, self._st0_produce_se, rows, lens),
+            entry=entry,
             mappers=[mapper],
             read_at=read_at,
             se=True,
@@ -782,7 +862,7 @@ class TorchEngine:
         )
         self._enqueue_batch(shared, [mapper])
 
-    def _st0_produce_se(self, rows, lens):
+    def _st0_produce_se(self, rows, lens, entry=None):
         """Single-end producer: 2-bit pack + non-ACGT exception capture +
         upload. One 'u'-kind lane; exotic bytes need no oracle routing
         here (without a merge no byte comparison runs, so invalid codes
@@ -809,10 +889,11 @@ class TorchEngine:
         exc[:, 0] = P
         exc[:n_exc, 0] = er
         exc[:n_exc, 1] = ec
+        dev = (entry or self._entries[0]).device
         out = self._timed("st0.upload", lambda: dict(
-            bufs_d=(self._put_batch(buf),),
-            lens_d=(self._put_batch(ln),),
-            exc_d=self._put_batch(exc),
+            bufs_d=(self._put_batch(buf, dev),),
+            lens_d=(self._put_batch(ln, dev),),
+            exc_d=self._put_batch(exc, dev),
         ))
         out.update(
             rows_m=np.zeros(0, np.int64), m_len=np.zeros(B, np.int32), rwork=rwork,

@@ -1,10 +1,12 @@
 """Device lists for the multi-device paths: the port's counterpart of a mesh.
 
 `genefuserust_tpu/parallel/mesh.py::make_mesh` builds a 1-D JAX `Mesh`; the
-port's multi-device code takes a plain list of torch devices instead, one
-per shard or replica. A list may name one device more than once: S shard
-tables then sit on that one device, which is how the tests and
-`chip_smoke.py` hold several shards on one card.
+port's multi-device code takes a plain list of torch devices instead: one
+per shard (`ShardedIndexEngine`) or one per data-parallel entry
+(`TorchEngine(devices=...)`, whole batches in turn). A list may name one
+device more than once: S shard tables, or n entries with their own
+streams, then sit on that one device, which is how the tests and
+`chip_smoke.py` run several shards or entries on one card.
 
 `resolve_mesh` is the CLI's `--mesh` resolution of the JAX driver
 (`genefuserust_tpu/driver.py::_resolve_mesh`): 'auto' gives one entry per
@@ -20,8 +22,8 @@ import torch
 
 
 def resolve_mesh(spec: str, device="cuda") -> List[torch.device]:
-    """--mesh value -> the devices, one per shard, of `device`'s type: the
-    CUDA devices, or the one CPU."""
+    """--mesh value -> the devices, one per shard or entry, of `device`'s
+    type: the CUDA devices, or the one CPU."""
     kind = torch.device(device).type
     available = torch.cuda.device_count() if kind == "cuda" else 1
     if spec in ("", "1"):

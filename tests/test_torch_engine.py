@@ -209,11 +209,15 @@ def test_single_probe_layouts_raise_in_engine(tmp_path, monkeypatch, layout):
               TorchEngine(PortSettings(), batch_size=32, device="cpu"), "x.json")
 
 
-def test_unported_modes_raise():
+def test_unported_modes_raise(capsys):
+    """The cuda engine takes `--mesh` (multi-device data parallelism is
+    ported): `--mesh 4` on the one CPU is refused for the device count, as
+    the JAX driver refuses it, not as a mode that is not ported."""
     from genefuserust_tpu_torch.driver import make_engine
 
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(SystemExit):
         make_engine("cuda", PortSettings(), device="cpu", mesh="4")
+    assert "--mesh 4 requested but only 1 devices are available" in capsys.readouterr().out
 
 
 def _multi_csv_files(tmp_path):

@@ -41,3 +41,31 @@ def test_entry_on_the_card_matches_cpu():
     cfn, cargs = entry("cpu")
     for g, e in zip(fn(*args), cfn(*cargs)):
         assert torch.equal(g.cpu(), e)
+
+
+def test_dryrun_multichip_on_three_cpu_entries(capsys):
+    """The four multi-device paths on 3 entries of the CPU (PE, SE, the
+    sharded index on 3 shards, multi-CSV through the driver), each equal to
+    its one-device or host twin."""
+    from genefuserust_tpu_torch.entry import device_list, dryrun_multichip
+
+    assert device_list(3, "cpu") == [torch.device("cpu")] * 3
+    dryrun_multichip(3, device="cpu")
+    assert "dryrun_multichip(3): ok" in capsys.readouterr().out
+
+
+def test_dryrun_multichip_switch(capsys):
+    from genefuserust_tpu_torch.entry import main
+
+    assert main(["--device", "cpu", "--dryrun-multichip", "2"]) == 0
+    assert "dryrun_multichip(2): ok - 4 paths on [cpu, cpu]" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_the_card(capsys):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from genefuserust_tpu_torch.entry import dryrun_multichip
+
+    dryrun_multichip(2)
+    assert "dryrun_multichip(2): ok" in capsys.readouterr().out

@@ -64,11 +64,12 @@ def test_port_file_imports_nothing_of_jax_or_the_reference(relpath):
 
 
 def test_scan_covers_every_module_of_the_port():
-    """The walk reaches the modules of each slice, the sharded index's and
-    the entry point included."""
+    """The walk reaches the modules of each slice, the sharded index's, the
+    multi-process helpers and the entry point included."""
     files = set(_port_files())
     for rel in ("parallel/mesh.py", "parallel/sharded_index.py", "parallel/sharded_engine.py",
-                "parallel/engine.py", "ops/map_read.py", "ops/cuda.py", "entry.py", "driver.py"):
+                "parallel/engine.py", "parallel/distributed.py", "ops/map_read.py", "ops/cuda.py",
+                "entry.py", "driver.py"):
         assert os.path.join(PORT, rel) in files, rel
 
 

@@ -3,7 +3,10 @@
 70,000-base read (past mask+segments' 16-bit chain ends). The port's
 engines scan both, single-end and paired, with reports equal to the host
 oracle's (and JAX TpuEngine's at 4,200 bases); the plain versions and the
-kernels' mirrors equal JAX at those widths. All comparisons are exact."""
+kernels' mirrors equal JAX at those widths. Rows of 240,000 and 300,000
+bases (past what the probe could stage when it staged a tile's rows whole)
+hold the probe's mirror to plain and the port's map_read to JAX's. All
+comparisons are exact."""
 
 import importlib.util
 import os
@@ -26,7 +29,14 @@ from genefuserust_tpu_torch.ops.index import build_packed_index, index_to_torch
 from genefuserust_tpu_torch.parallel.engine import TorchEngine
 from genefuserust_tpu_torch.parallel.sharded_engine import ShardedIndexEngine
 from genefuserust_tpu_torch.utils.synthetic import long_reads
-from test_torch_map_read import _jax_pass2, _jax_vote, _kernel_mask_segments, _kernel_vote
+from test_torch_map_read import (
+    _jax_pass2,
+    _jax_tables,
+    _jax_vote,
+    _kernel_mask_segments,
+    _kernel_vote,
+)
+from test_torch_probe import _kernel_probe, staged_chunks_max
 
 _TS = re.compile(r"\d{4}-\d{2}-\d{2} \d{2}:\d{2}:\d{2}\.\d+ \+00:00")
 CPU = torch.device("cpu")
@@ -167,6 +177,84 @@ def test_wide_mask_plain_and_mirror_match_jax(panel_reads, panel_ix, layout):
     assert np.array_equal(tm.mask_from_flags(words, lens, gp, NK, 10).numpy(), exp)
 
 
+# the probe's default launch shape (PROBE_THREADS, PROBE_Q in csrc/probe.cu)
+# and the shared memory a block may take on the H100 (227 KB)
+PROBE_T, PROBE_Q, BLOCK_SMEM = 256, 4, 232448
+
+
+def _very_long_batch(panel, lengths, seed):
+    """(len(lengths), W) code rows: a 150-base junction read, then rows of
+    `lengths[1:]` bases, each 2,000 bases of one gene, random bases with a
+    non-ACGT base every ~10,000, 2,000 bases of the other gene, random
+    bases."""
+    (_, c1, s1, _), (_, c2, s2, _) = panel.genes
+    left = panel.contigs[c1][s1 : s1 + 5001]
+    right = panel.contigs[c2][s2 + 6000 : s2 + 9000]
+    seqs = [plant_fusion_pairs(panel, n_support=1, n_background=0)[0].left.seq]
+    seqs += [long_reads(left, right, seed=seed + k, wide=n)[1] for k, n in enumerate(lengths[1:])]
+    W = -(-max(map(len, seqs)) // 32) * 32
+    codes = np.full((len(seqs), W), 255, np.uint8)
+    rng = np.random.default_rng(seed)
+    for i, s in enumerate(seqs):
+        codes[i, : len(s)] = encode_bases(s)
+        if len(s) > 10000:
+            codes[i, rng.integers(2000, len(s) - 4000, len(s) // 10000)] = 255
+    return codes, np.array([len(s) for s in seqs], np.int32)
+
+
+@pytest.mark.parametrize("stride", [2, 1])
+def test_probe_mirror_matches_plain_on_rows_past_the_old_staging_limit(panel_reads, panel_ix,
+                                                                        stride):
+    """The kernel's mirror at its launch shape on rows of 150, 240,000 and
+    300,000 bases: bit-equal to plain, table rows loaded as needed, and
+    each tile's staged span inside the launch's shared memory, which fits
+    a block, where staging the rows a tile crosses whole would not."""
+    from test_torch_probe import _rows_needed
+
+    panel = panel_reads[0]
+    codes, lens = _very_long_batch(panel, [150, 240_000, 300_000], seed=17)
+    index = index_to_torch(build_packed_index(panel_ix, "kv2"), CPU)
+    got, loaded = _kernel_probe(codes, lens, stride, index, PROBE_T, PROBE_Q)
+    plain = tm.probe(torch.from_numpy(codes), torch.from_numpy(lens), stride, index)
+    assert np.array_equal(got, plain.numpy())
+    assert loaded == _rows_needed(index, codes, lens, stride)
+    hits = plain[..., 0] >= 0
+    assert hits[1].any() and hits[2].any() and (plain[2, :, 0] == tm.EMPTY).any()
+    W = codes.shape[1]
+    NQ = (W - 16 + stride) // stride
+    rows_max = (PROBE_T * PROBE_Q - 1) // NQ + 2
+    assert staged_chunks_max(W, NQ, stride, PROBE_T, PROBE_Q) * 8 + rows_max * 4 <= BLOCK_SMEM
+    assert rows_max * W > BLOCK_SMEM
+
+
+def test_240000_base_read_map_read_matches_jax(panel_reads, panel_ix):
+    """The port's map_read_batch (plain versions, on the CPU) against JAX
+    map_read_batch on the kv2 table, on a batch of a 150-base junction
+    read, the 4,200-base read and a 240,000-base read."""
+    import jax.numpy as jnp
+
+    from genefuserust_tpu.ops import map_read as jm
+
+    panel, (span, _) = panel_reads
+    codes, lens = _very_long_batch(panel, [150, 240_000], seed=23)
+    row = np.full((1, codes.shape[1]), 255, np.uint8)
+    row[0, : len(span)] = encode_bases(span)
+    codes = np.concatenate([codes[:1], row, codes[1:]])
+    lens = np.array([lens[0], len(span), lens[1]], np.int32)
+    packed = build_packed_index(panel_ix, "kv2")
+    t1, t2, dupes, kw = _jax_tables(packed)
+    st = Settings()
+    reqs = (st.major_gene_key_requirement, st.minor_gene_key_requirement, st.mismatch_threshold)
+    exp = jm.map_read_batch(jnp.asarray(codes), jnp.asarray(lens), t1, t2, dupes,
+                            packed.shift, packed.max_dupe, *reqs, **kw)
+    got = tm.map_read_batch(torch.from_numpy(codes), torch.from_numpy(lens),
+                            index_to_torch(packed, CPU), *reqs)
+    for g, e in zip(got, exp):
+        assert np.array_equal(g.numpy(), np.asarray(e))
+    assert got.seg_valid[1].all()  # the 4,200-base read maps across the junction
+    assert (got.seg_end[2] > 0).any()
+
+
 def _smoke_module():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py"))
@@ -226,6 +314,20 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [2, 1])
+def test_probe_kernel_matches_plain_past_the_old_staging_limit(panel_reads, panel_ix, stride,
+                                                               cuda_device):
+    """The probe on the card on rows of 150, 240,000 and 300,000 bases:
+    bit-equal to plain (its launch no longer refused for shared memory)."""
+    codes, lens = _very_long_batch(panel_reads[0], [150, 240_000, 300_000], seed=17)
+    packed = build_packed_index(panel_ix, "kv2")
+    ct, lt = torch.from_numpy(codes), torch.from_numpy(lens)
+    got = tm.probe(ct.to(cuda_device), lt.to(cuda_device), stride,
+                   index_to_torch(packed, cuda_device))
+    assert torch.equal(got.cpu(), tm.probe(ct, lt, stride, index_to_torch(packed, CPU)))
 
 
 @pytest.mark.cuda

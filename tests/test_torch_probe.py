@@ -235,25 +235,40 @@ def _stage(flat, c0, nch):
     return pk, mk
 
 
+def staged_chunks_max(W, NQ, stride, T, Q):
+    """The launch's shared-memory words for a tile's span (probe_launch in
+    csrc/probe.cu): T*Q - 1 steps of `stride` bases, plus the bases after
+    a row's last k-mer start at each row boundary the tile crosses, + 3."""
+    rows_max = (T * Q - 1) // NQ + 2
+    span = stride * (T * Q - 1) + (rows_max - 1) * max(0, W - NQ * stride)
+    return span // 16 + 3
+
+
 def _kernel_probe(codes, lengths, stride, index, T=64, Q=4):
     """Mirror of the kernel over (B, W) code rows: tiles of T*Q queries,
-    thread t's i-th query q0 + i*T + t; the tile's rows staged once as
-    2-bit words, each k-mer the 32 bits at its offset across two words and
-    valid when its window holds no 255 bit and j <= len - 16 ->
-    ((B, NQ, 2) int32, rows loaded)."""
+    thread t's i-th query q0 + i*T + t; the tile's span, from its first
+    query's k-mer to its last one's, staged once as 2-bit words (within the
+    launch's shared memory for any W), each k-mer the 32 bits at its offset
+    across two words and valid when its window holds no 255 bit and
+    j <= len - 16 -> ((B, NQ, 2) int32, rows loaded)."""
     B, W = codes.shape
     NQ = (W - KMER + stride) // stride
     n, flat = B * NQ, codes.reshape(-1)
     out, loaded = np.zeros((n, 2), np.int32), 0
+    nch_max = staged_chunks_max(W, NQ, stride, T, Q)
     for q0 in range(0, n, T * Q):
-        ra, rb = q0 // NQ, (min(n, q0 + T * Q) - 1) // NQ
-        c0 = ra * W >> 4
-        pk, mk = _stage(flat, c0, (((rb + 1) * W + 15) >> 4) - c0 + 1)
+        ql = min(n, q0 + T * Q) - 1
+        ra, rb = q0 // NQ, ql // NQ
+        c0 = (ra * W + (q0 - ra * NQ) * stride) >> 4
+        base = c0 * 16 - ra * W  # the span's first byte in row ra
+        nch = (((rb - ra) * W + (ql - rb * NQ) * stride - base) >> 4) + 2
+        assert nch <= nch_max
+        pk, mk = _stage(flat, c0, nch)
         q = (q0 + np.arange(Q)[:, None] * T + np.arange(T)).reshape(-1)
         q = q[q < n]
         row = q // NQ
         j = (q - row * NQ) * stride
-        g = row * W + j - c0 * 16
+        g = (row - ra) * W + j - base
         c, o = g >> 4, (g & 15).astype(np.uint64)
         k = (((pk[c] << np.uint64(32)) | pk[c + 1]) >> (np.uint64(32) - 2 * o)) & M32
         bad = ((((mk[c] << np.uint64(16)) | mk[c + 1]) << o) & M32) >> np.uint64(16)

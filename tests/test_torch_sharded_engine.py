@@ -147,11 +147,20 @@ def test_mesh_above_the_device_count_exits_as_the_jax_driver(capsys, spec):
     assert resolve_mesh("auto", "cpu") == resolve_mesh("1", "cpu") == [CPU]
 
 
-def test_cuda_engine_mesh_still_raises():
+def test_cuda_engine_mesh_still_raises(capsys):
+    """`--mesh 2` with the cuda engine on the one CPU exits with the JAX
+    driver's message, as the sharded engine does (the data-parallel engine
+    takes `--mesh`; it no longer raises NotImplementedError)."""
+    from genefuserust_tpu.driver import _resolve_mesh
     from genefuserust_tpu_torch.driver import make_engine
 
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(SystemExit):
+        _resolve_mesh("9")
+    jax_msg = capsys.readouterr().out
+    with pytest.raises(SystemExit):
         make_engine("cuda", PortSettings(), device="cpu", mesh="2")
+    assert capsys.readouterr().out == jax_msg.replace("--mesh 9", "--mesh 2").replace(
+        "only 8", "only 1")
 
 
 # ---------------- on the card ----------------
