@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (genefuserust_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--probe-sweep | --gather-sweep]
+    python3 chip_smoke.py [--seed N] [--probe-sweep | --gather-sweep | --profile-only]
 
 Phases, one result line each; any failure raises and exits non-zero:
 
@@ -13,8 +13,14 @@ Phases, one result line each; any failure raises and exits non-zero:
              key in its h1 row, two for any other) and the rows the kernel
              counts itself loading; the vote on the same batch, mask+segments on the
              1,024 rows the scan hands it; the probe on a small panel
-             packed kv4, kv8 and split. Kernel and plain times from CUDA
-             events.
+             packed kv4, kv8 and split. The glue of fused_scan_lanes
+             (csrc/fused_glue.cu): the lane unpack (G1), the survivor
+             compaction with the bitmap (G2) and the survivor rows (G3) on
+             the batch's own three lanes, its votes and cap 1024, then on
+             an edge batch (the lanes cut to row counts that are not
+             multiples of 32, exceptions at negative columns, a cap below
+             the survivors), each beside its library call where one
+             exists. Kernel and plain times from CUDA events.
   4 golden   tests/goldens/planted.{json,html} through TorchEngine, byte
              for byte (timestamps stripped), at survivor cap 1024 and 2
   5 cli      262,144 read pairs (plus two planted fusions) through the
@@ -26,7 +32,9 @@ Phases, one result line each; any failure raises and exits non-zero:
              oracle's, with the kv2 and the split table
   7 profile  the same 262,144 pairs through a warm TorchEngine, the kv2
              table already on the card, under torch.profiler: device time
-             by kernel and the device's busy share of the scan's wall time
+             by kernel (G1-G3 apart from the rest of torch's ops), the five
+             largest of those other ops by name, and the device's busy
+             share of the scan's wall time
   8 gather   the gather-floor probe (profiling/gather_floor.py) bit-equal
              to its plain version: (a) over the kv2 table, against the
              probe's time, reading (a1) both rows of every valid k-mer of
@@ -83,6 +91,9 @@ name/power line and the contract line {"ok": true, "device": {...}}.
 phase 3's batch (queries a thread x table-row cache policy x block size,
 each shape a build of csrc/probe.cu with -D overrides, each held
 bit-equal to plain), prints it and stops: no contract line.
+--profile-only runs phase 1, packs the kv2 table and runs phase 7, then
+stops (no contract line): a copy of this script beside another checkout's
+genefuserust_tpu_torch profiles that checkout's warm scan.
 --gather-sweep runs phases 1-3, then the gather's launch-shape sweep
 (blocks a tile x row loads a thread: at (a2) for rows narrower than 16
 bytes, at (b) and at rows of 256, 512 and 1,024 int32 for rows of whole
@@ -124,8 +135,8 @@ LONG_BATCH = 64
 # kernels the build compiles: probe 4 (kv2, kv4, kv8, split), vote 3 (the
 # vote, its wide path, the shards' merge), mask_segments 8 (kv and split,
 # each narrow and wide; the shards' flags, kv and split; from flags, narrow
-# and wide), gather_sum 3 (vector widths), edit_distance 1
-N_COMPILED = 19
+# and wide), gather_sum 3 (vector widths), edit_distance 1, fused_glue 3
+N_COMPILED = 22
 # the probe's launch-shape sweep (--probe-sweep): queries a thread, table-row
 # cache policy (PROBE_POLICY in csrc/probe.cu), threads a block
 PROBE_SWEEP_Q = (1, 2, 4, 8)
@@ -143,7 +154,9 @@ GATHER_SWEEP_TABLE_BYTES = 1 << 31
 # past the engine's widest lane for 150-base pairs (Wcap 288)
 MASK_WIDE = 320
 # the kernels of the scan path (phases 5, 11, 12)
-SCAN_KERNELS = ("probe", "vote", "mask_segments")
+SCAN_KERNELS = ("probe", "vote", "mask_segments", "lane_unpack", "compact", "survivor_rows")
+GLUE_KERNELS = ("lane_unpack", "compact", "survivor_rows")
+SURVIVOR_CAP = 1024  # TorchEngine's survivor cap (_surv_cap)
 # phase 13's kernels of the sharded path (the split probe, the sharded
 # stages) and of the wide-row paths (LAUNCHES keys)
 SHARD_KERNELS = ("probe_split", "vote_counts", "merge_top2", "shard_flags", "mask_from_flags")
@@ -413,7 +426,8 @@ def phase_build():
 
 def _timed_pair(name, kernel_fn, plain_fn, exp=None, reps=20, plain_reps=3):
     """Run kernel and plain once, require bit equality, time both (mean
-    device ms after a warm-up, CUDA events)."""
+    device ms after a warm-up, CUDA events). The functions may return a
+    tuple or list of tensors, each compared with its counterpart."""
     import torch
 
     from genefuserust_tpu_torch.profiling.gather_floor import event_ms
@@ -421,28 +435,22 @@ def _timed_pair(name, kernel_fn, plain_fn, exp=None, reps=20, plain_reps=3):
     got = kernel_fn()
     ref = plain_fn() if exp is None else exp
     torch.cuda.synchronize()
-    err = max_abs_err(got, ref)
-    check(got.shape == ref.shape and torch.equal(got, ref),
+    many = isinstance(got, (tuple, list))
+    gs, rs = (got, ref) if many else ((got,), (ref,))
+    check(len(gs) == len(rs) and all(g.shape == r.shape for g, r in zip(gs, rs)),
+          f"{name}: kernel and plain version differ in shape")
+    err = max(max_abs_err(g, r) for g, r in zip(gs, rs))
+    check(all(torch.equal(g, r) for g, r in zip(gs, rs)),
           f"{name}: kernel differs from its plain version (max_abs_err {err})")
     return got, err, event_ms(kernel_fn, reps), event_ms(plain_fn, plain_reps)
 
 
-def phase_kernels(data: dict) -> dict:
-    import torch
-
+def pack_kv2(data: dict):
+    """The panel's kv2 table -> (packed, pack seconds, native placement
+    seconds); kept in data["packed_kv2"]."""
     from genefuserust_tpu_torch import native
-    from genefuserust_tpu_torch.config import PASS1_STEP, Settings
-    from genefuserust_tpu_torch.core.indexer import Indexer
-    from genefuserust_tpu_torch.core.sequence import encode_bases
-    from genefuserust_tpu_torch.models.fusion import Fusion
-    from genefuserust_tpu_torch.utils.synthetic import make_panel, plant_fusion_pairs, write_panel_files
-    from genefuserust_tpu_torch.ops import map_read as tm
-    from genefuserust_tpu_torch.ops.fused import lane_codes
-    from genefuserust_tpu_torch.ops.index import build_packed_index, index_to_torch
-    from genefuserust_tpu_torch.parallel.engine import TorchEngine
-    from genefuserust_tpu_torch.utils.synthetic import vote_edge_rows
+    from genefuserust_tpu_torch.ops.index import build_packed_index
 
-    dev = torch.device("cuda")
     # time the native placement apart from the rest of the pack
     native_s = []
     native_pack = native.pack_table
@@ -462,17 +470,35 @@ def phase_kernels(data: dict) -> dict:
     pack_s = time.perf_counter() - t0
     shape = packed.kv_tbl.shape if hasattr(packed, "kv_tbl") else "split"
     check(shape == (1 << 26, 2), f"the panel should pack as kv2 with 2^26 rows: {shape}")
-    index = index_to_torch(packed, dev)
     data["packed_kv2"] = packed
+    return packed, pack_s, native_s
+
+
+def phase_kernels(data: dict) -> dict:
+    import torch
+
+    from genefuserust_tpu_torch.config import PASS1_STEP, Settings
+    from genefuserust_tpu_torch.core.indexer import Indexer
+    from genefuserust_tpu_torch.core.sequence import encode_bases
+    from genefuserust_tpu_torch.models.fusion import Fusion
+    from genefuserust_tpu_torch.utils.synthetic import make_panel, plant_fusion_pairs, write_panel_files
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.ops.fused import lane_codes
+    from genefuserust_tpu_torch.ops.index import build_packed_index, index_to_torch
+    from genefuserust_tpu_torch.parallel.engine import TorchEngine
+    from genefuserust_tpu_torch.utils.synthetic import vote_edge_rows
+
+    dev = torch.device("cuda")
+    packed, pack_s, native_s = pack_kv2(data)
+    index = index_to_torch(packed, dev)
     # the main path's lanes for the first batch: host merge + pack (engine
     # stage 0), then the merged-short lane topped up with unmerged reads
     b1, q1, l1, b2, q2, l2 = (a[:BATCH] for a in data["block"])
     sh = TorchEngine(Settings(), device="cpu")._st0_produce(b1, q1, l1, b2, q2, l2)
-    erow, ecol = sh["exc_d"][:, 0].long(), sh["exc_d"][:, 1].long()
     W = sh["widths"][0]
     lanes = []
     for li in (0, 2):
-        c = lane_codes(sh["bufs_d"][li], sh["widths"][li], erow, ecol, sh["offs"][li])
+        c = lane_codes(sh["bufs_d"][li], sh["widths"][li], sh["exc_d"], sh["offs"][li])
         full = torch.full((c.shape[0], W), 255, dtype=torch.uint8)
         full[:, : c.shape[1]] = c
         lanes.append((full, sh["lens_d"][li]))
@@ -591,6 +617,7 @@ def phase_kernels(data: dict) -> dict:
     say("3 kernels", kernel="mask_segments", rows=segw.shape[0], width=MASK_WIDE, ms=f"{msw:.4f}",
         plain_ms=f"{pmsw:.4f}", equal_to_width_192=True, max_abs_err=errw)
     del wide, prw
+    rec.update(glue_kernels(sh, index, data["seed"]))
 
     # the other table layouts, on a small panel
     panel = make_panel(seed=data["seed"])
@@ -625,6 +652,128 @@ def phase_kernels(data: dict) -> dict:
             hits=int((out[..., 0] >= 0).sum()), ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
             flat_queries=BATCH, flat_hits=int((flat[:, 0] != -3).sum()),
             flat_ms=f"{fms:.4f}", flat_plain_ms=f"{fpms:.4f}", max_abs_err=max(err, ferr))
+    return rec
+
+
+def glue_kernels(sh, index, seed: int) -> dict:
+    """G1-G3 of csrc/fused_glue.cu against their plain versions, bit-equal
+    and timed: (i) on the batch's own lanes as fused_scan_lanes runs them
+    (G1 once a lane, G2 on the lanes' votes at cap SURVIVOR_CAP, G3 on its
+    survivors); (ii) on an edge batch: the lanes cut to row counts that are
+    not multiples of 32 (so are N and the lane offsets), their exceptions
+    moved with them, entries at negative columns added (-1, -W, -W - 1 and
+    the first 24 bases of rows counted from the end), and a cap of half
+    the survivors. -> the three kernels' records."""
+    import torch
+
+    from genefuserust_tpu_torch.config import PASS1_STEP
+    from genefuserust_tpu_torch.ops import fused as tf
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
+
+    dev = index.table.device
+    widths = sh["widths"]
+
+    def run(bufs, lens, exc, offs, cap, label, reps, plain_reps):
+        codes, err1, ms1, pms1 = _timed_pair(
+            f"lane_unpack ({label})",
+            lambda: [tf.lane_codes(b, W, exc, o) for b, W, o in zip(bufs, widths, offs)],
+            lambda: [tf.lane_codes_plain(b, W, exc, o) for b, W, o in zip(bufs, widths, offs)],
+            reps=reps, plain_reps=plain_reps)
+        v = torch.cat([tm.vote(tm.probe(ci, ln, PASS1_STEP, index), index, 40, 20)
+                       for ci, ln in zip(codes, lens)])
+        L = torch.cat(lens)
+        N = v.shape[0]
+        (out, slens, gp, okw), err2, ms2, pms2 = _timed_pair(
+            f"compact ({label})", lambda: tf.compact(v, L, cap),
+            lambda: tf.compact_plain(v, L, cap), reps=reps, plain_reps=plain_reps)
+        c = slens.shape[0]
+        sidx = out[:c, 0]
+        Wmax = max(widths)
+        rows, err3, ms3, pms3 = _timed_pair(
+            f"survivor_rows ({label})", lambda: tf.survivor_rows(codes, sidx, Wmax),
+            lambda: tf.survivor_rows_plain(codes, sidx, Wmax), reps=reps,
+            plain_reps=plain_reps)
+        S = int(out[cap, 0])
+        say("3 kernels", kernel="fused_glue", batch=label, lanes=len(bufs),
+            lane_rows=",".join(str(b.shape[0]) for b in bufs), N=N, N_mod_32=N % 32,
+            exceptions=exc.shape[0], negative_cols=int((exc[:, 1] < 0).sum()), cap=cap,
+            survivors=S, rows_placed=c, lane_unpack_ms=f"{ms1:.4f}",
+            lane_unpack_plain_ms=f"{pms1:.4f}", compact_ms=f"{ms2:.4f}",
+            compact_plain_ms=f"{pms2:.4f}", survivor_rows_ms=f"{ms3:.4f}",
+            survivor_rows_plain_ms=f"{pms3:.4f}", equal=True,
+            max_abs_err=max(err1, err2, err3))
+        return dict(codes=codes, v=v, out=out, sidx=sidx, rows=rows, S=S, c=c, N=N,
+                    err=(err1, err2, err3), ms=(ms1, ms2, ms3), pms=(pms1, pms2, pms3))
+
+    bufs = [b.to(dev) for b in sh["bufs_d"]]
+    lens = [n.to(dev) for n in sh["lens_d"]]
+    exc = sh["exc_d"].to(dev)
+    offs = sh["offs"][: len(bufs)]
+    real = run(bufs, lens, exc, offs, SURVIVOR_CAP, f"first {BATCH} pairs", 20, 3)
+
+    # (ii) the edge batch, built on the host from the same lanes
+    cut = [max(1, b.shape[0] - k) for b, k in zip(bufs, (7, 3, 13))]
+    eoffs = [sum(cut[:i]) for i in range(len(cut))]
+    x = sh["exc_d"].clone().long()
+    new_row = torch.full_like(x[:, 0], sum(cut) + 1)  # dropped
+    for o, eo, n in zip(offs, eoffs, cut):
+        inside = (x[:, 0] >= o) & (x[:, 0] < o + n)
+        new_row = torch.where(inside, x[:, 0] - o + eo, new_row)
+    x[:, 0] = new_row
+    rng = np.random.default_rng(seed)
+    extra = []
+    for eo, n, W in zip(eoffs, cut, widths):
+        for r in rng.choice(n, min(n, 64), replace=False).tolist():
+            extra += [(eo + r, col) for col in (-1, -W, -W - 1)]
+        for r in rng.choice(n, min(n, 16), replace=False).tolist():
+            extra += [(eo + r, j - W) for j in range(24)]
+    eexc = torch.cat([x, torch.tensor(extra, dtype=torch.int64)]).to(torch.int32).to(dev)
+    ebufs = [b[:n].contiguous() for b, n in zip(bufs, cut)]
+    elens = [ln[:n].contiguous() for ln, n in zip(lens, cut)]
+    ecap = max(1, real["S"] // 2)
+    edge = run(ebufs, elens, eexc, eoffs, ecap, "edge", 5, 1)
+    check(edge["N"] % 32 and edge["S"] > ecap, "the edge batch is not an edge case")
+
+    # the bounds, at the batch's own lanes: G1 reads the 2-bit rows and the
+    # exception list and writes the codes; G2 reads the vote rows (their
+    # gate column spans every sector) and the placed rows' lengths and
+    # writes `out`, slens, gp and okwords; G3 reads the sidx column and
+    # each placed row at its lane's width and writes the (c, Wmax) rows
+    N, c = real["N"], real["c"]
+    b1 = (sum(b.numel() for b in bufs) + exc.numel() * 4
+          + sum(ci.numel() for ci in real["codes"]))
+    b2 = (real["v"].numel() * 4 + c * 4 + real["out"].numel() * 4 + c * 4 + c * 16
+          + (N + 31) // 32 * 4)
+    lane_w = torch.tensor([W for W, b in zip(widths, bufs) for _ in range(b.shape[0])],
+                          device=dev)
+    b3 = c * 4 + int(lane_w[real["sidx"].long()].sum()) + real["rows"].numel()
+    # the library calls: G2's argsort of the compaction keys alone; G3's
+    # index_select from the whole (N, Wmax) matrix of the lanes, built
+    # beforehand (the build is left out of the time)
+    ok = real["v"][:, 0] != 0
+    iota = torch.arange(N, device=dev)
+    keys = torch.where(ok, iota, N + iota)
+    lib2 = event_ms(lambda: torch.argsort(keys), 20)
+    allcodes = tf.survivor_rows_plain(real["codes"], iota.to(torch.int32), max(widths))
+    sidx64 = real["sidx"].long()
+    lib3 = event_ms(lambda: torch.index_select(allcodes, 0, sidx64), 20)
+    lanes_shape = " + ".join(f"{b.shape[0]}x{W}" for b, W in zip(bufs, widths))
+    shapes = (f"{len(bufs)} lanes ({lanes_shape} codes), {exc.shape[0]} exceptions, "
+              "one launch a lane",
+              f"N {N} vote rows, cap {SURVIVOR_CAP}, {real['S']} survivors",
+              f"{c} rows of width {max(widths)} from {len(bufs)} lanes")
+    rec = {}
+    for k, name in enumerate(GLUE_KERNELS):
+        rec[name] = dict(err=max(real["err"][k], edge["err"][k]), ms=real["ms"][k],
+                         plain_ms=real["pms"][k], library_ms=(None, lib2, lib3)[k],
+                         shape=shapes[k], edge_ms=round(edge["ms"][k], 6),
+                         **bound((b1, b2, b3)[k], 0))
+        say("3 kernels", kernel=name, ms=f"{real['ms'][k]:.4f}",
+            plain_ms=f"{real['pms'][k]:.4f}", bound_ms=f"{rec[name]['bound_ms']:.5f}",
+            bound_by=rec[name]["bound_by"], bytes=rec[name]["bytes"],
+            library_ms="null" if k == 0 else f"{(lib2, lib3)[k - 1]:.4f}",
+            max_abs_err=rec[name]["err"])
     return rec
 
 
@@ -899,7 +1048,9 @@ def _device_kind(name: str) -> str:
     for kernel, sym in (("probe", "probe_kernel"), ("vote", "vote_kernel"),
                         ("mask_segments", "mask_segments_kernel"),
                         ("gather_sum", "gather_tile_sums_kernel"),
-                        ("edit_distance", "edit_distance_kernel")):
+                        ("edit_distance", "edit_distance_kernel"),
+                        ("lane_unpack", "lane_unpack_kernel"), ("compact", "compact_kernel"),
+                        ("survivor_rows", "survivor_rows_kernel")):
         if sym in name:
             return kernel
     if name.startswith("Memcpy HtoD"):
@@ -932,12 +1083,16 @@ def phase_profile(data: dict) -> None:
     data["warm_1"] = warm
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_s = scan()
-    spans, by_kind = [], {}
+    spans, by_kind, other = [], {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             spans.append((e.time_range.start, e.time_range.end))
             kind = _device_kind(e.name)
-            by_kind[kind] = by_kind.get(kind, 0.0) + e.time_range.elapsed_us()
+            us = e.time_range.elapsed_us()
+            by_kind[kind] = by_kind.get(kind, 0.0) + us
+            if kind == "torch_other":
+                n, t = other.get(e.name, (0, 0.0))
+                other[e.name] = (n + 1, t + us)
     check(spans, "the profiler saw no device activity in the warm scan")
     # busy = the union of device intervals (the upload stream may overlap)
     busy_us, end = 0.0, float("-inf")
@@ -951,6 +1106,11 @@ def phase_profile(data: dict) -> None:
         device_ms=json.dumps({k: round(v / 1e3, 3) for k, v in
                               sorted(by_kind.items(), key=lambda kv: -kv[1])},
                              separators=(",", ":")))
+    # the largest of torch's own ops: [name (its first 100 characters),
+    # launches, device ms]
+    top = sorted(other.items(), key=lambda kv: -kv[1][1])[:5]
+    say("7 profile", torch_other_top5=json.dumps(
+        [[name[:100], n, round(us / 1e3, 4)] for name, (n, us) in top], separators=(",", ":")))
 
 
 def phase_gather(data: dict) -> dict:
@@ -1889,6 +2049,8 @@ def main(argv=None) -> int:
                         help="phases 1-3 and the probe's launch-shape sweep, then stop")
     sweeps.add_argument("--gather-sweep", action="store_true",
                         help="phases 1-3 and the gather's launch-shape sweep, then stop")
+    sweeps.add_argument("--profile-only", action="store_true",
+                        help="phase 1, the kv2 table and phase 7, then stop")
     args = ap.parse_args(argv)
     import torch
 
@@ -1898,7 +2060,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, REPO)
     smi_line = phase_device()
-    phase_build()
+    if not args.profile_only:
+        phase_build()
     build_dir = os.path.join(REPO, "genefuserust_tpu_torch", "build")
     os.makedirs(build_dir, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="smoke-", dir=build_dir)
@@ -1923,6 +2086,11 @@ def main(argv=None) -> int:
         data = dict(seed=args.seed, workdir=workdir, fa=fa, csv=csv, exons=exons,
                     mapper=mapper, blk=blk, block=block, log=log,
                     probe_sweep=args.probe_sweep)
+        if args.profile_only:
+            pack_kv2(data)
+            phase_profile(data)
+            print(smi_line)
+            return 0
         rec = phase_kernels(data)
         if args.gather_sweep:
             for case, res in sweep_gather(data).items():
@@ -1965,15 +2133,20 @@ def main(argv=None) -> int:
         "mask_segments_wide": "genefuserust_tpu/ops/map_read.py:439",
         "mask_from_flags_wide": "genefuserust_tpu/parallel/sharded_index.py:242",
         "probe_long": "genefuserust_tpu/ops/pallas_lookup.py:102",
+        "lane_unpack": "genefuserust_tpu/ops/fused.py:488",
+        "compact": "genefuserust_tpu/ops/fused.py:509",
+        "survivor_rows": "genefuserust_tpu/ops/fused.py:523",
     }
     sources = dict(probe_split="probe", probe_long="probe", vote_counts="vote", merge_top2="vote",
                    vote_wide="vote", vote_counts_wide="vote", shard_flags="mask_segments",
                    mask_from_flags="mask_segments", mask_segments_wide="mask_segments",
-                   mask_from_flags_wide="mask_segments")
+                   mask_from_flags_wide="mask_segments",
+                   **{k: "fused_glue" for k in GLUE_KERNELS})
     # launches: each kernel's count over phase 5's CLI scan, the main path;
     # gather_sum is off it, so its count is that of its own entry point
-    # (phase 8). No single PyTorch call computes any of these functions
-    # (library_ms null): see PERF.md's kernel table for each reason.
+    # (phase 8). No single PyTorch call computes the other functions than
+    # compact (argsort) and survivor_rows (index_select) (library_ms null):
+    # see PERF.md's kernel table for each reason.
     rec["gather_sum"] = dict(gather, shape="int32[2^22, 128] table, 2^17 rows, 1 lane")
     rec["edit_distance"] = dict(edit, err=max(edit["err"], data["ed_err"]),
                                 main_path_flushes=data["ed_main"],
@@ -1987,14 +2160,16 @@ def main(argv=None) -> int:
     rec["probe_long"] = multi_device["rec"]
     launches["probe_long"] = multi_device["launches"]
     extra = ("shape", "wide", "rows_needed", "rows_loaded", "h1_hit_share", "main_path_flushes",
-             "fusion_rich_launches", "hits", "stride1_ms", "stride1_bound_ms")
+             "fusion_rich_launches", "hits", "stride1_ms", "stride1_bound_ms", "edge_ms")
     kernels = [
         dict(name=k, route="cuda",
              source=f"genefuserust_tpu_torch/csrc/{sources.get(k, k)}.cu",
              replaces=replaces[k], launches=launches[k], max_abs_err=rec[k]["err"],
              ms=round(rec[k]["ms"], 6), plain_ms=round(rec[k]["plain_ms"], 6),
              bound_ms=round(rec[k]["bound_ms"], 6), bound_by=rec[k]["bound_by"],
-             library_ms=None, **{x: rec[k][x] for x in extra if x in rec[k]})
+             library_ms=(None if rec[k].get("library_ms") is None
+                         else round(rec[k]["library_ms"], 6)),
+             **{x: rec[k][x] for x in extra if x in rec[k]})
         for k in replaces
     ]
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,8 @@ the current stream, launches on that stream, allocates nothing and returns
 `cudaGetLastError()`; a nonzero code raises here.
 
 `LAUNCHES` counts the kernel launches made through the wrappers in
-ops/map_read.py, ops/edit_distance.py and profiling/gather_floor.py, one
+ops/map_read.py, ops/fused.py, ops/edit_distance.py and
+profiling/gather_floor.py, one
 per launch, so a run can show which kernels it used. The vote kernel
 counts as "vote" in its gated mode and as "vote_counts" in its counts
 mode (the contig-sharded index). The wide-row paths count apart from
@@ -29,7 +30,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("probe.cu", "vote.cu", "mask_segments.cu", "gather_sum.cu", "edit_distance.cu")
+SOURCES = ("probe.cu", "vote.cu", "mask_segments.cu", "gather_sum.cu", "edit_distance.cu",
+           "fused_glue.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -37,7 +39,10 @@ NVCC_FLAGS = (
 
 LAUNCHES = {"probe": 0, "vote": 0, "mask_segments": 0, "gather_sum": 0, "edit_distance": 0,
             "vote_counts": 0, "vote_wide": 0, "vote_counts_wide": 0, "mask_segments_wide": 0,
-            "merge_top2": 0, "shard_flags": 0, "mask_from_flags": 0, "mask_from_flags_wide": 0}
+            "merge_top2": 0, "shard_flags": 0, "mask_from_flags": 0, "mask_from_flags_wide": 0,
+            "lane_unpack": 0, "compact": 0, "survivor_rows": 0}
+# lanes one survivor_rows launch takes (MAX_LANES in csrc/fused_glue.cu)
+MAX_LANES = 8
 
 _lib = None
 _lock = threading.Lock()
@@ -117,6 +122,10 @@ _ARGTYPES = {
     "gf_mask_from_flags": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "gf_gather_tile_sums": [_P, _P, _I, _I, _I, _P, _P],
     "gf_edit_distance": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "gf_lane_unpack": [_P, _I, _I, _I, _P, _I, ctypes.c_longlong, _P, _P],
+    "gf_compact": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "gf_survivor_rows": [_I, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
+                         ctypes.POINTER(_I), ctypes.POINTER(_I), _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -284,3 +293,32 @@ def launch_edit_distance(pat, pat_lens, txt, txt_lens, W: int, out) -> None:
             B, Lp, txt.shape[1], W, out.data_ptr(), _stream(out),
         )
     _done("edit_distance", err)
+
+
+def launch_lane_unpack(buf, W: int, exc, off: int, out) -> None:
+    P, Wb = buf.shape
+    with torch.cuda.device(out.device):
+        err = library().gf_lane_unpack(buf.data_ptr(), P, W, Wb, exc.data_ptr(), exc.shape[0],
+                                       off, out.data_ptr(), _stream(out))
+    _done("lane_unpack", err)
+
+
+def launch_compact(v, lens, cap: int, out, slens, gp, okwords) -> None:
+    with torch.cuda.device(out.device):
+        err = library().gf_compact(v.data_ptr(), lens.data_ptr(), v.shape[0], cap,
+                                   out.data_ptr(), slens.data_ptr(), gp.data_ptr(),
+                                   okwords.data_ptr(), _stream(out))
+    _done("compact", err)
+
+
+def launch_survivor_rows(lanes, offs, sidx, out) -> None:
+    """`lanes`: at most MAX_LANES (P_i, W_i) uint8 code tensors, their rows
+    at `offs` in the concatenated row space; the table goes by value."""
+    n = len(lanes)
+    ll, ii = ctypes.c_longlong * n, ctypes.c_int * n
+    with torch.cuda.device(out.device):
+        err = library().gf_survivor_rows(
+            n, ll(*(t.data_ptr() for t in lanes)), ll(*offs), ii(*(t.shape[0] for t in lanes)),
+            ii(*(t.shape[1] for t in lanes)), sidx.data_ptr(), sidx.stride(0), out.shape[0],
+            out.shape[1], out.data_ptr(), _stream(out))
+    _done("survivor_rows", err)

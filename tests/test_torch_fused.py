@@ -1,6 +1,9 @@
 """The port's `fused_scan_lanes` against the JAX package's, on 1 to 3 code
 lanes of unequal widths with non-ACGT exceptions (some out of range, which
-must be dropped) and with more vote survivors than the cap."""
+must be dropped, and some at negative columns, which count from the row's
+end as in JAX), with more vote survivors than the cap, none, every row a
+survivor, fewer rows than the cap, and lane boundaries inside a 32-row
+word of the bitmap."""
 
 import numpy as np
 import pytest
@@ -25,9 +28,11 @@ def panel_ix(tmp_path_factory):
     return panel, ix
 
 
-def _lane_reads(panel, n, seed):
-    """n reads: a third junction reads (vote survivors), the rest in-gene
-    or random; some with N / lowercase bases."""
+def _lane_reads(panel, n, seed, kind="mixed"):
+    """n reads: "mixed", a third junction reads (vote survivors) and the
+    rest in-gene; "genic", all in-gene; "junction", all 150-base junction
+    reads centred on the junction (every one a survivor). Some with N /
+    lowercase bases."""
     rng = np.random.default_rng(seed)
     (_, c1, s1, _), (_, c2, s2, _) = panel.genes
     fused = (panel.contigs[c1][s1 + 4600 : s1 + 5001]
@@ -35,7 +40,11 @@ def _lane_reads(panel, n, seed):
     reads = []
     for k in range(n):
         ln = int(rng.integers(60, 151))
-        if k % 3 == 0:
+        if kind == "junction":
+            ln = 150
+            off = int(rng.integers(316, 337))
+            s = fused[off : off + ln]
+        elif kind == "mixed" and k % 3 == 0:
             ln = max(ln, 100)
             off = int(rng.integers(431 - ln, 372))
             s = fused[off : off + ln]
@@ -65,15 +74,21 @@ def _pack_lane(reads, P, W):
     return packed, lens, exc
 
 
-def _lanes(panel, spec, seed):
-    """spec: [(rows, live rows, width)] -> bufs, lens, exc (E, 2)."""
+def _lanes(panel, spec, seed, negative=False):
+    """spec: [(rows, live rows, width[, reads kind])] -> bufs, lens, exc
+    (E, 2). `negative`: add entries at negative columns: -1, -W_i and
+    -W_i - 1 (dropped) on every other live row, and -W_i + j for the first
+    24 bases of every third, which JAX sets to 255 (columns j)."""
     bufs, lens, exc = [], [], []
     off = 0
-    for k, (P, n, W) in enumerate(spec):
-        b, ln, e = _pack_lane(_lane_reads(panel, n, seed + k), P, W)
+    for k, (P, n, W, *kind) in enumerate(spec):
+        b, ln, e = _pack_lane(_lane_reads(panel, n, seed + k, *kind), P, W)
         bufs.append(b)
         lens.append(ln)
         exc += [(r + off, c) for r, c in e]
+        if negative:
+            exc += [(r + off, c) for r in range(0, n, 2) for c in (-1, -W, -W - 1)]
+            exc += [(r + off, j - W) for r in range(1, n, 3) for j in range(24)]
         off += P
     N = off
     # pad entries past every lane, and entries in range for the row space
@@ -111,10 +126,17 @@ def _run_both(ix, packed, bufs, lens, exc, widths, cap):
 
 
 CASES = {
-    # name: (lanes [(rows, live rows, width)], cap)
+    # name: (lanes [(rows, live rows, width[, reads kind])], cap)
     "one_lane": ([(48, 40, 160)], 64),
     "two_lanes": ([(64, 50, 192), (40, 33, 160)], 64),
     "three_lanes_over_cap": ([(70, 60, 256), (8, 8, 224), (45, 30, 160)], 5),
+    # exceptions at negative columns (_lanes(negative=True))
+    "negative_exc_cols": ([(64, 50, 192), (40, 33, 160)], 64),
+    "zero_survivors": ([(64, 60, 160, "genic"), (32, 30, 192, "genic")], 64),
+    "n_below_cap": ([(40, 30, 160)], 64),
+    "all_survivors_over_cap": ([(64, 64, 160, "junction"), (40, 40, 192, "junction")], 40),
+    # lane 1 starts at row 40, inside the bitmap's word of rows 32-63
+    "lane_boundary_mid_word": ([(40, 36, 192), (21, 21, 160)], 64),
 }
 
 
@@ -125,22 +147,34 @@ def test_fused_scan_lanes_matches_jax(panel_ix, case, layout):
     spec, cap = CASES[case]
     packed = (pack_index(ix) if layout == "split"
               else pack_index_kv(ix, target_load=0.5, slots=1))
-    bufs, lens, exc = _lanes(panel, spec, seed=len(case))
-    widths = tuple(w for _, _, w in spec)
+    bufs, lens, exc = _lanes(panel, spec, seed=len(case), negative=case == "negative_exc_cols")
+    widths = tuple(w for _, _, w, *_ in spec)
     (out_j, okw_j), (out_t, okw_t) = _run_both(ix, packed, bufs, lens, exc, widths, cap)
     assert out_t.shape == out_j.shape == (cap + 1, 13)
+    N = sum(P for P, *_ in spec)
     n = int(out_j[-1, 0])
-    assert n > 0
-    if case == "three_lanes_over_cap":
+    if case == "zero_survivors":
+        assert n == 0
+    else:
+        assert n > 0
+    if case in ("three_lanes_over_cap", "all_survivors_over_cap"):
         assert n > cap
+    if case == "all_survivors_over_cap":
+        assert n == N
+    if case == "n_below_cap":
+        assert N < cap
     # what the engine reads: the survivor rows [0, min(n, cap)), the count
     # row and the bitmap. Rows past the survivor count are JAX artifacts
-    # (pass 2 over non-survivors) and are not part of the contract.
-    m = min(n, cap)
+    # (pass 2 over non-survivors) and are not part of the contract, but
+    # their sidx and svalid are (the stable compaction), and rows from
+    # min(cap, N) on are zero.
+    m, c = min(n, cap), min(cap, N)
     assert (out_t[:m] == out_j[:m]).all()
-    assert (out_t[-1] == out_j[-1]).all()
+    assert (out_t[:c, :2] == out_j[:c, :2]).all()
+    assert (out_t[c:] == out_j[c:]).all() and not out_t[c:cap].any()
     assert okw_t.dtype == np.int32 and (okw_t == okw_j).all()
-    assert (out_j[:m, 2] & out_j[:m, 3]).any()  # some two-segment hits
+    if n:
+        assert (out_j[:m, 2] & out_j[:m, 3]).any()  # some two-segment hits
 
 
 @pytest.mark.parametrize("L", [16, 150, 161])
@@ -170,3 +204,39 @@ def test_okwords_bit_31_wraps_like_jax(panel_ix):
     packed = pack_index_kv(ix, target_load=0.5, slots=1)
     (out_j, okw_j), (out_t, okw_t) = _run_both(ix, packed, [b], [ln], exc, (160,), 8)
     assert (okw_j < 0).all() and (okw_t == okw_j).all()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["kv2", "split"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_scan_lanes_card_matches_cpu(panel_ix, case, layout, cuda_device):
+    # the whole call on the card (the glue kernels, the probe, the vote and
+    # mask+segments) against the CPU's plain versions, every row
+    from genefuserust_tpu_torch.ops import cuda
+
+    panel, ix = panel_ix
+    spec, cap = CASES[case]
+    packed = (pack_index(ix) if layout == "split"
+              else pack_index_kv(ix, target_load=0.5, slots=1))
+    bufs, lens, exc = _lanes(panel, spec, seed=len(case), negative=case == "negative_exc_cols")
+    widths = tuple(w for _, _, w, *_ in spec)
+
+    def run(dev):
+        return fused_scan_lanes(
+            tuple(torch.from_numpy(b).to(dev) for b in bufs),
+            tuple(torch.from_numpy(x).to(dev) for x in lens), torch.from_numpy(exc).to(dev),
+            index_to_torch(packed, dev), widths=widths, cap=cap)
+
+    out_c, okw_c = run("cpu")
+    before = dict(cuda.LAUNCHES)
+    out_d, okw_d = run(cuda_device)
+    assert torch.equal(out_d.cpu(), out_c) and torch.equal(okw_d.cpu(), okw_c)
+    ran = {k: cuda.LAUNCHES[k] - before[k] for k in ("lane_unpack", "compact", "survivor_rows")}
+    assert ran == {"lane_unpack": len(spec), "compact": 1, "survivor_rows": 1}
