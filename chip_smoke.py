@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (genefuserust_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--probe-sweep | --gather-sweep | --profile-only]
+    python3 chip_smoke.py [--seed N] [--probe-sweep | --gather-sweep | --profile-only |
+                           --glue-sweep] [--glue-baseline DIR]
 
 Phases, one result line each; any failure raises and exits non-zero:
 
@@ -14,13 +15,19 @@ Phases, one result line each; any failure raises and exits non-zero:
              counts itself loading; the vote on the same batch, mask+segments on the
              1,024 rows the scan hands it; the probe on a small panel
              packed kv4, kv8 and split. The glue of fused_scan_lanes
-             (csrc/fused_glue.cu): the lane unpack (G1), the survivor
-             compaction with the bitmap (G2) and the survivor rows (G3) on
-             the batch's own three lanes, its votes and cap 1024, then on
-             an edge batch (the lanes cut to row counts that are not
-             multiples of 32, exceptions at negative columns, a cap below
-             the survivors), each beside its library call where one
-             exists. Kernel and plain times from CUDA events.
+             (csrc/fused_glue.cu): the lanes' unpack and its exceptions
+             (G1, a launch of each a batch), the survivor compaction with
+             the bitmap (G2: count, then place, over tiles of rows) and
+             the survivor rows (G3) on the batch's own three lanes, its
+             votes and cap 1024, each new kernel also alone; then on edge
+             batches: the lanes cut to row counts that are not multiples
+             of 32 with exceptions at negative columns and a cap below the
+             survivors; N a multiple of the compaction tile (cap past N)
+             and a tile -1 and +1; pad entries only; the lanes split
+             into more than one unpack launch takes. Each beside its
+             library call where one exists, and with --glue-baseline DIR
+             beside another checkout's unpack and compaction. Kernel and
+             plain times from CUDA events.
   4 golden   tests/goldens/planted.{json,html} through TorchEngine, byte
              for byte (timestamps stripped), at survivor cap 1024 and 2
   5 cli      262,144 read pairs (plus two planted fusions) through the
@@ -32,9 +39,10 @@ Phases, one result line each; any failure raises and exits non-zero:
              oracle's, with the kv2 and the split table
   7 profile  the same 262,144 pairs through a warm TorchEngine, the kv2
              table already on the card, under torch.profiler: device time
-             by kernel (G1-G3 apart from the rest of torch's ops), the five
-             largest of those other ops by name, and the device's busy
-             share of the scan's wall time
+             by kernel (G1-G3 apart from the rest of torch's ops), the
+             glue's device ms and share of the busy ms, the five largest
+             of those other ops by name, and the device's busy share of
+             the scan's wall time
   8 gather   the gather-floor probe (profiling/gather_floor.py) bit-equal
              to its plain version: (a) over the kv2 table, against the
              probe's time, reading (a1) both rows of every valid k-mer of
@@ -94,6 +102,12 @@ bit-equal to plain), prints it and stops: no contract line.
 --profile-only runs phase 1, packs the kv2 table and runs phase 7, then
 stops (no contract line): a copy of this script beside another checkout's
 genefuserust_tpu_torch profiles that checkout's warm scan.
+--glue-sweep runs phases 1-3, then builds csrc/fused_glue.cu at each
+compaction tile of GLUE_SWEEP_TILES and times the compaction on phase
+3's first batch and its tile edges (each held bit-equal to plain), prints
+it and stops: no contract line. --glue-baseline DIR (another checkout's
+csrc/, e.g. the parent's from `git archive`) adds that build's lane unpack
+and compaction, timed on phase 3's batch, to phase 3's glue lines.
 --gather-sweep runs phases 1-3, then the gather's launch-shape sweep
 (blocks a tile x row loads a thread: at (a2) for rows narrower than 16
 bytes, at (b) and at rows of 256, 512 and 1,024 int32 for rows of whole
@@ -135,8 +149,9 @@ LONG_BATCH = 64
 # kernels the build compiles: probe 4 (kv2, kv4, kv8, split), vote 3 (the
 # vote, its wide path, the shards' merge), mask_segments 8 (kv and split,
 # each narrow and wide; the shards' flags, kv and split; from flags, narrow
-# and wide), gather_sum 3 (vector widths), edit_distance 1, fused_glue 3
-N_COMPILED = 22
+# and wide), gather_sum 3 (vector widths), edit_distance 1, fused_glue 5
+# (unpack, exceptions, count, place, survivor rows)
+N_COMPILED = 24
 # the probe's launch-shape sweep (--probe-sweep): queries a thread, table-row
 # cache policy (PROBE_POLICY in csrc/probe.cu), threads a block
 PROBE_SWEEP_Q = (1, 2, 4, 8)
@@ -154,8 +169,11 @@ GATHER_SWEEP_TABLE_BYTES = 1 << 31
 # past the engine's widest lane for 150-base pairs (Wcap 288)
 MASK_WIDE = 320
 # the kernels of the scan path (phases 5, 11, 12)
-SCAN_KERNELS = ("probe", "vote", "mask_segments", "lane_unpack", "compact", "survivor_rows")
-GLUE_KERNELS = ("lane_unpack", "compact", "survivor_rows")
+GLUE_KERNELS = ("lane_unpack", "lane_exceptions", "compact_count", "compact_place",
+                "survivor_rows")
+SCAN_KERNELS = ("probe", "vote", "mask_segments", *GLUE_KERNELS)
+# the compaction's tiles that --glue-sweep builds and times
+GLUE_SWEEP_TILES = (256, 512, 1024, 2048, 4096, 8192)
 SURVIVOR_CAP = 1024  # TorchEngine's survivor cap (_surv_cap)
 # phase 13's kernels of the sharded path (the split probe, the sharded
 # stages) and of the wide-row paths (LAUNCHES keys)
@@ -617,7 +635,7 @@ def phase_kernels(data: dict) -> dict:
     say("3 kernels", kernel="mask_segments", rows=segw.shape[0], width=MASK_WIDE, ms=f"{msw:.4f}",
         plain_ms=f"{pmsw:.4f}", equal_to_width_192=True, max_abs_err=errw)
     del wide, prw
-    rec.update(glue_kernels(sh, index, data["seed"]))
+    rec.update(glue_kernels(sh, index, data))
 
     # the other table layouts, on a small panel
     panel = make_panel(seed=data["seed"])
@@ -655,31 +673,40 @@ def phase_kernels(data: dict) -> dict:
     return rec
 
 
-def glue_kernels(sh, index, seed: int) -> dict:
-    """G1-G3 of csrc/fused_glue.cu against their plain versions, bit-equal
-    and timed: (i) on the batch's own lanes as fused_scan_lanes runs them
-    (G1 once a lane, G2 on the lanes' votes at cap SURVIVOR_CAP, G3 on its
-    survivors); (ii) on an edge batch: the lanes cut to row counts that are
-    not multiples of 32 (so are N and the lane offsets), their exceptions
-    moved with them, entries at negative columns added (-1, -W, -W - 1 and
-    the first 24 bases of rows counted from the end), and a cap of half
-    the survivors. -> the three kernels' records."""
+def glue_kernels(sh, index, data) -> dict:
+    """The kernels of csrc/fused_glue.cu against their plain versions,
+    bit-equal and timed. (i) The batch's own lanes as fused_scan_lanes
+    runs them: the unpack and its exceptions (`lanes_codes`, one launch of
+    each for the three lanes), the compaction on their votes at cap
+    SURVIVOR_CAP (`compact`: count, then place), the survivor rows; then
+    each of the four new kernels alone on the same inputs. (ii) Edge
+    batches built from those lanes: cut to row counts that are not
+    multiples of 32 with entries at negative columns and a cap of half the
+    survivors; cut so that N is a multiple of the compaction tile with a
+    cap past N (c spans every tile), and to a tile - 1 and + 1; the
+    exceptions replaced by pad entries only; the lanes split into more
+    than one unpack launch takes. With data["glue_baseline"], another
+    checkout's csrc/ (the parent's one-launch-a-lane unpack and one-block
+    compaction), that build's two kernels are timed on (i)'s inputs.
+    Keeps (label, v, lens, cap) of (i) and of the tile edges for the
+    compaction's tile sweep. -> the kernels' records."""
     import torch
 
     from genefuserust_tpu_torch.config import PASS1_STEP
+    from genefuserust_tpu_torch.ops import cuda
     from genefuserust_tpu_torch.ops import fused as tf
     from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.ops.pack import unpack_seq2
     from genefuserust_tpu_torch.profiling.gather_floor import event_ms
 
     dev = index.table.device
-    widths = sh["widths"]
+    tile = cuda.compact_tile()
+    data["glue_batches"] = []
 
-    def run(bufs, lens, exc, offs, cap, label, reps, plain_reps):
+    def run(bufs, widths, lens, exc, cap, label, reps=5, plain_reps=1):
         codes, err1, ms1, pms1 = _timed_pair(
-            f"lane_unpack ({label})",
-            lambda: [tf.lane_codes(b, W, exc, o) for b, W, o in zip(bufs, widths, offs)],
-            lambda: [tf.lane_codes_plain(b, W, exc, o) for b, W, o in zip(bufs, widths, offs)],
-            reps=reps, plain_reps=plain_reps)
+            f"lanes_codes ({label})", lambda: tf.lanes_codes(bufs, widths, exc),
+            lambda: tf.lanes_codes_plain(bufs, widths, exc), reps=reps, plain_reps=plain_reps)
         v = torch.cat([tm.vote(tm.probe(ci, ln, PASS1_STEP, index), index, 40, 20)
                        for ci, ln in zip(codes, lens)])
         L = torch.cat(lens)
@@ -697,84 +724,321 @@ def glue_kernels(sh, index, seed: int) -> dict:
         S = int(out[cap, 0])
         say("3 kernels", kernel="fused_glue", batch=label, lanes=len(bufs),
             lane_rows=",".join(str(b.shape[0]) for b in bufs), N=N, N_mod_32=N % 32,
-            exceptions=exc.shape[0], negative_cols=int((exc[:, 1] < 0).sum()), cap=cap,
-            survivors=S, rows_placed=c, lane_unpack_ms=f"{ms1:.4f}",
-            lane_unpack_plain_ms=f"{pms1:.4f}", compact_ms=f"{ms2:.4f}",
+            tiles=-(-N // tile), N_mod_tile=N % tile, exceptions=exc.shape[0],
+            pad_entries=int((exc[:, 0] >= N).sum()), negative_cols=int((exc[:, 1] < 0).sum()),
+            cap=cap, survivors=S, rows_placed=c, lanes_codes_ms=f"{ms1:.4f}",
+            lanes_codes_plain_ms=f"{pms1:.4f}", compact_ms=f"{ms2:.4f}",
             compact_plain_ms=f"{pms2:.4f}", survivor_rows_ms=f"{ms3:.4f}",
             survivor_rows_plain_ms=f"{pms3:.4f}", equal=True,
             max_abs_err=max(err1, err2, err3))
-        return dict(codes=codes, v=v, out=out, sidx=sidx, rows=rows, S=S, c=c, N=N,
-                    err=(err1, err2, err3), ms=(ms1, ms2, ms3), pms=(pms1, pms2, pms3))
+        return dict(bufs=bufs, widths=widths, exc=exc, codes=codes, v=v, L=L, cap=cap, out=out,
+                    sidx=sidx, rows=rows, S=S, c=c, N=N, err=max(err1, err2, err3),
+                    ms=(ms1, ms2, ms3), pms=(pms1, pms2, pms3))
 
+    widths = list(sh["widths"])
     bufs = [b.to(dev) for b in sh["bufs_d"]]
     lens = [n.to(dev) for n in sh["lens_d"]]
     exc = sh["exc_d"].to(dev)
     offs = sh["offs"][: len(bufs)]
-    real = run(bufs, lens, exc, offs, SURVIVOR_CAP, f"first {BATCH} pairs", 20, 3)
+    real = run(bufs, widths, lens, exc, SURVIVOR_CAP, f"first {BATCH} pairs", 20, 3)
+    data["glue_batches"].append(("first batch", real["v"], real["L"], SURVIVOR_CAP))
 
-    # (ii) the edge batch, built on the host from the same lanes
+    # (ii) the edge batches, built from the same lanes
+    def cut_lanes(cut):
+        """The lanes cut to `cut` rows each, their exceptions moved with
+        them (the others to a row past every lane: dropped)."""
+        eoffs = [sum(cut[:i]) for i in range(len(cut))]
+        x = exc.long()
+        new_row = torch.full_like(x[:, 0], sum(cut) + 1)
+        for o, eo, n in zip(offs, eoffs, cut):
+            inside = (x[:, 0] >= o) & (x[:, 0] < o + n)
+            new_row = torch.where(inside, x[:, 0] - o + eo, new_row)
+        x = torch.stack([new_row, x[:, 1]], 1)
+        return ([b[:n].contiguous() for b, n in zip(bufs, cut)],
+                [ln[:n].contiguous() for ln, n in zip(lens, cut)], x, eoffs)
+
     cut = [max(1, b.shape[0] - k) for b, k in zip(bufs, (7, 3, 13))]
-    eoffs = [sum(cut[:i]) for i in range(len(cut))]
-    x = sh["exc_d"].clone().long()
-    new_row = torch.full_like(x[:, 0], sum(cut) + 1)  # dropped
-    for o, eo, n in zip(offs, eoffs, cut):
-        inside = (x[:, 0] >= o) & (x[:, 0] < o + n)
-        new_row = torch.where(inside, x[:, 0] - o + eo, new_row)
-    x[:, 0] = new_row
-    rng = np.random.default_rng(seed)
+    ebufs, elens, x, eoffs = cut_lanes(cut)
+    rng = np.random.default_rng(data["seed"])
     extra = []
     for eo, n, W in zip(eoffs, cut, widths):
         for r in rng.choice(n, min(n, 64), replace=False).tolist():
             extra += [(eo + r, col) for col in (-1, -W, -W - 1)]
         for r in rng.choice(n, min(n, 16), replace=False).tolist():
             extra += [(eo + r, j - W) for j in range(24)]
-    eexc = torch.cat([x, torch.tensor(extra, dtype=torch.int64)]).to(torch.int32).to(dev)
-    ebufs = [b[:n].contiguous() for b, n in zip(bufs, cut)]
-    elens = [ln[:n].contiguous() for ln, n in zip(lens, cut)]
+    eexc = torch.cat([x.cpu(), torch.tensor(extra, dtype=torch.int64)]).to(torch.int32).to(dev)
     ecap = max(1, real["S"] // 2)
-    edge = run(ebufs, elens, eexc, eoffs, ecap, "edge", 5, 1)
+    edge = run(ebufs, widths, elens, eexc, ecap, "edge")
     check(edge["N"] % 32 and edge["S"] > ecap, "the edge batch is not an edge case")
+    edges = [edge]
+    # N a multiple of the tile (cap past N: c spans every tile), and a tile
+    # -1 and +1, cut from the first lane
+    k = real["N"] // tile
+    for extra_rows, cap, label in ((0, k * tile + 7, "N = k tiles, cap N + 7"),
+                                   (-1, SURVIVOR_CAP, "N = k tiles - 1"),
+                                   (1, SURVIVOR_CAP, "N = k tiles + 1")):
+        drop = real["N"] - k * tile - extra_rows
+        tb, tl, tx, _ = cut_lanes([bufs[0].shape[0] - drop] + [b.shape[0] for b in bufs[1:]])
+        e = run(tb, widths, tl, tx.to(torch.int32).contiguous(), cap, label)
+        check(e["N"] % tile == extra_rows % tile and (cap < e["N"] or e["c"] == e["N"] > tile),
+              f"the batch '{label}' is not the edge case it names")
+        edges.append(e)
+        data["glue_batches"].append((label, e["v"], e["L"], cap))
+    # exceptions that are the engine's pad entries only (row N)
+    pad = torch.tensor([[real["N"], max(widths)]] * 32, dtype=torch.int32, device=dev)
+    e = run(bufs, widths, lens, pad, SURVIVOR_CAP, "pad entries only")
+    check(e["N"] == real["N"], "the pad-only batch changed its lanes")
+    edges.append(e)
+    # more lanes than one unpack launch takes: each lane in 4 row ranges
+    # (the concatenated row space, so the exceptions, stay as they are)
+    mbufs, mwidths, mlens = [], [], []
+    for b, ln, W in zip(bufs, lens, widths):
+        cuts = np.linspace(0, b.shape[0], 5).astype(int).tolist()
+        for lo, hi in zip(cuts, cuts[1:]):
+            mbufs.append(b[lo:hi].contiguous())
+            mlens.append(ln[lo:hi].contiguous())
+            mwidths.append(W)
+    check(len(mbufs) > cuda.MAX_LANES, "the split batch fits one unpack launch")
+    e = run(mbufs, mwidths, mlens, exc, SURVIVOR_CAP, f"{len(mbufs)} lanes")
+    check(torch.equal(e["out"], real["out"]), "the split lanes' compaction differs from the batch's")
+    edges.append(e)
 
-    # the bounds, at the batch's own lanes: G1 reads the 2-bit rows and the
-    # exception list and writes the codes; G2 reads the vote rows (their
-    # gate column spans every sector) and the placed rows' lengths and
-    # writes `out`, slens, gp and okwords; G3 reads the sidx column and
-    # each placed row at its lane's width and writes the (c, Wmax) rows
-    N, c = real["N"], real["c"]
-    b1 = (sum(b.numel() for b in bufs) + exc.numel() * 4
-          + sum(ci.numel() for ci in real["codes"]))
-    b2 = (real["v"].numel() * 4 + c * 4 + real["out"].numel() * 4 + c * 4 + c * 16
-          + (N + 31) // 32 * 4)
+    # each new kernel alone on (i)'s inputs, beside the plain version of
+    # its step
+    outs = [torch.empty((b.shape[0], W), dtype=torch.uint8, device=dev)
+            for b, W in zip(bufs, widths)]
+    unpacked = [unpack_seq2(b, W).contiguous() for b, W in zip(bufs, widths)]
+
+    def unpack():
+        cuda.launch_lanes_unpack(bufs, widths, offs, outs)
+        return outs
+
+    def exceptions():
+        cuda.launch_lane_exceptions(bufs, widths, offs, outs, exc)
+        return outs
+
+    one = {}
+    one["lane_unpack"] = _timed_pair(
+        "lane_unpack", unpack, lambda: [unpack_seq2(b, W).contiguous()
+                                        for b, W in zip(bufs, widths)])
+    one["lane_exceptions"] = _timed_pair(
+        "lane_exceptions", exceptions, lambda: [tf.lane_exceptions_plain(u, exc, o)
+                                                for u, o in zip(unpacked, offs)])
+    v, L, N, c = real["v"], real["L"], real["N"], real["c"]
+    okw = torch.empty((N + 31) // 32, dtype=torch.int32, device=dev)
+    tcnt = torch.empty(-(-N // tile), dtype=torch.int32, device=dev)
+    out = torch.empty_like(real["out"])
+    slens = torch.empty(c, dtype=torch.int32, device=dev)
+    gp = torch.empty((c, 4), dtype=torch.int32, device=dev)
+
+    def count():
+        cuda.launch_compact_count(v, okw, tcnt)
+        return okw, tcnt
+
+    def place():
+        cuda.launch_compact_place(v, L, SURVIVOR_CAP, okw, tcnt, out, slens, gp)
+        return out, slens, gp
+
+    one["compact_count"] = _timed_pair("compact_count", count,
+                                       lambda: tf.compact_count_plain(v, tile))
+    # the plain version of the place step is the whole compaction's (it
+    # also builds the bitmap)
+    one["compact_place"] = _timed_pair("compact_place", place,
+                                       lambda: tf.compact_plain(v, L, SURVIVOR_CAP)[:3])
+
+    # the parent design on the same inputs (another checkout's build)
+    before = {}
+    if data.get("glue_baseline"):
+        before = glue_baseline(data["glue_baseline"], real)
+
+    # the bounds, at (i)'s inputs: the unpack reads the 2-bit rows and
+    # writes the codes; the exceptions read the list and write the entries
+    # that land; the count reads the vote rows (their gate column spans
+    # every sector) and writes the words and the tile counts; the place
+    # step reads those, the placed rows' lengths and keys and writes
+    # `out`, slens and gp; the survivor rows read the sidx column and each
+    # placed row at its lane's width and write the (c, Wmax) rows
+    r, col = exc[:, 0].long(), exc[:, 1].long()
+    landed = 0
+    for o, b, W in zip(offs, bufs, widths):
+        cc = torch.where(col < 0, col + W, col)
+        landed += int(((r >= o) & (r < o + b.shape[0]) & (cc >= 0) & (cc < W)).sum())
+    codes_bytes = sum(ci.numel() for ci in real["codes"])
+    nbytes = dict(
+        lane_unpack=sum(b.numel() for b in bufs) + codes_bytes,
+        lane_exceptions=exc.numel() * 4 + landed,
+        compact_count=v.numel() * 4 + okw.numel() * 4 + tcnt.numel() * 4,
+        compact_place=(okw.numel() * 4 + tcnt.numel() * 4 + c * 20 + out.numel() * 4 + c * 4
+                       + c * 16))
     lane_w = torch.tensor([W for W, b in zip(widths, bufs) for _ in range(b.shape[0])],
                           device=dev)
-    b3 = c * 4 + int(lane_w[real["sidx"].long()].sum()) + real["rows"].numel()
-    # the library calls: G2's argsort of the compaction keys alone; G3's
-    # index_select from the whole (N, Wmax) matrix of the lanes, built
-    # beforehand (the build is left out of the time)
-    ok = real["v"][:, 0] != 0
+    nbytes["survivor_rows"] = (c * 4 + int(lane_w[real["sidx"].long()].sum())
+                               + real["rows"].numel())
+    pair_bytes = dict(lane_unpack=sum(b.numel() for b in bufs) + exc.numel() * 4 + codes_bytes,
+                      compact=v.numel() * 4 + c * 4 + out.numel() * 4 + c * 4 + c * 16
+                      + okw.numel() * 4)
+    # the library calls: the compaction's argsort of its keys alone; the
+    # survivor rows' index_select from the whole (N, Wmax) matrix of the
+    # lanes, built beforehand, and the same with the matrix's build
+    ok = v[:, 0] != 0
     iota = torch.arange(N, device=dev)
     keys = torch.where(ok, iota, N + iota)
-    lib2 = event_ms(lambda: torch.argsort(keys), 20)
-    allcodes = tf.survivor_rows_plain(real["codes"], iota.to(torch.int32), max(widths))
+    lib_sort = event_ms(lambda: torch.argsort(keys), 20)
+    Wmax = max(widths)
     sidx64 = real["sidx"].long()
-    lib3 = event_ms(lambda: torch.index_select(allcodes, 0, sidx64), 20)
+
+    def padded_matrix():
+        m = torch.full((N, Wmax), 255, dtype=torch.uint8, device=dev)
+        at = 0
+        for ci in real["codes"]:
+            m[at : at + ci.shape[0], : ci.shape[1]] = ci
+            at += ci.shape[0]
+        return m
+
+    allcodes = padded_matrix()
+    lib_select = event_ms(lambda: torch.index_select(allcodes, 0, sidx64), 20)
+    lib_build_select = event_ms(lambda: torch.index_select(padded_matrix(), 0, sidx64), 20)
     lanes_shape = " + ".join(f"{b.shape[0]}x{W}" for b, W in zip(bufs, widths))
-    shapes = (f"{len(bufs)} lanes ({lanes_shape} codes), {exc.shape[0]} exceptions, "
-              "one launch a lane",
-              f"N {N} vote rows, cap {SURVIVOR_CAP}, {real['S']} survivors",
-              f"{c} rows of width {max(widths)} from {len(bufs)} lanes")
+    shapes = dict(
+        lane_unpack=f"{len(bufs)} lanes ({lanes_shape} codes), one launch",
+        lane_exceptions=f"{exc.shape[0]} exceptions, {landed} in the lanes, one launch",
+        compact_count=f"N {N} vote rows, {tcnt.numel()} tiles of {tile}",
+        compact_place=f"N {N}, cap {SURVIVOR_CAP}, {real['S']} survivors",
+        survivor_rows=f"{c} rows of width {Wmax} from {len(bufs)} lanes")
+    pairs = dict(lane_unpack=("lane_unpack", "lane_exceptions", 0),
+                 compact=("compact_count", "compact_place", 1))
     rec = {}
-    for k, name in enumerate(GLUE_KERNELS):
-        rec[name] = dict(err=max(real["err"][k], edge["err"][k]), ms=real["ms"][k],
-                         plain_ms=real["pms"][k], library_ms=(None, lib2, lib3)[k],
-                         shape=shapes[k], edge_ms=round(edge["ms"][k], 6),
-                         **bound((b1, b2, b3)[k], 0))
-        say("3 kernels", kernel=name, ms=f"{real['ms'][k]:.4f}",
-            plain_ms=f"{real['pms'][k]:.4f}", bound_ms=f"{rec[name]['bound_ms']:.5f}",
+    for name in GLUE_KERNELS:
+        if name == "survivor_rows":
+            err, ms, pms = real["err"], real["ms"][2], real["pms"][2]
+        else:
+            _, err, ms, pms = one[name]
+        rec[name] = dict(err=max(err, max(e["err"] for e in edges)), ms=ms, plain_ms=pms,
+                         library_ms=lib_select if name == "survivor_rows" else None,
+                         shape=shapes[name], **bound(nbytes[name], 0))
+        if name == "survivor_rows":
+            rec[name].update(edge_ms=round(edge["ms"][2], 6),
+                             library_with_build_ms=round(lib_build_select, 6))
+    for pair, (first, second, k) in pairs.items():
+        pb = bound(pair_bytes[pair], 0)
+        rec[first]["pair"] = dict(
+            kernels=f"{first}+{second}", ms=round(real["ms"][k], 6),
+            plain_ms=round(real["pms"][k], 6), bound_ms=round(pb["bound_ms"], 6),
+            edge_ms=round(edge["ms"][k], 6),
+            before_ms=None if pair not in before else round(before[pair], 6),
+            library_ms=None if pair == "lane_unpack" else round(lib_sort, 6))
+        say("3 kernels", pair=pair, kernels=f"{first}+{second}", ms=f"{real['ms'][k]:.4f}",
+            plain_ms=f"{real['pms'][k]:.4f}", bound_ms=f"{pb['bound_ms']:.5f}",
+            bound_share=f"{pb['bound_ms'] / real['ms'][k]:.4f}",
+            before_ms="null" if pair not in before else f"{before[pair]:.4f}",
+            library_ms="null" if pair == "lane_unpack" else f"{lib_sort:.4f}")
+    for name in GLUE_KERNELS:
+        say("3 kernels", kernel=name, ms=f"{rec[name]['ms']:.4f}",
+            plain_ms=f"{rec[name]['plain_ms']:.4f}", bound_ms=f"{rec[name]['bound_ms']:.5f}",
             bound_by=rec[name]["bound_by"], bytes=rec[name]["bytes"],
-            library_ms="null" if k == 0 else f"{(lib2, lib3)[k - 1]:.4f}",
+            library_ms="null" if rec[name]["library_ms"] is None
+            else f"{rec[name]['library_ms']:.4f}",
+            **({"library_with_build_ms": f"{lib_build_select:.4f}"}
+               if name == "survivor_rows" else {}),
             max_abs_err=rec[name]["err"])
     return rec
+
+
+def glue_baseline(csrc: str, real: dict) -> dict:
+    """Another checkout's lane unpack (`gf_lane_unpack`, one launch a lane)
+    and compaction (`gf_compact`, one block), built from its csrc/, on the
+    inputs of phase 3's batch: bit-equal to plain, timed -> {"lane_unpack":
+    ms, "compact": ms} for the batch."""
+    import ctypes
+
+    import torch
+
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.ops import fused as tf
+
+    lib = cuda.load(cuda.build(("fused_glue.cu",), csrc=os.path.abspath(csrc)))
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    lib.gf_lane_unpack.argtypes = [P_, I_, I_, I_, P_, I_, ctypes.c_longlong, P_, P_]
+    lib.gf_compact.argtypes = [P_, P_, I_, I_, P_, P_, P_, P_, P_]
+    bufs, widths, exc = real["bufs"], real["widths"], real["exc"]
+    v, L, cap, N, c = real["v"], real["L"], real["cap"], real["N"], real["c"]
+    dev = v.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def unpack():
+        outs, off = [], 0
+        for b, W in zip(bufs, widths):
+            o = torch.empty((b.shape[0], W), dtype=torch.uint8, device=dev)
+            check(lib.gf_lane_unpack(b.data_ptr(), b.shape[0], W, b.shape[1], exc.data_ptr(),
+                                     exc.shape[0], off, o.data_ptr(), stream) == 0,
+                  "the baseline's lane unpack failed to launch")
+            outs.append(o)
+            off += b.shape[0]
+        return outs
+
+    def compact():
+        out = torch.empty((cap + 1, 13), dtype=torch.int32, device=dev)
+        slens = torch.empty(c, dtype=torch.int32, device=dev)
+        gp = torch.empty((c, 4), dtype=torch.int32, device=dev)
+        okw = torch.empty((N + 31) // 32, dtype=torch.int32, device=dev)
+        check(lib.gf_compact(v.data_ptr(), L.data_ptr(), N, cap, out.data_ptr(),
+                             slens.data_ptr(), gp.data_ptr(), okw.data_ptr(), stream) == 0,
+              "the baseline's compaction failed to launch")
+        return out, slens, gp, okw
+
+    _, _, ms1, _ = _timed_pair("lane_unpack (baseline)", unpack,
+                               lambda: tf.lanes_codes_plain(bufs, widths, exc), reps=20,
+                               plain_reps=1)
+    _, _, ms2, _ = _timed_pair("compact (baseline)", compact,
+                               lambda: tf.compact_plain(v, L, cap), reps=20, plain_reps=1)
+    say("3 kernels", baseline=csrc, lane_unpack_ms=f"{ms1:.4f}", compact_ms=f"{ms2:.4f}",
+        equal=True)
+    return {"lane_unpack": ms1, "compact": ms2}
+
+
+def sweep_glue(data: dict, reps: int = 40) -> dict:
+    """The compaction's tile (GLUE_COMPACT_TILE) swept over
+    GLUE_SWEEP_TILES, each a build of csrc/fused_glue.cu, on phase 3's
+    first batch and its tile edges: count + place bit-equal to plain, then
+    timed -> {batch label: {tile: ms}}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.ops import fused as tf
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(GLUE_SWEEP_TILES)) as ex:
+        paths = list(ex.map(lambda t: cuda.build(("fused_glue.cu",), (f"GLUE_COMPACT_TILE={t}",)),
+                            GLUE_SWEEP_TILES))
+    say("3 kernels", kernel="compact", sweep_builds=len(paths),
+        build_s=f"{time.perf_counter() - t0:.1f}")
+    res = {}
+    for label, v, L, cap in data["glue_batches"]:
+        exp = tf.compact_plain(v, L, cap)
+        res[label] = {}
+        for T, path in zip(GLUE_SWEEP_TILES, paths):
+            lib = cuda.load(path)
+            check(cuda.compact_tile(lib) == T, f"the build for tile {T} has another tile")
+            N, c = v.shape[0], min(cap, v.shape[0])
+
+            def run():
+                out = torch.empty((cap + 1, 13), dtype=torch.int32, device=v.device)
+                slens = torch.empty(c, dtype=torch.int32, device=v.device)
+                gp = torch.empty((c, 4), dtype=torch.int32, device=v.device)
+                okw = torch.empty((N + 31) // 32, dtype=torch.int32, device=v.device)
+                tcnt = torch.empty(-(-N // T), dtype=torch.int32, device=v.device)
+                cuda.launch_compact_count(v, okw, tcnt, lib=lib)
+                cuda.launch_compact_place(v, L, cap, okw, tcnt, out, slens, gp, lib=lib)
+                return out, slens, gp, okw
+
+            got = run()
+            check(all(torch.equal(g, e) for g, e in zip(got, exp)),
+                  f"compact with tile {T} differs from plain ({label})")
+            res[label][T] = event_ms(run, reps)
+    return res
 
 
 def probe_row_loads(codes, lens, index, exp, stride=None) -> int:
@@ -1049,8 +1313,15 @@ def _device_kind(name: str) -> str:
                         ("mask_segments", "mask_segments_kernel"),
                         ("gather_sum", "gather_tile_sums_kernel"),
                         ("edit_distance", "edit_distance_kernel"),
-                        ("lane_unpack", "lane_unpack_kernel"), ("compact", "compact_kernel"),
-                        ("survivor_rows", "survivor_rows_kernel")):
+                        ("lane_unpack", "lanes_unpack_kernel"),
+                        ("lane_exceptions", "lane_exceptions_kernel"),
+                        ("compact_count", "compact_count_kernel"),
+                        ("compact_place", "compact_place_kernel"),
+                        ("survivor_rows", "survivor_rows_kernel"),
+                        # the one-launch-a-lane unpack and one-block
+                        # compaction of a checkout before the batched ones
+                        # (--profile-only beside another checkout)
+                        ("lane_unpack", "lane_unpack_kernel"), ("compact", "compact_kernel")):
         if sym in name:
             return kernel
     if name.startswith("Memcpy HtoD"):
@@ -1106,6 +1377,9 @@ def phase_profile(data: dict) -> None:
         device_ms=json.dumps({k: round(v / 1e3, 3) for k, v in
                               sorted(by_kind.items(), key=lambda kv: -kv[1])},
                              separators=(",", ":")))
+    glue = sum(by_kind.get(k, 0.0) for k in (*GLUE_KERNELS, "compact"))
+    say("7 profile", glue_kernels=",".join(k for k in (*GLUE_KERNELS, "compact") if k in by_kind),
+        glue_ms=f"{glue / 1e3:.4f}", glue_share_of_busy=f"{glue / busy_us:.4f}")
     # the largest of torch's own ops: [name (its first 100 characters),
     # launches, device ms]
     top = sorted(other.items(), key=lambda kv: -kv[1][1])[:5]
@@ -2051,6 +2325,11 @@ def main(argv=None) -> int:
                         help="phases 1-3 and the gather's launch-shape sweep, then stop")
     sweeps.add_argument("--profile-only", action="store_true",
                         help="phase 1, the kv2 table and phase 7, then stop")
+    sweeps.add_argument("--glue-sweep", action="store_true",
+                        help="phases 1-3 and the compaction's tile sweep, then stop")
+    ap.add_argument("--glue-baseline", metavar="DIR",
+                    help="another checkout's csrc/: phase 3 also times its fused_glue.cu's "
+                         "lane unpack and compaction")
     args = ap.parse_args(argv)
     import torch
 
@@ -2085,7 +2364,7 @@ def main(argv=None) -> int:
             reads_s=f"{time.perf_counter() - t0:.1f}", pairs=CLI_PAIRS)
         data = dict(seed=args.seed, workdir=workdir, fa=fa, csv=csv, exons=exons,
                     mapper=mapper, blk=blk, block=block, log=log,
-                    probe_sweep=args.probe_sweep)
+                    probe_sweep=args.probe_sweep, glue_baseline=args.glue_baseline)
         if args.profile_only:
             pack_kv2(data)
             phase_profile(data)
@@ -2099,7 +2378,14 @@ def main(argv=None) -> int:
                     sweep_ms=json.dumps({k: round(v, 4) for k, v in res.items()},
                                         separators=(",", ":")),
                     best=repr(best), best_ms=f"{res[best]:.4f}", equal=True)
-        if args.probe_sweep or args.gather_sweep:
+        if args.glue_sweep:
+            for label, res in sweep_glue(data).items():
+                best = min(res, key=res.get)
+                say("3 kernels", kernel="compact", batch=label, sweep="rows a tile",
+                    sweep_ms=json.dumps({k: round(v, 5) for k, v in res.items()},
+                                        separators=(",", ":")),
+                    best=best, best_ms=f"{res[best]:.5f}", equal=True)
+        if args.probe_sweep or args.gather_sweep or args.glue_sweep:
             print(smi_line)
             return 0
         phase_golden(data)
@@ -2134,7 +2420,9 @@ def main(argv=None) -> int:
         "mask_from_flags_wide": "genefuserust_tpu/parallel/sharded_index.py:242",
         "probe_long": "genefuserust_tpu/ops/pallas_lookup.py:102",
         "lane_unpack": "genefuserust_tpu/ops/fused.py:488",
-        "compact": "genefuserust_tpu/ops/fused.py:509",
+        "lane_exceptions": "genefuserust_tpu/ops/fused.py:493",
+        "compact_count": "genefuserust_tpu/ops/fused.py:560",
+        "compact_place": "genefuserust_tpu/ops/fused.py:509",
         "survivor_rows": "genefuserust_tpu/ops/fused.py:523",
     }
     sources = dict(probe_split="probe", probe_long="probe", vote_counts="vote", merge_top2="vote",
@@ -2145,8 +2433,9 @@ def main(argv=None) -> int:
     # launches: each kernel's count over phase 5's CLI scan, the main path;
     # gather_sum is off it, so its count is that of its own entry point
     # (phase 8). No single PyTorch call computes the other functions than
-    # compact (argsort) and survivor_rows (index_select) (library_ms null):
-    # see PERF.md's kernel table for each reason.
+    # survivor_rows (index_select; the compaction's argsort is on its
+    # "pair" record) (library_ms null): see PERF.md's kernel table for each
+    # reason.
     rec["gather_sum"] = dict(gather, shape="int32[2^22, 128] table, 2^17 rows, 1 lane")
     rec["edit_distance"] = dict(edit, err=max(edit["err"], data["ed_err"]),
                                 main_path_flushes=data["ed_main"],
@@ -2160,7 +2449,8 @@ def main(argv=None) -> int:
     rec["probe_long"] = multi_device["rec"]
     launches["probe_long"] = multi_device["launches"]
     extra = ("shape", "wide", "rows_needed", "rows_loaded", "h1_hit_share", "main_path_flushes",
-             "fusion_rich_launches", "hits", "stride1_ms", "stride1_bound_ms", "edge_ms")
+             "fusion_rich_launches", "hits", "stride1_ms", "stride1_bound_ms", "edge_ms",
+             "pair", "library_with_build_ms")
     kernels = [
         dict(name=k, route="cuda",
              source=f"genefuserust_tpu_torch/csrc/{sources.get(k, k)}.cu",

@@ -4,57 +4,81 @@
 // Replaces the XLA-jitted glue of genefuserust_tpu/ops/fused.py
 // fused_scan_lanes around its two passes (on the TPU this was jnp; the
 // TPU's only Pallas kernel is the probe, probe.cu):
-//   lane_unpack_kernel    :488-493 with ops/pack.py unpack_seq2_jnp: a
-//                         lane's 2-bit rows -> uint8 codes, 255 at its
-//                         exception entries;
-//   compact_kernel        :509-518 and :555-567: the stable survivor
-//                         compaction (the argsort of where(ok, i, N + i)),
-//                         the survivors' lengths and vote keys, the count
-//                         and the okwords bitmap;
-//   survivor_rows_kernel  :523-532: the survivors' code rows, taken from
-//                         the unpacked lanes and padded with 255 to the
-//                         widest lane.
+//   lanes_unpack_kernel     :488-493 with ops/pack.py unpack_seq2_jnp:
+//                           every lane's 2-bit rows -> uint8 codes;
+//   lane_exceptions_kernel  :493, the scatter: 255 at each exception entry
+//                           that falls in a lane;
+//   compact_count_kernel    :560-567 and the count of :509-518: the
+//                           okwords bitmap and each tile's survivor count;
+//   compact_place_kernel    :509-518 and :555-558: the stable survivor
+//                           compaction (the argsort of where(ok, i, N + i)),
+//                           the survivors' lengths and vote keys, the count;
+//   survivor_rows_kernel    :523-532: the survivors' code rows, taken from
+//                           the unpacked lanes and padded with 255 to the
+//                           widest lane.
 //
 // What bounds them on the H100: bytes, and at the main path's sizes the
-// launches and, for the one-block compaction, its chain of dependent
-// steps. A 65,536-pair batch (~80,000 lane rows) unpacks ~3.6 MB of 2-bit
-// rows into ~14 MB of codes, reads ~1.6 MB of vote rows and writes ~0.3 MB
-// of survivor rows: ~6 us at 3.35 TB/s. The plain torch glue wrote the
-// whole (N, Wmax) matrix of every row to take ~1,024 rows from it, and
-// sorted N keys to compact them.
+// latency of a launch. A 65,536-pair batch (~80,000 lane rows) unpacks
+// ~3.6 MB of 2-bit rows into ~14 MB of codes, reads ~1.6 MB of vote rows
+// and writes ~0.3 MB of survivor rows: ~6 us at 3.35 TB/s. So each step
+// is one launch a batch (or two short ones) spread over the whole card,
+// with no chain of dependent steps inside a launch.
 //
 // What the designs do about it:
-//   - the unpack writes each output byte once, 16 bytes a thread, over a
-//     flat view of the (P, W) codes, so that no row width needs to be a
-//     multiple of 16. Each block owns a contiguous range of the flat
-//     output; after a barrier over its range it applies the lane's
-//     exception entries that fall inside it (every block reads the (E, 2)
-//     list, from L2, E ~ 10^4 a batch), so one launch a lane does both;
-//   - the compaction is one block of 32 warps that walks the rows in steps
-//     of 8,192: a warp ballots 8 words of 32 consecutive rows (the words
-//     are the bitmap, written as they are), the block scans the warps'
-//     popcounts, and a survivor's slot is the running count before its
-//     bit. Non-survivors are wanted only when fewer than c = min(cap, N)
-//     rows survive, and then only the first c - S of them, which all lie
-//     in rows [0, c): a second walk over those rows places them. No sort,
-//     no atomics, so the order is fixed;
+//   - the unpack is one launch for up to MAX_LANES lanes: a by-value table
+//     of the lanes sends each 16-byte chunk of output to its lane, and each
+//     lane's (P, W) codes lie at a 16-byte-aligned offset of one buffer.
+//     Where W % 16 == 0 (the engine's widths) a chunk lies inside one row
+//     and its 4 packed bytes are one aligned 32-bit load, spread in
+//     registers into one 16-byte store; other widths step a chunk's bytes
+//     through the rows;
+//   - the exceptions follow in a second launch, a thread an entry: it
+//     finds the lane that holds its row, drops it as JAX does (rows outside
+//     every lane, columns outside [-W, W), a negative one counted from the
+//     row's end) or writes 255. The write is idempotent, so unsorted,
+//     repeated and pad entries need nothing, and stream order puts it
+//     after the unpack;
+//   - the compaction is two launches over tiles of COMPACT_TILE rows, a
+//     block a tile. The count launch ballots the gate column 32 rows a
+//     word (the words are the bitmap, written as they are) and writes the
+//     tile's survivor count. The place launch re-reads its tile's words,
+//     sums the earlier tiles' counts (its prefix) and all of them (S), and
+//     gives row i the slot pre(i), the survivors in rows before it, if it
+//     survives, else S + i - pre(i), its rank among the non-survivors after
+//     the S survivors. A row is written where its slot is below
+//     c = min(cap, N), so the non-survivors that fill rows [S, c) are
+//     placed in the same pass, whatever tiles c spans. The blocks share out
+//     the zeros of `out`. No atomics and no look-back, so the order is fixed
+//     by the data; the tile counts are scratch that the count launch writes
+//     whole, so nothing needs a reset;
 //   - the survivor rows are copied straight from the lanes (a table of
 //     their pointers, offsets, rows and widths passed by value), 16 bytes
 //     a thread where both rows allow it, 255 past a lane's width.
-// tests/test_torch_fused_glue.py mirrors these steps (_kernel_lane_unpack,
+// tests/test_torch_fused_glue.py mirrors these steps (_kernel_lanes_unpack,
 // _kernel_compact, _kernel_survivor_rows) and holds them to JAX.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// Rows a compaction tile (a multiple of 256 up to 8,192; a build may set
+// another). 256, one word a warp, was the fastest of 256-8,192 at the
+// main path's ~80,000 rows on the H100 (chip_smoke.py --glue-sweep): the
+// more blocks, the shorter each one's chain. Each place block sums every
+// tile's count, ~N / 256 ints from L2.
+#ifndef GLUE_COMPACT_TILE
+#define GLUE_COMPACT_TILE 256
+#endif
+
 namespace gf {
 
-constexpr int UNPACK_THREADS = 512;
-constexpr int UNPACK_MAX_BLOCKS = 264;  // 2 an SM: each block reads the whole exception list
-constexpr int COMPACT_THREADS = 1024;
+constexpr int UNPACK_THREADS = 256;
+constexpr int UNPACK_MAX_BLOCKS = 132 * 16;
+constexpr int EXC_THREADS = 256;
+constexpr int COMPACT_THREADS = 256;
 constexpr int COMPACT_WARPS = COMPACT_THREADS / 32;
-static_assert(COMPACT_WARPS == 32, "compact_walk scans the warps' counts one a lane");
-constexpr int COMPACT_WORDS = 8;  // 32-row words a warp ballots in a step
-constexpr int COMPACT_STEP = COMPACT_WARPS * COMPACT_WORDS * 32;
+constexpr int COMPACT_TILE = GLUE_COMPACT_TILE;
+constexpr int COMPACT_WPW = COMPACT_TILE / (32 * COMPACT_WARPS);  // bitmap words a warp
+static_assert(COMPACT_TILE % (32 * COMPACT_WARPS) == 0 && COMPACT_WPW >= 1 && COMPACT_WPW <= 32,
+              "a warp holds its tile's words one a lane");
 constexpr int OUT_COLS = 13;  // fused_scan_lanes' result rows
 constexpr int ROWS_THREADS = 256;
 constexpr int ROWS_MAX_BLOCKS = 132 * 16;
@@ -62,25 +86,65 @@ constexpr int MAX_LANES = 8;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr uint8_t INVALID_CODE = 255;
 
-// One lane: (P, Wb) 2-bit rows (LSB first) -> (P, W) codes, a flat chunk
-// of 16 output bytes a thread; then the entries of exc (E, 2) [row, col]
-// in the concatenated row space whose row is in [off, off + P) and whose
-// column, a negative one taken from the row's end (W + col), is in [0, W)
-// are set to 255.
+// The lanes of one unpack (and exception) launch, by value: lane q's
+// (rows, wb) 2-bit rows at in, its (rows, width) codes at out, its first
+// row in the concatenated row space at off, its 16-byte output chunks
+// from chunk0[q] to chunk0[q + 1] of the launch's, and whether a chunk is
+// one aligned 32-bit load (fast).
+struct GlueLanes {
+  const uint8_t* in[MAX_LANES];
+  uint8_t* out[MAX_LANES];
+  long long off[MAX_LANES];
+  long long chunk0[MAX_LANES + 1];
+  int rows[MAX_LANES];
+  int width[MAX_LANES];
+  int wb[MAX_LANES];
+  int fast[MAX_LANES];
+  int n;
+};
+
+// the low 4 codes of a packed byte, one a byte (LSB first)
+__device__ __forceinline__ uint32_t spread4(uint32_t b) {
+  return (b & 0x3u) | ((b & 0xcu) << 6) | ((b & 0x30u) << 12) | ((b & 0xc0u) << 18);
+}
+
+// Every lane's (P, W) codes, 16 output bytes a thread over the lanes'
+// concatenated chunks. The lane is selected with constant indexes (an
+// unrolled scan of the table), so the table stays in the parameter bank.
 __global__ void __launch_bounds__(UNPACK_THREADS)
-lane_unpack_kernel(const uint8_t* __restrict__ buf, int P, int W, int Wb,
-                   const int2* __restrict__ exc, int E, long long off,
-                   uint8_t* __restrict__ out) {
-  const long long total = (long long)P * W;
-  const long long chunks = (total + 15) / 16;
-  const long long per_block = (chunks + gridDim.x - 1) / gridDim.x;
-  const long long c0 = (long long)blockIdx.x * per_block;
-  const long long c1 = min(chunks, c0 + per_block);
-  for (long long c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
-    const long long j = 16 * c;
+lanes_unpack_kernel(GlueLanes lanes) {
+  const long long chunks = lanes.chunk0[lanes.n];
+  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < chunks;
+       c += (long long)gridDim.x * blockDim.x) {
+    const uint8_t* buf = lanes.in[0];
+    uint8_t* out = lanes.out[0];
+    long long first = 0;
+    int P = lanes.rows[0], W = lanes.width[0], Wb = lanes.wb[0], fast = lanes.fast[0];
+#pragma unroll
+    for (int q = 1; q < MAX_LANES; ++q) {
+      if (q < lanes.n && c >= lanes.chunk0[q]) {
+        buf = lanes.in[q];
+        out = lanes.out[q];
+        first = lanes.chunk0[q];
+        P = lanes.rows[q];
+        W = lanes.width[q];
+        Wb = lanes.wb[q];
+        fast = lanes.fast[q];
+      }
+    }
+    const long long j = 16 * (c - first);
     const long long row = j / W;
     int col = (int)(j - row * W);
     const uint8_t* src = buf + row * Wb;
+    if (fast) {
+      // W % 16 == 0: the chunk is 16 codes of one row, 4 aligned bytes
+      const uint32_t p = __ldg(reinterpret_cast<const uint32_t*>(src + (col >> 2)));
+      *reinterpret_cast<uint4*>(out + j) =
+          make_uint4(spread4(p & 0xffu), spread4((p >> 8) & 0xffu),
+                     spread4((p >> 16) & 0xffu), spread4(p >> 24));
+      continue;
+    }
+    const long long total = (long long)P * W;
     uint32_t pb = (uint32_t)__ldg(src + (col >> 2)) >> (2 * (col & 3));
     uint32_t w[4] = {0u, 0u, 0u, 0u};
     const int n = (int)min(16LL, total - j);
@@ -106,101 +170,134 @@ lane_unpack_kernel(const uint8_t* __restrict__ buf, int P, int W, int Wb,
         if (k < n) out[j + k] = (uint8_t)(w[k >> 2] >> (8 * (k & 3)));
     }
   }
-  // the block's bytes are written: its exceptions land after them
-  __syncthreads();
-  const long long lo = 16 * c0, hi = min(total, 16 * c1);
-  for (int e = threadIdx.x; e < E; e += blockDim.x) {
-    const int2 x = __ldg(exc + e);
-    const long long r = (long long)x.x - off;
-    const long long col = x.y < 0 ? (long long)x.y + W : (long long)x.y;
-    if (r < 0 || r >= P || col < 0 || col >= W) continue;
-    const long long at = r * W + col;
-    if (at >= lo && at < hi) out[at] = INVALID_CODE;
+}
+
+// exc (E, 2) [row, col]: an entry whose row lies in a lane ([off, off +
+// P)) and whose column, a negative one taken from the row's end (W + col),
+// lies in [0, W) sets that code to 255; every other entry is dropped.
+__global__ void __launch_bounds__(EXC_THREADS)
+lane_exceptions_kernel(GlueLanes lanes, const int2* __restrict__ exc, int E) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  const int2 x = __ldg(exc + e);
+#pragma unroll
+  for (int q = 0; q < MAX_LANES; ++q) {
+    if (q < lanes.n) {
+      const long long r = (long long)x.x - lanes.off[q];
+      const int W = lanes.width[q];
+      const long long col = x.y < 0 ? (long long)x.y + W : (long long)x.y;
+      if (r >= 0 && r < lanes.rows[q] && col >= 0 && col < W)
+        lanes.out[q][r * W + col] = INVALID_CODE;
+    }
   }
 }
 
-// Rows [0, limit) whose gate bit equals `want`, in row order, go to slots
-// first + (their rank among such rows) while the slot is below c. Writes
-// the bitmap words when `words` is set. -> the number of such rows (the
-// same in every thread).
-__device__ __forceinline__ int compact_walk(const int32_t* __restrict__ v,
-                                            const int32_t* __restrict__ lens, int limit,
-                                            bool want, int first, int c,
-                                            int32_t* __restrict__ out,
-                                            int32_t* __restrict__ slens,
-                                            int32_t* __restrict__ gp,
-                                            int32_t* __restrict__ words, int nw,
-                                            int* warp_sum) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  int carry = 0;
-  for (int base = 0; base < limit; base += COMPACT_STEP) {
-    const int r0 = base + warp * COMPACT_WORDS * 32;
-    bool take[COMPACT_WORDS];
-    unsigned m[COMPACT_WORDS];
-    int cnt = 0;
-#pragma unroll
-    for (int k = 0; k < COMPACT_WORDS; ++k) {
-      const int i = r0 + 32 * k + lane;
-      take[k] = i < limit && ((__ldg(v + 5LL * i) != 0) == want);
-    }
-#pragma unroll
-    for (int k = 0; k < COMPACT_WORDS; ++k) {
-      m[k] = __ballot_sync(FULL_MASK, take[k]);
-      cnt += __popc(m[k]);
-      if (words != nullptr && lane == k && (r0 >> 5) + k < nw)
-        words[(r0 >> 5) + k] = (int32_t)m[k];
-    }
-    if (lane == 0) warp_sum[warp] = cnt;
-    __syncthreads();
-    int s = warp_sum[lane];  // COMPACT_WARPS == 32: one a lane
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int t = __shfl_up_sync(FULL_MASK, s, o);
-      if (lane >= o) s += t;
-    }
-    const int step_total = __shfl_sync(FULL_MASK, s, 31);
-    int at = first + carry + __shfl_sync(FULL_MASK, s, warp) - cnt;
-    __syncthreads();  // warp_sum is rewritten by the next step
-#pragma unroll
-    for (int k = 0; k < COMPACT_WORDS; ++k) {
-      const int slot = at + __popc(m[k] & below);
-      if (take[k] && slot < c) {
-        const int i = r0 + 32 * k + lane;
-        out[(long long)slot * OUT_COLS] = i;
-        out[(long long)slot * OUT_COLS + 1] = want;
-        slens[slot] = want ? __ldg(lens + i) : 0;
-        const int32_t* vr = v + 5LL * i;
-        int4 g = make_int4(__ldg(vr + 1), __ldg(vr + 2), __ldg(vr + 3), __ldg(vr + 4));
-        *reinterpret_cast<int4*>(gp + 4LL * slot) = g;
-      }
-      at += __popc(m[k]);
-    }
-    carry += step_total;
-  }
-  return carry;
-}
-
-// v (N, 5) [ok, h1, l1, h2, l2], lens (N,) -> out (cap + 1, 13): [sidx,
-// svalid] of rows [0, c), the survivor count at [cap, 0], zeros elsewhere;
-// slens (c,), gp (c, 4) and okwords (ceil(N / 32),).
+// Tile b: rows [b * COMPACT_TILE, ...) of v (N, 5) [ok, h1, l1, h2, l2].
+// Warp w ballots its COMPACT_WPW words of 32 rows -> okwords (bit k of word
+// i = row 32i + k) and tile_cnt[b], the tile's survivors.
 __global__ void __launch_bounds__(COMPACT_THREADS)
-compact_kernel(const int32_t* __restrict__ v, const int32_t* __restrict__ lens, int N,
-               int cap, int32_t* __restrict__ out, int32_t* __restrict__ slens,
-               int32_t* __restrict__ gp, int32_t* __restrict__ okwords) {
-  __shared__ int warp_sum[COMPACT_WARPS];
+compact_count_kernel(const int32_t* __restrict__ v, int N, int32_t* __restrict__ okwords,
+                     int32_t* __restrict__ tile_cnt) {
+  __shared__ int warp_cnt[COMPACT_WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = (N + 31) >> 5;
+  const int w0 = blockIdx.x * (COMPACT_TILE / 32) + warp * COMPACT_WPW;
+  bool ok[COMPACT_WPW];
+#pragma unroll
+  for (int k = 0; k < COMPACT_WPW; ++k) {
+    const int i = 32 * (w0 + k) + lane;
+    ok[k] = i < N && __ldg(v + 5LL * i) != 0;
+  }
+  unsigned mine = 0u;
+  int cnt = 0;
+#pragma unroll
+  for (int k = 0; k < COMPACT_WPW; ++k) {
+    const unsigned m = __ballot_sync(FULL_MASK, ok[k]);
+    cnt += __popc(m);
+    if (lane == k) mine = m;
+  }
+  if (lane < COMPACT_WPW && w0 + lane < nw) okwords[w0 + lane] = (int32_t)mine;
+  if (lane == 0) warp_cnt[warp] = cnt;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t = 0;
+#pragma unroll
+    for (int w = 0; w < COMPACT_WARPS; ++w) t += warp_cnt[w];
+    tile_cnt[blockIdx.x] = t;
+  }
+}
+
+__device__ __forceinline__ int warp_sum(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL_MASK, x, o);
+  return x;
+}
+
+// The tiles of compact_count_kernel, after it: row i of tile b takes slot
+// pre(i) if it survives, else S + i - pre(i), and is written where the
+// slot is below c = min(cap, N): out[slot, 0:2] = [i, ok], slens[slot] =
+// ok ? lens[i] : 0, gp[slot] = v[i, 1:5]. out[cap, 0] = S, and every other
+// cell of out (cap + 1, 13) is zero.
+__global__ void __launch_bounds__(COMPACT_THREADS)
+compact_place_kernel(const int32_t* __restrict__ v, const int32_t* __restrict__ lens, int N,
+                     int cap, const int32_t* __restrict__ okwords,
+                     const int32_t* __restrict__ tile_cnt, int ntiles, int32_t* __restrict__ out,
+                     int32_t* __restrict__ slens, int32_t* __restrict__ gp) {
+  __shared__ int sums[3][COMPACT_WARPS];  // earlier tiles, all tiles, this warp's words
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = min(cap, N);
-  // the zeros: every cell the walks and the count do not write
-  const int cells = (cap + 1) * OUT_COLS;
-  for (int e = threadIdx.x; e < cells; e += blockDim.x) {
-    const int r = e / OUT_COLS, col = e - r * OUT_COLS;
+  int before = 0, all = 0;
+  for (int t = threadIdx.x; t < ntiles; t += blockDim.x) {
+    const int n = __ldg(tile_cnt + t);
+    all += n;
+    if (t < (int)blockIdx.x) before += n;
+  }
+  const int nw = (N + 31) >> 5;
+  const int w0 = blockIdx.x * (COMPACT_TILE / 32) + warp * COMPACT_WPW;
+  const unsigned word =
+      lane < COMPACT_WPW && w0 + lane < nw ? (unsigned)__ldg(okwords + w0 + lane) : 0u;
+  before = warp_sum(before);
+  all = warp_sum(all);
+  const int mine = warp_sum(__popc(word));
+  if (lane == 0) {
+    sums[0][warp] = before;
+    sums[1][warp] = all;
+    sums[2][warp] = mine;
+  }
+  __syncthreads();
+  int pre = 0, S = 0;
+#pragma unroll
+  for (int w = 0; w < COMPACT_WARPS; ++w) {
+    pre += sums[0][w] + (w < warp ? sums[2][w] : 0);
+    S += sums[1][w];
+  }
+  // the zeros: every cell that no row and not the count writes
+  const long long cells = (long long)(cap + 1) * OUT_COLS;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < cells;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long r = e / OUT_COLS;
+    const int col = (int)(e - r * OUT_COLS);
     if (!((r < c && col < 2) || (r == cap && col == 0))) out[e] = 0;
   }
-  const int S = compact_walk(v, lens, N, true, 0, c, out, slens, gp, okwords, (N + 31) / 32,
-                             warp_sum);
-  if (threadIdx.x == 0) out[(long long)cap * OUT_COLS] = S;
-  // the first c - S non-survivors, all in rows [0, c)
-  if (S < c) compact_walk(v, lens, c, false, S, c, out, slens, gp, nullptr, 0, warp_sum);
+  if (blockIdx.x == 0 && threadIdx.x == 0) out[(long long)cap * OUT_COLS] = S;
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < COMPACT_WPW; ++k) {
+    const unsigned m = __shfl_sync(FULL_MASK, word, k);
+    const int i = 32 * (w0 + k) + lane;
+    const int p = pre + __popc(m & below);
+    const bool ok = (m >> lane) & 1u;
+    const int slot = ok ? p : S + i - p;
+    if (i < N && slot < c) {
+      out[(long long)slot * OUT_COLS] = i;
+      out[(long long)slot * OUT_COLS + 1] = ok;
+      slens[slot] = ok ? __ldg(lens + i) : 0;
+      const int32_t* vr = v + 5LL * i;
+      *reinterpret_cast<int4*>(gp + 4LL * slot) =
+          make_int4(__ldg(vr + 1), __ldg(vr + 2), __ldg(vr + 3), __ldg(vr + 4));
+    }
+    pre += __popc(m);
+  }
 }
 
 struct Lanes {
@@ -267,28 +364,87 @@ survivor_rows_kernel(Lanes lanes, const int32_t* __restrict__ sidx, int sstride,
 
 }  // namespace gf
 
-extern "C" int gf_lane_unpack(const void* buf, int P, int W, int Wb, const void* exc, int E,
-                              long long off, void* out, void* stream) {
-  if (P < 0 || W < 1 || Wb < 1 || 4LL * Wb < W || E < 0 || (uintptr_t)out % 16 ||
-      (uintptr_t)exc % 8)
+namespace {
+
+// ins, outs, offs: host arrays of nlanes (1..MAX_LANES) entries, rows,
+// widths, wbs too -> the launch's lane table, or false on a bad table.
+bool glue_lanes(int nlanes, const long long* ins, const long long* outs, const long long* offs,
+                const int* rows, const int* widths, const int* wbs, gf::GlueLanes& lanes) {
+  if (nlanes < 1 || nlanes > gf::MAX_LANES) return false;
+  lanes = gf::GlueLanes{};
+  long long chunks = 0;
+  for (int q = 0; q < nlanes; ++q) {
+    const int P = rows[q], W = widths[q], Wb = wbs[q];
+    if (P < 0 || W < 1 || Wb < 1 || 4LL * Wb < W || outs[q] % 16) return false;
+    lanes.in[q] = (const uint8_t*)ins[q];
+    lanes.out[q] = (uint8_t*)outs[q];
+    lanes.off[q] = offs[q];
+    lanes.rows[q] = P;
+    lanes.width[q] = W;
+    lanes.wb[q] = Wb;
+    lanes.fast[q] = W % 16 == 0 && Wb % 4 == 0 && ins[q] % 4 == 0;
+    lanes.chunk0[q] = chunks;
+    chunks += ((long long)P * W + 15) / 16;
+  }
+  lanes.chunk0[nlanes] = chunks;
+  lanes.n = nlanes;
+  return true;
+}
+
+}  // namespace
+
+extern "C" int gf_lanes_unpack(int nlanes, const long long* ins, const long long* outs,
+                               const long long* offs, const int* rows, const int* widths,
+                               const int* wbs, void* stream) {
+  gf::GlueLanes lanes;
+  if (!glue_lanes(nlanes, ins, outs, offs, rows, widths, wbs, lanes))
     return (int)cudaErrorInvalidValue;
-  const long long chunks = ((long long)P * W + 15) / 16;
+  const long long chunks = lanes.chunk0[nlanes];
   if (chunks == 0) return (int)cudaSuccess;
   const long long blocks = (chunks + gf::UNPACK_THREADS - 1) / gf::UNPACK_THREADS;
   const int grid = (int)(blocks < gf::UNPACK_MAX_BLOCKS ? blocks : gf::UNPACK_MAX_BLOCKS);
-  gf::lane_unpack_kernel<<<grid, gf::UNPACK_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)buf, P, W, Wb, (const int2*)exc, E, off, (uint8_t*)out);
+  gf::lanes_unpack_kernel<<<grid, gf::UNPACK_THREADS, 0, (cudaStream_t)stream>>>(lanes);
   return (int)cudaGetLastError();
 }
 
-extern "C" int gf_compact(const void* v, const void* lens, int N, int cap, void* out,
-                          void* slens, void* gp, void* okwords, void* stream) {
-  if (N < 0 || cap < 0 || (long long)(cap + 1LL) * gf::OUT_COLS >= (1LL << 31) ||
-      (uintptr_t)gp % 16)
+extern "C" int gf_lane_exceptions(int nlanes, const long long* ins, const long long* outs,
+                                  const long long* offs, const int* rows, const int* widths,
+                                  const int* wbs, const void* exc, int E, void* stream) {
+  gf::GlueLanes lanes;
+  if (!glue_lanes(nlanes, ins, outs, offs, rows, widths, wbs, lanes) || E < 0 ||
+      (uintptr_t)exc % 8)
     return (int)cudaErrorInvalidValue;
-  gf::compact_kernel<<<1, gf::COMPACT_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)v, (const int32_t*)lens, N, cap, (int32_t*)out, (int32_t*)slens,
-      (int32_t*)gp, (int32_t*)okwords);
+  if (E == 0) return (int)cudaSuccess;
+  gf::lane_exceptions_kernel<<<(E + gf::EXC_THREADS - 1) / gf::EXC_THREADS, gf::EXC_THREADS, 0,
+                               (cudaStream_t)stream>>>(lanes, (const int2*)exc, E);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gf_compact_tile() { return gf::COMPACT_TILE; }
+
+// okwords (ceil(N / 32),), tile_cnt (ceil(N / COMPACT_TILE),)
+extern "C" int gf_compact_count(const void* v, int N, void* okwords, void* tile_cnt,
+                                void* stream) {
+  if (N < 1 || N >= (1 << 30)) return (int)cudaErrorInvalidValue;
+  gf::compact_count_kernel<<<(N + gf::COMPACT_TILE - 1) / gf::COMPACT_TILE,
+                             gf::COMPACT_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)v, N, (int32_t*)okwords, (int32_t*)tile_cnt);
+  return (int)cudaGetLastError();
+}
+
+// after gf_compact_count on the same v (none for N = 0): out (cap + 1,
+// 13), slens (c,), gp (c, 4), c = min(cap, N)
+extern "C" int gf_compact_place(const void* v, const void* lens, int N, int cap,
+                                const void* okwords, const void* tile_cnt, void* out,
+                                void* slens, void* gp, void* stream) {
+  if (N < 0 || N >= (1 << 30) || cap < 0 ||
+      (long long)(cap + 1LL) * gf::OUT_COLS >= (1LL << 31) || (uintptr_t)gp % 16)
+    return (int)cudaErrorInvalidValue;
+  const int ntiles = (N + gf::COMPACT_TILE - 1) / gf::COMPACT_TILE;
+  gf::compact_place_kernel<<<ntiles > 0 ? ntiles : 1, gf::COMPACT_THREADS, 0,
+                             (cudaStream_t)stream>>>(
+      (const int32_t*)v, (const int32_t*)lens, N, cap, (const int32_t*)okwords,
+      (const int32_t*)tile_cnt, ntiles, (int32_t*)out, (int32_t*)slens, (int32_t*)gp);
   return (int)cudaGetLastError();
 }
 

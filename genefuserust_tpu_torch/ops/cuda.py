@@ -14,6 +14,10 @@ counts as "vote" in its gated mode and as "vote_counts" in its counts
 mode (the contig-sharded index). The wide-row paths count apart from
 their kernels' main paths: "vote_wide" and "vote_counts_wide" (the two
 modes of the wide vote), "mask_segments_wide" and "mask_from_flags_wide".
+The glue of fused_scan_lanes counts each of its kernels under its own
+name: "lane_unpack" and "lane_exceptions" (one of each for up to
+MAX_LANES lanes), "compact_count" and "compact_place" (one of each a
+compaction; no count launch for zero rows) and "survivor_rows".
 """
 
 from __future__ import annotations
@@ -40,8 +44,10 @@ NVCC_FLAGS = (
 LAUNCHES = {"probe": 0, "vote": 0, "mask_segments": 0, "gather_sum": 0, "edit_distance": 0,
             "vote_counts": 0, "vote_wide": 0, "vote_counts_wide": 0, "mask_segments_wide": 0,
             "merge_top2": 0, "shard_flags": 0, "mask_from_flags": 0, "mask_from_flags_wide": 0,
-            "lane_unpack": 0, "compact": 0, "survivor_rows": 0}
-# lanes one survivor_rows launch takes (MAX_LANES in csrc/fused_glue.cu)
+            "lane_unpack": 0, "lane_exceptions": 0, "compact_count": 0, "compact_place": 0,
+            "survivor_rows": 0}
+# lanes one unpack, exception or survivor_rows launch takes (MAX_LANES in
+# csrc/fused_glue.cu)
 MAX_LANES = 8
 
 _lib = None
@@ -109,6 +115,7 @@ def build(sources=SOURCES, defines=(), csrc=CSRC) -> str:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_LLP, _IP = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
 # each entry point's arguments (all return a CUDA error code)
 _ARGTYPES = {
     "gf_probe": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
@@ -122,10 +129,12 @@ _ARGTYPES = {
     "gf_mask_from_flags": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "gf_gather_tile_sums": [_P, _P, _I, _I, _I, _P, _P],
     "gf_edit_distance": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "gf_lane_unpack": [_P, _I, _I, _I, _P, _I, ctypes.c_longlong, _P, _P],
-    "gf_compact": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
-    "gf_survivor_rows": [_I, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
-                         ctypes.POINTER(_I), ctypes.POINTER(_I), _P, _I, _I, _I, _P, _P],
+    "gf_lanes_unpack": [_I, _LLP, _LLP, _LLP, _IP, _IP, _IP, _P],
+    "gf_lane_exceptions": [_I, _LLP, _LLP, _LLP, _IP, _IP, _IP, _P, _I, _P],
+    "gf_compact_tile": [],
+    "gf_compact_count": [_P, _I, _P, _P, _P],
+    "gf_compact_place": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "gf_survivor_rows": [_I, _LLP, _LLP, _IP, _IP, _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -295,20 +304,50 @@ def launch_edit_distance(pat, pat_lens, txt, txt_lens, W: int, out) -> None:
     _done("edit_distance", err)
 
 
-def launch_lane_unpack(buf, W: int, exc, off: int, out) -> None:
-    P, Wb = buf.shape
-    with torch.cuda.device(out.device):
-        err = library().gf_lane_unpack(buf.data_ptr(), P, W, Wb, exc.data_ptr(), exc.shape[0],
-                                       off, out.data_ptr(), _stream(out))
+def _lane_table(bufs, widths, offs, outs):
+    """The by-value lane table of an unpack or exception launch: at most
+    MAX_LANES (P_i, ceil(W_i / 4)) 2-bit lanes, their (P_i, W_i) code
+    outputs and their first rows `offs` in the concatenated row space."""
+    n = len(bufs)
+    ll, ii = ctypes.c_longlong * n, ctypes.c_int * n
+    return (n, ll(*(b.data_ptr() for b in bufs)), ll(*(o.data_ptr() for o in outs)), ll(*offs),
+            ii(*(b.shape[0] for b in bufs)), ii(*widths), ii(*(b.shape[1] for b in bufs)))
+
+
+def launch_lanes_unpack(bufs, widths, offs, outs, lib=None) -> None:
+    with torch.cuda.device(outs[0].device):
+        err = (lib or library()).gf_lanes_unpack(*_lane_table(bufs, widths, offs, outs),
+                                                 _stream(outs[0]))
     _done("lane_unpack", err)
 
 
-def launch_compact(v, lens, cap: int, out, slens, gp, okwords) -> None:
+def launch_lane_exceptions(bufs, widths, offs, outs, exc, lib=None) -> None:
+    with torch.cuda.device(outs[0].device):
+        err = (lib or library()).gf_lane_exceptions(*_lane_table(bufs, widths, offs, outs),
+                                                    exc.data_ptr(), exc.shape[0],
+                                                    _stream(outs[0]))
+    _done("lane_exceptions", err)
+
+
+def compact_tile(lib=None) -> int:
+    """Rows of a compaction tile in a build (GLUE_COMPACT_TILE)."""
+    return (lib or library()).gf_compact_tile()
+
+
+def launch_compact_count(v, okwords, tile_cnt, lib=None) -> None:
+    with torch.cuda.device(v.device):
+        err = (lib or library()).gf_compact_count(v.data_ptr(), v.shape[0], okwords.data_ptr(),
+                                                  tile_cnt.data_ptr(), _stream(v))
+    _done("compact_count", err)
+
+
+def launch_compact_place(v, lens, cap: int, okwords, tile_cnt, out, slens, gp,
+                         lib=None) -> None:
     with torch.cuda.device(out.device):
-        err = library().gf_compact(v.data_ptr(), lens.data_ptr(), v.shape[0], cap,
-                                   out.data_ptr(), slens.data_ptr(), gp.data_ptr(),
-                                   okwords.data_ptr(), _stream(out))
-    _done("compact", err)
+        err = (lib or library()).gf_compact_place(
+            v.data_ptr(), lens.data_ptr(), v.shape[0], cap, okwords.data_ptr(),
+            tile_cnt.data_ptr(), out.data_ptr(), slens.data_ptr(), gp.data_ptr(), _stream(out))
+    _done("compact_place", err)
 
 
 def launch_survivor_rows(lanes, offs, sidx, out) -> None:

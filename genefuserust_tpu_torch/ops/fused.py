@@ -7,12 +7,18 @@ full-stride k-mers (kernel 1) and extract their segments (kernel 3). None
 of it waits for the device: the only host reads of a batch are its
 (cap + 1, 13) result and, on survivor-cap overflow, the bitmap.
 
-The glue between the passes has a hand-written CUDA kernel for each step
-(csrc/fused_glue.cu), reached through a wrapper that launches the kernel
-for CUDA tensors and runs the plain version beside it for CPU tensors:
+The glue between the passes has hand-written CUDA kernels
+(csrc/fused_glue.cu), reached through wrappers that launch them for CUDA
+tensors and run the plain versions beside them for CPU tensors:
 
-  lane_codes     unpack_seq2 + the exception scatter  (lane_unpack_kernel)
-  compact        stable survivor compaction, okwords (compact_kernel)
+  lanes_codes    every lane's unpack_seq2 + the exception scatter, one
+                 launch of each for up to cuda.MAX_LANES lanes
+                 (lanes_unpack_kernel, then lane_exceptions_kernel);
+                 lane_codes is its one-lane case
+  compact        stable survivor compaction and okwords, over tiles of
+                 rows spread across the card: a count launch (the bitmap
+                 and each tile's survivors), then a place launch
+                 (compact_count_kernel, compact_place_kernel)
   survivor_rows  the survivors' code rows, 255-padded (survivor_rows_kernel)
 """
 
@@ -30,14 +36,30 @@ OUT_COLS = 13
 
 
 def lane_codes_plain(buf, W: int, exc, off: int) -> torch.Tensor:
-    """Unpacked (P, W) codes of one lane with its exceptions set to 255.
+    """Unpacked (P, W) codes of one lane with its exceptions set to 255
+    (lane_exceptions_plain)."""
+    return lane_exceptions_plain(unpack_seq2(buf, W), exc, off)
+
+
+def lanes_codes_plain(bufs, widths, exc, off: int = 0) -> list:
+    """lane_codes_plain of each lane, the lanes' rows concatenated from
+    row `off` on."""
+    out = []
+    for buf, W in zip(bufs, widths):
+        out.append(lane_codes_plain(buf, W, exc, off))
+        off += buf.shape[0]
+    return out
+
+
+def lane_exceptions_plain(codes, exc, off: int) -> torch.Tensor:
+    """A copy of one lane's (P, W) codes with its exceptions set to 255.
     An entry of exc (E, 2) [row, col] counts when its row lies in the lane
     ([off, off + P)) and its column in [-W, W): a negative column is taken
     from the row's end (W + col), as JAX's `.at[].set(mode="drop")` does;
     every other entry is dropped."""
-    P = buf.shape[0]
-    flat = torch.empty(P * W + 1, dtype=torch.uint8, device=buf.device)
-    flat[: P * W].view(P, W).copy_(unpack_seq2(buf, W))
+    P, W = codes.shape
+    flat = torch.empty(P * W + 1, dtype=torch.uint8, device=codes.device)
+    flat[: P * W].view(P, W).copy_(codes)
     erow = exc[:, 0].to(torch.int64)
     ecol = exc[:, 1].to(torch.int64)
     col = torch.where(ecol < 0, ecol + W, ecol)
@@ -74,12 +96,27 @@ def compact_plain(v, lens, cap: int):
     out[:c, 0] = sidx.to(torch.int32)
     out[:c, 1] = svalid.to(torch.int32)
     out[cap, 0] = ok.sum().to(torch.int32)
+    return out, slens, gp, _okwords(ok)
+
+
+def _okwords(ok) -> torch.Tensor:
+    N = ok.shape[0]
     nw = (N + 31) // 32
-    bits = torch.zeros(nw * 32, dtype=torch.int64, device=dev)
+    bits = torch.zeros(nw * 32, dtype=torch.int64, device=ok.device)
     bits[:N] = ok.to(torch.int64)
-    words = (bits.view(nw, 32) << torch.arange(32, device=dev)).sum(1)
-    okwords = torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
-    return out, slens, gp, okwords
+    words = (bits.view(nw, 32) << torch.arange(32, device=ok.device)).sum(1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def compact_count_plain(v, tile: int):
+    """What compaction's count step gives: (okwords, as compact_plain's;
+    tile_cnt (ceil(N / tile),) int32, the survivors of each tile of rows)."""
+    N = v.shape[0]
+    ok = v[:, 0] != 0
+    nt = -(-N // tile)
+    pad = torch.zeros(nt * tile, dtype=torch.int32, device=v.device)
+    pad[:N] = ok.to(torch.int32)
+    return _okwords(ok), pad.view(nt, tile).sum(1, dtype=torch.int32)
 
 
 def survivor_rows_plain(lanes, sidx, Wmax: int) -> torch.Tensor:
@@ -97,34 +134,62 @@ def survivor_rows_plain(lanes, sidx, Wmax: int) -> torch.Tensor:
 # ---------------- kernel wrappers ----------------
 
 
-def lane_codes(buf, W: int, exc, off: int) -> torch.Tensor:
-    """lane_codes_plain's (P, W) codes. On the card one launch unpacks the
-    lane into a fresh tensor (the probe reads it in 16-byte chunks) and
-    then sets its exceptions."""
-    dev = buf.device
-    cuda.check_tensor(buf, "buf", torch.uint8, 2, dev)
+def lanes_codes(bufs, widths, exc, off: int = 0) -> list:
+    """lanes_codes_plain's (P_i, W_i) codes. On the card they are views of
+    one fresh buffer, each at a 16-byte-aligned offset (the probe reads
+    them in 16-byte chunks); for every cuda.MAX_LANES lanes one launch
+    unpacks them (a 32-bit load and a 16-byte store a chunk where W_i % 16
+    == 0) and one more sets their exceptions."""
+    dev = exc.device
     cuda.check_tensor(exc, "exc", torch.int32, 2, dev)
-    P, Wb = buf.shape
-    if W < 1 or 4 * Wb < W or exc.shape[1] != 2:
-        raise ValueError(f"lane_codes: bad shapes buf={tuple(buf.shape)} W={W} "
-                         f"exc={tuple(exc.shape)}")
+    if exc.shape[1] != 2 or len(bufs) != len(widths):
+        raise ValueError(f"lanes_codes: exc={tuple(exc.shape)}, {len(bufs)} lanes, "
+                         f"{len(widths)} widths")
+    for buf, W in zip(bufs, widths):
+        cuda.check_tensor(buf, "buf", torch.uint8, 2, dev)
+        if W < 1 or 4 * buf.shape[1] < W:
+            raise ValueError(f"lanes_codes: {buf.shape[1]} packed bytes a row cannot hold "
+                             f"width {W}")
     if dev.type == "cpu":
-        return lane_codes_plain(buf, W, exc, off)
-    out = torch.empty((P, W), dtype=torch.uint8, device=dev)
-    if P:
-        cuda.launch_lane_unpack(buf, W, exc, off, out)
-    return out
+        return lanes_codes_plain(bufs, widths, exc, off)
+    starts, offs, at, row = [], [], 0, off
+    for buf, W in zip(bufs, widths):
+        starts.append(at)
+        offs.append(row)
+        at += -(-buf.shape[0] * W // 16) * 16
+        row += buf.shape[0]
+    flat = torch.empty(at, dtype=torch.uint8, device=dev)
+    outs = [flat[s : s + b.shape[0] * W].view(b.shape[0], W)
+            for s, b, W in zip(starts, bufs, widths)]
+    for g in range(0, len(bufs), cuda.MAX_LANES):
+        group = slice(g, g + cuda.MAX_LANES)
+        if not any(o.numel() for o in outs[group]):
+            continue
+        args = (bufs[group], widths[group], offs[group], outs[group])
+        cuda.launch_lanes_unpack(*args)
+        if exc.shape[0]:
+            cuda.launch_lane_exceptions(*args, exc)
+    return outs
+
+
+def lane_codes(buf, W: int, exc, off: int) -> torch.Tensor:
+    """lane_codes_plain's (P, W) codes: lanes_codes of one lane."""
+    return lanes_codes([buf], [W], exc, off)[0]
 
 
 def compact(v, lens, cap: int):
-    """compact_plain's (out, slens, gp, okwords). On the card one block
-    ballots the gate bits 32 rows a word, places each row at the running
-    count before it and writes `out` whole, its zeros too."""
+    """compact_plain's (out, slens, gp, okwords). On the card, over tiles
+    of cuda.compact_tile() rows, a block a tile: the count launch ballots
+    the gate bits 32 rows a word (okwords) and counts each tile's
+    survivors; the place launch gives row i the slot pre(i) (the survivors
+    before it) if it survives, else S + i - pre(i), writes the rows whose
+    slot is below min(cap, N), and writes `out` whole, its zeros too."""
     dev = v.device
     cuda.check_tensor(v, "votes", torch.int32, 2, dev)
     cuda.check_tensor(lens, "lens", torch.int32, 1, dev)
     N = v.shape[0]
-    if v.shape[1] != 5 or lens.shape[0] != N or not 0 <= cap < (1 << 31) // OUT_COLS - 1:
+    if (v.shape[1] != 5 or lens.shape[0] != N or N >= 1 << 30
+            or not 0 <= cap < (1 << 31) // OUT_COLS - 1):
         raise ValueError(f"compact: bad shapes v={tuple(v.shape)} lens={tuple(lens.shape)} "
                          f"cap={cap}")
     if dev.type == "cpu":
@@ -134,7 +199,10 @@ def compact(v, lens, cap: int):
     slens = torch.empty(c, dtype=torch.int32, device=dev)
     gp = torch.empty((c, 4), dtype=torch.int32, device=dev)
     okwords = torch.empty((N + 31) // 32, dtype=torch.int32, device=dev)
-    cuda.launch_compact(v, lens, cap, out, slens, gp, okwords)
+    tile_cnt = torch.empty(-(-N // cuda.compact_tile()), dtype=torch.int32, device=dev)
+    if N:
+        cuda.launch_compact_count(v, okwords, tile_cnt)
+    cuda.launch_compact_place(v, lens, cap, okwords, tile_cnt, out, slens, gp)
     return out, slens, gp, okwords
 
 
@@ -178,13 +246,9 @@ def fused_scan_lanes(bufs, lens_t, exc, index: TorchIndex, *, widths, cap: int,
       okwords  (ceil(N/32),) int32 — the vote-gate bitmap, bit k of word w
                = row 32w + k, as the int32 bit pattern of a uint32 OR.
     """
-    codes_l, votes = [], []
-    off = 0
-    for buf, ln, W in zip(bufs, lens_t, widths):
-        ci = lane_codes(buf, W, exc, off)
-        codes_l.append(ci)
-        votes.append(vote(probe(ci, ln, PASS1_STEP, index), index, major_req, minor_req))
-        off += buf.shape[0]
+    codes_l = lanes_codes(bufs, widths, exc)
+    votes = [vote(probe(ci, ln, PASS1_STEP, index), index, major_req, minor_req)
+             for ci, ln in zip(codes_l, lens_t)]
     out, slens, gp, okwords = compact(torch.cat(votes), torch.cat(lens_t), cap)
     c = slens.shape[0]
     scodes = survivor_rows(codes_l, out[:c, 0], max(widths))

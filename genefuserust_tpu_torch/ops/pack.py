@@ -25,4 +25,4 @@ def unpack_seq2(packed: torch.Tensor, L: int) -> torch.Tensor:
     0..3. Non-ACGT positions travel separately as [row, col] exception
     lists and are set to 255 by the caller."""
     parts = [(packed >> s) & 3 for s in (0, 2, 4, 6)]
-    return torch.stack(parts, dim=-1).reshape(packed.shape[0], -1)[:, :L]
+    return torch.stack(parts, dim=-1).reshape(packed.shape[0], 4 * packed.shape[1])[:, :L]

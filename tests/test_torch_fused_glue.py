@@ -2,8 +2,12 @@
 mirrors of their steps, held to the plain versions (ops/fused.py) and to
 the JAX pieces they replace (`unpack_seq2_jnp` with the exception
 scatter, the argsort compaction and the okwords sum, the gather of the
-padded lanes), bit for bit. The `cuda`-marked tests hold each kernel to
-its plain version on the card."""
+padded lanes), bit for bit: the batched unpack (its 32-bit fast path at
+widths that are multiples of 16, the general path at others, more lanes
+than a launch takes) and its exception pass; the tiled compaction at
+sizes around the tile, with caps inside and past the first tile and
+every survivor past it. The `cuda`-marked tests hold each kernel to its
+plain version on the card."""
 
 import numpy as np
 import pytest
@@ -12,10 +16,9 @@ import torch
 from genefuserust_tpu_torch.ops import fused as tf
 
 # mirrors of the launch constants of csrc/fused_glue.cu
-UNPACK_THREADS = 512
-UNPACK_MAX_BLOCKS = 264
-COMPACT_WARPS = 32
-COMPACT_WORDS = 8
+MAX_LANES = 8
+COMPACT_WARPS = 8
+COMPACT_TILE = 256  # GLUE_COMPACT_TILE's default
 ROWS_THREADS = 256
 ROWS_MAX_BLOCKS = 132 * 16
 
@@ -24,6 +27,8 @@ ROWS_MAX_BLOCKS = 132 * 16
 LANE_ROWS = {123: (70, 8, 45), 1023: (500, 8, 515), 1025: (513, 37, 475),
              65568: (40000, 5, 25563)}
 WIDTHS = (192, 150, 161)
+# the engine's lane widths for 150-base pairs: multiples of 16 (fast path)
+MAIN_WIDTHS = (192, 256, 160)
 SIZES = sorted(LANE_ROWS)
 
 
@@ -31,14 +36,15 @@ def _caps(N):
     return (5, 1024, N + 7)
 
 
-def _lanes(N, seed):
-    """Three lanes of 2-bit rows (widths 192, 150, 161; the packed rows
-    one byte wider than needed for 150 and 161) and an exception list in
-    the concatenated row space: random entries, and negative, past-the-width
-    and out-of-lane columns at every lane's edges."""
+def _lanes(N, seed, widths=WIDTHS):
+    """Three lanes of 2-bit rows (widths 192, 150, 161 by default; the
+    packed rows one byte wider than needed for widths not a multiple of 4)
+    and an exception list in the concatenated row space: random entries,
+    and negative, past-the-width and out-of-lane columns at every lane's
+    edges."""
     rng = np.random.default_rng(seed)
     bufs, exc, off = [], [], 0
-    for P, W in zip(LANE_ROWS[N], WIDTHS):
+    for P, W in zip(LANE_ROWS[N], widths):
         bufs.append(rng.integers(0, 256, (P, (W + 3) // 4 + (W % 4 > 0)), dtype=np.uint8))
         for r in (off, off + P - 1, off + P // 2):
             exc += [(r, c) for c in (0, W - 1, W, -1, -W, -W - 1, -2 * W, 2**31 - 1, -2**31)]
@@ -59,84 +65,99 @@ def _votes(N, density, seed):
 # ---------------- mirrors of the kernels ----------------
 
 
-def _kernel_lane_unpack(buf, W, exc, off):
-    """lane_unpack_kernel: blocks of UNPACK_THREADS own contiguous ranges of
-    16-byte chunks of the flat (P, W) output; a chunk's bytes step through
-    the rows (a row end moves to the next packed row); after the barrier a
-    block sets the entries whose flat position lies in its range."""
-    P, Wb = buf.shape
-    total = P * W
-    out = np.zeros(total, np.uint8)
-    chunks = (total + 15) // 16
-    if chunks == 0:
-        return out.reshape(P, W)
-    grid = min(UNPACK_MAX_BLOCKS, -(-chunks // UNPACK_THREADS))
-    per_block = -(-chunks // grid)
-    flat_buf = buf.reshape(-1)
-    r = exc[:, 0].astype(np.int64) - off
-    ecol = exc[:, 1].astype(np.int64)
-    col = np.where(ecol < 0, ecol + W, ecol)
-    keep = (r >= 0) & (r < P) & (col >= 0) & (col < W)
-    at = (r * W + col)[keep]
-    for b in range(grid):
-        c0, c1 = b * per_block, min(chunks, b * per_block + per_block)
-        lo, hi = 16 * c0, min(total, 16 * c1)
-        if lo >= hi:
-            continue
-        j = np.arange(lo, hi)
-        row, cc = j // W, j % W
-        out[lo:hi] = (flat_buf[row * Wb + (cc >> 2)] >> (2 * (cc & 3))) & 3
-        out[at[(at >= lo) & (at < hi)]] = 255
-    return out.reshape(P, W)
+def _popc(x):
+    return np.bitwise_count(np.asarray(x, np.uint32)).astype(np.int64)
 
 
-def _kernel_compact(v, lens, cap):
-    """compact_kernel: one block of COMPACT_WARPS warps walks the rows in
-    steps; warp w ballots COMPACT_WORDS words of 32 rows (the bitmap's
-    words), the block scans the warps' popcounts, and a row's slot is the
-    walk's first slot + the running count + the warp's prefix + the
-    popcounts of its earlier words + the bits below its lane. The second
-    walk over rows [0, c) places the non-survivors after the S survivors."""
+def _kernel_lanes_unpack(bufs, widths, exc, off=0):
+    """lanes_unpack_kernel then lane_exceptions_kernel, a launch of each
+    for every MAX_LANES lanes. Unpack: the chunks of 16 output bytes of the
+    group's lanes run on; chunk t goes to the last lane whose first chunk
+    is <= t. Where W % 16 == 0 (and the packed row a multiple of 4 bytes) a
+    chunk is one row's 4 packed bytes read as a little-endian uint32 and
+    spread into 16 codes; else its bytes step through the rows. Then each
+    entry tests every lane of the group: row in [off, off + P), column (a
+    negative one + W) in [0, W) -> 255."""
+    outs, rows = [], off
+    for g in range(0, len(bufs), MAX_LANES):
+        gb, gw = bufs[g : g + MAX_LANES], widths[g : g + MAX_LANES]
+        offs = rows + np.cumsum([0] + [b.shape[0] for b in gb])[:-1]
+        rows += sum(b.shape[0] for b in gb)
+        chunk0 = np.cumsum([0] + [-(-b.shape[0] * W // 16) for b, W in zip(gb, gw)])
+        flat = [np.full(b.shape[0] * W, 77, np.uint8) for b, W in zip(gb, gw)]
+        t = np.arange(chunk0[-1])
+        lane = np.searchsorted(chunk0[:-1], t, side="right") - 1
+        for q, (b, W) in enumerate(zip(gb, gw)):
+            P, Wb = b.shape
+            j = 16 * (t[lane == q] - chunk0[q])
+            src = b.reshape(-1)
+            if W % 16 == 0 and Wb % 4 == 0:
+                at = (j // W) * Wb + (j % W) // 4
+                p = src[at[:, None] + np.arange(4)].astype(np.uint32) @ (
+                    np.uint32(1) << np.arange(0, 32, 8, dtype=np.uint32))
+                for k in range(16):
+                    flat[q][j + k] = (p >> np.uint32(2 * k)) & 3
+            else:
+                for k in range(16):
+                    jj = j + k
+                    jj = jj[jj < P * W]
+                    col = jj % W
+                    flat[q][jj] = (src[(jj // W) * Wb + (col >> 2)] >> (2 * (col & 3))) & 3
+        for e_row, e_col in exc.astype(np.int64):
+            for q, (b, W) in enumerate(zip(gb, gw)):
+                r, col = e_row - offs[q], (e_col + W if e_col < 0 else e_col)
+                if 0 <= r < b.shape[0] and 0 <= col < W:
+                    flat[q][r * W + col] = 255
+        outs += [f.reshape(b.shape[0], W) for f, b, W in zip(flat, gb, gw)]
+    return outs
+
+
+def _kernel_compact(v, lens, cap, tile=COMPACT_TILE):
+    """compact_count_kernel then compact_place_kernel over tiles of `tile`
+    rows, a block of COMPACT_WARPS warps a tile, each warp tile / 256
+    words of 32 rows. Count: the ballots (the bitmap's words) and each
+    tile's survivors. Place: pre(i) = the earlier tiles' counts + the
+    tile's earlier warps' counts + the warp's earlier words + the bits
+    below the lane; a survivor takes slot pre(i), any other row S + i -
+    pre(i); rows with a slot below c = min(cap, N) are written. The outputs
+    start as garbage (torch.empty): the zeros are written too."""
     N = v.shape[0]
     c = min(cap, N)
-    out = np.zeros((cap + 1, 13), np.int32)
-    slens = np.zeros(c, np.int32)
-    gp = np.zeros((c, 4), np.int32)
-    nw = (N + 31) // 32
-    words = np.zeros(nw, np.uint32)
+    nw, nt = (N + 31) // 32, -(-N // tile)
+    wpw = tile // (32 * COMPACT_WARPS)
     ok = v[:, 0] != 0
-    step = COMPACT_WARPS * COMPACT_WORDS * 32
+    # count launch
+    okp = np.zeros(nt * tile, bool)
+    okp[:N] = ok
     lane_bit = np.uint32(1) << np.arange(32, dtype=np.uint32)
-
-    def walk(limit, want, first, write_words):
-        carry = 0
-        for base in range(0, limit, step):
-            i = base + np.arange(step).reshape(COMPACT_WARPS, COMPACT_WORDS, 32)
-            take = (i < limit) & (ok[np.minimum(i, N - 1)] == want)
-            m = (take * lane_bit).sum(2, dtype=np.uint32)  # the ballots
-            if write_words:
-                wi = (base >> 5) + np.arange(COMPACT_WARPS * COMPACT_WORDS)
-                words[wi[wi < nw]] = m.reshape(-1)[wi < nw]
-            pop = np.vectorize(lambda x: bin(int(x)).count("1"))(m)
-            cnt = pop.sum(1)
-            s = np.cumsum(cnt)  # the warps' inclusive scan
-            at = first + carry + (s - cnt)[:, None] + np.cumsum(pop, 1) - pop
-            below = np.cumsum(take, 2) - take  # popc(m & below) of each lane
-            slot = at[:, :, None] + below
-            sel = take & (slot < c)
-            rows, slots = i[sel], slot[sel]
-            out[slots, 0] = rows
-            out[slots, 1] = int(want)
-            slens[slots] = lens[rows] if want else 0
-            gp[slots] = v[rows, 1:5]
-            carry += int(s[-1])
-        return carry
-
-    S = walk(N, True, 0, True)
+    words = (okp.reshape(-1, 32) * lane_bit).sum(1, dtype=np.uint32)  # the ballots
+    pop = _popc(words).reshape(nt, COMPACT_WARPS, wpw)
+    tile_cnt = pop.sum((1, 2))
+    # place launch
+    S = int(tile_cnt.sum())
+    before = np.cumsum(tile_cnt) - tile_cnt
+    warp_cnt = pop.sum(2)
+    warp_pre = np.cumsum(warp_cnt, 1) - warp_cnt
+    word_pre = np.cumsum(pop, 2) - pop
+    base = before[:, None, None] + warp_pre[:, :, None] + word_pre  # (nt, warps, wpw)
+    i = np.arange(nt * tile).reshape(nt, COMPACT_WARPS, wpw, 32)
+    bit = okp.reshape(nt, COMPACT_WARPS, wpw, 32)
+    pre = base[..., None] + np.cumsum(bit, 3) - bit  # + popc(m & below)
+    slot = np.where(bit, pre, S + i - pre)
+    sel = (i < N) & (slot < c)
+    rows, slots = i[sel], slot[sel]
+    out = np.full((cap + 1, 13), -7, np.int32)
+    r, col = np.divmod(np.arange((cap + 1) * 13), 13)
+    zero = ~(((r < c) & (col < 2)) | ((r == cap) & (col == 0)))
+    out.reshape(-1)[zero] = 0
     out[cap, 0] = S
-    if S < c:
-        walk(c, False, S, False)
-    return out, slens, gp, words.view(np.int32)
+    out[slots, 0] = rows
+    out[slots, 1] = ok[rows]
+    slens = np.full(c, -7, np.int32)
+    slens[slots] = np.where(ok[rows], lens[rows], 0)
+    gp = np.full((c, 4), -7, np.int32)
+    gp[slots] = v[rows, 1:5]
+    return out, slens, gp, words[:nw].view(np.int32), tile_cnt.astype(np.int32)
 
 
 def _kernel_survivor_rows(lanes, sidx, Wmax):
@@ -215,27 +236,77 @@ def _jax_survivor_rows(lanes, sidx, Wmax):
 # ---------------- mirrors against plain and JAX ----------------
 
 
+def _check_lanes_unpack(bufs, widths, exc, off=0):
+    got = _kernel_lanes_unpack(bufs, widths, exc, off)
+    plain = [t.numpy() for t in tf.lanes_codes([torch.from_numpy(b) for b in bufs], widths,
+                                               torch.from_numpy(exc), off)]
+    assert len(got) == len(plain) == len(bufs)
+    for buf, W, g, p in zip(bufs, widths, got, plain):
+        assert g.shape == p.shape == (buf.shape[0], W) and np.array_equal(g, p)
+        if buf.shape[0]:  # JAX's unpack_seq2_jnp cannot reshape an empty lane
+            assert np.array_equal(g, _jax_lane_codes(buf, W, exc, off))
+        # the one-lane wrapper is the same call
+        one = tf.lane_codes(torch.from_numpy(buf), W, torch.from_numpy(exc), off).numpy()
+        assert np.array_equal(g, one)
+        off += buf.shape[0]
+    return got
+
+
 @pytest.mark.parametrize("N", SIZES)
 def test_lane_unpack_mirror_matches_plain_and_jax(N):
     bufs, exc = _lanes(N, seed=N)
-    off = 0
-    for buf, W in zip(bufs, WIDTHS):
-        got = _kernel_lane_unpack(buf, W, exc, off)
-        plain = tf.lane_codes(torch.from_numpy(buf), W, torch.from_numpy(exc), off).numpy()
-        assert np.array_equal(got, plain)
-        assert np.array_equal(got, _jax_lane_codes(buf, W, exc, off))
+    for got in _check_lanes_unpack(bufs, WIDTHS, exc):
         assert (got == 255).any() and (got[:, -1] == 255).any() and (got[:, 0] == 255).any()
-        off += buf.shape[0]
+
+
+@pytest.mark.parametrize("N", SIZES)
+def test_lanes_unpack_mirror_engine_widths(N):
+    # widths that are multiples of 16: every chunk on the 32-bit fast path
+    bufs, exc = _lanes(N, seed=N + 2, widths=MAIN_WIDTHS)
+    assert all(W % 16 == 0 and b.shape[1] % 4 == 0 for b, W in zip(bufs, MAIN_WIDTHS))
+    for got in _check_lanes_unpack(bufs, MAIN_WIDTHS, exc, off=3):
+        assert (got == 255).any() and (got[:, -1] == 255).any()
+
+
+def _many_lanes(seed):
+    """11 lanes (two launches of each unpack kernel): widths on the fast
+    and the general path, an empty lane in each group, and 600 entries
+    over every lane and past them."""
+    rng = np.random.default_rng(seed)
+    spec = [(16, 20), (150, 7), (16, 0), (256, 25), (33, 3), (160, 29), (48, 1), (7, 12),
+            (192, 9), (64, 0), (161, 17)]
+    bufs = [rng.integers(0, 256, (P, -(-W // 4)), dtype=np.uint8) for W, P in spec]
+    N = sum(P for _, P in spec)
+    exc = np.stack([rng.integers(-2, N + 2, 600), rng.integers(-300, 300, 600)], 1)
+    return bufs, [W for W, _ in spec], exc.astype(np.int32)
+
+
+def test_lanes_unpack_more_lanes_than_a_launch_takes():
+    bufs, widths, exc = _many_lanes(11)
+    assert len(bufs) > MAX_LANES
+    _check_lanes_unpack(bufs, widths, exc)
+
+
+def test_lanes_unpack_pad_only_exceptions():
+    # the engine pads the list with entries at row N, past every lane
+    bufs, _ = _lanes(123, seed=5, widths=MAIN_WIDTHS)
+    N = sum(b.shape[0] for b in bufs)
+    exc = np.array([(N, 256)] * 32, np.int32)
+    got = _check_lanes_unpack(bufs, MAIN_WIDTHS, exc)
+    assert not any((g == 255).any() for g in got)
 
 
 def _check_compact(v, lens, cap):
     N = v.shape[0]
     c = min(cap, N)
-    out, slens, gp, okw = _kernel_compact(v, lens, cap)
+    out, slens, gp, okw, tile_cnt = _kernel_compact(v, lens, cap)
     p_out, p_slens, p_gp, p_okw = (t.numpy() for t in tf.compact(
         torch.from_numpy(v), torch.from_numpy(lens), cap))
     for a, b in ((out, p_out), (slens, p_slens), (gp, p_gp), (okw, p_okw)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
+    p_okw2, p_cnt = (t.numpy() for t in tf.compact_count_plain(torch.from_numpy(v),
+                                                               COMPACT_TILE))
+    assert np.array_equal(okw, p_okw2) and np.array_equal(tile_cnt, p_cnt)
     sidx, svalid, jslens, jgp, count, jokw = _jax_compact(v, lens, cap)
     assert np.array_equal(out[:c, 0], sidx) and np.array_equal(out[:c, 1], svalid)
     assert np.array_equal(slens, jslens) and np.array_equal(gp, jgp)
@@ -258,6 +329,30 @@ def test_compact_mirror_matches_plain_and_jax(N, cap_at):
 def test_compact_mirror_no_and_all_survivors(cap, density):
     v, lens = _votes(1025, density, seed=cap)
     assert _check_compact(v, lens, cap) == (0 if density == 0 else 1025)
+
+
+@pytest.mark.parametrize("cap_at", range(3))
+@pytest.mark.parametrize("N", [COMPACT_TILE - 1, COMPACT_TILE, COMPACT_TILE + 1,
+                               3 * COMPACT_TILE + 5])
+def test_compact_mirror_at_tile_edges(N, cap_at):
+    cap = _caps(N)[cap_at]
+    v, lens = _votes(N, 0.3, seed=N + cap_at)
+    count = _check_compact(v, lens, cap)
+    assert 0 < count < N
+
+
+@pytest.mark.parametrize("cap", [1024, 12 * COMPACT_TILE + 12])
+def test_compact_mirror_survivors_past_the_first_tile(cap):
+    # no survivor in the first tile, more survivors than cap 1024; at a cap
+    # past N the first tile's rows are the non-survivors placed first
+    N = 12 * COMPACT_TILE + 5
+    v, lens = _votes(N, 0.5, seed=9)
+    v[:COMPACT_TILE, 0] = 0
+    count = _check_compact(v, lens, cap)
+    assert count > 1024
+    out = _kernel_compact(v, lens, cap)[0]
+    if cap > N:
+        assert np.array_equal(out[count : count + COMPACT_TILE, 0], np.arange(COMPACT_TILE))
 
 
 @pytest.mark.parametrize("cap_at", range(3))
@@ -320,6 +415,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _launches(cuda, before=None):
+    """The launch counts now, or (given the counts before) the kernels
+    launched since, with their numbers."""
+    now = dict(cuda.LAUNCHES)
+    if before is None:
+        return now
+    return {k: n - before[k] for k, n in now.items() if n != before[k]}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", SIZES)
 def test_glue_kernels_match_plain(N, cuda_device):
@@ -331,17 +435,25 @@ def test_glue_kernels_match_plain(N, cuda_device):
     for buf, W in zip(bufs, WIDTHS):
         b = torch.from_numpy(buf)
         lanes_c.append(tf.lane_codes(b, W, torch.from_numpy(exc), off))
-        n0 = cuda.LAUNCHES["lane_unpack"]
+        n0 = _launches(cuda)
         lanes_d.append(tf.lane_codes(b.to(cuda_device), W, exc_d, off))
-        assert cuda.LAUNCHES["lane_unpack"] == n0 + 1
+        assert _launches(cuda, n0) == {"lane_unpack": 1, "lane_exceptions": 1}
         assert torch.equal(lanes_d[-1].cpu(), lanes_c[-1])
         off += buf.shape[0]
+    # the batch at once: one launch of each
+    n0 = _launches(cuda)
+    batch = tf.lanes_codes([torch.from_numpy(b).to(cuda_device) for b in bufs], WIDTHS, exc_d)
+    assert _launches(cuda, n0) == {"lane_unpack": 1, "lane_exceptions": 1}
+    assert all(torch.equal(g.cpu(), e) for g, e in zip(batch, lanes_c))
+    assert all(t.data_ptr() % 16 == 0 and t.is_contiguous() for t in batch)
     for cap in _caps(N):
         for density in (0.0, 0.3, 1.0):
             v, lens = _votes(N, density, seed=N + cap)
             exp = tf.compact(torch.from_numpy(v), torch.from_numpy(lens), cap)
+            n0 = _launches(cuda)
             got = tf.compact(torch.from_numpy(v).to(cuda_device),
                              torch.from_numpy(lens).to(cuda_device), cap)
+            assert _launches(cuda, n0) == {"compact_count": 1, "compact_place": 1}
             for g, e in zip(got, exp):
                 assert torch.equal(g.cpu(), e)
             c = min(cap, N)
@@ -365,3 +477,43 @@ def test_survivor_rows_kernel_more_lanes_than_a_launch_takes(cuda_device):
     got = tf.survivor_rows([t.to(cuda_device) for t in lanes], sidx.to(cuda_device), 80)
     assert cuda.LAUNCHES["survivor_rows"] == n0 + 2
     assert torch.equal(got.cpu(), tf.survivor_rows(lanes, sidx, 80))
+
+
+@pytest.mark.cuda
+def test_lanes_unpack_kernels_widths_lanes_and_pads(cuda_device):
+    # the fast path at the engine's widths, 11 lanes (two launches of
+    # each kernel), and a list of pad entries only
+    from genefuserust_tpu_torch.ops import cuda
+
+    bufs, exc = _lanes(1025, seed=4, widths=MAIN_WIDTHS)
+    N = sum(b.shape[0] for b in bufs)
+    many = _many_lanes(12)
+    for bufs, widths, exc, launches in (
+            (bufs, MAIN_WIDTHS, exc, 1), (*many, 2),
+            (bufs, MAIN_WIDTHS, np.array([(N, 256)] * 32, np.int32), 1)):
+        exp = tf.lanes_codes([torch.from_numpy(b) for b in bufs], widths, torch.from_numpy(exc))
+        n0 = _launches(cuda)
+        got = tf.lanes_codes([torch.from_numpy(b).to(cuda_device) for b in bufs], widths,
+                             torch.from_numpy(exc).to(cuda_device))
+        assert _launches(cuda, n0) == {"lane_unpack": launches, "lane_exceptions": launches}
+        assert all(torch.equal(g.cpu(), e) for g, e in zip(got, exp))
+
+
+@pytest.mark.cuda
+def test_compact_kernels_at_tile_edges(cuda_device):
+    # N around the library's own tile, caps inside the first tile and past
+    # N, and every survivor past the first tile
+    from genefuserust_tpu_torch.ops import cuda
+
+    T = cuda.compact_tile()
+    for N in (T - 1, T, T + 1, 3 * T + 5):
+        for cap in (5, 1024, N + 7):
+            for first_tile_empty in (False, True):
+                v, lens = _votes(N, 0.5, seed=N + cap)
+                if first_tile_empty:
+                    v[:T, 0] = 0
+                exp = tf.compact(torch.from_numpy(v), torch.from_numpy(lens), cap)
+                got = tf.compact(torch.from_numpy(v).to(cuda_device),
+                                 torch.from_numpy(lens).to(cuda_device), cap)
+                for g, e in zip(got, exp):
+                    assert torch.equal(g.cpu(), e)
