@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (genefuserust_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--seed N] [--probe-sweep | --gather-sweep | --profile-only |
-                           --glue-sweep] [--glue-baseline DIR]
+                           --glue-sweep] [--glue-baseline DIR] [--wide-baseline DIR]
 
 Phases, one result line each; any failure raises and exits non-zero:
 
@@ -75,7 +75,14 @@ Phases, one result line each; any failure raises and exits non-zero:
              equal to the host oracle's; at the largest wide call of each
              engine (kv2 table; 4 split shard tables) the vote in both
              modes, mask+segments, the flags and mask+segments from flags
-             bit-equal to plain, the wide paths timed.
+             bit-equal to plain, each wide kernel also with caps that send
+             its long rows to global scratch, the wide paths timed with
+             bounds from what the rows need (the samples and k-mers inside
+             their lengths). Then (viii) the four wide kernels at a
+             4,096-row lane as TorchEngine builds one: the 70,000-base
+             read among 4,095 R1 reads of 150 bases, every row padded to
+             70,016 bases; bit-equal to plain (plain in chunks of rows)
+             with the default caps and on the global route, timed.
  14 multi-device
              data parallelism on the one card: (a) the 262,144 pairs
              through the driver with RunConfig.devices = 4 entries of
@@ -108,6 +115,11 @@ compaction tile of GLUE_SWEEP_TILES and times the compaction on phase
 it and stops: no contract line. --glue-baseline DIR (another checkout's
 csrc/, e.g. the parent's from `git archive`) adds that build's lane unpack
 and compaction, timed on phase 3's batch, to phase 3's glue lines.
+--wide-baseline DIR (another checkout's csrc/, e.g. the parent's) builds
+its vote.cu and mask_segments.cu and times their kernels on the same
+inputs, each held bit-equal to plain: phase 3's vote and mask+segments
+(between two timings of this checkout's), and each wide kernel at
+phase 13's calls and at its 4,096-row lane.
 --gather-sweep runs phases 1-3, then the gather's launch-shape sweep
 (blocks a tile x row loads a thread: at (a2) for rows narrower than 16
 bytes, at (b) and at rows of 256, 512 and 1,024 int32 for rows of whole
@@ -179,6 +191,11 @@ SURVIVOR_CAP = 1024  # TorchEngine's survivor cap (_surv_cap)
 # stages) and of the wide-row paths (LAUNCHES keys)
 SHARD_KERNELS = ("probe_split", "vote_counts", "merge_top2", "shard_flags", "mask_from_flags")
 WIDE_KERNELS = ("vote_wide", "vote_counts_wide", "mask_segments_wide", "mask_from_flags_wide")
+# phase 13's caps that send the wide paths' long rows to global scratch
+# (smem_cap, bytes): below the 70,000-base row's 2,267 keys (8 bytes each)
+# and its 2,188 words (16 bytes each, past the warps' 16 KB)
+VOTE_CAP, MASK_CAP = 8 << 10, 16 << 10
+WIDE_LANE_ROWS = 4096  # phase 13 (viii): a wide lane of one long read
 SWEEP_MAX_JOBS = 4096
 # The card's peaks for the kernels' bounds (NVIDIA's data sheet for the
 # H100 SXM at 700 W): HBM bytes/s, and the 32-bit rate outside the tensor
@@ -504,6 +521,7 @@ def phase_kernels(data: dict) -> dict:
     from genefuserust_tpu_torch.ops.fused import lane_codes
     from genefuserust_tpu_torch.ops.index import build_packed_index, index_to_torch
     from genefuserust_tpu_torch.parallel.engine import TorchEngine
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
     from genefuserust_tpu_torch.utils.synthetic import vote_edge_rows
 
     dev = torch.device("cuda")
@@ -576,6 +594,14 @@ def phase_kernels(data: dict) -> dict:
         OPS["vote_sample"] * pr.shape[0] * pr.shape[1]
         + OPS["vote_candidate"] * int(n_cand.sum())))
     rec["vote"]["shape"] = f"{pr.shape[0]}x{pr.shape[1]} samples, D {index.D}"
+    base = wide_base(data)
+    if base:
+        # the parent's vote between two timings of this checkout's
+        rec["vote"]["parent_ms"] = parent_ms("vote", lambda: base.vote(pr, index, 40, 20), v, 20)
+        rec["vote"]["again_ms"] = event_ms(lambda: tm.vote(pr, index, 40, 20), 20)
+        say("3 kernels", kernel="vote", baseline=base.csrc, ms=f"{ms:.4f}",
+            parent_ms=f"{rec['vote']['parent_ms']:.4f}",
+            again_ms=f"{rec['vote']['again_ms']:.4f}", equal=True)
     ok = v[:, 0] != 0
     say("3 kernels", kernel="vote", rows=v.shape[0], samples=pr.shape[1], D=index.D,
         candidate_slots=pr.shape[1] * index.D,
@@ -617,6 +643,14 @@ def phase_kernels(data: dict) -> dict:
         + seg.numel() * 4,
         OPS["mask_candidate"] * cand2 + OPS["mask_base"] * int(slens.long().sum())))
     rec["mask_segments"]["shape"] = f"{seg.shape[0]} survivors, width {scodes.shape[1]}"
+    if base:
+        rec["mask_segments"]["parent_ms"] = parent_ms(
+            "mask_segments", lambda: base.mask(pr1, slens, gp, index, 10), seg, 20)
+        rec["mask_segments"]["again_ms"] = event_ms(
+            lambda: tm.mask_segments(pr1, slens, gp, index, 10), 20)
+        say("3 kernels", kernel="mask_segments", baseline=base.csrc, ms=f"{ms:.4f}",
+            parent_ms=f"{rec['mask_segments']['parent_ms']:.4f}",
+            again_ms=f"{rec['mask_segments']['again_ms']:.4f}", equal=True)
     say("3 kernels", kernel="mask_segments", rows=seg.shape[0], width=scodes.shape[1],
         two_segment_rows=int((seg[:, 0] & seg[:, 1]).sum()), ms=f"{ms:.4f}",
         plain_ms=f"{pms:.4f}", bound_ms=f"{rec['mask_segments']['bound_ms']:.5f}",
@@ -1748,32 +1782,210 @@ def largest_sharded_call():
 def largest_wide_launches():
     """Record the inputs (cloned) of the largest launch of the gated vote
     and of mask+segments on their wide-row paths made inside the block ->
-    {"vote": (pr, index, major_req, minor_req), "mask_segments": (pr,
-    lengths, gp, index, mismatch_thr)}; the launches run unchanged."""
+    {"vote": (pr, index, major_req, minor_req), "vote_lengths": the vote's
+    lengths (or None), "mask_segments": (pr, lengths, gp, index,
+    mismatch_thr)}; the launches run unchanged."""
     from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.ops import map_read as tm
 
     got, vote, mask = {}, cuda.launch_vote, cuda.launch_mask_segments
 
     def keep(name, args):
         if name not in got or args[0].numel() > got[name][0].numel():
             got[name] = args
+            return True
+        return False
 
     def vote_rec(pr, B, NS, index, step, major_req, minor_req, P2, out, counts=False,
-                 wide_rows=None):
-        if wide_rows is not None and not counts:
-            keep("vote", (pr.clone(), index, major_req, minor_req))
-        vote(pr, B, NS, index, step, major_req, minor_req, P2, out, counts, wide_rows)
+                 wide=None, lengths=None):
+        if wide is not None and not counts and keep("vote", (pr.clone(), index, major_req,
+                                                            minor_req)):
+            got["vote_lengths"] = None if lengths is None else lengths.clone()
+        vote(pr, B, NS, index, step, major_req, minor_req, P2, out, counts, wide, lengths)
 
-    def mask_rec(pr, lengths, gp, B, NK, index, mismatch_thr, out, scratch=None):
-        if scratch is not None:
+    def mask_rec(pr, lengths, gp, B, NK, index, mismatch_thr, out, scratch=None, smem_cap=0):
+        if NK + 15 > tm.MASK_MAX_WIDTH:
             keep("mask_segments", (pr.clone(), lengths.clone(), gp.clone(), index, mismatch_thr))
-        mask(pr, lengths, gp, B, NK, index, mismatch_thr, out, scratch)
+        mask(pr, lengths, gp, B, NK, index, mismatch_thr, out, scratch, smem_cap)
 
     cuda.launch_vote, cuda.launch_mask_segments = vote_rec, mask_rec
     try:
         yield got
     finally:
         cuda.launch_vote, cuda.launch_mask_segments = vote, mask
+
+
+class WideBaseline:
+    """Another checkout's csrc/vote.cu and csrc/mask_segments.cu as they
+    stood before the wide paths' redesign (entry points without lengths
+    or caps: the vote's wide rows in 512-thread blocks sorting
+    next_pow2(NS * D) slots in global scratch, mask+segments' wide rows a
+    warp each with its words in global scratch), built from that csrc/ and
+    launched on the same inputs as this checkout's wrappers."""
+
+    def __init__(self, csrc: str):
+        import ctypes
+
+        from genefuserust_tpu_torch.ops import cuda
+
+        self.lib = cuda.load(cuda.build(("vote.cu", "mask_segments.cu"),
+                                        csrc=os.path.abspath(csrc)))
+        P_, I_ = ctypes.c_void_p, ctypes.c_int
+        self.lib.gf_vote.argtypes = [P_, I_, I_, P_, I_, I_, I_, I_, I_, I_, I_, I_, I_, I_, P_,
+                                     P_, P_]
+        self.lib.gf_vote_wide.argtypes = [P_, I_, P_, I_, I_, I_, I_, I_, I_, I_, I_, I_, P_, P_,
+                                          ctypes.c_longlong, I_, P_, P_]
+        self.lib.gf_mask_segments.argtypes = [P_, P_, P_, I_, I_, P_, I_, I_, I_, I_, I_, I_, P_,
+                                              P_, P_]
+        self.lib.gf_mask_from_flags.argtypes = [P_, P_, P_, I_, I_, I_, P_, P_, P_]
+        self.csrc = csrc
+
+    @staticmethod
+    def _stream(t):
+        import torch
+
+        return torch.cuda.current_stream(t.device).cuda_stream
+
+    def vote(self, pr, index, major_req, minor_req, counts=False):
+        """The parent's gf_vote, and on rows past MAX_VOTE_KEYS its
+        gf_vote_wide as its wrapper ran it (64 MB of scratch)."""
+        import torch
+
+        from genefuserust_tpu_torch.ops import cuda
+        from genefuserust_tpu_torch.ops import map_read as tm
+
+        B, NS, _ = pr.shape
+        dstride, D = cuda._dupe_args(index)
+        dev = pr.device
+        out = torch.empty((B, 6 if counts else 5), dtype=torch.int32, device=dev)
+        P2 = tm.vote_width(NS, D)
+        args = (index.dupes.data_ptr(), dstride, D, int(index.split), index.cbits,
+                index.pos_bias, 2, major_req, minor_req)
+        st = self._stream(pr)
+        wide = None if P2 <= tm.MAX_VOTE_KEYS else torch.zeros(1 + B, dtype=torch.int32,
+                                                                device=dev)
+        check(self.lib.gf_vote(pr.data_ptr(), B, NS, *args, P2, int(counts),
+                               None if wide is None else wide.data_ptr(), out.data_ptr(),
+                               st) == 0, "the parent's vote failed to launch")
+        if wide is not None:
+            blocks = max(1, min(B, (64 << 20) // (8 * P2)))
+            scratch = torch.empty(blocks * P2, dtype=torch.int64, device=dev)
+            check(self.lib.gf_vote_wide(pr.data_ptr(), NS, *args, int(counts), wide.data_ptr(),
+                                        scratch.data_ptr(), P2, blocks, out.data_ptr(), st) == 0,
+                  "the parent's wide vote failed to launch")
+        return out
+
+    def mask(self, pr, lengths, gp, index, mismatch_thr):
+        import torch
+
+        from genefuserust_tpu_torch.ops import cuda
+        from genefuserust_tpu_torch.ops import map_read as tm
+
+        B, NK, _ = pr.shape
+        dstride, D = cuda._dupe_args(index)
+        out = torch.empty((B, 10), dtype=torch.int32, device=pr.device)
+        scratch = (torch.empty(4 * B * tm.flag_words(NK), dtype=torch.int32, device=pr.device)
+                   if NK + 15 > tm.MASK_MAX_WIDTH else None)
+        check(self.lib.gf_mask_segments(
+            pr.data_ptr(), lengths.data_ptr(), gp.data_ptr(), B, NK, index.dupes.data_ptr(),
+            dstride, D, int(index.split), index.cbits, index.pos_bias, mismatch_thr,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            self._stream(pr)) == 0, "the parent's mask+segments failed to launch")
+        return out
+
+    def mask_from_flags(self, words, lengths, gp, NK, mismatch_thr):
+        import torch
+
+        from genefuserust_tpu_torch.ops import map_read as tm
+
+        B = words.shape[0]
+        out = torch.empty((B, 10), dtype=torch.int32, device=words.device)
+        scratch = (torch.empty(4 * B * tm.flag_words(NK), dtype=torch.int32, device=words.device)
+                   if NK + 15 > tm.MASK_MAX_WIDTH else None)
+        check(self.lib.gf_mask_from_flags(
+            words.data_ptr(), lengths.data_ptr(), gp.data_ptr(), B, NK, mismatch_thr,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            self._stream(words)) == 0, "the parent's mask from flags failed to launch")
+        return out
+
+
+def wide_base(data: dict):
+    """The --wide-baseline checkout's kernels (built once), or None."""
+    if data.get("wide_baseline") and "wide_base" not in data:
+        data["wide_base"] = WideBaseline(data["wide_baseline"])
+    return data.get("wide_base")
+
+
+def parent_ms(name: str, fn, exp, reps: int) -> float:
+    """The parent's kernel on the same inputs: bit-equal to `exp`, timed
+    (mean device ms, CUDA events)."""
+    import torch
+
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
+
+    got = fn()
+    torch.cuda.synchronize()
+    gs, es = (got, exp) if isinstance(got, (tuple, list)) else ((got,), (exp,))
+    check(all(torch.equal(g, e) for g, e in zip(gs, es)),
+          f"{name}: the parent's kernel differs from plain")
+    return event_ms(fn, reps)
+
+
+def _chunked(fn, rows, n, *args):
+    """fn over chunks of n rows of the `rows` tensors, concatenated: plain
+    versions whose padded intermediates at a whole wide batch would not
+    fit on the card."""
+    import torch
+
+    B = rows[0].shape[0]
+    return torch.cat([fn(*(r[a : a + n] for r in rows), *args) for a in range(0, B, n)])
+
+
+def vote_need(pr, lens, index, chunk=256) -> dict:
+    """What a vote of (B, NS, 2) probe results with their rows' lengths
+    needs (the samples past a row's length are misses, and a row-bounded
+    walk never reads them): the samples inside the rows, their DUPE
+    samples' dupe rows, the lengths; its valid keys -> counts and bytes."""
+    import torch
+
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.ops.hashtable import DUPE
+
+    NS = pr.shape[1]
+    ns = torch.where(lens < 16, 0, ((lens.long() - 16) // 2 + 1).clamp(max=NS))
+    inside = torch.arange(NS, device=pr.device)[None, :] < ns[:, None]
+    dupes = int(((pr[..., 0] == DUPE) & inside).sum())
+    keys = sum(int(tm.vote_candidates(pr[a : a + chunk], index).sum())
+               for a in range(0, pr.shape[0], chunk))
+    return dict(samples=int(ns.sum()), keys=keys,
+                bytes=int(ns.sum()) * 8 + dupes * index.D * (8 if index.split else 4)
+                + lens.numel() * 4)
+
+
+def mask_need(pr1, lens, index, chunk=64) -> dict:
+    """What mask+segments of (B, NK, 2) probe results needs: the k-mers
+    inside each row, their DUPE k-mers' dupe rows, lengths and the vote's
+    keys; its candidates and in-bounds bases."""
+    import torch
+
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.ops.hashtable import DUPE
+
+    NK = pr1.shape[1]
+    nk = (lens.long() - 15).clamp(min=0, max=NK)
+    inside = torch.arange(NK, device=pr1.device)[None, :] < nk[:, None]
+    dupes = int(((pr1[..., 0] == DUPE) & inside).sum())
+    cand = sum(int(tm.expand(index, pr1[a : a + chunk, :, 0], pr1[a : a + chunk, :, 1])[2].sum())
+               for a in range(0, pr1.shape[0], chunk))
+    return dict(cand=cand, bases=int(lens.long().clamp(max=NK + 15).sum()),
+                bytes=int(nk.sum()) * 8 + dupes * index.D * (8 if index.split else 4)
+                + lens.numel() * 4 + 16 * lens.numel())
+
+
+def flags_need(lens, NK) -> int:
+    """Bytes mask+segments from flag words needs: each row's words up to
+    its length (two int32 each), its length and the vote's four keys."""
+    return 8 * int(-(-lens.long().clamp(max=NK + 15) // 32).sum()) + 20 * lens.numel()
 
 
 def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3):
@@ -1811,7 +2023,7 @@ def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3):
               f"stride {PASS1_STEP}", rows_needed=rows, hits=hits)
     votes, err, ms, pms = _timed_pair(
         f"vote_counts ({B}x{NS})",
-        lambda: torch.stack([tm.vote_counts(pr, ix) for pr, ix in zip(prs, indexes)]),
+        lambda: torch.stack([tm.vote_counts(pr, ix, lens) for pr, ix in zip(prs, indexes)]),
         lambda: torch.stack([tm.vote_counts_plain(pr, ix) for pr, ix in zip(prs, indexes)]),
         reps=reps, plain_reps=plain_reps)
     cands = [tm.vote_candidates(pr, ix) for pr, ix in zip(prs, indexes)]
@@ -1856,7 +2068,7 @@ def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3):
         words.numel() * 4 + lens.numel() * 4 + gp.numel() * 4 + seg.numel() * 4,
         OPS["mask_base"] * int(lens.long().sum())))
     rec["mask_from_flags"]["shape"] = f"{B} rows, width {W}"
-    return rec, dict(prs=prs, pr1s=pr1s, gp=gp, seg=seg)
+    return rec, dict(prs=prs, pr1s=pr1s, gp=gp, seg=seg, words=words)
 
 
 def say_kernel(rec: dict, k: str) -> None:
@@ -1864,7 +2076,8 @@ def say_kernel(rec: dict, k: str) -> None:
     say("13 sharded", kernel=k, shape=repr(r["shape"]), ms=f"{r['ms']:.4f}",
         plain_ms=f"{r['plain_ms']:.4f}", bound_ms=f"{r['bound_ms']:.5f}",
         bound_by=r["bound_by"], bound_share=f"{r['bound_ms'] / r['ms']:.4f}",
-        max_abs_err=r["err"])
+        max_abs_err=r["err"], **{x: f"{r[x]:.4f}" for x in ("global_ms", "device_ms", "parent_ms")
+                                 if x in r})
 
 
 def phase_sharded(data: dict, smi_line: str) -> dict:
@@ -2039,60 +2252,258 @@ def phase_sharded(data: dict, smi_line: str) -> dict:
         engines="TorchEngine,ShardedIndexEngine", vs="host oracle",
         launches=json.dumps(wide_launches, separators=(",", ":")))
     # the wide kernels at the wide scans' largest calls: TorchEngine's on
-    # the kv2 table, the sharded engine's on the 4 split shard tables
+    # the kv2 table, the sharded engine's on the 4 split shard tables; each
+    # also on the global route (caps below the long rows' keys and words)
+    # and beside the parent's kernels (--wide-baseline)
+    base = wide_base(data)
     pr, kv2, major_req, minor_req = kv_calls["vote"]
+    vlens = kv_calls["vote_lengths"]
+    check(vlens is not None, "wide rows: TorchEngine's wide vote was given no lengths")
     v, err, ms, pms = _timed_pair("vote (wide rows, kv2)",
-                                  lambda: tm.vote(pr, kv2, major_req, minor_req),
+                                  lambda: tm.vote(pr, kv2, major_req, minor_req, vlens),
                                   lambda: tm.vote_plain(pr, kv2, major_req, minor_req),
                                   reps=5, plain_reps=1)
+    need = vote_need(pr, vlens, kv2)
     wn = tm.vote_candidates(pr, kv2)
     rec["vote_wide"] = dict(err=err, ms=ms, plain_ms=pms, **bound(
-        pr.numel() * 4 + dupe_row_bytes(pr, kv2) + v.numel() * 4,
-        OPS["vote_sample"] * pr.shape[0] * pr.shape[1] + OPS["vote_candidate"] * int(wn.sum())))
-    rec["vote_wide"]["shape"] = (f"kv2, {pr.shape[0]}x{pr.shape[1]} samples, D {kv2.D}, "
-                                 f"most valid keys a row {int(wn.max())}")
-    check(torch.equal(tm.vote_counts(pr, kv2), tm.vote_counts_plain(pr, kv2)),
+        need["bytes"] + v.numel() * 4,
+        OPS["vote_sample"] * need["samples"] + OPS["vote_candidate"] * need["keys"]))
+    rec["vote_wide"].update(
+        shape=f"kv2, {pr.shape[0]}x{pr.shape[1]} samples, D {kv2.D}, most valid keys a row "
+              f"{int(wn.max())}, {need['samples']} samples inside the rows",
+        padded_bound_ms=bound(pr.numel() * 4 + dupe_row_bytes(pr, kv2) + v.numel() * 4,
+                              0)["bound_ms"],
+        global_ms=wide_global("vote (wide rows, kv2, global route)",
+                              lambda: tm.vote(pr, kv2, major_req, minor_req, vlens, VOTE_CAP), v),
+        device_ms=wide_vote_device_ms(pr, kv2, vlens, False, v))
+    if base:
+        rec["vote_wide"]["parent_ms"] = parent_ms(
+            "vote (wide rows, kv2)", lambda: base.vote(pr, kv2, major_req, minor_req), v, 5)
+    vc = tm.vote_counts_plain(pr, kv2)
+    check(torch.equal(tm.vote_counts(pr, kv2, vlens), vc)
+          and torch.equal(tm.vote_counts(pr, kv2, vlens, VOTE_CAP), vc),
           "wide rows: the vote's counts mode differs from plain on the kv2 table")
     pr1, wlens, wgp, kv2, thr = kv_calls["mask_segments"]
     wseg, err, ms, pms = _timed_pair(
         "mask_segments (wide rows, kv2)", lambda: tm.mask_segments(pr1, wlens, wgp, kv2, thr),
         lambda: tm.mask_segments_plain(pr1, wlens, wgp, kv2, thr), reps=5, plain_reps=1)
     check(int(wseg[:, 4:6].max()) > tm.MASK_MAX_WIDTH, "wide rows: no chain ends past 65,535")
-    wcand = int(tm.expand(kv2, pr1[..., 0], pr1[..., 1])[2].sum())
+    mneed = mask_need(pr1, wlens, kv2)
     rec["mask_segments_wide"] = dict(err=err, ms=ms, plain_ms=pms, **bound(
-        pr1.numel() * 4 + wlens.numel() * 4 + wgp.numel() * 4 + dupe_row_bytes(pr1, kv2)
-        + wseg.numel() * 4,
-        OPS["mask_candidate"] * wcand + OPS["mask_base"] * int(wlens.long().sum())))
-    rec["mask_segments_wide"]["shape"] = (f"kv2, {pr1.shape[0]} rows, width "
-                                          f"{pr1.shape[1] + 15}")
+        mneed["bytes"] + wseg.numel() * 4,
+        OPS["mask_candidate"] * mneed["cand"] + OPS["mask_base"] * mneed["bases"]))
+    rec["mask_segments_wide"].update(
+        shape=f"kv2, {pr1.shape[0]} rows, width {pr1.shape[1] + 15}",
+        padded_bound_ms=bound(pr1.numel() * 4 + wlens.numel() * 4 + wgp.numel() * 4
+                              + dupe_row_bytes(pr1, kv2) + wseg.numel() * 4, 0)["bound_ms"],
+        global_ms=wide_global("mask_segments (wide rows, kv2, global route)",
+                              lambda: tm.mask_segments(pr1, wlens, wgp, kv2, thr, MASK_CAP),
+                              wseg))
+    if base:
+        rec["mask_segments_wide"]["parent_ms"] = parent_ms(
+            "mask_segments (wide rows, kv2)", lambda: base.mask(pr1, wlens, wgp, kv2, thr), wseg,
+            5)
     # the one table's flags, then mask from flags: equal to mask+segments
     words = tm.shard_flags(pr1, wgp, kv2, torch.zeros(
         (pr1.shape[0], tm.flag_words(pr1.shape[1]), 2), dtype=torch.int32, device=pr1.device))
     check(torch.equal(words, tm.shard_flags_plain(pr1, wgp, kv2)),
           "wide rows: shard_flags differs from plain on the kv2 table")
-    check(torch.equal(tm.mask_from_flags(words, wlens, wgp, pr1.shape[1], thr), wseg),
-          "wide rows: mask_from_flags differs from mask+segments on the kv2 table")
-    del pr, v, pr1, wlens, wgp, wseg, words, kv_calls
+    for cap in (None, MASK_CAP):
+        check(torch.equal(tm.mask_from_flags(words, wlens, wgp, pr1.shape[1], thr, cap), wseg),
+              "wide rows: mask_from_flags differs from mask+segments on the kv2 table")
+    del pr, v, vc, pr1, wlens, wgp, wseg, words, kv_calls
     codes, lens, indexes = sh_calls[0]
     srec, aux = sharded_kernels(codes, lens, indexes, reps=5, plain_reps=1)
     check(int(aux["seg"][:, 4:6].max()) > tm.MASK_MAX_WIDTH,
           "wide rows (shards): no chain ends past 65,535")
-    # the gated vote and mask+segments on each split shard at those rows
+    # the gated vote and mask+segments on each split shard at those rows,
+    # with the default caps and on the global route
     for spr, spr1, ix in zip(aux["prs"], aux["pr1s"], indexes):
-        check(torch.equal(tm.vote(spr, ix, 40, 20), tm.vote_plain(spr, ix, 40, 20)),
-              "wide rows: the gated vote differs from plain on a split shard table")
-        check(torch.equal(tm.mask_segments(spr1, lens, aux["gp"], ix, 10),
-                          tm.mask_segments_plain(spr1, lens, aux["gp"], ix, 10)),
-              "wide rows: mask+segments differs from plain on a split shard table")
-    del aux, sh_calls[:]
+        vp = tm.vote_plain(spr, ix, 40, 20)
+        mp = tm.mask_segments_plain(spr1, lens, aux["gp"], ix, 10)
+        for vcap, mcap in ((None, None), (VOTE_CAP, MASK_CAP)):
+            check(torch.equal(tm.vote(spr, ix, 40, 20, lens, vcap), vp),
+                  "wide rows: the gated vote differs from plain on a split shard table")
+            check(torch.equal(tm.mask_segments(spr1, lens, aux["gp"], ix, 10, mcap), mp),
+                  "wide rows: mask+segments differs from plain on a split shard table")
+    # the sharded records' bounds from what the rows need
+    prs, pr1s = aux["prs"], aux["pr1s"]
+    vneeds = [vote_need(p, lens, ix) for p, ix in zip(prs, indexes)]
+    srec["vote_counts"].update(bound(
+        sum(n["bytes"] for n in vneeds) + len(indexes) * lens.numel() * 24,
+        OPS["vote_sample"] * sum(n["samples"] for n in vneeds)
+        + OPS["vote_candidate"] * sum(n["keys"] for n in vneeds)))
+    vplain = torch.stack([tm.vote_counts_plain(p, ix) for p, ix in zip(prs, indexes)])
+    srec["vote_counts"]["global_ms"] = wide_global(
+        "vote_counts (wide rows, 4 shards, global route)",
+        lambda: torch.stack([tm.vote_counts(p, ix, lens, VOTE_CAP) for p, ix in zip(prs, indexes)]),
+        vplain)
+    srec["vote_counts"]["device_ms"] = sum(
+        wide_vote_device_ms(p, ix, lens, True, e) for p, ix, e in zip(prs, indexes, vplain))
+    NK = pr1s[0].shape[1]
+    words = aux["words"]
+    seg = aux["seg"]
+    srec["mask_from_flags"].update(bound(flags_need(lens, NK) + seg.numel() * 4,
+                                         OPS["mask_base"] * int(lens.long().sum())))
+    srec["mask_from_flags"]["global_ms"] = wide_global(
+        "mask_from_flags (wide rows, global route)",
+        lambda: tm.mask_from_flags(words, lens, aux["gp"], NK, 10, MASK_CAP), seg)
+    if base:
+        srec["vote_counts"]["parent_ms"] = parent_ms(
+            "vote_counts (wide rows, 4 shards)",
+            lambda: torch.stack([base.vote(p, ix, 0, 0, True) for p, ix in zip(prs, indexes)]),
+            vplain, 5)
+        srec["mask_from_flags"]["parent_ms"] = parent_ms(
+            "mask_from_flags (wide rows)",
+            lambda: base.mask_from_flags(words, lens, aux["gp"], NK, 10), seg, 5)
+    del aux, prs, pr1s, words, seg, vplain, sh_calls[:]
     rec["vote_counts_wide"] = srec["vote_counts"]
     rec["mask_from_flags_wide"] = srec["mask_from_flags"]
+    # (viii) the same kernels at a 4,096-row lane as TorchEngine builds one
+    rows4096 = wide_lane(data, kv2, wide, base)
     for k in WIDE_KERNELS:
+        rec[k]["rows4096"] = rows4096[k]
         say_kernel(rec, k)
     say("13 sharded", wide_checked="vote,vote_counts,mask_segments,shard_flags,mask_from_flags",
-        tables="kv2,split", equal=True)
+        tables="kv2,split", routes="shared,global", equal=True)
     launches.update({k: wide_launches[k] for k in WIDE_KERNELS})
     return dict(rec=rec, launches=launches)
+
+
+def wide_vote_device_ms(pr, index, lens, counts: bool, exp, reps: int = 20) -> float:
+    """The wide vote's two launches alone (vote_kernel listing the long rows,
+    vote_wide_kernel's shared-memory pass), enqueued back to back without
+    the wrapper's wait for the count of keys past shared memory: its
+    device ms (CUDA events), where no row is past it. Bit-equal to `exp`."""
+    import torch
+
+    from genefuserust_tpu_torch.config import PASS1_STEP
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
+
+    B, NS, _ = pr.shape
+    out = torch.empty((B, 6 if counts else 5), dtype=torch.int32, device=pr.device)
+    wide = torch.zeros(3 + 3 * B, dtype=torch.int64, device=pr.device)
+    args = (pr, B, NS, index, PASS1_STEP, 0 if counts else 40, 0 if counts else 20)
+
+    def run():
+        wide[:3].zero_()
+        cuda.launch_vote(*args, tm.vote_width(NS, index.D), out, counts, wide, lens)
+        cuda.launch_vote_wide(*args, counts, wide, lens, tm.WIDE_SMEM_BYTES // 8, out)
+        return out
+
+    run()
+    check(int(wide[1]) == 0 and torch.equal(out, exp),
+          "the wide vote's launches alone differ from plain (or a row is past shared memory)")
+    return event_ms(run, reps)
+
+
+def wide_global(name: str, fn, exp, reps: int = 5) -> float:
+    """A wide kernel with a cap that sends its long rows to global scratch:
+    bit-equal to `exp` (plain's rows), timed -> ms."""
+    import torch
+
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
+
+    got = fn()
+    torch.cuda.synchronize()
+    check(torch.equal(got, exp), f"{name}: kernel differs from its plain version")
+    return event_ms(fn, reps)
+
+
+def wide_lane(data: dict, kv2, wide_read: str, base, reps: int = 5) -> dict:
+    """The four wide kernels on a 4,096-row lane as TorchEngine builds one
+    for a batch with one long read: the 70,000-base read (row 1,000) among
+    4,095 R1 reads of 150 bases from gen_block, every row padded to 70,016
+    bases (codes 287 MB, pass-1 results 1.15 GB, pass-2 results 2.29 GB).
+    Each kernel bit-equal to its plain version (plain in chunks of rows:
+    its intermediates at the whole lane would not fit on the card), with
+    the default caps and on the global route, timed, beside the parent's
+    kernels where given, with its bound from what the rows need ->
+    {kernel: record}."""
+    import torch
+
+    from genefuserust_tpu_torch.config import PASS1_STEP
+    from genefuserust_tpu_torch.core.sequence import BASE_CODE_LUT
+    from genefuserust_tpu_torch.ops import map_read as tm
+
+    dev = kv2.table.device
+    B = WIDE_LANE_ROWS
+    long_row = min(1000, B // 2)
+    W = -(-len(wide_read) // 32) * 32
+    short = torch.from_numpy(BASE_CODE_LUT[data["block"][0][: B - 1]])
+    codes = torch.full((B, W), 255, dtype=torch.uint8, device=dev)
+    rows = torch.cat([torch.arange(long_row), torch.arange(long_row + 1, B)]).to(dev)
+    codes[rows, : short.shape[1]] = short.to(dev)
+    codes[long_row, : len(wide_read)] = torch.from_numpy(
+        BASE_CODE_LUT[np.frombuffer(wide_read.encode(), np.uint8)]).to(dev)
+    lens = torch.full((B,), short.shape[1], dtype=torch.int32, device=dev)
+    lens[rows] = torch.from_numpy(data["block"][2][: B - 1].astype(np.int32)).to(dev)
+    lens[long_row] = len(wide_read)
+    pr = tm.probe(codes, lens, PASS1_STEP, kv2)
+    recs = {}
+
+    def record(name, key, fn, plain_fn, need_bytes, ops, global_fn, parent_fn):
+        got, err, ms, pms = _timed_pair(f"{name} (4,096-row lane)", fn, plain_fn, reps=reps,
+                                        plain_reps=1)
+        r = dict(err=err, ms=ms, plain_ms=pms, **bound(need_bytes, ops),
+                 shape=f"kv2, {B} rows of width {W}")
+        r["global_ms"] = wide_global(f"{name} (4,096-row lane, global route)", global_fn, got)
+        if key in ("vote_wide", "vote_counts_wide"):
+            r["device_ms"] = wide_vote_device_ms(pr, kv2, lens, key == "vote_counts_wide", got)
+        if parent_fn is not None:
+            r["parent_ms"] = parent_ms(f"{name} (4,096-row lane)", parent_fn, got, reps)
+        recs[key] = r
+        say("13 sharded", kernel=key, lane=f"{B}x{W}", ms=f"{ms:.4f}",
+            plain_ms=f"{r['plain_ms']:.1f}", bound_ms=f"{r['bound_ms']:.5f}",
+            bound_by=r["bound_by"], global_ms=f"{r['global_ms']:.4f}",
+            device_ms=f"{r['device_ms']:.4f}" if "device_ms" in r else "-",
+            parent_ms=f"{r['parent_ms']:.4f}" if "parent_ms" in r else "not run",
+            max_abs_err=err)
+        return got
+
+    need = vote_need(pr, lens, kv2)
+    vops = OPS["vote_sample"] * need["samples"] + OPS["vote_candidate"] * need["keys"]
+    v = record("vote", "vote_wide", lambda: tm.vote(pr, kv2, 40, 20, lens),
+               lambda: _chunked(tm.vote_plain, [pr], 256, kv2, 40, 20), need["bytes"] + B * 20,
+               vops, lambda: tm.vote(pr, kv2, 40, 20, lens, VOTE_CAP),
+               base and (lambda: base.vote(pr, kv2, 40, 20)))
+    record("vote_counts", "vote_counts_wide", lambda: tm.vote_counts(pr, kv2, lens),
+           lambda: _chunked(tm.vote_counts_plain, [pr], 256, kv2), need["bytes"] + B * 24, vops,
+           lambda: tm.vote_counts(pr, kv2, lens, VOTE_CAP),
+           base and (lambda: base.vote(pr, kv2, 0, 0, True)))
+    del pr
+    gp = v[:, 1:5].contiguous()
+    pr1 = tm.probe(codes, lens, 1, kv2)
+    del codes
+    NK = pr1.shape[1]
+    mneed = mask_need(pr1, lens, kv2)
+    seg = record("mask_segments", "mask_segments_wide",
+                 lambda: tm.mask_segments(pr1, lens, gp, kv2, 10),
+                 lambda: _chunked(tm.mask_segments_plain, [pr1, lens, gp], 64, kv2, 10),
+                 mneed["bytes"] + B * 40,
+                 OPS["mask_candidate"] * mneed["cand"] + OPS["mask_base"] * mneed["bases"],
+                 lambda: tm.mask_segments(pr1, lens, gp, kv2, 10, MASK_CAP),
+                 base and (lambda: base.mask(pr1, lens, gp, kv2, 10)))
+    words = tm.shard_flags(pr1, gp, kv2, torch.zeros((B, tm.flag_words(NK), 2),
+                                                     dtype=torch.int32, device=dev))
+    check(torch.equal(words, _chunked(tm.shard_flags_plain, [pr1, gp], 64, kv2)),
+          "4,096-row lane: shard_flags differs from plain")
+    del pr1
+    fseg = record("mask_from_flags", "mask_from_flags_wide",
+                  lambda: tm.mask_from_flags(words, lens, gp, NK, 10),
+                  lambda: _chunked(lambda w, n, g: tm.mask_from_flags_plain(w, n, g, NK, 10),
+                                   [words, lens, gp], 256),
+                  flags_need(lens, NK) + B * 40, OPS["mask_base"] * int(lens.long().sum()),
+                  lambda: tm.mask_from_flags(words, lens, gp, NK, 10, MASK_CAP),
+                  base and (lambda: base.mask_from_flags(words, lens, gp, NK, 10)))
+    check(torch.equal(fseg, seg), "4,096-row lane: mask from flags differs from mask+segments")
+    check(int(seg[long_row, 4:6].max()) > tm.MASK_MAX_WIDTH,
+          "4,096-row lane: the long row's chains end before 65,535")
+    del words, gp, v, seg, fseg
+    torch.cuda.empty_cache()
+    return recs
 
 
 def probe_long_rows(data: dict, codes, lens, reps=10, plain_reps=1) -> dict:
@@ -2330,6 +2741,9 @@ def main(argv=None) -> int:
     ap.add_argument("--glue-baseline", metavar="DIR",
                     help="another checkout's csrc/: phase 3 also times its fused_glue.cu's "
                          "lane unpack and compaction")
+    ap.add_argument("--wide-baseline", metavar="DIR",
+                    help="another checkout's csrc/: phases 3 and 13 also time its vote.cu's "
+                         "and mask_segments.cu's kernels on the same inputs")
     args = ap.parse_args(argv)
     import torch
 
@@ -2364,7 +2778,8 @@ def main(argv=None) -> int:
             reads_s=f"{time.perf_counter() - t0:.1f}", pairs=CLI_PAIRS)
         data = dict(seed=args.seed, workdir=workdir, fa=fa, csv=csv, exons=exons,
                     mapper=mapper, blk=blk, block=block, log=log,
-                    probe_sweep=args.probe_sweep, glue_baseline=args.glue_baseline)
+                    probe_sweep=args.probe_sweep, glue_baseline=args.glue_baseline,
+                    wide_baseline=args.wide_baseline)
         if args.profile_only:
             pack_kv2(data)
             phase_profile(data)
@@ -2450,7 +2865,8 @@ def main(argv=None) -> int:
     launches["probe_long"] = multi_device["launches"]
     extra = ("shape", "wide", "rows_needed", "rows_loaded", "h1_hit_share", "main_path_flushes",
              "fusion_rich_launches", "hits", "stride1_ms", "stride1_bound_ms", "edge_ms",
-             "pair", "library_with_build_ms")
+             "pair", "library_with_build_ms", "padded_bound_ms", "global_ms", "parent_ms",
+             "again_ms", "device_ms", "rows4096")
     kernels = [
         dict(name=k, route="cuda",
              source=f"genefuserust_tpu_torch/csrc/{sources.get(k, k)}.cu",

@@ -65,4 +65,32 @@ __device__ __forceinline__ long long gplong_hl(int32_t hi, int32_t lo) {
   return (long long)(((unsigned long long)(uint32_t)hi << 32) | (uint32_t)lo);
 }
 
+// The max of v over the threads of the block before this one (-1 for
+// none); `total` gets the max over the whole block. sm: 32 ints of shared
+// memory. Every thread of the block calls it; it holds two barriers.
+__device__ __forceinline__ int block_excl_max(int v, int* sm, int& total) {
+  constexpr unsigned ALL = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(ALL, incl, o);
+    if (lane >= o) incl = max(incl, t);
+  }
+  if (lane == 31) sm[warp] = incl;
+  __syncthreads();
+  // the warps' maxima, scanned in one warp's lanes
+  int w = lane < (int)(blockDim.x >> 5) ? sm[lane] : -1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(ALL, w, o);
+    if (lane >= o) w = max(w, t);
+  }
+  total = __shfl_sync(ALL, w, 31);
+  const int earlier = __shfl_sync(ALL, w, (warp + 31) & 31);
+  const int up = __shfl_up_sync(ALL, incl, 1);
+  __syncthreads();
+  return max(warp ? earlier : -1, lane ? up : -1);
+}
+
 }  // namespace gf

@@ -29,10 +29,26 @@
 // as (length + 1) << 16 | (0xFFFF - end). tests/test_torch_map_read.py
 // mirrors these steps (_kernel_mask_segments) and holds them to JAX.
 //
-// Rows wider than MASK_MAX_L bases (WIDE): the keys are 64-bit, (length +
-// 1) << 32 | (0xFFFFFFFF - end), and the warp's words live in a global
-// scratch slice the wrapper allocates, since they may not fit in shared
-// memory; every step is the same.
+// Rows wider than MASK_MAX_L bases take the wide launch (WIDE): chain keys
+// are 64-bit, (length + 1) << 32 | (0xFFFFFFFF - end). A batch holding one
+// long read pads every row to it, so what bounds the wide launch is the
+// rows' own lengths: a 150-base row of a 70,016-base batch needs 5 of its
+// 2,188 words, and a long row is serial work for one warp. The design:
+//   - every loop of a row stops at its own last word, ceil(min(len, L) /
+//     32) (the words past it hold no in-bounds base), so a short row costs
+//     what it costs on the narrow launch;
+//   - a block is MASK_WIDE_WARPS warps, a row a warp; a row of at most
+//     MASK_WARP_WORDS words (2,048 bases) keeps its words in its warp's
+//     slice of shared memory and runs the narrow steps;
+//   - a longer row is taken by the whole block after its warps' rows: the
+//     flag chunks spread over the warps (raw ballots into shared memory,
+//     then the window a word a thread, so neighbour words cross warp
+//     ranges after a barrier), then linked and chain ends a word a
+//     thread, the chain heads carried across warps and rounds by a block
+//     exclusive max-scan, the longest chains and the mismatch count by
+//     block reductions. Its words stay in shared memory up to the cap
+//     (224 KB: 14,336 words, 458,752 bases) and go to a global slice of
+//     the block's only past it.
 //
 // The contig-sharded index (parallel/sharded_index.py) splits the kernel
 // at its flags: shard_flags_kernel ORs each shard's per-k-mer flags into
@@ -222,8 +238,12 @@ __device__ __forceinline__ void segment(chain_t<WIDE> key, int32_t& valid, int32
 }
 
 // A warp's four word arrays of nw words each: mask 3, mask >= 2, linked
-// bases of targets 3 and 2. Shared memory, or (WIDE) the row's slice of
-// global scratch.
+// bases of targets 3 and 2, in its slice of shared memory. The narrow
+// kernels below run with WIDE = false and scratch NULL only (the wide
+// launch has kernels of its own); they keep the parameter list they had
+// when they also served wide rows, because dropping the unused template
+// and pointer changes their machine code (cuobjdump -sass), and their
+// times are held to the earlier build's.
 template <bool WIDE>
 __device__ __forceinline__ uint32_t* warp_words(uint32_t* smem, uint32_t* scratch, int warp,
                                                 int b, int nw) {
@@ -425,21 +445,390 @@ mask_from_flags_kernel(const uint2* __restrict__ words, const int32_t* __restric
                             __ldg(gp + 4 * b + 3), lane, out + (size_t)b * 10);
 }
 
-// Warps a block and dynamic shared memory of a mask launch: narrow rows
-// keep their words in shared memory (16 bytes a mask word), WIDE rows in
-// scratch.
+
+// ---------------- the wide launch: a row a warp, long rows a block ----------------
+
+// The best chain key over word w's chain ends e: each end's head is the
+// last head hd at or before it in the word, else `before` (the last head
+// in an earlier word); 64-bit keys.
+__device__ __forceinline__ unsigned long long word_chains(int w, uint32_t hd, uint32_t e,
+                                                          int before) {
+  unsigned long long key = 0;
+  while (e) {
+    const int bit = __ffs(e) - 1;
+    e &= e - 1;
+    const uint32_t hb = hd & (FULL >> (31 - bit));
+    const int head = hb ? 32 * w + 31 - __clz(hb) : before;
+    key = max(key, pack_chain<true>(head, 32 * w + bit));
+  }
+  return key;
+}
+
+// The (10,) output row from the two targets' best 64-bit chain keys.
+__device__ __forceinline__ void write_segments(unsigned long long best3,
+                                               unsigned long long best2, int miss,
+                                               int mismatch_thr, int32_t h1, int32_t l1,
+                                               int32_t h2, int32_t l2, int32_t* __restrict__ o) {
+  int32_t v3, s3, x3, v2, s2, x2;
+  segment<true>(best3, v3, s3, x3);
+  segment<true>(best2, v2, s2, x2);
+  const int32_t ok = miss <= mismatch_thr;
+  o[0] = v3 & ok;
+  o[1] = v2 & ok;
+  o[2] = s3;
+  o[3] = s2;
+  o[4] = x3;
+  o[5] = x2;
+  o[6] = h1;
+  o[7] = h2;
+  o[8] = l1;
+  o[9] = l2;
+}
+
+// linked bases of word w for targets 3 and 2 (ok = mask 3, nothing
+// blocks; ok = mask 2, blocked = mask 3), from (this, previous) words
+__device__ __forceinline__ void word_linked(const uint32_t* m3, const uint32_t* m2, int w,
+                                            int lim, uint32_t& lk3, uint32_t& lk2) {
+  const uint32_t a3 = m3[w] & below(w, lim), a2 = m2[w] & below(w, lim);
+  const uint32_t p3 = w ? m3[w - 1] & below(w - 1, lim) : 0u;
+  const uint32_t p2 = w ? m2[w - 1] & below(w - 1, lim) : 0u;
+  lk3 = linked(a3, p3, 0u, 0u);
+  lk2 = linked(a2 & ~a3, p2 & ~p3, a3, p3);
+}
+
+// heads (ok, not linked, before the last in-bounds base) and chain ends
+// (member whose next ok base is not linked) of word w of nw, both targets
+__device__ __forceinline__ void word_heads_ends(const uint32_t* m3, const uint32_t* m2,
+                                                const uint32_t* lk3, const uint32_t* lk2,
+                                                int w, int nw, int len, int lim, uint32_t& hd3,
+                                                uint32_t& hd2, uint32_t& e3, uint32_t& e2) {
+  const bool more = w + 1 < nw;
+  const uint32_t a3 = m3[w] & below(w, lim), a2 = m2[w] & below(w, lim);
+  const uint32_t n3 = more ? m3[w + 1] & below(w + 1, lim) : 0u;
+  const uint32_t n2 = more ? m2[w + 1] & below(w + 1, lim) : 0u;
+  const uint32_t k3 = lk3[w], k2 = lk2[w];
+  const uint32_t nk3 = more ? lk3[w + 1] : 0u, nk2 = more ? lk2[w + 1] : 0u;
+  const uint32_t o2 = a2 & ~a3, no2 = n2 & ~n3, last = below(w, len - 1);
+  hd3 = a3 & ~k3 & last;
+  hd2 = o2 & ~k2 & last;
+  e3 = (k3 | hd3) & ~next_linked(k3, nk3, a3, n3);
+  e2 = (k2 | hd2) & ~next_linked(k2, nk2, o2, no2);
+}
+
+// A short row of the wide launch by its warp, the narrow kernel's steps on
+// the row's own nw words: its flags, mask words and chains, the words in
+// m3 (four arrays of nw words: mask 3, mask >= 2, linked bases of targets
+// 3 and 2).
+template <bool SPLIT>
+__device__ __forceinline__ void warp_mask_row(const int2* __restrict__ row, int NK, int nw,
+                                              int len, int lim, const int32_t* __restrict__ gpb,
+                                              const int32_t* __restrict__ dupes, int dstride,
+                                              int D, int cbits, int pos_bias, int mismatch_thr,
+                                              uint32_t* m3, int lane, int32_t* __restrict__ o) {
+  uint32_t* m2 = m3 + nw;
+  const int32_t h1 = __ldg(gpb), l1 = __ldg(gpb + 1);
+  const int32_t h2 = __ldg(gpb + 2), l2 = __ldg(gpb + 3);
+  const long long g1 = gplong_hl(h1, l1), g2 = gplong_hl(h2, l2);
+
+  // flags -> mask words; chunk c of k-mers gives mask word c
+  uint32_t pf3 = 0, pf2 = 0;
+  int miss = 0;
+  for (int c0 = 0; c0 < nw; c0 += MASK_GROUP) {
+    int2 r[MASK_GROUP];
+    DupeRow<SPLIT> dr[MASK_GROUP];
+#pragma unroll
+    for (int j = 0; j < MASK_GROUP; ++j) {
+      const int i = (c0 + j) * 32 + lane;
+      r[j] = i < NK ? __ldg(row + i) : make_int2(EMPTY, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < MASK_GROUP; ++j)
+      if (r[j].x == DUPE && D > 1) dr[j].load(dupes, r[j].y, dstride, D);
+#pragma unroll
+    for (int j = 0; j < MASK_GROUP; ++j) {
+      const int c = c0 + j;
+      if (c >= nw) break;
+      const int f = kmer_flag<SPLIT>(r[j], dr[j], c * 32 + lane, g1, g2, D, cbits, pos_bias);
+      const uint32_t f3 = __ballot_sync(FULL, f == 3), f2 = __ballot_sync(FULL, f >= 2);
+      const uint32_t w3 = window16(f3, pf3), w2 = window16(f2, pf2);
+      pf3 = f3;
+      pf2 = f2;
+      if (lane == 0) {
+        m3[c] = w3;
+        m2[c] = w2;
+      }
+      miss += __popc(~w2 & below(c, lim));
+    }
+  }
+  __syncwarp();
+  segments_from_words<true>(m3, nw, len, lim, miss, mismatch_thr, h1, l1, h2, l2, lane, o);
+}
+
+constexpr int MASK_WIDE_WARPS = 16;  // rows a block of the wide launch
+constexpr int MASK_WARP_WORDS = 64;  // the longest row a warp takes there: 2,048 bases
+constexpr int MASK_SMEM_CAP = 224 * 1024;  // a block's words in shared memory, at most
+
+// The wide launch's static shared memory: the rows its block takes, and
+// the block scans' and reductions' slots.
+struct WideShared {
+  int block_row[MASK_WIDE_WARPS];
+  int sm[32];
+  unsigned long long red[32];
+};
+
+__device__ __forceinline__ unsigned long long block_max_u64(unsigned long long v,
+                                                            unsigned long long* red) {
+  v = warp_max_chain<true>(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) v = max(v, red[w]);
+  __syncthreads();
+  return v;
+}
+
+__device__ __forceinline__ int block_sum(int v, int* sm) {
+  v = (int)__reduce_add_sync(FULL, (unsigned)v);
+  if ((threadIdx.x & 31) == 0) sm[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) v += sm[w];
+  __syncthreads();
+  return v;
+}
+
+// segments_from_words by the whole block, a word a thread: m3 holds the
+// row's four arrays of nw words, the mask words written; miss is its
+// mismatch count. The chain heads are carried across warps and rounds of
+// blockDim.x words by block max-scans.
+__device__ void block_segments(uint32_t* m3, int nw, int len, int lim, int miss,
+                               int mismatch_thr, const int32_t* __restrict__ gpb,
+                               WideShared& sh, int32_t* __restrict__ o) {
+  uint32_t* m2 = m3 + nw;
+  uint32_t* lk3 = m2 + nw;
+  uint32_t* lk2 = lk3 + nw;
+  for (int w = threadIdx.x; w < nw; w += blockDim.x) word_linked(m3, m2, w, lim, lk3[w], lk2[w]);
+  __syncthreads();
+  unsigned long long best3 = 0, best2 = 0;
+  int carry3 = -1, carry2 = -1;
+  for (int w0 = 0; w0 < nw; w0 += blockDim.x) {
+    const int w = w0 + threadIdx.x;
+    uint32_t hd3 = 0, hd2 = 0, e3 = 0, e2 = 0;
+    if (w < nw) word_heads_ends(m3, m2, lk3, lk2, w, nw, len, lim, hd3, hd2, e3, e2);
+    int all3, all2;
+    const int before3 = block_excl_max(hd3 ? 32 * w + 31 - __clz(hd3) : -1, sh.sm, all3);
+    const int before2 = block_excl_max(hd2 ? 32 * w + 31 - __clz(hd2) : -1, sh.sm, all2);
+    best3 = max(best3, word_chains(w, hd3, e3, max(carry3, before3)));
+    best2 = max(best2, word_chains(w, hd2, e2, max(carry2, before2)));
+    carry3 = max(carry3, all3);
+    carry2 = max(carry2, all2);
+  }
+  best3 = block_max_u64(best3, sh.red);
+  best2 = block_max_u64(best2, sh.red);
+  if (threadIdx.x == 0)
+    write_segments(best3, best2, miss, mismatch_thr, __ldg(gpb), __ldg(gpb + 1),
+                         __ldg(gpb + 2), __ldg(gpb + 3), o);
+  __syncthreads();  // the words and slots are the next row's
+}
+
+// A long row's flags and mask words by the whole block: each warp ballots
+// a range of chunks of 32 k-mers into raw flag words (in the linked
+// arrays' slots), then after a barrier each thread windows a word with its
+// neighbour -> the mismatch count; then block_segments.
+template <bool SPLIT>
+__device__ void block_mask_row(const int2* __restrict__ row, int NK, int nw, int len, int lim,
+                               const int32_t* __restrict__ gpb,
+                               const int32_t* __restrict__ dupes, int dstride, int D,
+                               int cbits, int pos_bias, int mismatch_thr, uint32_t* m3,
+                               WideShared& sh, int32_t* __restrict__ o) {
+  uint32_t* m2 = m3 + nw;
+  uint32_t* f3 = m2 + nw;
+  uint32_t* f2 = f3 + nw;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const long long g1 = gplong_hl(__ldg(gpb), __ldg(gpb + 1));
+  const long long g2 = gplong_hl(__ldg(gpb + 2), __ldg(gpb + 3));
+  const int per = (nw + warps - 1) / warps;
+  const int cb = min(nw, warp * per), ce = min(nw, cb + per);
+  for (int c0 = cb; c0 < ce; c0 += MASK_GROUP) {
+    int2 r[MASK_GROUP];
+    DupeRow<SPLIT> dr[MASK_GROUP];
+#pragma unroll
+    for (int j = 0; j < MASK_GROUP; ++j) {
+      const int i = (c0 + j) * 32 + lane;
+      r[j] = c0 + j < ce && i < NK ? __ldg(row + i) : make_int2(EMPTY, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < MASK_GROUP; ++j)
+      if (r[j].x == DUPE && D > 1) dr[j].load(dupes, r[j].y, dstride, D);
+#pragma unroll
+    for (int j = 0; j < MASK_GROUP; ++j) {
+      const int c = c0 + j;
+      if (c >= ce) break;
+      const int f = kmer_flag<SPLIT>(r[j], dr[j], c * 32 + lane, g1, g2, D, cbits, pos_bias);
+      const uint32_t b3 = __ballot_sync(FULL, f == 3), b2 = __ballot_sync(FULL, f >= 2);
+      if (lane == 0) {
+        f3[c] = b3;
+        f2[c] = b2;
+      }
+    }
+  }
+  __syncthreads();
+  int miss = 0;
+  for (int c = threadIdx.x; c < nw; c += blockDim.x) {
+    const uint32_t w2 = window16(f2[c], c ? f2[c - 1] : 0u);
+    m3[c] = window16(f3[c], c ? f3[c - 1] : 0u);
+    m2[c] = w2;
+    miss += __popc(~w2 & below(c, lim));
+  }
+  miss = block_sum(miss, sh.sm);  // its barriers also publish the mask words
+  block_segments(m3, nw, len, lim, miss, mismatch_thr, gpb, sh, o);
+}
+
+// The wide launch's row split: row b's own words, and whether it is a
+// block's row (past MASK_WARP_WORDS words) -> its words' address. Rows of
+// a block's rows keep their words in shared memory when 4 * nwr words fit
+// in the block's smem_words, else in the block's slice of `scratch`.
+__device__ __forceinline__ uint32_t* block_words(uint32_t* smem, int smem_words,
+                                                 uint32_t* scratch, int nw, int nwr) {
+  return 4 * nwr <= smem_words ? smem : scratch + (size_t)blockIdx.x * 4 * nw;
+}
+
+template <bool SPLIT>
+__global__ void __launch_bounds__(32 * MASK_WIDE_WARPS)
+mask_segments_wide_kernel(const int32_t* __restrict__ pr, const int32_t* __restrict__ lengths,
+                          const int32_t* __restrict__ gp, int B, int NK,
+                          const int32_t* __restrict__ dupes, int dstride, int D, int cbits,
+                          int pos_bias, int mismatch_thr, int smem_words,
+                          uint32_t* __restrict__ scratch, int32_t* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  __shared__ WideShared sh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * MASK_WIDE_WARPS + warp;
+  const int L = NK + KMER - 1, nw = (L + 31) >> 5;
+  const int2* rows = reinterpret_cast<const int2*>(pr);
+  const int len = b < B ? __ldg(lengths + b) : 0;
+  const int nwr = (min(len, L) + 31) >> 5;
+  const bool big = b < B && nwr > MASK_WARP_WORDS;
+  if (b < B && !big)
+    warp_mask_row<SPLIT>(rows + (size_t)b * NK, NK, nwr, len, min(len, L), gp + 4 * b,
+                               dupes, dstride, D, cbits, pos_bias, mismatch_thr,
+                               smem + (size_t)warp * 4 * MASK_WARP_WORDS, lane,
+                               out + (size_t)b * 10);
+  if (lane == 0) sh.block_row[warp] = big ? b : -1;
+  if (!__syncthreads_or(big)) return;
+  for (int w = 0; w < MASK_WIDE_WARPS; ++w) {
+    const int rb = sh.block_row[w];
+    if (rb < 0) continue;
+    const int rlen = __ldg(lengths + rb), rlim = min(rlen, L), rnw = (rlim + 31) >> 5;
+    block_mask_row<SPLIT>(rows + (size_t)rb * NK, NK, rnw, rlen, rlim, gp + 4 * rb, dupes,
+                          dstride, D, cbits, pos_bias, mismatch_thr,
+                          block_words(smem, smem_words, scratch, nw, rnw), sh,
+                          out + (size_t)rb * 10);
+  }
+}
+
+// A short row of mask_from_flags_wide_kernel by its warp: the window and
+// the mismatch count one word a lane over the row's own nw words, then the
+// same chains; `row` holds the padded row's words.
+__device__ __forceinline__ void warp_flags_row(const uint2* __restrict__ row, int nw, int len,
+                                               int lim, const int32_t* __restrict__ gpb,
+                                               int mismatch_thr, uint32_t* m3, int lane,
+                                               int32_t* __restrict__ o) {
+  uint32_t* m2 = m3 + nw;
+  int miss = 0;
+  for (int w0 = 0; w0 < nw; w0 += 32) {
+    const int c = w0 + lane;
+    if (c < nw) {
+      const uint2 f = __ldg(row + c), pf = c ? __ldg(row + c - 1) : make_uint2(0u, 0u);
+      const uint32_t w2 = window16(f.y, pf.y);
+      m3[c] = window16(f.x, pf.x);
+      m2[c] = w2;
+      miss += __popc(~w2 & below(c, lim));
+    }
+  }
+  miss = (int)__reduce_add_sync(FULL, (unsigned)miss);
+  __syncwarp();
+  segments_from_words<true>(m3, nw, len, lim, miss, mismatch_thr, __ldg(gpb), __ldg(gpb + 1),
+                            __ldg(gpb + 2), __ldg(gpb + 3), lane, o);
+}
+
+// mask_segments_wide_kernel from merged flag words: a row a warp, long
+// rows a block (the window a word a thread, then block_segments).
+__global__ void __launch_bounds__(32 * MASK_WIDE_WARPS)
+mask_from_flags_wide_kernel(const uint2* __restrict__ words,
+                            const int32_t* __restrict__ lengths, const int32_t* __restrict__ gp,
+                            int B, int NK, int mismatch_thr, int smem_words,
+                            uint32_t* __restrict__ scratch, int32_t* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  __shared__ WideShared sh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * MASK_WIDE_WARPS + warp;
+  const int L = NK + KMER - 1, nw = (L + 31) >> 5;
+  const int len = b < B ? __ldg(lengths + b) : 0;
+  const int nwr = (min(len, L) + 31) >> 5;
+  const bool big = b < B && nwr > MASK_WARP_WORDS;
+  if (b < B && !big)
+    warp_flags_row(words + (size_t)b * nw, nwr, len, min(len, L), gp + 4 * b,
+                         mismatch_thr, smem + (size_t)warp * 4 * MASK_WARP_WORDS, lane,
+                         out + (size_t)b * 10);
+  if (lane == 0) sh.block_row[warp] = big ? b : -1;
+  if (!__syncthreads_or(big)) return;
+  for (int w = 0; w < MASK_WIDE_WARPS; ++w) {
+    const int rb = sh.block_row[w];
+    if (rb < 0) continue;
+    const int rlen = __ldg(lengths + rb), rlim = min(rlen, L), rnw = (rlim + 31) >> 5;
+    uint32_t* m3 = block_words(smem, smem_words, scratch, nw, rnw);
+    uint32_t* m2 = m3 + rnw;
+    const uint2* row = words + (size_t)rb * nw;
+    int miss = 0;
+    for (int c = threadIdx.x; c < rnw; c += blockDim.x) {
+      const uint2 f = __ldg(row + c), pf = c ? __ldg(row + c - 1) : make_uint2(0u, 0u);
+      const uint32_t w2 = window16(f.y, pf.y);
+      m3[c] = window16(f.x, pf.x);
+      m2[c] = w2;
+      miss += __popc(~w2 & below(c, rlim));
+    }
+    miss = block_sum(miss, sh.sm);
+    block_segments(m3, rnw, rlen, rlim, miss, mismatch_thr, gp + 4 * rb, sh,
+                   out + (size_t)rb * 10);
+  }
+}
+
+// Warps a block and dynamic shared memory of a narrow mask launch: the
+// rows keep their words in shared memory, 16 bytes a mask word.
 struct MaskLaunch {
   dim3 grid, block;
   size_t smem;
 };
 
-inline MaskLaunch mask_launch(int B, int NK, bool wide) {
+inline MaskLaunch mask_launch(int B, int NK) {
   const int nw = (NK + KMER - 1 + 31) / 32;
-  const size_t warp_bytes = wide ? 0 : 16 * (size_t)nw;
-  const int warps = wide ? MASK_WARPS
-                         : (int)std::max<size_t>(
-                               1, std::min<size_t>(MASK_WARPS, 48 * 1024 / warp_bytes));
+  const size_t warp_bytes = 16 * (size_t)nw;
+  const int warps =
+      (int)std::max<size_t>(1, std::min<size_t>(MASK_WARPS, 48 * 1024 / warp_bytes));
   return {dim3((B + warps - 1) / warps), dim3(32 * warps), warps * warp_bytes};
+}
+
+// The wide launch's shared memory: the warps' slices, or a long row's
+// 16 bytes a word when they fit in `cap` bytes; a row past what the
+// launch holds takes the block's slice of scratch (4 * nw words a block).
+struct WideLaunch {
+  dim3 grid, block;
+  size_t smem;
+  bool needs_scratch;
+};
+
+inline WideLaunch wide_launch(int B, int NK, int cap) {
+  const size_t nw = (NK + KMER - 1 + 31) / 32;
+  const size_t slices = (size_t)MASK_WIDE_WARPS * 16 * MASK_WARP_WORDS, row = 16 * nw;
+  const size_t smem = row <= (size_t)cap ? std::max(slices, row) : slices;
+  return {dim3((B + MASK_WIDE_WARPS - 1) / MASK_WIDE_WARPS), dim3(32 * MASK_WIDE_WARPS), smem,
+          row > smem};
+}
+
+template <typename K>
+inline cudaError_t allow_smem(K kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace gf
@@ -448,31 +837,41 @@ inline MaskLaunch mask_launch(int B, int NK, bool wide) {
 // rows (width L = NK + 15); gp: (B, 4) int32 [h1, l1, h2, l2] from the
 // vote. out: (B, 10) int32 [valid0, valid1, start0, start1, end0, end1,
 // h1, h2, l1, l2] (segment 0 = top target 3, 1 = second target 2). kv
-// dupe rows (split == 0) are 8 payloads, 16-byte aligned. scratch: NULL
-// for L <= 65535; for wider rows, 4 * B * ceil(L / 32) uint32.
+// dupe rows (split == 0) are 8 payloads, 16-byte aligned. Rows wider than
+// 65,535 bases take the wide launch: smem_cap (at most MASK_SMEM_CAP) is
+// the shared memory a block may give a long row's words; scratch: NULL
+// when 16 * ceil(L / 32) bytes fit in max(smem_cap, the warps' 16 KB),
+// else ceil(B / MASK_WIDE_WARPS) * 4 * ceil(L / 32) uint32.
 extern "C" int gf_mask_segments(const void* pr, const void* lengths, const void* gp,
                                 int B, int NK, const void* dupes, int dstride, int D,
                                 int split, int cbits, int pos_bias, int mismatch_thr,
-                                void* scratch, void* out, void* stream) {
+                                int smem_cap, void* scratch, void* out, void* stream) {
   const bool wide = NK + gf::KMER - 1 > gf::MASK_MAX_L;
-  if (B < 0 || NK < 1 || (wide && scratch == nullptr)) return (int)cudaErrorInvalidValue;
+  if (B < 0 || NK < 1 || smem_cap < 0 || smem_cap > gf::MASK_SMEM_CAP)
+    return (int)cudaErrorInvalidValue;
   if (!split && D > 1 && (D > 8 || dstride % 4 || dstride < 8 || (uintptr_t)dupes % 16))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const gf::MaskLaunch m = gf::mask_launch(B, NK, wide);
   cudaStream_t st = (cudaStream_t)stream;
   auto p = (const int32_t*)pr;
   auto n = (const int32_t*)lengths;
   auto g = (const int32_t*)gp;
   auto d = (const int32_t*)dupes;
-  auto w = (uint32_t*)scratch;
   auto o = (int32_t*)out;
-  auto kern = split ? (wide ? gf::mask_segments_kernel<true, true>
-                            : gf::mask_segments_kernel<true, false>)
-                    : (wide ? gf::mask_segments_kernel<false, true>
-                            : gf::mask_segments_kernel<false, false>);
+  if (!wide) {
+    const gf::MaskLaunch m = gf::mask_launch(B, NK);
+    auto kern = split ? gf::mask_segments_kernel<true, false> : gf::mask_segments_kernel<false, false>;
+    kern<<<m.grid, m.block, m.smem, st>>>(p, n, g, B, NK, d, dstride, D, cbits, pos_bias,
+                                          mismatch_thr, nullptr, o);
+    return (int)cudaGetLastError();
+  }
+  const gf::WideLaunch m = gf::wide_launch(B, NK, smem_cap);
+  if (m.needs_scratch && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  auto kern = split ? gf::mask_segments_wide_kernel<true> : gf::mask_segments_wide_kernel<false>;
+  cudaError_t e = gf::allow_smem(kern, m.smem);
+  if (e != cudaSuccess) return (int)e;
   kern<<<m.grid, m.block, m.smem, st>>>(p, n, g, B, NK, d, dstride, D, cbits, pos_bias,
-                                        mismatch_thr, w, o);
+                                        mismatch_thr, (int)(m.smem / 4), (uint32_t*)scratch, o);
   return (int)cudaGetLastError();
 }
 
@@ -497,17 +896,29 @@ extern "C" int gf_shard_flags(const void* pr, const void* gp, int B, int NK, con
 }
 
 // gf_mask_segments from merged flag words (B, ceil((NK + 15) / 32), 2):
-// the same out rows; scratch as gf_mask_segments'.
+// the same out rows; smem_cap and scratch as gf_mask_segments'.
 extern "C" int gf_mask_from_flags(const void* words, const void* lengths, const void* gp,
-                                  int B, int NK, int mismatch_thr, void* scratch, void* out,
-                                  void* stream) {
+                                  int B, int NK, int mismatch_thr, int smem_cap, void* scratch,
+                                  void* out, void* stream) {
   const bool wide = NK + gf::KMER - 1 > gf::MASK_MAX_L;
-  if (B < 0 || NK < 1 || (wide && scratch == nullptr)) return (int)cudaErrorInvalidValue;
+  if (B < 0 || NK < 1 || smem_cap < 0 || smem_cap > gf::MASK_SMEM_CAP)
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const gf::MaskLaunch m = gf::mask_launch(B, NK, wide);
-  auto kern = wide ? gf::mask_from_flags_kernel<true> : gf::mask_from_flags_kernel<false>;
-  kern<<<m.grid, m.block, m.smem, (cudaStream_t)stream>>>(
-      (const uint2*)words, (const int32_t*)lengths, (const int32_t*)gp, B, NK, mismatch_thr,
-      (uint32_t*)scratch, (int32_t*)out);
+  cudaStream_t st = (cudaStream_t)stream;
+  auto w = (const uint2*)words;
+  auto n = (const int32_t*)lengths;
+  auto g = (const int32_t*)gp;
+  auto o = (int32_t*)out;
+  if (!wide) {
+    const gf::MaskLaunch m = gf::mask_launch(B, NK);
+    gf::mask_from_flags_kernel<false><<<m.grid, m.block, m.smem, st>>>(w, n, g, B, NK, mismatch_thr, nullptr, o);
+    return (int)cudaGetLastError();
+  }
+  const gf::WideLaunch m = gf::wide_launch(B, NK, smem_cap);
+  if (m.needs_scratch && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t e = gf::allow_smem(gf::mask_from_flags_wide_kernel, m.smem);
+  if (e != cudaSuccess) return (int)e;
+  gf::mask_from_flags_wide_kernel<<<m.grid, m.block, m.smem, st>>>(
+      w, n, g, B, NK, mismatch_thr, (int)(m.smem / 4), (uint32_t*)scratch, o);
   return (int)cudaGetLastError();
 }

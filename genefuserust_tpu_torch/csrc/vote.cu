@@ -37,15 +37,39 @@
 // That barrier costs about nothing: a block retires only when its last
 // warp is done anyway. Nothing but the (B, 5) result goes to device memory.
 //
-// Rows too wide for shared memory (NS * D past MAX_BLOCK_KEYS, code rows
-// of more than ~4,096 bases): the wrapper hands the kernel a list instead,
-// the flagged rows go there, and vote_wide_kernel takes them, one block a
-// row, with its keys in a global scratch slice of its own; the sort, the
-// run lengths and the tie rule are block_vote's.
+// Rows too wide for the block path's shared memory (NS * D past
+// MAX_BLOCK_KEYS, code rows of more than ~4,096 bases) take the wide path:
+// the same vote (map_read_pass1's, or sharded_index.py's counts vote) on
+// rows that are mostly padding. A batch holding one long read pads every
+// row to it, so what bounds the wide path is the rows' own lengths, not
+// the padded width: a 150-base row of a 70,016-base batch holds 68
+// samples of 35,001, and a long row's valid keys (2,267 at 70,000 bases)
+// are a small share of its NS * D slots. The design:
+//   - vote_kernel takes the rows' lengths and walks only the samples
+//     inside a row (s * step <= min(len, L) - 16: every later sample is a
+//     miss); a row of more than VOTE_WALK_MAX samples is listed for the
+//     block without a walk (one warp would walk its chunks of 32 samples
+//     one after another), and so is a walked row of more than WARP_CAP
+//     valid keys;
+//   - vote_wide_kernel gives a listed row a block of 1,024 threads. The
+//     warps count the row's valid keys over ranges of whole chunks, then
+//     ballot-compact them into shared memory at each warp's scanned
+//     offset (no atomics, the order is fixed), a DUPE sample's D slots
+//     read for that sample alone; the block bitonic-sorts just the n keys
+//     (the slots up to next_pow2(n) act as +inf and are never stored);
+//     each thread walks a tile of sorted keys, a run's start reaching
+//     later tiles by a block max-scan, so a run's count comes from
+//     neighbour compares; two block max reductions give the top two. The
+//     results are block_vote's bit for bit, slot_min taking the padded
+//     row's P = NS * D.
+// A row whose count passes the shared-memory cap (28,672 keys) is listed
+// again, with an offset into a global scratch that the wrapper then sizes
+// from those counts, and a second launch of the kernel sorts it there.
 //
 // Counts mode (the contig-sharded index): the same vote, its two entries
 // written as [c1, h1, l1, c2, h2, l2] with no gate; merge_top2_kernel then
 // merges the shards' entries and applies the gate.
+#include <algorithm>
 #include <climits>
 
 #include "common.cuh"
@@ -58,7 +82,10 @@ constexpr int WARP_CAP = 256;  // valid keys a warp sorts in registers (8 a lane
 constexpr unsigned FULL = 0xffffffffu;
 constexpr long long PAD_KEY = LLONG_MAX;  // sorts after every candidate
 constexpr int MAX_BLOCK_KEYS = 16384;  // the block path's keys in shared memory (128 KB)
-constexpr int VOTE_WIDE_THREADS = 512;
+constexpr int VOTE_WIDE_THREADS = 1024;
+constexpr int VOTE_WIDE_GROUP = 4;  // chunks of 32 samples whose loads go out together
+constexpr int VOTE_SMEM_KEYS = 28672;  // the wide path's keys in shared memory (224 KB)
+constexpr int VOTE_WALK_MAX = 2048;  // samples a warp walks on the wide path (~4,110 bases)
 constexpr int MAX_SHARDS = 8;  // merge_top2_kernel keeps 2 * S candidates in registers
 
 // a key that may be voted for: not gplong 0 and not an INT32_MAX contig
@@ -277,8 +304,7 @@ __device__ __forceinline__ long long run_score(const long long* keys, int i, int
 }
 
 // The vote of one read by the whole block, over its valid keys only;
-// `keys` (shared memory, or a block's slice of global scratch) holds at
-// least next_pow2(NS * D) slots.
+// `keys` (shared memory) holds at least next_pow2(NS * D) slots.
 __device__ void block_vote(const int2* __restrict__ row, int NS,
                            const int32_t* __restrict__ dupes, int dstride, int D, bool split,
                            int cbits, int pos_bias, int step, int major_req, int minor_req,
@@ -329,13 +355,30 @@ __device__ void block_vote(const int2* __restrict__ row, int NS,
   __syncthreads();
 }
 
-// wide_rows: NULL, or [count, rows...]: the rows past the warp path are
-// listed there for vote_wide_kernel instead of taken by the block here.
+// Samples of row b inside its length, all NS without lengths: sample s is
+// the k-mer at s * step, inside when s * step <= len - KMER.
+__device__ __forceinline__ int row_samples(const int32_t* __restrict__ lengths, int b, int NS,
+                                           int step) {
+  if (lengths == nullptr) return NS;
+  const int len = __ldg(lengths + b);
+  return len < KMER ? 0 : min(NS, (len - KMER) / step + 1);
+}
+
+// The wide path's int64 list: [rows listed, their keys in the global
+// scratch, rows past the shared-memory cap, listed rows x B, rows past
+// the cap x B, their offsets in the global scratch x B].
+constexpr int WL_ROWS = 0, WL_KEYS = 1, WL_OVER = 2, WL_HEAD = 3;
+
+// lengths: NULL, or the rows' lengths; a row's warp then walks only its
+// samples inside them. wide: NULL, or the wide path's list: the rows past
+// the warp path (more than VOTE_WALK_MAX samples inside, or more than
+// WARP_CAP valid keys) are listed there for vote_wide_kernel instead of
+// taken by the block here.
 __global__ void __launch_bounds__(VOTE_THREADS)
-vote_kernel(const int32_t* __restrict__ pr, int B, int NS,
+vote_kernel(const int32_t* __restrict__ pr, int B, int NS, const int32_t* __restrict__ lengths,
             const int32_t* __restrict__ dupes, int dstride, int D, bool split, int cbits,
             int pos_bias, int step, int major_req, int minor_req, bool counts,
-            int* __restrict__ wide_rows, int32_t* __restrict__ out) {
+            long long* __restrict__ wide, int32_t* __restrict__ out) {
   extern __shared__ long long smem[];
   __shared__ long long red[33];
   __shared__ int over_row[VOTE_WARPS];
@@ -346,23 +389,30 @@ vote_kernel(const int32_t* __restrict__ pr, int B, int NS,
   const int2* rows = reinterpret_cast<const int2*>(pr);
   bool over = false;
   if (b < B) {
-    long long* slice = smem + warp * WARP_CAP;
-    const int n = warp_compact(rows + (long long)b * NS, NS, dupes, dstride, D, split, cbits,
-                               pos_bias, step, lane, slice);
-    __syncwarp();
-    const int P = NS * D;
-    int32_t* o = out + (long long)b * cols;
-    if (n <= 32) warp_vote<1>(slice, n, P, lane, step, major_req, minor_req, counts, o);
-    else if (n <= 64) warp_vote<2>(slice, n, P, lane, step, major_req, minor_req, counts, o);
-    else if (n <= 128) warp_vote<4>(slice, n, P, lane, step, major_req, minor_req, counts, o);
-    else if (n <= WARP_CAP) warp_vote<8>(slice, n, P, lane, step, major_req, minor_req, counts, o);
-    else over = true;
+    const int ns = row_samples(lengths, b, NS, step);
+    if (wide != nullptr && ns > VOTE_WALK_MAX) {
+      over = true;
+    } else {
+      long long* slice = smem + warp * WARP_CAP;
+      const int n = warp_compact(rows + (long long)b * NS, ns, dupes, dstride, D, split, cbits,
+                                 pos_bias, step, lane, slice);
+      __syncwarp();
+      const int P = NS * D;
+      int32_t* o = out + (long long)b * cols;
+      if (n <= 32) warp_vote<1>(slice, n, P, lane, step, major_req, minor_req, counts, o);
+      else if (n <= 64) warp_vote<2>(slice, n, P, lane, step, major_req, minor_req, counts, o);
+      else if (n <= 128) warp_vote<4>(slice, n, P, lane, step, major_req, minor_req, counts, o);
+      else if (n <= WARP_CAP) warp_vote<8>(slice, n, P, lane, step, major_req, minor_req, counts, o);
+      else over = true;
+    }
   }
   if (lane == 0) over_row[warp] = over ? b : -1;
   if (!__syncthreads_or(over)) return;
-  if (wide_rows != nullptr) {
-    if (threadIdx.x < VOTE_WARPS && over_row[threadIdx.x] >= 0)
-      wide_rows[1 + atomicAdd(wide_rows, 1)] = over_row[threadIdx.x];
+  if (wide != nullptr) {
+    if (threadIdx.x < VOTE_WARPS && over_row[threadIdx.x] >= 0) {
+      auto* head = reinterpret_cast<unsigned long long*>(wide);
+      wide[WL_HEAD + atomicAdd(head + WL_ROWS, 1ull)] = over_row[threadIdx.x];
+    }
     return;
   }
   // the warp slices are free now: the block-wide path reuses them
@@ -375,23 +425,175 @@ vote_kernel(const int32_t* __restrict__ pr, int B, int NS,
   }
 }
 
-// The rows vote_kernel listed: block g takes list entries g, g + grid, ...
-// with its keys in scratch[g * P2, (g + 1) * P2).
+// Samples [s0, s1) of a row, one warp: their valid candidate keys -> their
+// number; with WRITE also ballot-compacted into keys[base, ...) in a fixed
+// order. The loads of VOTE_WIDE_GROUP chunks of 32 samples go out
+// together; a DUPE sample's D slots are read for that sample alone.
+template <bool WRITE>
+__device__ __forceinline__ int warp_keys(const int2* __restrict__ row, int s0, int s1,
+                                         const int32_t* __restrict__ dupes, int dstride, int D,
+                                         bool split, int cbits, int pos_bias, int step, int lane,
+                                         long long* keys, long long base) {
+  const unsigned below = (1u << lane) - 1u;
+  int n = 0;
+  for (int c0 = s0; c0 < s1; c0 += 32 * VOTE_WIDE_GROUP) {
+    int2 r[VOTE_WIDE_GROUP];
+#pragma unroll
+    for (int j = 0; j < VOTE_WIDE_GROUP; ++j) {
+      const int s = c0 + 32 * j + lane;
+      r[j] = s < s1 ? __ldg(row + s) : make_int2(EMPTY, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < VOTE_WIDE_GROUP; ++j) {
+      const int s = c0 + 32 * j + lane;
+      const bool reg = r[j].x >= 0;
+      const unsigned rm = __ballot_sync(FULL, reg);
+      if (WRITE && reg) keys[base + n + __popc(rm & below)] = gplong(r[j].x, r[j].y, s * step);
+      n += __popc(rm);
+      unsigned dm = __ballot_sync(FULL, r[j].x == DUPE && D > 1);
+      while (dm) {
+        const int src = __ffs(dm) - 1;
+        dm &= dm - 1;
+        const int drow = __shfl_sync(FULL, r[j].y, src);
+        const int kmer = (c0 + 32 * j + src) * step;
+        for (int d0 = 0; d0 < D; d0 += 32) {
+          const int d = d0 + lane;
+          int32_t cc = 0, cp = 0;
+          const bool v =
+              d < D && expand(DUPE, drow, d, D, split, dupes, dstride, cbits, pos_bias, cc, cp);
+          const unsigned vm = __ballot_sync(FULL, v);
+          if (WRITE && v) keys[base + n + __popc(vm & below)] = gplong(cc, cp, kmer);
+          n += __popc(vm);
+        }
+      }
+    }
+  }
+  return n;
+}
+
+// keys[0, n) sorted ascending by the block: a bitonic network over
+// next_pow2(n) slots whose comparators all put the smaller key at the
+// lower index (each merge starts by comparing mirrored halves), so the
+// slots past n act as +inf, are never stored, and a comparator that
+// reaches one does nothing.
+__device__ void block_sort(long long* keys, int n) {
+  int Pn = 1;
+  while (Pn < n) Pn <<= 1;
+  for (int k = 2; k <= Pn; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const int flip = j == k >> 1 ? k - 1 : j;
+      for (int q = threadIdx.x; q < Pn >> 1; q += blockDim.x) {
+        const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));  // bit j of i is clear
+        const int p = i ^ flip;
+        if (p < n) {
+          const long long a = keys[i], c = keys[p];
+          if (a > c) {
+            keys[i] = c;
+            keys[p] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The vote of one wide row from its n valid keys in `keys` (shared memory,
+// or the row's slice of the global scratch), by the block: sorted, then
+// counted run by run. Each thread walks a tile of consecutive sorted keys;
+// a run starting in an earlier tile gets its start from a block max-scan
+// of the tiles' last starts; a run scores at its last key as (count << 32)
+// | (n - 1 - start), and each thread keeps its best two. P: the padded
+// row's NS * D slots, for slot_min.
+__device__ void sorted_vote(long long* keys, int n, int P, int step, int major_req,
+                            int minor_req, bool counts, long long* red, int* sm, int32_t* o) {
+  block_sort(keys, n);
+  const int per = (n + (int)blockDim.x - 1) / (int)blockDim.x;
+  const int t0 = min(n, (int)threadIdx.x * per), t1 = min(n, t0 + per);
+  int last = -1;
+  for (int i = t0; i < t1; ++i)
+    if (i == 0 || keys[i - 1] != keys[i]) last = i;
+  int all;
+  int start = block_excl_max(last, sm, all);
+  long long b1 = -1, b2 = -1;
+  for (int i = t0; i < t1; ++i) {
+    const long long k = keys[i];
+    if (i == 0 || keys[i - 1] != k) start = i;
+    if ((i + 1 == n || keys[i + 1] != k) && votable(k)) {
+      const long long sc = ((long long)(i + 1 - start) << 32) | (unsigned)(n - 1 - start);
+      if (sc > b1) {
+        b2 = b1;
+        b1 = sc;
+      } else if (sc > b2) {
+        b2 = sc;
+      }
+    }
+  }
+  const long long best1 = block_max(b1, red);
+  const long long best2 = block_max(b1 == best1 ? b2 : b1, red);
+  if (threadIdx.x == 0) {
+    const int i1 = best1 < 0 ? 0 : n - 1 - (int)(best1 & 0xFFFFFFFFLL);
+    const int i2 = best2 < 0 ? 0 : n - 1 - (int)(best2 & 0xFFFFFFFFLL);
+    write_vote(o, best1, keys[i1], best2, keys[i2], slot_min(keys[0], n, P), step, major_req,
+               minor_req, counts);
+  }
+  __syncthreads();  // the keys and slots are the next row's
+}
+
+// The rows vote_kernel listed (global_pass: the rows this kernel listed
+// again, past keys_cap), block g taking entries g, g + grid, ... A row's
+// warps take ranges of whole chunks of 32 samples: they count its valid
+// keys, then (unless the row is past keys_cap on the first pass: it is
+// listed for the global pass with its offset in the scratch) write them at
+// their scanned offsets into shared memory or the row's scratch slice.
 __global__ void __launch_bounds__(VOTE_WIDE_THREADS)
-vote_wide_kernel(const int32_t* __restrict__ pr, int NS, const int32_t* __restrict__ dupes,
+vote_wide_kernel(const int32_t* __restrict__ pr, int B, int NS,
+                 const int32_t* __restrict__ lengths, const int32_t* __restrict__ dupes,
                  int dstride, int D, bool split, int cbits, int pos_bias, int step,
-                 int major_req, int minor_req, bool counts, const int* __restrict__ wide_rows,
-                 long long* __restrict__ scratch, long long P2, int32_t* __restrict__ out) {
+                 int major_req, int minor_req, bool counts, long long* __restrict__ wide,
+                 long long* __restrict__ scratch, int keys_cap, bool global_pass,
+                 int32_t* __restrict__ out) {
+  extern __shared__ long long keys_s[];
   __shared__ long long red[33];
-  __shared__ int count;
+  __shared__ int sm[32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
   const int cols = counts ? 6 : 5;
   const int2* rows = reinterpret_cast<const int2*>(pr);
-  long long* keys = scratch + blockIdx.x * P2;
-  const int n_rows = wide_rows[0];
-  for (int i = blockIdx.x; i < n_rows; i += gridDim.x) {
-    const int b = wide_rows[1 + i];
-    block_vote(rows + (long long)b * NS, NS, dupes, dstride, D, split, cbits, pos_bias, step,
-               major_req, minor_req, counts, keys, red, &count, out + (long long)b * cols);
+  const long long* list = wide + WL_HEAD + (global_pass ? B : 0);
+  const long long n_rows = wide[global_pass ? WL_OVER : WL_ROWS];
+  for (long long i = blockIdx.x; i < n_rows; i += gridDim.x) {
+    const int b = (int)list[i];
+    const int2* row = rows + (long long)b * NS;
+    const int ns = row_samples(lengths, b, NS, step);
+    const int per_warp = ((ns + 31) / 32 + warps - 1) / warps;
+    const int s0 = min(ns, warp * per_warp * 32), s1 = min(ns, s0 + per_warp * 32);
+    const int mine = warp_keys<false>(row, s0, s1, dupes, dstride, D, split, cbits, pos_bias,
+                                      step, lane, nullptr, 0);
+    if (lane == 0) sm[warp] = mine;
+    __syncthreads();
+    int base = 0, n = 0;
+    for (int w = 0; w < warps; ++w) {
+      base += w < warp ? sm[w] : 0;
+      n += sm[w];
+    }
+    __syncthreads();
+    long long* keys = keys_s;
+    if (global_pass) {
+      keys = scratch + wide[WL_HEAD + 2 * B + i];
+    } else if (n > keys_cap) {
+      if (threadIdx.x == 0) {
+        auto* head = reinterpret_cast<unsigned long long*>(wide);
+        const long long k = (long long)atomicAdd(head + WL_OVER, 1ull);
+        wide[WL_HEAD + B + k] = b;
+        wide[WL_HEAD + 2 * B + k] = (long long)atomicAdd(head + WL_KEYS, (unsigned long long)n);
+      }
+      continue;
+    }
+    warp_keys<true>(row, s0, s1, dupes, dstride, D, split, cbits, pos_bias, step, lane, keys,
+                    base);
+    __syncthreads();
+    sorted_vote(keys, n, NS * D, step, major_req, minor_req, counts, red, sm,
+                out + (long long)b * cols);
   }
 }
 
@@ -453,21 +655,22 @@ __global__ void merge_top2_kernel(const int32_t* __restrict__ votes, int S, int 
 }  // namespace gf
 
 // pr: (B, NS, 2) int32 pass-1 probe results (sample s at k-mer s*step).
-// dupes: split (nd, D, 2) pairs / kv (nd, 8) payloads, row stride dstride.
-// out: (B, 5) int32 [ok, h1, l1, h2, l2], or with counts (B, 6) int32
-// [c1, h1, l1, c2, h2, l2]. P2: power of two >= NS*D, the block-wide
-// path's key buffer. wide_rows: NULL, or a zeroed (1 + B) int32 list
-// that the rows past the warp path go to, for gf_vote_wide (needed when
-// P2 > MAX_BLOCK_KEYS: the block path's keys would not fit in shared
-// memory).
-extern "C" int gf_vote(const void* pr, int B, int NS, const void* dupes, int dstride,
-                       int D, int split, int cbits, int pos_bias, int step,
-                       int major_req, int minor_req, int P2, int counts, void* wide_rows,
-                       void* out, void* stream) {
-  if (wide_rows == nullptr && P2 > gf::MAX_BLOCK_KEYS) return (int)cudaErrorInvalidValue;
+// lengths: NULL, or (B,) int32 lengths of the code rows the results came
+// from (a row's samples past its length are then skipped: the probe gives
+// them EMPTY). dupes: split (nd, D, 2) pairs / kv (nd, 8) payloads, row
+// stride dstride. out: (B, 5) int32 [ok, h1, l1, h2, l2], or with counts
+// (B, 6) int32 [c1, h1, l1, c2, h2, l2]. P2: power of two >= NS*D, the
+// block-wide path's key buffer. wide: NULL, or the wide path's list, a
+// (3 + 3B) int64 tensor whose first three entries are zero, that the rows
+// past the warp path go to for gf_vote_wide (needed when P2 >
+// MAX_BLOCK_KEYS: the block path's keys would not fit in shared memory).
+extern "C" int gf_vote(const void* pr, int B, int NS, const void* lengths, const void* dupes,
+                       int dstride, int D, int split, int cbits, int pos_bias, int step,
+                       int major_req, int minor_req, int P2, int counts, void* wide, void* out,
+                       void* stream) {
+  if (wide == nullptr && P2 > gf::MAX_BLOCK_KEYS) return (int)cudaErrorInvalidValue;
   const size_t warp_keys = (size_t)gf::VOTE_WARPS * gf::WARP_CAP;
-  const size_t n_keys =
-      wide_rows == nullptr && (size_t)P2 > warp_keys ? (size_t)P2 : warp_keys;
+  const size_t n_keys = wide == nullptr && (size_t)P2 > warp_keys ? (size_t)P2 : warp_keys;
   const size_t smem = n_keys * sizeof(long long);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -476,23 +679,47 @@ extern "C" int gf_vote(const void* pr, int B, int NS, const void* dupes, int dst
   }
   const int grid = (B + gf::VOTE_WARPS - 1) / gf::VOTE_WARPS;
   gf::vote_kernel<<<grid, gf::VOTE_THREADS, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)pr, B, NS, (const int32_t*)dupes, dstride, D, split != 0, cbits,
-      pos_bias, step, major_req, minor_req, counts != 0, (int*)wide_rows, (int32_t*)out);
+      (const int32_t*)pr, B, NS, (const int32_t*)lengths, (const int32_t*)dupes, dstride, D,
+      split != 0, cbits, pos_bias, step, major_req, minor_req, counts != 0, (long long*)wide,
+      (int32_t*)out);
   return (int)cudaGetLastError();
 }
 
-// The rows gf_vote listed in wide_rows, on `grid` blocks; scratch holds
-// grid * P2 int64 keys (P2: power of two >= NS*D). Other arguments as
-// gf_vote's.
-extern "C" int gf_vote_wide(const void* pr, int NS, const void* dupes, int dstride, int D,
-                            int split, int cbits, int pos_bias, int step, int major_req,
-                            int minor_req, int counts, const void* wide_rows, void* scratch,
-                            long long P2, int grid, void* out, void* stream) {
-  if (grid < 1 || P2 < (long long)NS * D) return (int)cudaErrorInvalidValue;
-  gf::vote_wide_kernel<<<grid, gf::VOTE_WIDE_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)pr, NS, (const int32_t*)dupes, dstride, D, split != 0, cbits, pos_bias,
-      step, major_req, minor_req, counts != 0, (const int*)wide_rows, (long long*)scratch, P2,
-      (int32_t*)out);
+// The rows gf_vote listed in `wide`, with as many 1,024-thread blocks as
+// are resident at once (at most B). First pass (global_pass 0, scratch
+// NULL): a row of at most keys_cap (<= VOTE_SMEM_KEYS) valid keys is
+// voted with its keys in shared memory; a longer one is listed again and
+// its keys counted into list[1]. Second pass (global_pass 1, only when
+// list[1] > 0): those rows, their keys in `scratch` (list[1] int64). Other
+// arguments as gf_vote's, the same lengths in both passes.
+extern "C" int gf_vote_wide(const void* pr, int B, int NS, const void* lengths,
+                            const void* dupes, int dstride, int D, int split, int cbits,
+                            int pos_bias, int step, int major_req, int minor_req, int counts,
+                            void* wide, void* scratch, int keys_cap, int global_pass, void* out,
+                            void* stream) {
+  if (B < 1 || keys_cap < 1 || keys_cap > gf::VOTE_SMEM_KEYS ||
+      (global_pass != 0) != (scratch != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      global_pass ? 0
+                  : (size_t)std::min<long long>(keys_cap, (long long)NS * D) * sizeof(long long);
+  cudaError_t e = cudaFuncSetAttribute(gf::vote_wide_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gf::vote_wide_kernel,
+                                                         gf::VOTE_WIDE_THREADS, smem)) !=
+      cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = std::min(B, sms * per_sm);
+  gf::vote_wide_kernel<<<grid, gf::VOTE_WIDE_THREADS, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)pr, B, NS, (const int32_t*)lengths, (const int32_t*)dupes, dstride, D,
+      split != 0, cbits, pos_bias, step, major_req, minor_req, counts != 0, (long long*)wide,
+      (long long*)scratch, keys_cap, global_pass != 0, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,10 @@ per launch, so a run can show which kernels it used. The vote kernel
 counts as "vote" in its gated mode and as "vote_counts" in its counts
 mode (the contig-sharded index). The wide-row paths count apart from
 their kernels' main paths: "vote_wide" and "vote_counts_wide" (the two
-modes of the wide vote), "mask_segments_wide" and "mask_from_flags_wide".
+modes of the wide vote's second launch; its first is the vote's; rows
+whose keys pass its shared memory take a third launch, counted as
+"vote_wide_global" and "vote_counts_wide_global"), "mask_segments_wide"
+and "mask_from_flags_wide" (the launches on code rows past 65,535 bases).
 The glue of fused_scan_lanes counts each of its kernels under its own
 name: "lane_unpack" and "lane_exceptions" (one of each for up to
 MAX_LANES lanes), "compact_count" and "compact_place" (one of each a
@@ -43,6 +46,7 @@ NVCC_FLAGS = (
 
 LAUNCHES = {"probe": 0, "vote": 0, "mask_segments": 0, "gather_sum": 0, "edit_distance": 0,
             "vote_counts": 0, "vote_wide": 0, "vote_counts_wide": 0, "mask_segments_wide": 0,
+            "vote_wide_global": 0, "vote_counts_wide_global": 0,
             "merge_top2": 0, "shard_flags": 0, "mask_from_flags": 0, "mask_from_flags_wide": 0,
             "lane_unpack": 0, "lane_exceptions": 0, "compact_count": 0, "compact_place": 0,
             "survivor_rows": 0}
@@ -120,13 +124,13 @@ _LLP, _IP = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
 _ARGTYPES = {
     "gf_probe": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                  _P, _P, _P],
-    "gf_vote": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "gf_vote_wide": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                     ctypes.c_longlong, _I, _P, _P],
+    "gf_vote": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "gf_vote_wide": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+                     _P, _P],
     "gf_merge_top2": [_P, _I, _I, _I, _I, _I, _P, _P],
-    "gf_mask_segments": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "gf_mask_segments": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "gf_shard_flags": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P],
-    "gf_mask_from_flags": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "gf_mask_from_flags": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "gf_gather_tile_sums": [_P, _P, _I, _I, _I, _P, _P],
     "gf_edit_distance": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "gf_lanes_unpack": [_I, _LLP, _LLP, _LLP, _IP, _IP, _IP, _P],
@@ -208,36 +212,40 @@ def launch_probe(codes, lengths, kmers, valid, n, W, stride, NQ, index, out,
 
 
 def launch_vote(pr, B, NS, index, step, major_req, minor_req, P2, out, counts=False,
-                wide_rows=None) -> None:
+                wide=None, lengths=None) -> None:
     """`counts`: write (B, 6) [c1, h1, l1, c2, h2, l2] rows, no gate.
-    `wide_rows`: None, or a zeroed (1 + B) int32 list that the rows past the
-    warp path go to for `launch_vote_wide` (their keys would not fit in
-    shared memory)."""
+    `wide`: None, or the wide path's (3 + 3B) int64 list, its first three
+    entries zero, that the rows past the warp path go to for
+    `launch_vote_wide` (their keys would not fit in the block path's
+    shared memory). `lengths`: None, or the rows' (B,) int32 lengths: a
+    row's samples past its length are skipped."""
     dstride, D = _dupe_args(index)
     with torch.cuda.device(out.device):
         err = library().gf_vote(
-            pr.data_ptr(), B, NS, index.dupes.data_ptr(), dstride, D,
+            pr.data_ptr(), B, NS, _ptr(lengths), index.dupes.data_ptr(), dstride, D,
             int(index.split), index.cbits, index.pos_bias, step,
-            major_req, minor_req, P2, int(counts), _ptr(wide_rows), out.data_ptr(),
-            _stream(out),
+            major_req, minor_req, P2, int(counts), _ptr(wide), out.data_ptr(), _stream(out),
         )
     _done("vote_counts" if counts else "vote", err)
 
 
-def launch_vote_wide(pr, NS, index, step, major_req, minor_req, counts, wide_rows, scratch,
-                     P2, out) -> None:
-    """The rows `launch_vote` listed in `wide_rows`, one block a row on
-    scratch.numel() // P2 blocks, each sorting in its own P2 int64 keys of
-    `scratch`."""
+def launch_vote_wide(pr, B, NS, index, step, major_req, minor_req, counts, wide, lengths,
+                     keys_cap, out, scratch=None) -> None:
+    """The rows `launch_vote` listed in `wide`, a 1,024-thread block a row.
+    Without `scratch`, the first pass: a row's keys in shared memory, a row
+    of more than `keys_cap` listed again with its keys counted into
+    wide[1]. With `scratch` (wide[1] int64), the second pass over those
+    rows; it counts as "vote_wide_global" / "vote_counts_wide_global"."""
     dstride, D = _dupe_args(index)
     with torch.cuda.device(out.device):
         err = library().gf_vote_wide(
-            pr.data_ptr(), NS, index.dupes.data_ptr(), dstride, D, int(index.split),
-            index.cbits, index.pos_bias, step, major_req, minor_req, int(counts),
-            wide_rows.data_ptr(), scratch.data_ptr(), P2, scratch.numel() // P2,
+            pr.data_ptr(), B, NS, _ptr(lengths), index.dupes.data_ptr(), dstride, D,
+            int(index.split), index.cbits, index.pos_bias, step, major_req, minor_req,
+            int(counts), wide.data_ptr(), _ptr(scratch), keys_cap, int(scratch is not None),
             out.data_ptr(), _stream(out),
         )
-    _done("vote_counts_wide" if counts else "vote_wide", err)
+    name = "vote_counts_wide" if counts else "vote_wide"
+    _done(name if scratch is None else f"{name}_global", err)
 
 
 def launch_merge_top2(votes, step, major_req, minor_req, out) -> None:
@@ -248,18 +256,26 @@ def launch_merge_top2(votes, step, major_req, minor_req, out) -> None:
     _done("merge_top2", err)
 
 
+def _mask_name(name: str, NK: int) -> str:
+    """The counter of a mask launch: code rows past 65,535 bases take the
+    wide launch (MASK_MAX_L in csrc/mask_segments.cu)."""
+    return f"{name}_wide" if NK + 15 > 0xFFFF else name
+
+
 def launch_mask_segments(pr, lengths, gp, B, NK, index, mismatch_thr, out,
-                         scratch=None) -> None:
-    """`scratch`: None for code rows of at most 65,535 bases; for wider
-    rows the kernel's words, 4 * B * ceil(L / 32) int32."""
+                         scratch=None, smem_cap=0) -> None:
+    """Code rows past 65,535 bases take the wide launch: `smem_cap`, the
+    shared memory (bytes) a block may give a long row's words; `scratch`,
+    None or the words of rows past it (map_read._mask_scratch)."""
     dstride, D = _dupe_args(index)
     with torch.cuda.device(out.device):
         err = library().gf_mask_segments(
             pr.data_ptr(), lengths.data_ptr(), gp.data_ptr(), B, NK,
             index.dupes.data_ptr(), dstride, D, int(index.split), index.cbits,
-            index.pos_bias, mismatch_thr, _ptr(scratch), out.data_ptr(), _stream(out),
+            index.pos_bias, mismatch_thr, smem_cap, _ptr(scratch), out.data_ptr(),
+            _stream(out),
         )
-    _done("mask_segments" if scratch is None else "mask_segments_wide", err)
+    _done(_mask_name("mask_segments", NK), err)
 
 
 def launch_shard_flags(pr, gp, B, NK, index, words) -> None:
@@ -272,13 +288,15 @@ def launch_shard_flags(pr, gp, B, NK, index, words) -> None:
     _done("shard_flags", err)
 
 
-def launch_mask_from_flags(words, lengths, gp, B, NK, mismatch_thr, out, scratch=None) -> None:
+def launch_mask_from_flags(words, lengths, gp, B, NK, mismatch_thr, out, scratch=None,
+                           smem_cap=0) -> None:
+    """`smem_cap` and `scratch` as `launch_mask_segments`'."""
     with torch.cuda.device(out.device):
         err = library().gf_mask_from_flags(
             words.data_ptr(), lengths.data_ptr(), gp.data_ptr(), B, NK, mismatch_thr,
-            _ptr(scratch), out.data_ptr(), _stream(out),
+            smem_cap, _ptr(scratch), out.data_ptr(), _stream(out),
         )
-    _done("mask_from_flags" if scratch is None else "mask_from_flags_wide", err)
+    _done(_mask_name("mask_from_flags", NK), err)
 
 
 def launch_gather_tile_sums(idx, tbl, lanes: int, out, lib=None) -> None:

@@ -247,7 +247,7 @@ def fused_scan_lanes(bufs, lens_t, exc, index: TorchIndex, *, widths, cap: int,
                = row 32w + k, as the int32 bit pattern of a uint32 OR.
     """
     codes_l = lanes_codes(bufs, widths, exc)
-    votes = [vote(probe(ci, ln, PASS1_STEP, index), index, major_req, minor_req)
+    votes = [vote(probe(ci, ln, PASS1_STEP, index), index, major_req, minor_req, ln)
              for ci, ln in zip(codes_l, lens_t)]
     out, slens, gp, okwords = compact(torch.cat(votes), torch.cat(lens_t), cap)
     c = slens.shape[0]

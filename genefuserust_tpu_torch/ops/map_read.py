@@ -19,7 +19,11 @@ pass 2 apart at their seams, with a wrapper and plain version each:
 
 The vote and mask+segments have no width limit: rows too wide for the
 vote's shared memory, or for mask+segments' 16-bit chain ends, take wide
-paths on the card.
+paths on the card. There a row's work is bounded by its own length, not
+the batch's padded width, and a long row gets a block with its keys or
+words in shared memory (global scratch only past `WIDE_SMEM_BYTES`; the
+`smem_cap` argument, which no production caller passes, lowers that cap
+so that tests can force the global route).
 
 gplong (the reference's i64 `contig<<32 | pos bits`) is carried as ONE
 int64 here instead of the JAX package's two int32 planes. JAX forms the
@@ -50,17 +54,26 @@ M32 = 0xFFFFFFFF
 INVALID_KEY = (INT32_MAX << 32) | INT32_MAX
 # per-row candidate slots (NS * D, rounded up) that the vote kernel's block
 # path sorts in shared memory (MAX_BLOCK_KEYS in csrc/vote.cu); wider rows
-# take the wide path, their keys in global scratch
+# take the wide path
 MAX_VOTE_KEYS = 16384
-# scratch of the vote's wide path: blocks of next_pow2(NS * D) int64 keys
-# each, as many as fit in this many bytes (at least one, at most one a row)
-VOTE_WIDE_SCRATCH_BYTES = 64 << 20
+# shared memory a block of the wide paths may give a long row's keys (the
+# vote, 8 bytes a key: VOTE_SMEM_KEYS in csrc/vote.cu) or words
+# (mask+segments, 16 bytes a word: MASK_SMEM_CAP in csrc/mask_segments.cu);
+# past it they go to global scratch
+WIDE_SMEM_BYTES = 224 * 1024
+# mask+segments' wide launch: rows a block (a row a warp), the longest row
+# a warp takes in words (2,048 bases; a longer one takes the block), and
+# the warps' shared memory, which any long row whose words fit may use
+# (MASK_WIDE_WARPS, MASK_WARP_WORDS in csrc/mask_segments.cu)
+MASK_WIDE_WARPS = 16
+MASK_WARP_WORDS = 64
+MASK_SLICE_BYTES = MASK_WIDE_WARPS * 16 * MASK_WARP_WORDS
 # valid candidates a row may hold on the vote kernel's warp path (WARP_CAP
 # in csrc/vote.cu)
 VOTE_WARP_KEYS = 256
 # widest code row of the mask+segments kernels' main path, which keeps a
 # chain end in 16 bits (MASK_MAX_L in csrc/mask_segments.cu); wider rows
-# take the wide path (64-bit chain keys, words in global scratch)
+# take the wide launch (64-bit chain keys)
 MASK_MAX_WIDTH = 0xFFFF
 MAX_SHARDS = 8  # shards merge_top2's kernel takes (MAX_SHARDS in csrc/vote.cu)
 
@@ -505,13 +518,26 @@ def vote_candidates(pr, index: TorchIndex) -> torch.Tensor:
     return expand(index, pr[..., 0], pr[..., 1])[2].sum((1, 2))
 
 
-def _vote(pr, index: TorchIndex, major_req: int, minor_req: int, counts: bool):
+def _smem_cap(smem_cap, least: int) -> int:
+    cap = WIDE_SMEM_BYTES if smem_cap is None else smem_cap
+    if not least <= cap <= WIDE_SMEM_BYTES:
+        raise ValueError(f"smem_cap must lie in [{least}, {WIDE_SMEM_BYTES}], got {cap}")
+    return cap
+
+
+def _vote(pr, index: TorchIndex, major_req: int, minor_req: int, counts: bool, lengths,
+          smem_cap):
     dev = pr.device
     cuda.check_tensor(pr, "probe results", torch.int32, 3, dev)
     _check_index(index, dev)
     B, NS, two = pr.shape
     if two != 2:
         raise ValueError(f"vote: probe results must be (B, NS, 2), got {tuple(pr.shape)}")
+    if lengths is not None:
+        cuda.check_tensor(lengths, "lengths", torch.int32, 1, dev)
+        if lengths.shape[0] != B:
+            raise ValueError(f"vote: {lengths.shape[0]} lengths for {B} rows")
+    keys_cap = _smem_cap(smem_cap, 8) // 8
     if dev.type == "cpu":
         if counts:
             return vote_counts_plain(pr, index)
@@ -523,30 +549,41 @@ def _vote(pr, index: TorchIndex, major_req: int, minor_req: int, counts: bool):
     if P2 <= MAX_VOTE_KEYS:
         cuda.launch_vote(pr, B, NS, index, PASS1_STEP, major_req, minor_req, P2, out, counts)
         return out
-    wide_rows = torch.zeros(1 + B, dtype=torch.int32, device=dev)
-    cuda.launch_vote(pr, B, NS, index, PASS1_STEP, major_req, minor_req, P2, out, counts,
-                     wide_rows)
-    blocks = max(1, min(B, VOTE_WIDE_SCRATCH_BYTES // (8 * P2)))
-    scratch = torch.empty(blocks * P2, dtype=torch.int64, device=dev)
-    cuda.launch_vote_wide(pr, NS, index, PASS1_STEP, major_req, minor_req, counts, wide_rows,
-                          scratch, P2, out)
+    wide = torch.zeros(3 + 3 * B, dtype=torch.int64, device=dev)
+    args = (pr, B, NS, index, PASS1_STEP, major_req, minor_req)
+    cuda.launch_vote(*args, P2, out, counts, wide, lengths)
+    cuda.launch_vote_wide(*args, counts, wide, lengths, keys_cap, out)
+    # the keys of the rows past shared memory, counted by that launch:
+    # reading them waits for it, so only where a row can have that many
+    over = int(wide[1]) if NS * index.D > keys_cap else 0
+    if over:
+        scratch = torch.empty(over, dtype=torch.int64, device=dev)
+        cuda.launch_vote_wide(*args, counts, wide, lengths, keys_cap, out, scratch)
     return out
 
 
-def vote(pr, index: TorchIndex, major_req: int, minor_req: int):
+def vote(pr, index: TorchIndex, major_req: int, minor_req: int, lengths=None,
+         smem_cap=None):
     """Kernel 2: pass-1 probe results (B, NS, 2) -> (B, 5) int32
     [ok, h1, l1, h2, l2]. One warp sorts and counts one row's valid
     candidates; a row of more than VOTE_WARP_KEYS goes to the block. When
     the rows are too wide for the block's keys to fit in shared memory
     (vote_width past MAX_VOTE_KEYS), those rows are listed instead, and a
-    second launch sorts each in a global scratch slice."""
-    return _vote(pr, index, major_req, minor_req, counts=False)
+    second launch gives each a 1,024-thread block that counts its valid
+    keys and sorts just those in shared memory; a row of more than
+    `smem_cap` bytes of keys (8 a key) is listed again, and a third launch
+    sorts it in global scratch sized by the counts. `lengths`: the (B,)
+    int32 lengths of the code rows `pr` was probed from; given, the wide
+    path walks a row's samples only up to its length (the probe makes
+    every later one a miss, so the result is the same)."""
+    return _vote(pr, index, major_req, minor_req, False, lengths, smem_cap)
 
 
-def vote_counts(pr, index: TorchIndex):
+def vote_counts(pr, index: TorchIndex, lengths=None, smem_cap=None):
     """The vote kernel's counts mode: (B, NS, 2) -> (B, 6) int32 [c1, h1,
-    l1, c2, h2, l2], the top-2 keys with their counts and no gate."""
-    return _vote(pr, index, 0, 0, counts=True)
+    l1, c2, h2, l2], the top-2 keys with their counts and no gate;
+    `lengths` and `smem_cap` as vote's."""
+    return _vote(pr, index, 0, 0, True, lengths, smem_cap)
 
 
 def merge_top2(votes, major_req: int, minor_req: int):
@@ -567,18 +604,24 @@ def merge_top2(votes, major_req: int, minor_req: int):
     return out
 
 
-def _mask_scratch(B: int, NK: int, dev):
-    """The wide path's words (None for rows of at most MASK_MAX_WIDTH)."""
-    if NK + KMER - 1 <= MASK_MAX_WIDTH:
+def _mask_scratch(B: int, NK: int, dev, smem_cap: int):
+    """The wide launch's global words: None for rows of at most
+    MASK_MAX_WIDTH, or where a long row's 16 bytes a word fit in the
+    block's shared memory (max(smem_cap, MASK_SLICE_BYTES)); else a slice
+    of 4 words a word for each block of MASK_WIDE_WARPS rows."""
+    nw = flag_words(NK)
+    if NK + KMER - 1 <= MASK_MAX_WIDTH or 16 * nw <= max(smem_cap, MASK_SLICE_BYTES):
         return None
-    return torch.empty(4 * B * flag_words(NK), dtype=torch.int32, device=dev)
+    return torch.empty(-(-B // MASK_WIDE_WARPS) * 4 * nw, dtype=torch.int32, device=dev)
 
 
-def mask_segments(pr, lengths, gp, index: TorchIndex, mismatch_thr: int):
+def mask_segments(pr, lengths, gp, index: TorchIndex, mismatch_thr: int, smem_cap=None):
     """Kernel 3: pass-2 probe results (B, NK, 2), lengths and the vote's
     (B, 4) [h1, l1, h2, l2] -> (B, 10) int32 segment rows. One warp
     works one row; rows wider than MASK_MAX_WIDTH bases take the wide
-    path (64-bit chain keys, the words in global scratch)."""
+    path (64-bit chain keys): each row's loops stop at its own length, and
+    a row past 2,048 bases gets its block, its words in shared memory
+    (global scratch past `smem_cap` bytes)."""
     dev = pr.device
     cuda.check_tensor(pr, "probe results", torch.int32, 3, dev)
     cuda.check_tensor(lengths, "lengths", torch.int32, 1, dev)
@@ -587,12 +630,13 @@ def mask_segments(pr, lengths, gp, index: TorchIndex, mismatch_thr: int):
     B, NK, two = pr.shape
     if two != 2 or lengths.shape[0] != B or tuple(gp.shape) != (B, 4):
         raise ValueError("mask_segments: bad shapes")
+    cap = _smem_cap(smem_cap, 0)
     if dev.type == "cpu":
         return mask_segments_plain(pr, lengths, gp, index, mismatch_thr)
     out = torch.empty((B, 10), dtype=torch.int32, device=dev)
     if B:
         cuda.launch_mask_segments(pr, lengths, gp, B, NK, index, mismatch_thr, out,
-                                  _mask_scratch(B, NK, dev))
+                                  _mask_scratch(B, NK, dev, cap), cap)
     return out
 
 
@@ -616,9 +660,9 @@ def shard_flags(pr, gp, index: TorchIndex, words):
     return words
 
 
-def mask_from_flags(words, lengths, gp, NK: int, mismatch_thr: int):
+def mask_from_flags(words, lengths, gp, NK: int, mismatch_thr: int, smem_cap=None):
     """Mask+segments from merged flag words (B, flag_words(NK), 2) -> the
-    (B, 10) rows of mask_segments; wide rows as there."""
+    (B, 10) rows of mask_segments; wide rows and `smem_cap` as there."""
     dev = words.device
     cuda.check_tensor(words, "words", torch.int32, 3, dev)
     cuda.check_tensor(lengths, "lengths", torch.int32, 1, dev)
@@ -627,12 +671,13 @@ def mask_from_flags(words, lengths, gp, NK: int, mismatch_thr: int):
     if (NK < 1 or tuple(words.shape) != (B, flag_words(NK), 2) or lengths.shape[0] != B
             or tuple(gp.shape) != (B, 4)):
         raise ValueError("mask_from_flags: bad shapes")
+    cap = _smem_cap(smem_cap, 0)
     if dev.type == "cpu":
         return mask_from_flags_plain(words, lengths, gp, NK, mismatch_thr)
     out = torch.empty((B, 10), dtype=torch.int32, device=dev)
     if B:
         cuda.launch_mask_from_flags(words, lengths, gp, B, NK, mismatch_thr, out,
-                                    _mask_scratch(B, NK, dev))
+                                    _mask_scratch(B, NK, dev, cap), cap)
     return out
 
 
@@ -643,7 +688,7 @@ def map_read_pass1(codes, lengths, index: TorchIndex, major_req: int = 40,
                    minor_req: int = 20):
     """Vote phase: stride-2 lookups, top-2 selection, threshold gate ->
     (pass1_ok, h1, l1, h2, l2)."""
-    v = vote(probe(codes, lengths, PASS1_STEP, index), index, major_req, minor_req)
+    v = vote(probe(codes, lengths, PASS1_STEP, index), index, major_req, minor_req, lengths)
     return v[:, 0] != 0, v[:, 1], v[:, 2], v[:, 3], v[:, 4]
 
 

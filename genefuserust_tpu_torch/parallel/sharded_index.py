@@ -221,7 +221,7 @@ def sharded_map_read(codes, lengths, indexes: List[TorchIndex], major_req: int =
     devs = [ix.table.device for ix in indexes]
     inputs = {d: (codes.to(d), lengths.to(d)) for d in dict.fromkeys(devs)}
     votes = torch.stack([
-        M.vote_counts(M.probe(*inputs[d], PASS1_STEP, ix), ix).to(dev0)
+        M.vote_counts(M.probe(*inputs[d], PASS1_STEP, ix), ix, inputs[d][1]).to(dev0)
         for ix, d in zip(indexes, devs)])
     v = M.merge_top2(votes, major_req, minor_req)
     ok = v[:, 0] != 0

@@ -170,12 +170,10 @@ def _next_linked(lk, nlk, ok, nok):
     return n & M32
 
 
-def _kernel_segments(m3, m2, length, L, target, wide=False):
-    """One read's (valid, start, end) for `target` from its mask words
-    (m3: mask 3, m2: mask >= 2), as the kernel's segment step runs; `wide`
-    packs the chain keys as the wide path does, (length + 1) << 32 |
-    (0xFFFFFFFF - end), for rows past 65,535 bases."""
-    sh, maxe = (32, M32) if wide else (16, 0xFFFF)
+def _heads_ends(m3, m2, length, L, target):
+    """Per word of the row's mask words (m3: mask 3, m2: mask >= 2): the
+    chain heads and chain ends of `target` (linked bases from (this,
+    previous) words, ends from (this, next))."""
     nw = len(m3)
     lim = min(length, L)
 
@@ -189,65 +187,161 @@ def _kernel_segments(m3, m2, length, L, target, wide=False):
 
     lk = [_linked(ok_blk(w)[0], ok_blk(w - 1)[0], ok_blk(w)[1], ok_blk(w - 1)[1])
           for w in range(nw)] + [0]
-    best, carry = 0, -1
-    for w0 in range(0, nw, 32):
-        heads, ends, last = [], [], []
-        for lane in range(32):
-            w = w0 + lane
-            h = e = 0
-            if w < nw:
-                ok, nok = ok_blk(w)[0], ok_blk(w + 1)[0]
-                h = ok & ~lk[w] & _below(w, length - 1)
-                e = (lk[w] | h) & ~_next_linked(lk[w], lk[w + 1], ok, nok)
-            heads.append(h)
-            ends.append(e)
-            last.append(32 * w + h.bit_length() - 1 if h else -1)
-        scan = last[:]
-        for o in (1, 2, 4, 8, 16):
-            scan = [max(scan[i], scan[i - o]) if i >= o else scan[i] for i in range(32)]
-        for lane in range(32):
-            w, e = w0 + lane, ends[lane]
-            before = max(carry, scan[lane - 1] if lane else -1)
-            while e:
-                b = (e & -e).bit_length() - 1
-                e &= e - 1
-                hb = heads[lane] & (M32 >> (31 - b))
-                head = 32 * w + hb.bit_length() - 1 if hb else before
-                n = 32 * w + b - head
-                best = max(best, ((n + 1) << sh) | (maxe - (32 * w + b)))
-        carry = max(carry, scan[31])
+    heads, ends = [], []
+    for w in range(nw):
+        ok, nok = ok_blk(w)[0], ok_blk(w + 1)[0]
+        h = ok & ~lk[w] & _below(w, length - 1)
+        heads.append(h)
+        ends.append((lk[w] | h) & ~_next_linked(lk[w], lk[w + 1], ok, nok))
+    return heads, ends
+
+
+def _word_chains(w, h, e, before, sh, maxe):
+    """The best chain key over word w's ends e: an end's head is the last
+    head of h at or before it, else `before`."""
+    best = 0
+    while e:
+        b = (e & -e).bit_length() - 1
+        e &= e - 1
+        hb = h & (M32 >> (31 - b))
+        head = 32 * w + hb.bit_length() - 1 if hb else before
+        n = 32 * w + b - head
+        best = max(best, ((n + 1) << sh) | (maxe - (32 * w + b)))
+    return best
+
+
+def _segment(best, sh, maxe):
     if best == 0:
         return 0, -1, 0
     n, end = (best >> sh) - 1, maxe - (best & maxe)
     return int(n > 20), end - n, end
 
 
-def _kernel_mask_segments(pr, lengths, gp, index, mismatch_thr=10, wide=False):
-    """The kernel on (B, NK, 2) probe results -> (B, 10) int32 rows. A
-    k-mer's flag (3 on a candidate within +-1 of the top key, else 2 within
-    +-1 of the second) is its candidates' max, as the kernel forms it from
-    the probe row and the dupe row it names; the rest runs on words
-    (`wide`: with the wide path's chain keys)."""
-    B, NK = pr.shape[:2]
-    L = NK + 15
-    nw = -(-L // 32)
+def _last_head(w, h):
+    return 32 * w + h.bit_length() - 1 if h else -1
+
+
+def _kernel_segments(m3, m2, length, L, target, wide=False):
+    """One read's (valid, start, end) for `target` from its mask words
+    (m3: mask 3, m2: mask >= 2), as the kernel's segment step runs in one
+    warp: a word a lane, the heads carried over chunks of 32 words by a
+    warp max-scan; `wide` packs the chain keys as the wide path does,
+    (length + 1) << 32 | (0xFFFFFFFF - end), for rows past 65,535 bases."""
+    sh, maxe = (32, M32) if wide else (16, 0xFFFF)
+    nw = len(m3)
+    heads, ends = _heads_ends(m3, m2, length, L, target)
+    best, carry = 0, -1
+    for w0 in range(0, nw, 32):
+        last = [_last_head(w, heads[w]) if w < nw else -1 for w in range(w0, w0 + 32)]
+        scan = last[:]
+        for o in (1, 2, 4, 8, 16):
+            scan = [max(scan[i], scan[i - o]) if i >= o else scan[i] for i in range(32)]
+        for lane in range(32):
+            w = w0 + lane
+            if w < nw:
+                before = max(carry, scan[lane - 1] if lane else -1)
+                best = max(best, _word_chains(w, heads[w], ends[w], before, sh, maxe))
+        carry = max(carry, scan[31])
+    return _segment(best, sh, maxe)
+
+
+def _block_segments(m3, m2, length, L, target, threads=32 * tm.MASK_WIDE_WARPS):
+    """block_segments of the wide launch: a long row's segments for
+    `target` by a block of `threads`, a word a thread in rounds of
+    `threads` words; a word's `before` head is a block exclusive max-scan
+    over the round's earlier threads and the carry of earlier rounds."""
+    sh, maxe = 32, M32
+    nw = len(m3)
+    heads, ends = _heads_ends(m3, m2, length, L, target)
+    best, carry = 0, -1
+    for w0 in range(0, nw, threads):
+        last = [_last_head(w, heads[w]) for w in range(w0, min(nw, w0 + threads))]
+        excl = np.maximum.accumulate([-1] + last)[:-1]
+        for t, w in enumerate(range(w0, min(nw, w0 + threads))):
+            best = max(best, _word_chains(w, heads[w], ends[w], max(carry, int(excl[t])), sh,
+                                          maxe))
+        carry = max([carry] + last)
+    return _segment(best, sh, maxe)
+
+
+def _mask_route(length, L, smem_cap=None):
+    """Where the wide launch keeps a row's words: "warp" (its warp's slice),
+    "block" (the block's shared memory) or "global" (the block's scratch),
+    as csrc/mask_segments.cu's wide_launch and block_words decide."""
+    nwr = -(-min(length, L) // 32)
+    if nwr <= tm.MASK_WARP_WORDS:
+        return "warp"
+    cap = tm.WIDE_SMEM_BYTES if smem_cap is None else smem_cap
+    row = 16 * -(-L // 32)
+    smem = max(tm.MASK_SLICE_BYTES, row) if row <= cap else tm.MASK_SLICE_BYTES
+    return "block" if 16 * nwr <= smem else "global"
+
+
+def _row_words(m3, m2, length, L, mismatch_thr, wide, route="warp"):
+    """(v3, v2, s3, s2, e3, e2) of a row from its mask words, by a warp
+    (route "warp") or by the block step (any other route)."""
+    lim = min(length, L)
+    miss = sum(bin(~m2[c] & _below(c, lim)).count("1") for c in range(len(m3)))
+    ok = int(miss <= mismatch_thr)
+    seg = _kernel_segments if route == "warp" else _block_segments
+    kw = dict(wide=wide) if route == "warp" else {}
+    (v3, s3, e3), (v2, s2, e2) = (seg(m3, m2, length, L, t, **kw) for t in (3, 2))
+    return [v3 & ok, v2 & ok, s3, s2, e3, e2]
+
+
+def _kmer_flags(pr, gp, index):
+    """(B, NK) flags 3 and >= 2 of probe results: a candidate within +-1
+    of the top key, of either key, over the k-mer's candidates."""
     keys, cv = tm._keys_at(index, pr, 1)
     g1 = tm.gplong(gp[:, 0], gp[:, 1])[:, None, None]
     g2 = tm.gplong(gp[:, 2], gp[:, 3])[:, None, None]
     f3 = (cv & ((keys - g1).abs() <= 1)).any(-1).numpy()
     f2 = f3 | (cv & ((keys - g2).abs() <= 1)).any(-1).numpy()
+    return f3, f2
+
+
+def _kernel_mask_rows(pr, lengths, gp, index, mismatch_thr=10):
+    """The wide launch on (B, NK, 2) probe results -> (B, 10) int32 rows. A
+    row's work stops at its own last word, ceil(min(len, L) / 32): its
+    chunks of 32 k-mers are balloted (on the block step each warp takes a
+    range, and the raw ballots are then windowed a word a thread: the same
+    words), and a row past tm.MASK_WARP_WORDS words runs the block step
+    (_mask_route; shared memory or global scratch hold the same words)."""
+    B, NK = pr.shape[:2]
+    L = NK + 15
     out = np.zeros((B, 10), np.int32)
     for b in range(B):
         n = int(lengths[b])
-        lim = min(n, L)
+        nwr = -(-min(n, L) // 32)
+        f3, f2 = _kmer_flags(pr[b : b + 1, : min(NK, 32 * nwr)], gp[b : b + 1], index)
+        F3, F2 = _ballots(f3[0], nwr), _ballots(f2[0], nwr)
+        m3 = [_window16(F3[c], F3[c - 1] if c else 0) for c in range(nwr)]
+        m2 = [_window16(F2[c], F2[c - 1] if c else 0) for c in range(nwr)]
+        out[b] = _row_words(m3, m2, n, L, mismatch_thr, True, _mask_route(n, L)) + \
+            gp[b, [0, 2, 1, 3]].tolist()
+    return out
+
+
+def _kernel_mask_segments(pr, lengths, gp, index, mismatch_thr=10, wide=False):
+    """The kernel on (B, NK, 2) probe results -> (B, 10) int32 rows. A
+    k-mer's flag (3 on a candidate within +-1 of the top key, else 2 within
+    +-1 of the second) is its candidates' max, as the kernel forms it from
+    the probe row and the dupe row it names; the rest runs on words.
+    `wide`: the wide launch (_kernel_mask_rows: each row's own extent, the
+    block step for long rows, the wide path's chain keys)."""
+    if wide:
+        return _kernel_mask_rows(pr, lengths, gp, index, mismatch_thr)
+    B, NK = pr.shape[:2]
+    L = NK + 15
+    nw = -(-L // 32)
+    f3, f2 = _kmer_flags(pr, gp, index)
+    out = np.zeros((B, 10), np.int32)
+    for b in range(B):
+        n = int(lengths[b])
         F3, F2 = _ballots(f3[b], nw), _ballots(f2[b], nw)
         m3 = [_window16(F3[c], F3[c - 1] if c else 0) for c in range(nw)]
         m2 = [_window16(F2[c], F2[c - 1] if c else 0) for c in range(nw)]
-        miss = sum(bin(~m2[c] & _below(c, lim)).count("1") for c in range(nw))
-        ok = int(miss <= mismatch_thr)
-        (v3, s3, e3), (v2, s2, e2) = (_kernel_segments(m3, m2, n, L, t, wide=wide)
-                                      for t in (3, 2))
-        out[b] = [v3 & ok, v2 & ok, s3, s2, e3, e2, *gp[b, [0, 2, 1, 3]].tolist()]
+        out[b] = _row_words(m3, m2, n, L, mismatch_thr, False) + gp[b, [0, 2, 1, 3]].tolist()
     return out
 
 
@@ -385,11 +479,12 @@ def _votable(k):
     return k != 0 and (k >> 32) != 0x7FFFFFFF
 
 
-def _kernel_vote(keys, P, step=2, major_req=40, minor_req=20):
+def _kernel_vote(keys, P, step=2, major_req=40, minor_req=20, counts=False):
     """The vote kernel (csrc/vote.cu) on one row's n valid keys, step for
     step: for n <= 256 the warp path (bitonic network over K registers x
     32 lanes, run ends from the ballot masks of run starts), else the
-    block path (sort, run lengths by binary search) -> [ok, h1, l1, h2, l2]."""
+    block path (sort, run lengths by binary search) -> [ok, h1, l1, h2,
+    l2], or with `counts` [c1, h1, l1, c2, h2, l2]."""
     n = len(keys)
     if n <= tm.VOTE_WARP_KEYS:
         K = next(k for k in (1, 2, 4, 8) if 32 * k >= n)
@@ -447,15 +542,146 @@ def _kernel_vote(keys, P, step=2, major_req=40, minor_req=20):
     e1 = N - 1 - (best1 & 0xFFFFFFFF) if best1 >= 0 else 0
     best2 = max((x for e, x in sc.items() if e != e1), default=-1)
     e2 = N - 1 - (best2 & 0xFFFFFFFF) if best2 >= 0 else 0
-    smin = tm.INVALID_KEY if n == 0 else (min(flat[0], tm.INVALID_KEY) if n < P else flat[0])
+    smin = _slot_min(flat[0] if n else 0, n, P)
     c1, g1 = (best1 >> 32, flat[e1]) if best1 >= 0 else (0, smin)
     c2, g2 = (best2 >> 32, flat[e2]) if best2 >= 0 else (0, smin)
+    return _vote_row(c1, g1, c2, g2, step, major_req, minor_req, counts)
 
+
+def _slot_min(first, n, P):
+    """The smallest key over a row's P = NS * D slots (empty ones hold
+    INVALID_KEY) from its smallest valid key."""
+    return tm.INVALID_KEY if n == 0 else (min(first, tm.INVALID_KEY) if n < P else first)
+
+
+def _vote_row(c1, g1, c2, g2, step, major_req, minor_req, counts):
     def i32(x):
         return (x + 2**31) % 2**32 - 2**31
 
+    if counts:
+        return [int(c1), i32(g1 >> 32), i32(g1), int(c2), i32(g2 >> 32), i32(g2)]
     return [int(c1 * step >= major_req and c2 * step >= minor_req),
             i32(g1 >> 32), i32(g1), i32(g2 >> 32), i32(g2)]
+
+
+VOTE_WIDE_THREADS = 1024  # a wide row's block (csrc/vote.cu)
+VOTE_WALK_MAX = 2048  # samples a warp of vote_kernel walks on the wide path
+
+
+def _counted_bitonic(keys):
+    """block_sort: a bitonic network over next_pow2(n) slots whose
+    comparators all put the smaller key at the lower index (a merge starts
+    by comparing mirrored halves); the slots past n are +inf and never
+    stored, so a comparator that reaches one does nothing."""
+    k = np.array(keys, np.int64)
+    n = len(k)
+    Pn = 1 << max(0, n - 1).bit_length()
+    q = np.arange(Pn >> 1)
+    size = 2
+    while size <= Pn:
+        j = size >> 1
+        while j:
+            flip = size - 1 if j == size >> 1 else j
+            i = ((q & ~(j - 1)) << 1) | (q & (j - 1))
+            p = i ^ flip
+            i, p = i[p < n], p[p < n]
+            a, c = k[i], k[p]
+            swap = a > c
+            k[i[swap]], k[p[swap]] = c[swap], a[swap]
+            j >>= 1
+        size <<= 1
+    return k
+
+
+def _wide_block_vote(keys, P, threads=VOTE_WIDE_THREADS):
+    """vote_wide_kernel's vote of one row from its n valid keys: the
+    counted sort, then each thread a tile of ceil(n / threads) sorted keys;
+    a run's start reaches later tiles by a block exclusive max-scan of the
+    tiles' last starts, a run scores at its last key as (count << 32) | (n
+    - 1 - start), each thread keeps its best two, and two block maxima give
+    the top two -> (c1, g1, c2, g2)."""
+    k = _counted_bitonic(keys)
+    n = len(k)
+    assert sorted(keys) == k.tolist()
+    if n == 0:
+        return 0, tm.INVALID_KEY, 0, tm.INVALID_KEY
+    per = -(-n // threads)
+    start = np.ones(n, bool)
+    start[1:] = k[1:] != k[:-1]
+    tiles = [(min(n, t * per), min(n, t * per + per)) for t in range(threads)]
+    last = [max((i for i in range(a, b) if start[i]), default=-1) for a, b in tiles]
+    carry = np.maximum.accumulate([-1] + last)[:-1]
+    bests = []
+    for (a, b), s in zip(tiles, carry):
+        b1 = b2 = -1
+        s = int(s)
+        for i in range(a, b):
+            if start[i]:
+                s = i
+            if (i + 1 == n or k[i + 1] != k[i]) and _votable(int(k[i])):
+                sc = ((i + 1 - s) << 32) | (n - 1 - s)
+                b1, b2 = (sc, b1) if sc > b1 else (b1, max(b2, sc))
+        bests.append((b1, b2))
+    best1 = max(b1 for b1, _ in bests)
+    best2 = max(b2 if b1 == best1 else b1 for b1, b2 in bests)
+    smin = _slot_min(int(k[0]), n, P)
+    e1 = n - 1 - (best1 & M32) if best1 >= 0 else 0
+    e2 = n - 1 - (best2 & M32) if best2 >= 0 else 0
+    c1, g1 = (best1 >> 32, int(k[e1])) if best1 >= 0 else (0, smin)
+    c2, g2 = (best2 >> 32, int(k[e2])) if best2 >= 0 else (0, smin)
+    return c1, g1, c2, g2
+
+
+def _row_samples(length, NS, step=2):
+    """row_samples: the samples inside a row, s * step <= min(len, L) - 16."""
+    return 0 if length < 16 else min(NS, (length - 16) // step + 1)
+
+
+def _wide_row_keys(pr_row, ns, index, step=2):
+    """A wide row's valid keys as the kernels compact them: its first ns
+    samples chunk by chunk of 32 (the warps' ranges are whole chunks, in
+    order); in a chunk the regular hits by lane, then each DUPE sample's
+    valid slots."""
+    cc, cp, cv = (x.numpy() for x in tm.expand(index, pr_row[:ns, 0], pr_row[:ns, 1]))
+    cc, cp = cc.astype(np.int64), cp.astype(np.int64)
+    kind = pr_row[:ns, 0].numpy()[:, None]
+    s, d = np.arange(ns)[:, None], np.arange(cc.shape[1])[None, :]
+    keys = (cc << 32) | ((cp - s * step) & M32)
+    dupe = (kind == DUPE) & (index.D > 1)
+    take = ((kind >= 0) & (d == 0)) | (dupe & cv)
+    order = np.lexsort(tuple(np.broadcast_to(x, cc.shape)[take]
+                             for x in (d, s, dupe, s // 32)))
+    return keys[take][order].tolist()
+
+
+def _vote_routes(pr, lengths, index, smem_cap=None):
+    """Where the wide path votes each row: "warp" (vote_kernel: at most
+    VOTE_WALK_MAX samples inside the row and 256 valid keys), else the
+    block with its keys in shared memory ("shared") or, past smem_cap // 8
+    keys, global scratch ("global")."""
+    cap = (tm.WIDE_SMEM_BYTES if smem_cap is None else smem_cap) // 8
+    n = tm.vote_candidates(pr, index).tolist()
+    ns = [_row_samples(int(x), pr.shape[1]) for x in lengths]
+    return ["warp" if s <= VOTE_WALK_MAX and k <= tm.VOTE_WARP_KEYS else
+            "global" if k > cap else "shared" for s, k in zip(ns, n)]
+
+
+def _kernel_vote_rows(pr, lengths, index, counts=False, major_req=40, minor_req=20):
+    """The wide path of the vote on (B, NS, 2) probe results -> (B, 5), or
+    with `counts` (B, 6), int32 rows: vote_kernel walks a row of at most
+    VOTE_WALK_MAX samples up to its length and votes it in its warp if it
+    holds at most 256 valid keys; any other row goes to vote_wide_kernel
+    (_vote_routes; shared memory or global scratch hold the same keys)."""
+    B, NS = pr.shape[:2]
+    P = NS * index.D
+    rows = []
+    for b, route in enumerate(_vote_routes(pr, lengths, index)):
+        keys = _wide_row_keys(pr[b], _row_samples(int(lengths[b]), NS), index)
+        if route == "warp":
+            rows.append(_kernel_vote(keys, P, 2, major_req, minor_req, counts))
+        else:
+            rows.append(_vote_row(*_wide_block_vote(keys, P), 2, major_req, minor_req, counts))
+    return np.array(rows, np.int32).reshape(B, 6 if counts else 5)
 
 
 @pytest.mark.parametrize("layout", ["kv2", "split"])

@@ -17,7 +17,7 @@ from genefuserust_tpu_torch.ops import map_read as tm
 from genefuserust_tpu_torch.ops.hashtable import EMPTY
 from genefuserust_tpu_torch.ops.index import build_packed_index, index_to_torch
 from genefuserust_tpu_torch.parallel import sharded_index as tsi
-from test_torch_map_read import _ballots, _kernel_segments, _window16
+from test_torch_map_read import _ballots, _mask_route, _row_words, _window16
 
 MOTIF = "ACGTTGCAACGGTTACGATCCAGTTACG"
 CPU = torch.device("cpu")
@@ -362,27 +362,22 @@ def _kernel_shard_flags(pr, gp, index, words):
 def _kernel_mask_from_flags(words, lengths, gp, NK, mismatch_thr=10, wide=False):
     """mask_from_flags_kernel step for step: one word a lane, the window
     of (this, previous) word, popcounts, then the chain steps of
-    mask_segments (`_kernel_segments`)."""
+    mask_segments (`_kernel_segments`). `wide`: the wide launch, a row's
+    words only up to its own length, a long row by the block
+    (`_block_segments`, the route of `_mask_route`)."""
     B, nw, _ = words.shape
     L = NK + 15
     w = words.numpy().astype(np.int64) & 0xFFFFFFFF
     out = np.zeros((B, 10), np.int64)
     for b in range(B):
         n = int(lengths[b])
-        lim = min(n, L)
-        m3 = [_window16(int(w[b, c, 0]), int(w[b, c - 1, 0]) if c else 0) for c in range(nw)]
-        m2 = [_window16(int(w[b, c, 1]), int(w[b, c - 1, 1]) if c else 0) for c in range(nw)]
-        miss = sum(bin(~m2[c] & _below_bits(c, lim)).count("1") for c in range(nw))
-        ok = int(miss <= mismatch_thr)
-        (v3, s3, e3), (v2, s2, e2) = (_kernel_segments(m3, m2, n, L, t, wide=wide)
-                                      for t in (3, 2))
-        out[b] = [v3 & ok, v2 & ok, s3, s2, e3, e2, *gp[b, [0, 2, 1, 3]].tolist()]
+        nwr = -(-min(n, L) // 32) if wide else nw
+        m3 = [_window16(int(w[b, c, 0]), int(w[b, c - 1, 0]) if c else 0) for c in range(nwr)]
+        m2 = [_window16(int(w[b, c, 1]), int(w[b, c - 1, 1]) if c else 0) for c in range(nwr)]
+        route = _mask_route(n, L) if wide else "warp"
+        out[b] = _row_words(m3, m2, n, L, mismatch_thr, wide, route) + \
+            gp[b, [0, 2, 1, 3]].tolist()
     return out
-
-
-def _below_bits(w, lim):
-    lo = 32 * w
-    return 0xFFFFFFFF if lim >= lo + 32 else (1 << (lim - lo)) - 1 if lim > lo else 0
 
 
 @pytest.mark.parametrize("layout", ["kv2", "split"])
