@@ -66,7 +66,8 @@ Phases, one result line each; any failure raises and exits non-zero:
              their R1 alone through the driver with a 4-entry device list,
              the pairs also through the CLI with --mesh 1; JSON and HTML
              equal to TorchEngine's single-table scan of the same reads,
-             and on the first 4,096 pairs/reads to the host oracle's. The
+             and on the first 4,096 pairs/reads to the host oracle's; one
+             shard flags launch a call (the 4 shards in one launch). The
              split probe, the vote's counts mode, the merge, the flags and
              mask+segments from flags bit-equal to plain at the scan's
              largest batch, timed. Then the wide paths: a 4,200-base and a
@@ -78,11 +79,14 @@ Phases, one result line each; any failure raises and exits non-zero:
              bit-equal to plain, each wide kernel also with caps that send
              its long rows to global scratch, the wide paths timed with
              bounds from what the rows need (the samples and k-mers inside
-             their lengths). Then (viii) the four wide kernels at a
-             4,096-row lane as TorchEngine builds one: the 70,000-base
-             read among 4,095 R1 reads of 150 bases, every row padded to
-             70,016 bases; bit-equal to plain (plain in chunks of rows)
-             with the default caps and on the global route, timed.
+             their lengths), and sharded_map_read's peak device memory
+             there. Then (viii) the five wide kernels at a 4,096-row lane
+             as TorchEngine builds one: the 70,000-base read among 4,095 R1
+             reads of 150 bases, every row padded to 70,016 bases;
+             bit-equal to plain (plain in chunks of rows) with the default
+             caps and on the global route (the shard flags also ORing into
+             stored words), timed; sharded_map_read of the lane on the 4
+             shard tables, its peak device memory.
  14 multi-device
              data parallelism on the one card: (a) the 262,144 pairs
              through the driver with RunConfig.devices = 4 entries of
@@ -118,8 +122,12 @@ and compaction, timed on phase 3's batch, to phase 3's glue lines.
 --wide-baseline DIR (another checkout's csrc/, e.g. the parent's) builds
 its vote.cu and mask_segments.cu and times their kernels on the same
 inputs, each held bit-equal to plain: phase 3's vote and mask+segments
-(between two timings of this checkout's), and each wide kernel at
-phase 13's calls and at its 4,096-row lane.
+(between two timings of this checkout's, and mask_segments_kernel's
+machine code against the parent's, cuobjdump -sass), phase 13's shard
+flags (the parent's zero-fill and launch a shard) and mask from flags at
+the scan's largest call, each wide kernel at phase 13's calls and at its
+4,096-row lane, and the parent's sharded_map_read's peak device memory
+beside this checkout's at the wide calls.
 --gather-sweep runs phases 1-3, then the gather's launch-shape sweep
 (blocks a tile x row loads a thread: at (a2) for rows narrower than 16
 bytes, at (b) and at rows of 256, 512 and 1,024 int32 for rows of whole
@@ -139,6 +147,7 @@ import json
 import os
 import re
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -159,11 +168,12 @@ MESH_ENTRIES = 4  # phase 14: TorchEngine entries, all on the one card
 LONG_READ = 250_000  # phase 14 (e): past what staging a tile's rows whole allowed
 LONG_BATCH = 64
 # kernels the build compiles: probe 4 (kv2, kv4, kv8, split), vote 3 (the
-# vote, its wide path, the shards' merge), mask_segments 8 (kv and split,
+# vote, its wide path, the shards' merge), mask_segments 10 (kv and split,
 # each narrow and wide; the shards' flags, kv and split; from flags, narrow
-# and wide), gather_sum 3 (vector widths), edit_distance 1, fused_glue 5
-# (unpack, exceptions, count, place, survivor rows)
-N_COMPILED = 24
+# on segments of 8, 16 and 32 lanes, and wide), gather_sum 3 (vector
+# widths), edit_distance 1, fused_glue 5 (unpack, exceptions, count, place,
+# survivor rows)
+N_COMPILED = 26
 # the probe's launch-shape sweep (--probe-sweep): queries a thread, table-row
 # cache policy (PROBE_POLICY in csrc/probe.cu), threads a block
 PROBE_SWEEP_Q = (1, 2, 4, 8)
@@ -190,7 +200,8 @@ SURVIVOR_CAP = 1024  # TorchEngine's survivor cap (_surv_cap)
 # phase 13's kernels of the sharded path (the split probe, the sharded
 # stages) and of the wide-row paths (LAUNCHES keys)
 SHARD_KERNELS = ("probe_split", "vote_counts", "merge_top2", "shard_flags", "mask_from_flags")
-WIDE_KERNELS = ("vote_wide", "vote_counts_wide", "mask_segments_wide", "mask_from_flags_wide")
+WIDE_KERNELS = ("vote_wide", "vote_counts_wide", "mask_segments_wide", "shard_flags_wide",
+                "mask_from_flags_wide")
 # phase 13's caps that send the wide paths' long rows to global scratch
 # (smem_cap, bytes): below the 70,000-base row's 2,267 keys (8 bytes each)
 # and its 2,188 words (16 bytes each, past the warps' 16 KB)
@@ -648,9 +659,16 @@ def phase_kernels(data: dict) -> dict:
             "mask_segments", lambda: base.mask(pr1, slens, gp, index, 10), seg, 20)
         rec["mask_segments"]["again_ms"] = event_ms(
             lambda: tm.mask_segments(pr1, slens, gp, index, 10), 20)
+        # its machine code against the parent's, instruction for instruction
+        sass = base.sass("mask_segments_kernel")
+        rec["mask_segments"]["sass"] = dict(
+            equal=sass["this"] == sass["parent"] and bool(sass["this"]),
+            instructions=[len(v) for v in sass["this"].values()],
+            parent_instructions=[len(v) for v in sass["parent"].values()])
         say("3 kernels", kernel="mask_segments", baseline=base.csrc, ms=f"{ms:.4f}",
             parent_ms=f"{rec['mask_segments']['parent_ms']:.4f}",
-            again_ms=f"{rec['mask_segments']['again_ms']:.4f}", equal=True)
+            again_ms=f"{rec['mask_segments']['again_ms']:.4f}", equal=True,
+            sass=json.dumps(rec["mask_segments"]["sass"], separators=(",", ":")))
     say("3 kernels", kernel="mask_segments", rows=seg.shape[0], width=scodes.shape[1],
         two_segment_rows=int((seg[:, 0] & seg[:, 1]).sum()), ms=f"{ms:.4f}",
         plain_ms=f"{pms:.4f}", bound_ms=f"{rec['mask_segments']['bound_ms']:.5f}",
@@ -1816,97 +1834,124 @@ def largest_wide_launches():
 
 
 class WideBaseline:
-    """Another checkout's csrc/vote.cu and csrc/mask_segments.cu as they
-    stood before the wide paths' redesign (entry points without lengths
-    or caps: the vote's wide rows in 512-thread blocks sorting
-    next_pow2(NS * D) slots in global scratch, mask+segments' wide rows a
-    warp each with its words in global scratch), built from that csrc/ and
-    launched on the same inputs as this checkout's wrappers."""
+    """Another checkout's csrc/vote.cu and csrc/mask_segments.cu (the
+    parent's), built from that csrc/ and run on the same inputs as this
+    checkout's kernels. Their entry points take this checkout's arguments
+    but gf_shard_flags, which there takes one shard's probe results and ORs
+    its flags into words zeroed before the first shard: the parent's vote,
+    mask+segments and mask from flags run through this checkout's wrappers
+    with the parent's library in the port's place (`active`), its shard
+    flags a launch a shard into zeroed words, as its sharded_map_read ran
+    them."""
 
     def __init__(self, csrc: str):
         import ctypes
 
         from genefuserust_tpu_torch.ops import cuda
 
-        self.lib = cuda.load(cuda.build(("vote.cu", "mask_segments.cu"),
-                                        csrc=os.path.abspath(csrc)))
+        self.path = cuda.build(("vote.cu", "mask_segments.cu"), csrc=os.path.abspath(csrc))
+        self.lib = cuda.load(self.path)
         P_, I_ = ctypes.c_void_p, ctypes.c_int
-        self.lib.gf_vote.argtypes = [P_, I_, I_, P_, I_, I_, I_, I_, I_, I_, I_, I_, I_, I_, P_,
-                                     P_, P_]
-        self.lib.gf_vote_wide.argtypes = [P_, I_, P_, I_, I_, I_, I_, I_, I_, I_, I_, I_, P_, P_,
-                                          ctypes.c_longlong, I_, P_, P_]
-        self.lib.gf_mask_segments.argtypes = [P_, P_, P_, I_, I_, P_, I_, I_, I_, I_, I_, I_, P_,
-                                              P_, P_]
-        self.lib.gf_mask_from_flags.argtypes = [P_, P_, P_, I_, I_, I_, P_, P_, P_]
+        self.lib.gf_shard_flags.argtypes = [P_, P_, I_, I_, P_, I_, I_, I_, I_, I_, P_, P_]
         self.csrc = csrc
 
-    @staticmethod
-    def _stream(t):
-        import torch
-
-        return torch.cuda.current_stream(t.device).cuda_stream
-
-    def vote(self, pr, index, major_req, minor_req, counts=False):
-        """The parent's gf_vote, and on rows past MAX_VOTE_KEYS its
-        gf_vote_wide as its wrapper ran it (64 MB of scratch)."""
-        import torch
-
+    @contextlib.contextmanager
+    def active(self):
+        """The port's wrappers launch the parent's kernels inside the block."""
         from genefuserust_tpu_torch.ops import cuda
+
+        saved = cuda.library()
+        cuda._lib = self.lib
+        try:
+            yield
+        finally:
+            cuda._lib = saved
+
+    def vote(self, pr, index, major_req, minor_req, counts=False, lengths=None):
         from genefuserust_tpu_torch.ops import map_read as tm
 
-        B, NS, _ = pr.shape
-        dstride, D = cuda._dupe_args(index)
-        dev = pr.device
-        out = torch.empty((B, 6 if counts else 5), dtype=torch.int32, device=dev)
-        P2 = tm.vote_width(NS, D)
-        args = (index.dupes.data_ptr(), dstride, D, int(index.split), index.cbits,
-                index.pos_bias, 2, major_req, minor_req)
-        st = self._stream(pr)
-        wide = None if P2 <= tm.MAX_VOTE_KEYS else torch.zeros(1 + B, dtype=torch.int32,
-                                                                device=dev)
-        check(self.lib.gf_vote(pr.data_ptr(), B, NS, *args, P2, int(counts),
-                               None if wide is None else wide.data_ptr(), out.data_ptr(),
-                               st) == 0, "the parent's vote failed to launch")
-        if wide is not None:
-            blocks = max(1, min(B, (64 << 20) // (8 * P2)))
-            scratch = torch.empty(blocks * P2, dtype=torch.int64, device=dev)
-            check(self.lib.gf_vote_wide(pr.data_ptr(), NS, *args, int(counts), wide.data_ptr(),
-                                        scratch.data_ptr(), P2, blocks, out.data_ptr(), st) == 0,
-                  "the parent's wide vote failed to launch")
-        return out
+        with self.active():
+            return (tm.vote_counts(pr, index, lengths) if counts
+                    else tm.vote(pr, index, major_req, minor_req, lengths))
 
     def mask(self, pr, lengths, gp, index, mismatch_thr):
+        from genefuserust_tpu_torch.ops import map_read as tm
+
+        with self.active():
+            return tm.mask_segments(pr, lengths, gp, index, mismatch_thr)
+
+    def mask_from_flags(self, words, lengths, gp, NK, mismatch_thr):
+        from genefuserust_tpu_torch.ops import map_read as tm
+
+        with self.active():
+            return tm.mask_from_flags(words, lengths, gp, NK, mismatch_thr)
+
+    def shard_flags(self, prs, gp, indexes):
+        """The parent's shard flags: the words zeroed, then a launch a shard."""
         import torch
 
         from genefuserust_tpu_torch.ops import cuda
         from genefuserust_tpu_torch.ops import map_read as tm
 
-        B, NK, _ = pr.shape
-        dstride, D = cuda._dupe_args(index)
-        out = torch.empty((B, 10), dtype=torch.int32, device=pr.device)
-        scratch = (torch.empty(4 * B * tm.flag_words(NK), dtype=torch.int32, device=pr.device)
-                   if NK + 15 > tm.MASK_MAX_WIDTH else None)
-        check(self.lib.gf_mask_segments(
-            pr.data_ptr(), lengths.data_ptr(), gp.data_ptr(), B, NK, index.dupes.data_ptr(),
-            dstride, D, int(index.split), index.cbits, index.pos_bias, mismatch_thr,
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            self._stream(pr)) == 0, "the parent's mask+segments failed to launch")
-        return out
+        B, NK, _ = prs[0].shape
+        words = torch.zeros((B, tm.flag_words(NK), 2), dtype=torch.int32, device=gp.device)
+        st = torch.cuda.current_stream(gp.device).cuda_stream
+        for pr, ix in zip(prs, indexes):
+            dstride, D = cuda._dupe_args(ix)
+            check(self.lib.gf_shard_flags(pr.data_ptr(), gp.data_ptr(), B, NK,
+                                          ix.dupes.data_ptr(), dstride, D, int(ix.split),
+                                          ix.cbits, ix.pos_bias, words.data_ptr(), st) == 0,
+                  "the parent's shard flags failed to launch")
+        return words
 
-    def mask_from_flags(self, words, lengths, gp, NK, mismatch_thr):
+    def sharded_map_read(self, codes, lens, indexes):
+        """The parent's sharded_map_read on one device, for its peak memory:
+        pass 1 as this checkout's; the words zeroed, then each shard probed
+        (stride 1) and flagged by its own launch, one shard's probe results
+        held at a time; mask from flags -> the (B, 10) rows."""
         import torch
 
+        from genefuserust_tpu_torch.config import PASS1_STEP
         from genefuserust_tpu_torch.ops import map_read as tm
 
-        B = words.shape[0]
-        out = torch.empty((B, 10), dtype=torch.int32, device=words.device)
-        scratch = (torch.empty(4 * B * tm.flag_words(NK), dtype=torch.int32, device=words.device)
-                   if NK + 15 > tm.MASK_MAX_WIDTH else None)
-        check(self.lib.gf_mask_from_flags(
-            words.data_ptr(), lengths.data_ptr(), gp.data_ptr(), B, NK, mismatch_thr,
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            self._stream(words)) == 0, "the parent's mask from flags failed to launch")
-        return out
+        votes = torch.stack([tm.vote_counts(tm.probe(codes, lens, PASS1_STEP, ix), ix, lens)
+                             for ix in indexes])
+        v = tm.merge_top2(votes, 40, 20)
+        gp = v[:, 1:5].contiguous()
+        NK = codes.shape[1] - 15
+        words = self.shard_flags([tm.probe(codes, lens, 1, indexes[0])], gp, indexes[:1])
+        for ix in indexes[1:]:
+            words |= self.shard_flags([tm.probe(codes, lens, 1, ix)], gp, [ix])
+        r = self.mask_from_flags(words, lens, gp, NK, 10)
+        return torch.cat([r[:, :2] & v[:, :1], r[:, 2:]], 1)
+
+    def sass(self, name: str) -> dict:
+        """{function: its instructions} of the kernels whose mangled name
+        holds `name`, in this checkout's library and in the parent's
+        (cuobjdump -sass; addresses and encodings dropped)."""
+        from genefuserust_tpu_torch.ops import cuda
+
+        return dict(this=sass_of(cuda.build(), name), parent=sass_of(self.path, name))
+
+
+def sass_of(lib: str, name: str) -> dict:
+    """{mangled function: [instructions]} of `lib`'s kernels whose name
+    holds `name`, from `cuobjdump -sass`."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if name in m.group(1) else None
+            if cur:
+                funcs[cur] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if cur and m:
+            funcs[cur].append(m.group(1))
+    return funcs
 
 
 def wide_base(data: dict):
@@ -1988,11 +2033,45 @@ def flags_need(lens, NK) -> int:
     return 8 * int(-(-lens.long().clamp(max=NK + 15) // 32).sum()) + 20 * lens.numel()
 
 
-def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3):
+def shard_flags_need(pr1s, lens, indexes, words) -> dict:
+    """What the shard flags of the shards' (B, NK, 2) probe results need:
+    each row's k-mers inside its length (the probe makes the rest EMPTY,
+    and the kernel never reads them) with the dupe rows their DUPE k-mers
+    name, the lengths and the vote's keys once, the words written once
+    (every word, zero past a row's own); and the padded rows' bytes."""
+    import torch
+
+    from genefuserust_tpu_torch.ops.hashtable import DUPE
+
+    B, NK = pr1s[0].shape[:2]
+    nk = (lens.long() - 15).clamp(min=0, max=NK)
+    inside = torch.arange(NK, device=lens.device)[None, :] < nk[:, None]
+    dupe = sum(int(((pr[..., 0] == DUPE) & inside).sum()) * ix.D * (8 if ix.split else 4)
+               for pr, ix in zip(pr1s, indexes))
+    fixed = B * 20 + words.numel() * 4
+    return dict(bytes=len(pr1s) * int(nk.sum()) * 8 + dupe + fixed,
+                padded_bytes=sum(pr.numel() * 4 + dupe_row_bytes(pr, ix)
+                                 for pr, ix in zip(pr1s, indexes)) + fixed)
+
+
+def or_plain(pr1s, gp, indexes):
+    """shard_flags_plain of each shard, ORed: the words' plain version."""
+    from genefuserust_tpu_torch.ops import map_read as tm
+
+    words = tm.shard_flags_plain(pr1s[0], gp, indexes[0])
+    for pr1, ix in zip(pr1s[1:], indexes[1:]):
+        words |= tm.shard_flags_plain(pr1, gp, ix)
+    return words
+
+
+def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3, base=None):
     """Each kernel of sharded_map_read against its plain version at one
-    call's inputs, timed, with its bound -> (records probe_split,
-    vote_counts, merge_top2, shard_flags, mask_from_flags; the per-shard
-    stride-2 and stride-1 probe results, the merged gp and the segments)."""
+    call's inputs, timed, with its bound (the shard flags' from what the
+    rows need, the padded rows' beside it), the shard flags and mask from
+    flags also beside the parent's kernels (`base`, a WideBaseline) ->
+    (records probe_split, vote_counts, merge_top2, shard_flags,
+    mask_from_flags; the per-shard stride-2 and stride-1 probe results, the
+    merged gp and the segments)."""
     import torch
 
     from genefuserust_tpu_torch.config import PASS1_STEP
@@ -2042,24 +2121,21 @@ def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3):
     gp = merged[:, 1:5].contiguous()
     pr1s = [tm.probe(codes, lens, 1, ix) for ix in indexes]
 
-    def flags(fn):
-        words = torch.zeros((B, tm.flag_words(NK), 2), dtype=torch.int32, device=codes.device)
-        for pr1, ix in zip(pr1s, indexes):
-            if fn is tm.shard_flags:
-                fn(pr1, gp, ix, words)
-            else:
-                words |= fn(pr1, gp, ix)
-        return words
-
-    words, err, ms, pms = _timed_pair(f"shard_flags ({B}x{NK})", lambda: flags(tm.shard_flags),
-                                      lambda: flags(tm.shard_flags_plain), reps=reps,
-                                      plain_reps=plain_reps)
+    # the whole call from the shards' probe results to the words: one
+    # launch over the 4 shards (the parent: a zero-fill and a launch a shard)
+    words, err, ms, pms = _timed_pair(
+        f"shard_flags ({S} shards, {B}x{NK})", lambda: tm.shard_flags(pr1s, lens, gp, indexes),
+        lambda: or_plain(pr1s, gp, indexes), reps=reps, plain_reps=plain_reps)
     cand2 = sum(int(tm.expand(ix, pr1[..., 0], pr1[..., 1])[2].sum())
                 for pr1, ix in zip(pr1s, indexes))
-    rec["shard_flags"] = dict(err=err, ms=ms, plain_ms=pms, **bound(
-        sum(pr1.numel() * 4 + dupe_row_bytes(pr1, ix) for pr1, ix in zip(pr1s, indexes))
-        + S * gp.numel() * 4 + words.numel() * 4, OPS["mask_candidate"] * cand2))
-    rec["shard_flags"]["shape"] = f"{S} shards x {B}x{NK} k-mers"
+    need = shard_flags_need(pr1s, lens, indexes, words)
+    ops = OPS["mask_candidate"] * cand2
+    rec["shard_flags"] = dict(err=err, ms=ms, plain_ms=pms, **bound(need["bytes"], ops))
+    rec["shard_flags"].update(shape=f"{S} shards x {B}x{NK} k-mers, one launch",
+                              padded_bound_ms=bound(need["padded_bytes"], ops)["bound_ms"])
+    if base:
+        rec["shard_flags"]["parent_ms"] = parent_ms(
+            f"shard_flags ({B}x{NK})", lambda: base.shard_flags(pr1s, gp, indexes), words, reps)
     seg, err, ms, pms = _timed_pair(
         f"mask_from_flags ({B}x{W})", lambda: tm.mask_from_flags(words, lens, gp, NK, 10),
         lambda: tm.mask_from_flags_plain(words, lens, gp, NK, 10), reps=reps,
@@ -2068,6 +2144,10 @@ def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3):
         words.numel() * 4 + lens.numel() * 4 + gp.numel() * 4 + seg.numel() * 4,
         OPS["mask_base"] * int(lens.long().sum())))
     rec["mask_from_flags"]["shape"] = f"{B} rows, width {W}"
+    if base:
+        rec["mask_from_flags"]["parent_ms"] = parent_ms(
+            f"mask_from_flags ({B}x{W})", lambda: base.mask_from_flags(words, lens, gp, NK, 10),
+            seg, reps)
     return rec, dict(prs=prs, pr1s=pr1s, gp=gp, seg=seg, words=words)
 
 
@@ -2077,7 +2157,44 @@ def say_kernel(rec: dict, k: str) -> None:
         plain_ms=f"{r['plain_ms']:.4f}", bound_ms=f"{r['bound_ms']:.5f}",
         bound_by=r["bound_by"], bound_share=f"{r['bound_ms'] / r['ms']:.4f}",
         max_abs_err=r["err"], **{x: f"{r[x]:.4f}" for x in ("global_ms", "device_ms", "parent_ms")
-                                 if x in r})
+                                 if x in r},
+        **{x: f"{r[x]:.5f}" for x in ("padded_bound_ms",) if x in r})
+
+
+def sharded_peaks(label: str, codes, lens, indexes, base) -> dict:
+    """The peak device memory of sharded_map_read at one call, over what was
+    allocated before it, and of the parent's flow beside it (`base`; its
+    rows must equal): a device's shard flags may hold up to
+    FLAGS_GROUP_BYTES of probe results more than the parent's one shard's
+    at a time."""
+    import torch
+
+    from genefuserust_tpu_torch.parallel import sharded_index as tsi
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - before
+
+    r, mine = peak(lambda: tsi.sharded_map_read(codes, lens, indexes))
+    rows = torch.cat([r.seg_valid.int(), r.seg_start, r.seg_end, r.seg_contig, r.seg_pos], 1)
+    B, W = codes.shape
+    out = dict(peak_mb=round(mine / 2**20, 1), cap_mb=round(tsi.FLAGS_GROUP_BYTES / 2**20, 1),
+               shard_results_mb=round(B * (W - 15) * 8 / 2**20, 1),
+               launches=len(tsi.flag_groups(len(indexes), B * (W - 15) * 8)))
+    if base:
+        prows, theirs = peak(lambda: base.sharded_map_read(codes, lens, indexes))
+        check(torch.equal(prows, rows), f"{label}: the parent's sharded_map_read differs")
+        out["parent_peak_mb"] = round(theirs / 2**20, 1)
+        check(mine - theirs <= tsi.FLAGS_GROUP_BYTES,
+              f"{label}: sharded_map_read's peak {mine} B passes the parent's {theirs} B by "
+              "more than the shard flags' cap")
+    say("13 sharded", peak_memory=repr(label), rows=B, width=W, **out)
+    return out
 
 
 def phase_sharded(data: dict, smi_line: str) -> dict:
@@ -2129,6 +2246,10 @@ def phase_sharded(data: dict, smi_line: str) -> dict:
         check(launches[k] > 0, f"sharded: kernel {k} was not launched by the scan")
     check(launches["vote"] == launches["mask_segments"] == 0,
           "sharded: the single-table vote or mask+segments ran in the sharded scan")
+    # the 4 shards on the one card: one shard flags launch a call
+    check(launches["shard_flags"] == launches["merge_top2"] == launches["mask_from_flags"],
+          f"sharded: {launches['shard_flags']} shard flags launches for "
+          f"{launches['merge_top2']} calls")
     n_fus = len(json.load(open(os.path.join(wd, "sh4.json")))["fusions"])
     check(n_fus >= 1, "sharded: the scan reported no fusion")
     say("13 sharded", shards=SHARDS, devices=",".join(devices), pairs=SHARD_PAIRS,
@@ -2201,7 +2322,7 @@ def phase_sharded(data: dict, smi_line: str) -> dict:
 
     # (vi) each kernel of the path against its plain version, at the
     # scan's largest batch
-    rec, aux = sharded_kernels(*calls[0])
+    rec, aux = sharded_kernels(*calls[0], base=wide_base(data))
     del aux, calls[:]
     for k in SHARD_KERNELS:
         say_kernel(rec, k)
@@ -2278,7 +2399,8 @@ def phase_sharded(data: dict, smi_line: str) -> dict:
         device_ms=wide_vote_device_ms(pr, kv2, vlens, False, v))
     if base:
         rec["vote_wide"]["parent_ms"] = parent_ms(
-            "vote (wide rows, kv2)", lambda: base.vote(pr, kv2, major_req, minor_req), v, 5)
+            "vote (wide rows, kv2)", lambda: base.vote(pr, kv2, major_req, minor_req,
+                                                       lengths=vlens), v, 5)
     vc = tm.vote_counts_plain(pr, kv2)
     check(torch.equal(tm.vote_counts(pr, kv2, vlens), vc)
           and torch.equal(tm.vote_counts(pr, kv2, vlens, VOTE_CAP), vc),
@@ -2304,8 +2426,7 @@ def phase_sharded(data: dict, smi_line: str) -> dict:
             "mask_segments (wide rows, kv2)", lambda: base.mask(pr1, wlens, wgp, kv2, thr), wseg,
             5)
     # the one table's flags, then mask from flags: equal to mask+segments
-    words = tm.shard_flags(pr1, wgp, kv2, torch.zeros(
-        (pr1.shape[0], tm.flag_words(pr1.shape[1]), 2), dtype=torch.int32, device=pr1.device))
+    words = tm.shard_flags([pr1], wlens, wgp, [kv2])
     check(torch.equal(words, tm.shard_flags_plain(pr1, wgp, kv2)),
           "wide rows: shard_flags differs from plain on the kv2 table")
     for cap in (None, MASK_CAP):
@@ -2313,7 +2434,7 @@ def phase_sharded(data: dict, smi_line: str) -> dict:
               "wide rows: mask_from_flags differs from mask+segments on the kv2 table")
     del pr, v, vc, pr1, wlens, wgp, wseg, words, kv_calls
     codes, lens, indexes = sh_calls[0]
-    srec, aux = sharded_kernels(codes, lens, indexes, reps=5, plain_reps=1)
+    srec, aux = sharded_kernels(codes, lens, indexes, reps=5, plain_reps=1, base=base)
     check(int(aux["seg"][:, 4:6].max()) > tm.MASK_MAX_WIDTH,
           "wide rows (shards): no chain ends past 65,535")
     # the gated vote and mask+segments on each split shard at those rows,
@@ -2351,16 +2472,17 @@ def phase_sharded(data: dict, smi_line: str) -> dict:
     if base:
         srec["vote_counts"]["parent_ms"] = parent_ms(
             "vote_counts (wide rows, 4 shards)",
-            lambda: torch.stack([base.vote(p, ix, 0, 0, True) for p, ix in zip(prs, indexes)]),
-            vplain, 5)
-        srec["mask_from_flags"]["parent_ms"] = parent_ms(
-            "mask_from_flags (wide rows)",
-            lambda: base.mask_from_flags(words, lens, aux["gp"], NK, 10), seg, 5)
-    del aux, prs, pr1s, words, seg, vplain, sh_calls[:]
+            lambda: torch.stack([base.vote(p, ix, 0, 0, True, lens)
+                                 for p, ix in zip(prs, indexes)]), vplain, 5)
+    del aux, prs, pr1s, words, seg, vplain
     rec["vote_counts_wide"] = srec["vote_counts"]
+    rec["shard_flags_wide"] = srec["shard_flags"]
     rec["mask_from_flags_wide"] = srec["mask_from_flags"]
+    rec["shard_flags_wide"]["peak"] = sharded_peaks("the sharded wide call", codes, lens,
+                                                    indexes, base)
+    del sh_calls[:]
     # (viii) the same kernels at a 4,096-row lane as TorchEngine builds one
-    rows4096 = wide_lane(data, kv2, wide, base)
+    rows4096 = wide_lane(data, kv2, wide, base, indexes)
     for k in WIDE_KERNELS:
         rec[k]["rows4096"] = rows4096[k]
         say_kernel(rec, k)
@@ -2412,16 +2534,18 @@ def wide_global(name: str, fn, exp, reps: int = 5) -> float:
     return event_ms(fn, reps)
 
 
-def wide_lane(data: dict, kv2, wide_read: str, base, reps: int = 5) -> dict:
-    """The four wide kernels on a 4,096-row lane as TorchEngine builds one
+def wide_lane(data: dict, kv2, wide_read: str, base, shards=None, reps: int = 5) -> dict:
+    """The five wide kernels on a 4,096-row lane as TorchEngine builds one
     for a batch with one long read: the 70,000-base read (row 1,000) among
     4,095 R1 reads of 150 bases from gen_block, every row padded to 70,016
     bases (codes 287 MB, pass-1 results 1.15 GB, pass-2 results 2.29 GB).
     Each kernel bit-equal to its plain version (plain in chunks of rows:
     its intermediates at the whole lane would not fit on the card), with
-    the default caps and on the global route, timed, beside the parent's
+    the default caps and on the global route (shard flags: one launch, and
+    a second ORing into the first's words), timed, beside the parent's
     kernels where given, with its bound from what the rows need ->
-    {kernel: record}."""
+    {kernel: record}. `shards`: split shard tables whose sharded_map_read
+    of the lane has its peak memory read beside the parent's."""
     import torch
 
     from genefuserust_tpu_torch.config import PASS1_STEP
@@ -2449,7 +2573,9 @@ def wide_lane(data: dict, kv2, wide_read: str, base, reps: int = 5) -> dict:
                                         plain_reps=1)
         r = dict(err=err, ms=ms, plain_ms=pms, **bound(need_bytes, ops),
                  shape=f"kv2, {B} rows of width {W}")
-        r["global_ms"] = wide_global(f"{name} (4,096-row lane, global route)", global_fn, got)
+        if global_fn is not None:
+            r["global_ms"] = wide_global(f"{name} (4,096-row lane, global route)", global_fn,
+                                         got)
         if key in ("vote_wide", "vote_counts_wide"):
             r["device_ms"] = wide_vote_device_ms(pr, kv2, lens, key == "vote_counts_wide", got)
         if parent_fn is not None:
@@ -2457,7 +2583,8 @@ def wide_lane(data: dict, kv2, wide_read: str, base, reps: int = 5) -> dict:
         recs[key] = r
         say("13 sharded", kernel=key, lane=f"{B}x{W}", ms=f"{ms:.4f}",
             plain_ms=f"{r['plain_ms']:.1f}", bound_ms=f"{r['bound_ms']:.5f}",
-            bound_by=r["bound_by"], global_ms=f"{r['global_ms']:.4f}",
+            bound_by=r["bound_by"],
+            global_ms=f"{r['global_ms']:.4f}" if "global_ms" in r else "-",
             device_ms=f"{r['device_ms']:.4f}" if "device_ms" in r else "-",
             parent_ms=f"{r['parent_ms']:.4f}" if "parent_ms" in r else "not run",
             max_abs_err=err)
@@ -2468,15 +2595,14 @@ def wide_lane(data: dict, kv2, wide_read: str, base, reps: int = 5) -> dict:
     v = record("vote", "vote_wide", lambda: tm.vote(pr, kv2, 40, 20, lens),
                lambda: _chunked(tm.vote_plain, [pr], 256, kv2, 40, 20), need["bytes"] + B * 20,
                vops, lambda: tm.vote(pr, kv2, 40, 20, lens, VOTE_CAP),
-               base and (lambda: base.vote(pr, kv2, 40, 20)))
+               base and (lambda: base.vote(pr, kv2, 40, 20, lengths=lens)))
     record("vote_counts", "vote_counts_wide", lambda: tm.vote_counts(pr, kv2, lens),
            lambda: _chunked(tm.vote_counts_plain, [pr], 256, kv2), need["bytes"] + B * 24, vops,
            lambda: tm.vote_counts(pr, kv2, lens, VOTE_CAP),
-           base and (lambda: base.vote(pr, kv2, 0, 0, True)))
+           base and (lambda: base.vote(pr, kv2, 0, 0, True, lens)))
     del pr
     gp = v[:, 1:5].contiguous()
     pr1 = tm.probe(codes, lens, 1, kv2)
-    del codes
     NK = pr1.shape[1]
     mneed = mask_need(pr1, lens, kv2)
     seg = record("mask_segments", "mask_segments_wide",
@@ -2486,11 +2612,19 @@ def wide_lane(data: dict, kv2, wide_read: str, base, reps: int = 5) -> dict:
                  OPS["mask_candidate"] * mneed["cand"] + OPS["mask_base"] * mneed["bases"],
                  lambda: tm.mask_segments(pr1, lens, gp, kv2, 10, MASK_CAP),
                  base and (lambda: base.mask(pr1, lens, gp, kv2, 10)))
-    words = tm.shard_flags(pr1, gp, kv2, torch.zeros((B, tm.flag_words(NK), 2),
-                                                     dtype=torch.int32, device=dev))
-    check(torch.equal(words, _chunked(tm.shard_flags_plain, [pr1, gp], 64, kv2)),
-          "4,096-row lane: shard_flags differs from plain")
-    del pr1
+    words = tm.shard_flags([pr1], lens, gp, [kv2])
+    fneed = shard_flags_need([pr1], lens, [kv2], words)
+    fops = OPS["mask_candidate"] * mneed["cand"]
+    record("shard_flags", "shard_flags_wide", lambda: tm.shard_flags([pr1], lens, gp, [kv2]),
+           lambda: _chunked(tm.shard_flags_plain, [pr1, gp], 64, kv2), fneed["bytes"], fops,
+           None, base and (lambda: base.shard_flags([pr1], gp, [kv2])))
+    recs["shard_flags_wide"]["padded_bound_ms"] = bound(fneed["padded_bytes"], fops)["bound_ms"]
+    # a later group's launch ORs into the words of the first: here into the
+    # even rows' words, the odd rows' zeroed
+    half = torch.where((torch.arange(B, device=dev) % 2 == 0)[:, None, None], words, 0)
+    check(torch.equal(tm.shard_flags([pr1], lens, gp, [kv2], half), words),
+          "4,096-row lane: shard_flags ORing into stored words differs from plain")
+    del pr1, half
     fseg = record("mask_from_flags", "mask_from_flags_wide",
                   lambda: tm.mask_from_flags(words, lens, gp, NK, 10),
                   lambda: _chunked(lambda w, n, g: tm.mask_from_flags_plain(w, n, g, NK, 10),
@@ -2502,6 +2636,10 @@ def wide_lane(data: dict, kv2, wide_read: str, base, reps: int = 5) -> dict:
     check(int(seg[long_row, 4:6].max()) > tm.MASK_MAX_WIDTH,
           "4,096-row lane: the long row's chains end before 65,535")
     del words, gp, v, seg, fseg
+    if shards:
+        recs["shard_flags_wide"]["peak"] = sharded_peaks("the 4,096-row lane", codes, lens,
+                                                         shards, base)
+    del codes
     torch.cuda.empty_cache()
     return recs
 
@@ -2743,7 +2881,8 @@ def main(argv=None) -> int:
                          "lane unpack and compaction")
     ap.add_argument("--wide-baseline", metavar="DIR",
                     help="another checkout's csrc/: phases 3 and 13 also time its vote.cu's "
-                         "and mask_segments.cu's kernels on the same inputs")
+                         "and mask_segments.cu's kernels on the same inputs (shard flags a "
+                         "launch a shard), and compare mask_segments_kernel's SASS")
     args = ap.parse_args(argv)
     import torch
 
@@ -2832,6 +2971,7 @@ def main(argv=None) -> int:
         "vote_wide": "genefuserust_tpu/ops/map_read.py:396",
         "vote_counts_wide": "genefuserust_tpu/parallel/sharded_index.py:209",
         "mask_segments_wide": "genefuserust_tpu/ops/map_read.py:439",
+        "shard_flags_wide": "genefuserust_tpu/parallel/sharded_index.py:230",
         "mask_from_flags_wide": "genefuserust_tpu/parallel/sharded_index.py:242",
         "probe_long": "genefuserust_tpu/ops/pallas_lookup.py:102",
         "lane_unpack": "genefuserust_tpu/ops/fused.py:488",
@@ -2843,7 +2983,7 @@ def main(argv=None) -> int:
     sources = dict(probe_split="probe", probe_long="probe", vote_counts="vote", merge_top2="vote",
                    vote_wide="vote", vote_counts_wide="vote", shard_flags="mask_segments",
                    mask_from_flags="mask_segments", mask_segments_wide="mask_segments",
-                   mask_from_flags_wide="mask_segments",
+                   shard_flags_wide="mask_segments", mask_from_flags_wide="mask_segments",
                    **{k: "fused_glue" for k in GLUE_KERNELS})
     # launches: each kernel's count over phase 5's CLI scan, the main path;
     # gather_sum is off it, so its count is that of its own entry point
@@ -2866,7 +3006,7 @@ def main(argv=None) -> int:
     extra = ("shape", "wide", "rows_needed", "rows_loaded", "h1_hit_share", "main_path_flushes",
              "fusion_rich_launches", "hits", "stride1_ms", "stride1_bound_ms", "edge_ms",
              "pair", "library_with_build_ms", "padded_bound_ms", "global_ms", "parent_ms",
-             "again_ms", "device_ms", "rows4096")
+             "again_ms", "device_ms", "rows4096", "peak", "sass")
     kernels = [
         dict(name=k, route="cuda",
              source=f"genefuserust_tpu_torch/csrc/{sources.get(k, k)}.cu",

@@ -36,10 +36,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="enable to output long deletions")
     p.add_argument("-U", "--output_untranslated_fusions", action="store_true",
                    help="enable to output untranslatable fusions")
-    p.add_argument("--engine", choices=["cuda", "sharded-index", "host"], default="cuda",
-                   help="compute engine: batched torch/CUDA pipeline (default), the "
-                   "contig-sharded index (panels beyond one device), or the scalar "
-                   "host oracle")
+    p.add_argument("--engine", choices=["cuda", "tpu", "sharded-index", "host"], default="cuda",
+                   help="compute engine: batched torch/CUDA pipeline (default; 'tpu' is "
+                   "accepted as its second name, for command lines written for the JAX "
+                   "reference), the contig-sharded index (panels beyond one device), or "
+                   "the scalar host oracle")
     p.add_argument("--device", default="cuda",
                    help="torch device of the cuda and sharded-index engines, default "
                    "cuda (cpu runs the kernels' plain versions)")

@@ -51,12 +51,24 @@
 //     the block's only past it.
 //
 // The contig-sharded index (parallel/sharded_index.py) splits the kernel
-// at its flags: shard_flags_kernel ORs each shard's per-k-mer flags into
-// two bit planes a 32-k-mer word (flag 3; flag >= 2), which is the max of
-// the flags over the shards (genefuserust_tpu/parallel/sharded_index.py
-// build_sharded_map_read, the pmax before the window), and
-// mask_from_flags_kernel runs everything after the ballots on those
+// at its flags: shard_flags_kernel ORs the per-k-mer flags of a device's
+// shards into two bit planes a 32-k-mer word (flag 3; flag >= 2), which
+// is the max of the flags over the shards (genefuserust_tpu/parallel/
+// sharded_index.py build_sharded_map_read, the pmax before the window),
+// and mask_from_flags_kernel runs everything after the ballots on those
 // words: the window, the mismatch count and the chains.
+//
+// What bounds the shard flags: bytes, the shards' probe results of the
+// rows' own k-mers (at most ~55 MB for a call of 8,192 rows of width 224
+// over 4 shards). The design: one launch over a device's shards (a by-value
+// table), a warp a row and span of 32 words, each row's loads stopping at
+// its own last k-mer, the OR over the shards in registers and each word
+// stored once, so no zero-fill and no read-modify-write. What bounds mask
+// from flags on short rows: the instructions the warps start (a few
+// hundred dependent steps a row, under 1 MB of words), so the narrow
+// launch puts a row on a segment of 8 or 16 lanes when its words fit, 4
+// or 2 rows a warp, with neighbour words by segment shuffles and no
+// shared memory.
 #include <algorithm>
 #include <type_traits>
 
@@ -239,11 +251,11 @@ __device__ __forceinline__ void segment(chain_t<WIDE> key, int32_t& valid, int32
 
 // A warp's four word arrays of nw words each: mask 3, mask >= 2, linked
 // bases of targets 3 and 2, in its slice of shared memory. The narrow
-// kernels below run with WIDE = false and scratch NULL only (the wide
-// launch has kernels of its own); they keep the parameter list they had
-// when they also served wide rows, because dropping the unused template
-// and pointer changes their machine code (cuobjdump -sass), and their
-// times are held to the earlier build's.
+// mask_segments_kernel runs with WIDE = false and scratch NULL only (the
+// wide launch has kernels of its own); it keeps the parameter list it had
+// when it also served wide rows, because dropping the unused template and
+// pointer changes its machine code (cuobjdump -sass), and its time is
+// held to the earlier build's.
 template <bool WIDE>
 __device__ __forceinline__ uint32_t* warp_words(uint32_t* smem, uint32_t* scratch, int warp,
                                                 int b, int nw) {
@@ -380,71 +392,270 @@ mask_segments_kernel(const int32_t* __restrict__ pr, const int32_t* __restrict__
                             out + (size_t)b * 10);
 }
 
-// One shard's flags ORed into words (B, nw, 2) [flag 3 bits, flag >= 2
-// bits], bit j of word c = k-mer 32c + j; one warp a (row, chunk of 32
-// k-mers). Shards on one device run in stream order, so a plain
-// read-modify-write by the chunk's warp is the OR.
+// ---------------- the sharded pass 2: shard flags, mask from flags ----------------
+
+constexpr int MAX_FLAG_SHARDS = 8;  // shards one shard_flags launch takes
+constexpr int FLAGS_WARPS = 4;      // rows a block of shard_flags (a row a warp)
+constexpr int FLAGS_SPAN = 32;      // words of a row a warp takes: its chunks, one word a lane
+
+// A shard_flags launch's shards, by value: each one's stride-1 probe
+// results (B, NK) and its dupe table with its parameters.
+struct FlagShards {
+  const int2* pr[MAX_FLAG_SHARDS];
+  const int32_t* dupes[MAX_FLAG_SHARDS];
+  int dstride[MAX_FLAG_SHARDS];
+  int D[MAX_FLAG_SHARDS];
+  int cbits[MAX_FLAG_SHARDS];
+  int pos_bias[MAX_FLAG_SHARDS];
+  int n;
+};
+
+// Shard s of the table, selected with constant indexes (an unrolled scan),
+// so that the table stays in the parameter bank.
+struct FlagShard {
+  const int2* pr;
+  const int32_t* dupes;
+  int dstride, D, cbits, pos_bias;
+};
+
+__device__ __forceinline__ FlagShard flag_shard(const FlagShards& t, int s) {
+  FlagShard f{t.pr[0], t.dupes[0], t.dstride[0], t.D[0], t.cbits[0], t.pos_bias[0]};
+#pragma unroll
+  for (int q = 1; q < MAX_FLAG_SHARDS; ++q)
+    if (q == s) f = FlagShard{t.pr[q], t.dupes[q], t.dstride[q], t.D[q], t.cbits[q], t.pos_bias[q]};
+  return f;
+}
+
+// The shards' flags ORed into words (B, nw, 2) [flag 3 bits, flag >= 2
+// bits], bit j of word c = k-mer 32c + j: the max of the flags over the
+// shards. A warp takes words [FLAGS_SPAN * blockIdx.y, + FLAGS_SPAN) of
+// row b, a word a lane. Only the row's own k-mers, those below len - 15, are loaded
+// and flagged: the probe writes EMPTY for every later one, which flags
+// nothing. For each shard, MASK_GROUP chunks' probe loads and then their
+// dupe-row loads go out before any compare, as in mask_segments_kernel;
+// the row's keys are read once. The OR over the shards stays in the
+// lanes' registers; then each lane stores its word once (`accumulate` 0:
+// every word of the span, zero past the row's own k-mers) or ORs it into
+// the stored word (`accumulate` 1: a later group of shards, the row's own
+// words only).
 template <bool SPLIT>
-__global__ void __launch_bounds__(32 * MASK_WARPS)
-shard_flags_kernel(const int32_t* __restrict__ pr, const int32_t* __restrict__ gp, int B,
-                   int NK, const int32_t* __restrict__ dupes, int dstride, int D, int cbits,
-                   int pos_bias, uint2* __restrict__ words) {
+__global__ void __launch_bounds__(32 * FLAGS_WARPS)
+shard_flags_kernel(const FlagShards shards, const int32_t* __restrict__ lengths,
+                   const int32_t* __restrict__ gp, int B, int NK, int accumulate,
+                   uint2* __restrict__ words) {
   const int lane = threadIdx.x & 31;
-  const int nkc = (NK + 31) >> 5, nw = (NK + KMER - 1 + 31) >> 5;
-  const long long item = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (item >= (long long)B * nkc) return;
-  const int b = (int)(item / nkc), c = (int)(item - (long long)b * nkc);
-  const long long g1 = gplong_hl(__ldg(gp + 4 * b), __ldg(gp + 4 * b + 1));
-  const long long g2 = gplong_hl(__ldg(gp + 4 * b + 2), __ldg(gp + 4 * b + 3));
-  const int i = c * 32 + lane;
-  const int2 r = i < NK ? __ldg(reinterpret_cast<const int2*>(pr) + (size_t)b * NK + i)
-                        : make_int2(EMPTY, 0);
-  DupeRow<SPLIT> dr;
-  if (r.x == DUPE && D > 1) dr.load(dupes, r.y, dstride, D);
-  const int f = kmer_flag<SPLIT>(r, dr, i, g1, g2, D, cbits, pos_bias);
-  const uint32_t f3 = __ballot_sync(FULL, f == 3), f2 = __ballot_sync(FULL, f >= 2);
-  if (lane == 0) {
-    uint2* w = words + (size_t)b * nw + c;
-    const uint2 v = *w;
-    *w = make_uint2(v.x | f3, v.y | f2);
+  const int b = blockIdx.x * FLAGS_WARPS + (threadIdx.x >> 5);
+  if (b >= B) return;  // a whole warp
+  const int L = NK + KMER - 1, nw = (L + 31) >> 5;
+  const int c0 = blockIdx.y * FLAGS_SPAN;
+  const int nk = max(0, min(__ldg(lengths + b), L) - (KMER - 1));  // the row's own k-mers
+  const int ce = min(c0 + FLAGS_SPAN, (nk + 31) >> 5);  // past the span's last own chunk
+  uint32_t a3 = 0, a2 = 0;
+  if (ce > c0) {
+    const long long g1 = gplong_hl(__ldg(gp + 4 * b), __ldg(gp + 4 * b + 1));
+    const long long g2 = gplong_hl(__ldg(gp + 4 * b + 2), __ldg(gp + 4 * b + 3));
+    for (int s = 0; s < shards.n; ++s) {
+      const FlagShard sh = flag_shard(shards, s);
+      const int2* row = sh.pr + (size_t)b * NK;
+      for (int c = c0; c < ce; c += MASK_GROUP) {
+        int2 r[MASK_GROUP];
+        DupeRow<SPLIT> dr[MASK_GROUP];
+#pragma unroll
+        for (int j = 0; j < MASK_GROUP; ++j) {
+          const int i = (c + j) * 32 + lane;
+          r[j] = i < nk ? __ldg(row + i) : make_int2(EMPTY, 0);
+        }
+#pragma unroll
+        for (int j = 0; j < MASK_GROUP; ++j)
+          if (r[j].x == DUPE && sh.D > 1) dr[j].load(sh.dupes, r[j].y, sh.dstride, sh.D);
+#pragma unroll
+        for (int j = 0; j < MASK_GROUP; ++j) {
+          if (c + j >= ce) break;
+          const int f = kmer_flag<SPLIT>(r[j], dr[j], (c + j) * 32 + lane, g1, g2, sh.D,
+                                         sh.cbits, sh.pos_bias);
+          const uint32_t f3 = __ballot_sync(FULL, f == 3), f2 = __ballot_sync(FULL, f >= 2);
+          if (lane == c + j - c0) {
+            a3 |= f3;
+            a2 |= f2;
+          }
+        }
+      }
+    }
+  }
+  const int w = c0 + lane;
+  uint2* out = words + (size_t)b * nw + w;
+  if (!accumulate) {
+    if (w < nw) *out = make_uint2(a3, a2);
+  } else if (w < ce) {
+    const uint2 v = *out;
+    *out = make_uint2(v.x | a3, v.y | a2);
   }
 }
 
-// mask_segments_kernel from merged flag words (B, nw, 2): the window and
-// the mismatch count one word a lane, then the same chains.
-template <bool WIDE>
+// mask_from_flags' narrow launch: a row on a segment of SEG lanes (8, 16
+// or 32, the least that holds the batch's nw words; 32 / SEG rows a warp),
+// a word a lane, in rounds of SEG words up to the row's own last word
+// (ceil(min(len, L) / 32); only SEG = 32 takes more than one round). No
+// shared memory: a word's neighbours come by segment shuffles, a round's
+// first and last lanes take them from the round before and after.
+
+// A row's word on its lane: its flag words f3, f2, its in-bounds mask
+// words a3 (mask 3) and a2 (mask >= 2), its linked bases k3, k2.
+struct SegWord {
+  uint32_t f3, f2, a3, a2, k3, k2;
+};
+
+// Word w of a row (a lane's): the window of (this, previous) flag words,
+// its mismatches added to miss, and its linked bases from (this, previous)
+// mask words. The previous word is the segment's previous lane's, or on
+// the segment's first lane `prev`, the previous round's last word (zero
+// before the first).
+template <int SEG>
+__device__ __forceinline__ SegWord seg_word(const uint2* __restrict__ row, int w, int nwr,
+                                            int lim, int sl, const SegWord& prev, int& miss) {
+  SegWord s;
+  const uint2 f = w < nwr ? __ldg(row + w) : make_uint2(0u, 0u);
+  s.f3 = f.x;
+  s.f2 = f.y;
+  uint32_t p3 = __shfl_up_sync(FULL, f.x, 1, SEG), p2 = __shfl_up_sync(FULL, f.y, 1, SEG);
+  if (sl == 0) {
+    p3 = prev.f3;
+    p2 = prev.f2;
+  }
+  const uint32_t in = below(w, lim), m2 = window16(f.y, p2);
+  s.a3 = window16(f.x, p3) & in;
+  s.a2 = m2 & in;
+  miss += __popc(~m2 & in);
+  uint32_t q3 = __shfl_up_sync(FULL, s.a3, 1, SEG), q2 = __shfl_up_sync(FULL, s.a2, 1, SEG);
+  if (sl == 0) {
+    q3 = prev.a3;
+    q2 = prev.a2;
+  }
+  s.k3 = linked(s.a3, q3, 0u, 0u);
+  s.k2 = linked(s.a2 & ~s.a3, q2 & ~q3, s.a3, q3);
+  return s;
+}
+
+// the segment's last lane's word, on every lane of the segment
+template <int SEG>
+__device__ __forceinline__ SegWord seg_last(const SegWord& s) {
+  return SegWord{__shfl_sync(FULL, s.f3, SEG - 1, SEG), __shfl_sync(FULL, s.f2, SEG - 1, SEG),
+                 __shfl_sync(FULL, s.a3, SEG - 1, SEG), __shfl_sync(FULL, s.a2, SEG - 1, SEG),
+                 __shfl_sync(FULL, s.k3, SEG - 1, SEG), __shfl_sync(FULL, s.k2, SEG - 1, SEG)};
+}
+
+// the segment's next lane's value of v, or on its last lane `after`'s
+// value on the segment's first lane (the next round's first word)
+template <int SEG>
+__device__ __forceinline__ uint32_t seg_next(uint32_t v, uint32_t after, int sl) {
+  const uint32_t n = __shfl_down_sync(FULL, v, 1, SEG), a = __shfl_sync(FULL, after, 0, SEG);
+  return sl == SEG - 1 ? a : n;
+}
+
+// The best chain key of word w's chain ends e (16-bit ends): each end's
+// head is the last head at or before it, in the word or carried by a
+// segmented max-scan over the round's lanes; `carry` is the last head
+// before the round and becomes the last head through it. The key is the
+// lane's own: the segment's best is taken once, after the last round.
+template <int SEG>
+__device__ __forceinline__ uint32_t seg_chain_key(int w, uint32_t hd, uint32_t e, int& carry,
+                                                  int sl) {
+  int scan = hd ? 32 * w + 31 - __clz(hd) : -1;
+#pragma unroll
+  for (int o = 1; o < SEG; o <<= 1) {
+    const int v = __shfl_up_sync(FULL, scan, o, SEG);
+    if (sl >= o) scan = max(scan, v);
+  }
+  const int up = __shfl_up_sync(FULL, scan, 1, SEG);
+  const int before = max(carry, sl ? up : -1);
+  carry = max(carry, __shfl_sync(FULL, scan, SEG - 1, SEG));
+  uint32_t key = 0;
+  while (e) {
+    const int bit = __ffs(e) - 1;
+    e &= e - 1;
+    const uint32_t hb = hd & (FULL >> (31 - bit));
+    const int head = hb ? 32 * w + 31 - __clz(hb) : before;
+    key = max(key, pack_chain<false>(head, 32 * w + bit));
+  }
+  return key;
+}
+
+template <int SEG>
+__device__ __forceinline__ uint32_t seg_max(uint32_t v) {
+#pragma unroll
+  for (int o = SEG / 2; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o, SEG));
+  return v;
+}
+
+template <int SEG>
+__device__ __forceinline__ int seg_sum(int v) {
+#pragma unroll
+  for (int o = SEG / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o, SEG);
+  return v;
+}
+
+template <int SEG>
 __global__ void __launch_bounds__(32 * MASK_WARPS)
 mask_from_flags_kernel(const uint2* __restrict__ words, const int32_t* __restrict__ lengths,
                        const int32_t* __restrict__ gp, int B, int NK, int mismatch_thr,
-                       uint32_t* __restrict__ scratch, int32_t* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= B) return;
+                       int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31, sl = lane & (SEG - 1);
+  const int first = (blockIdx.x * MASK_WARPS + (threadIdx.x >> 5)) * (32 / SEG);
+  if (first >= B) return;  // a whole warp
+  const int b = first + lane / SEG;
   const int L = NK + KMER - 1, nw = (L + 31) >> 5;
-  uint32_t* m3 = warp_words<WIDE>(smem, scratch, warp, b, nw);
-  uint32_t* m2 = m3 + nw;
-  const int len = __ldg(lengths + b);
-  const int lim = min(len, L);
-  const uint2* row = words + (size_t)b * nw;
-  int miss = 0;
-  for (int w0 = 0; w0 < nw; w0 += 32) {
-    const int c = w0 + lane;
-    if (c < nw) {
-      const uint2 f = __ldg(row + c), pf = c ? __ldg(row + c - 1) : make_uint2(0u, 0u);
-      const uint32_t w2 = window16(f.y, pf.y);
-      m3[c] = window16(f.x, pf.x);
-      m2[c] = w2;
-      miss += __popc(~w2 & below(c, lim));
-    }
+  const int len = b < B ? __ldg(lengths + b) : 0;
+  const int lim = min(len, L), nwr = (lim + 31) >> 5;
+  const uint2* row = words + (size_t)b * nw;  // read below nwr only (0 past B)
+  const int rounds = SEG == 32 ? (nwr + 31) >> 5 : 1;  // SEG < 32: nwr <= nw <= SEG
+  int miss = 0, carry3 = -1, carry2 = -1;
+  uint32_t best3 = 0, best2 = 0;
+  SegWord cur = seg_word<SEG>(row, sl, nwr, lim, sl, SegWord{}, miss);
+  for (int r = 0; r < rounds; ++r) {
+    const int w = r * SEG + sl;
+    SegWord nxt{};
+    if (r + 1 < rounds) nxt = seg_word<SEG>(row, w + SEG, nwr, lim, sl, seg_last<SEG>(cur), miss);
+    // heads (ok, not linked, before the last in-bounds base), chain ends
+    // (member whose next ok base is not linked), from (this, next) words
+    const uint32_t n3 = seg_next<SEG>(cur.a3, nxt.a3, sl), n2 = seg_next<SEG>(cur.a2, nxt.a2, sl);
+    const uint32_t nk3 = seg_next<SEG>(cur.k3, nxt.k3, sl);
+    const uint32_t nk2 = seg_next<SEG>(cur.k2, nxt.k2, sl);
+    const uint32_t o2 = cur.a2 & ~cur.a3, no2 = n2 & ~n3, last = below(w, len - 1);
+    const uint32_t hd3 = cur.a3 & ~cur.k3 & last, hd2 = o2 & ~cur.k2 & last;
+    const uint32_t e3 = (cur.k3 | hd3) & ~next_linked(cur.k3, nk3, cur.a3, n3);
+    const uint32_t e2 = (cur.k2 | hd2) & ~next_linked(cur.k2, nk2, o2, no2);
+    best3 = max(best3, seg_chain_key<SEG>(w, hd3, e3, carry3, sl));
+    best2 = max(best2, seg_chain_key<SEG>(w, hd2, e2, carry2, sl));
+    cur = nxt;
   }
-  miss = (int)__reduce_add_sync(FULL, (unsigned)miss);
-  __syncwarp();
-  segments_from_words<WIDE>(m3, nw, len, lim, miss, mismatch_thr, __ldg(gp + 4 * b),
-                            __ldg(gp + 4 * b + 1), __ldg(gp + 4 * b + 2),
-                            __ldg(gp + 4 * b + 3), lane, out + (size_t)b * 10);
+  best3 = seg_max<SEG>(best3);
+  best2 = seg_max<SEG>(best2);
+  miss = seg_sum<SEG>(miss);
+  if (sl == 0 && b < B) {
+    int32_t v3, s3, x3, v2, s2, x2;
+    segment<false>(best3, v3, s3, x3);
+    segment<false>(best2, v2, s2, x2);
+    const int32_t ok = miss <= mismatch_thr;
+    int32_t* o = out + (size_t)b * 10;
+    o[0] = v3 & ok;
+    o[1] = v2 & ok;
+    o[2] = s3;
+    o[3] = s2;
+    o[4] = x3;
+    o[5] = x2;
+    o[6] = __ldg(gp + 4 * b);
+    o[7] = __ldg(gp + 4 * b + 2);
+    o[8] = __ldg(gp + 4 * b + 1);
+    o[9] = __ldg(gp + 4 * b + 3);
+  }
 }
 
+// The segment of a narrow mask_from_flags launch: the least of 8, 16 and
+// 32 lanes that holds a row's nw words.
+inline int flags_segment(int NK) {
+  const int nw = (NK + KMER - 1 + 31) / 32;
+  return nw <= 8 ? 8 : nw <= 16 ? 16 : 32;
+}
 
 // ---------------- the wide launch: a row a warp, long rows a block ----------------
 
@@ -875,23 +1086,40 @@ extern "C" int gf_mask_segments(const void* pr, const void* lengths, const void*
   return (int)cudaGetLastError();
 }
 
-// One shard's pass-2 flags: pr (B, NK, 2) its full-stride probe results,
-// gp (B, 4) the merged [h1, l1, h2, l2]; ORed into words (B, ceil((NK +
-// 15) / 32), 2) uint32 [flag 3, flag >= 2] (zeroed before the first shard).
-extern "C" int gf_shard_flags(const void* pr, const void* gp, int B, int NK, const void* dupes,
-                              int dstride, int D, int split, int cbits, int pos_bias,
-                              void* words, void* stream) {
-  if (B < 0 || NK < 1) return (int)cudaErrorInvalidValue;
-  if (!split && D > 1 && (D > 8 || dstride % 4 || dstride < 8 || (uintptr_t)dupes % 16))
-    return (int)cudaErrorInvalidValue;
-  const long long items = (long long)B * ((NK + 31) / 32);
-  if (items == 0) return (int)cudaSuccess;
-  const long long grid = (items + gf::MASK_WARPS - 1) / gf::MASK_WARPS;
-  if (grid >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+// The pass-2 flags of n (1..MAX_FLAG_SHARDS) shards in one launch. prs,
+// dupes: host arrays of n device pointers, each shard's (B, NK, 2)
+// stride-1 probe results and its dupe table; dstrides, Ds, cbits,
+// pos_biases: host arrays of n; lengths (B,); gp (B, 4) the merged [h1,
+// l1, h2, l2]. words (B, ceil((NK + 15) / 32), 2) uint32 [flag 3, flag >=
+// 2]: every word stored (accumulate 0) or the rows' own words ORed into
+// (accumulate 1, a later group of the same rows' shards).
+extern "C" int gf_shard_flags(int n, const long long* prs, const long long* dupes,
+                              const int* dstrides, const int* Ds, const int* cbits,
+                              const int* pos_biases, int split, const void* lengths,
+                              const void* gp, int B, int NK, int accumulate, void* words,
+                              void* stream) {
+  if (n < 1 || n > gf::MAX_FLAG_SHARDS || B < 0 || NK < 1) return (int)cudaErrorInvalidValue;
+  gf::FlagShards t{};
+  for (int s = 0; s < n; ++s) {
+    if (!split && Ds[s] > 1 &&
+        (Ds[s] > 8 || dstrides[s] % 4 || dstrides[s] < 8 || dupes[s] % 16))
+      return (int)cudaErrorInvalidValue;
+    t.pr[s] = (const int2*)prs[s];
+    t.dupes[s] = (const int32_t*)dupes[s];
+    t.dstride[s] = dstrides[s];
+    t.D[s] = Ds[s];
+    t.cbits[s] = cbits[s];
+    t.pos_bias[s] = pos_biases[s];
+  }
+  t.n = n;
+  if (B == 0) return (int)cudaSuccess;
+  const int nw = (NK + gf::KMER - 1 + 31) / 32;
+  const dim3 grid((B + gf::FLAGS_WARPS - 1) / gf::FLAGS_WARPS,
+                  (nw + gf::FLAGS_SPAN - 1) / gf::FLAGS_SPAN);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   auto kern = split ? gf::shard_flags_kernel<true> : gf::shard_flags_kernel<false>;
-  kern<<<(unsigned)grid, 32 * gf::MASK_WARPS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)pr, (const int32_t*)gp, B, NK, (const int32_t*)dupes, dstride, D, cbits,
-      pos_bias, (uint2*)words);
+  kern<<<grid, 32 * gf::FLAGS_WARPS, 0, (cudaStream_t)stream>>>(
+      t, (const int32_t*)lengths, (const int32_t*)gp, B, NK, accumulate, (uint2*)words);
   return (int)cudaGetLastError();
 }
 
@@ -910,8 +1138,10 @@ extern "C" int gf_mask_from_flags(const void* words, const void* lengths, const 
   auto g = (const int32_t*)gp;
   auto o = (int32_t*)out;
   if (!wide) {
-    const gf::MaskLaunch m = gf::mask_launch(B, NK);
-    gf::mask_from_flags_kernel<false><<<m.grid, m.block, m.smem, st>>>(w, n, g, B, NK, mismatch_thr, nullptr, o);
+    const int seg = gf::flags_segment(NK), rows = gf::MASK_WARPS * 32 / seg;
+    auto kern = seg == 8 ? gf::mask_from_flags_kernel<8>
+                : seg == 16 ? gf::mask_from_flags_kernel<16> : gf::mask_from_flags_kernel<32>;
+    kern<<<(B + rows - 1) / rows, 32 * gf::MASK_WARPS, 0, st>>>(w, n, g, B, NK, mismatch_thr, o);
     return (int)cudaGetLastError();
   }
   const gf::WideLaunch m = gf::wide_launch(B, NK, smem_cap);

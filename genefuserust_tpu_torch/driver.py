@@ -10,7 +10,8 @@ paired-end input is scanned against every panel in one pass
 panel gets its own `{stem}_{csv_stem}.{ext}` reports with logging and the
 stdout fusion blocks suppressed.
 
-Engines: 'cuda' (`TorchEngine` over `--mesh` devices, whole batches in
+Engines: 'cuda', or 'tpu', its second name for command lines written for
+the JAX reference (`TorchEngine` over `--mesh` devices, whole batches in
 turn with the table on each, or over an explicit device list; one device
 when the mesh resolves to one), 'sharded-index' (`ShardedIndexEngine`,
 the panel's table split by contig over `--mesh` devices, one shard each,
@@ -44,7 +45,7 @@ class RunConfig:
     ref_file: str
     thread_num: Optional[int] = None
     settings: Settings = dataclasses.field(default_factory=Settings)
-    engine: str = "cuda"  # 'cuda' (TorchEngine) | 'sharded-index' | 'host' (scalar oracle)
+    engine: str = "cuda"  # 'cuda' or 'tpu' (TorchEngine) | 'sharded-index' | 'host' (scalar oracle)
     index_cache_dir: str = ""
     mesh: str = "auto"  # cuda: the data-parallel devices; sharded-index: the shard count
     device: str = "cuda"  # torch device (type) of the engine
@@ -81,7 +82,7 @@ def make_engine(kind: str, settings: Settings, device: str = "cuda",
         from .core.scanner import HostEngine
 
         return HostEngine()
-    if kind not in ("cuda", "sharded-index"):
+    if kind not in ("cuda", "tpu", "sharded-index"):
         raise ValueError(f"unknown engine {kind!r}")
     from .parallel.mesh import resolve_mesh
 

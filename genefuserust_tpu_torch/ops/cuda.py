@@ -15,8 +15,9 @@ mode (the contig-sharded index). The wide-row paths count apart from
 their kernels' main paths: "vote_wide" and "vote_counts_wide" (the two
 modes of the wide vote's second launch; its first is the vote's; rows
 whose keys pass its shared memory take a third launch, counted as
-"vote_wide_global" and "vote_counts_wide_global"), "mask_segments_wide"
-and "mask_from_flags_wide" (the launches on code rows past 65,535 bases).
+"vote_wide_global" and "vote_counts_wide_global"), "mask_segments_wide",
+"shard_flags_wide" and "mask_from_flags_wide" (the launches on code rows
+past 65,535 bases).
 The glue of fused_scan_lanes counts each of its kernels under its own
 name: "lane_unpack" and "lane_exceptions" (one of each for up to
 MAX_LANES lanes), "compact_count" and "compact_place" (one of each a
@@ -47,7 +48,8 @@ NVCC_FLAGS = (
 LAUNCHES = {"probe": 0, "vote": 0, "mask_segments": 0, "gather_sum": 0, "edit_distance": 0,
             "vote_counts": 0, "vote_wide": 0, "vote_counts_wide": 0, "mask_segments_wide": 0,
             "vote_wide_global": 0, "vote_counts_wide_global": 0,
-            "merge_top2": 0, "shard_flags": 0, "mask_from_flags": 0, "mask_from_flags_wide": 0,
+            "merge_top2": 0, "shard_flags": 0, "shard_flags_wide": 0, "mask_from_flags": 0,
+            "mask_from_flags_wide": 0,
             "lane_unpack": 0, "lane_exceptions": 0, "compact_count": 0, "compact_place": 0,
             "survivor_rows": 0}
 # lanes one unpack, exception or survivor_rows launch takes (MAX_LANES in
@@ -129,7 +131,7 @@ _ARGTYPES = {
                      _P, _P],
     "gf_merge_top2": [_P, _I, _I, _I, _I, _I, _P, _P],
     "gf_mask_segments": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "gf_shard_flags": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    "gf_shard_flags": [_I, _LLP, _LLP, _IP, _IP, _IP, _IP, _I, _P, _P, _I, _I, _I, _P, _P],
     "gf_mask_from_flags": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "gf_gather_tile_sums": [_P, _P, _I, _I, _I, _P, _P],
     "gf_edit_distance": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -257,8 +259,10 @@ def launch_merge_top2(votes, step, major_req, minor_req, out) -> None:
 
 
 def _mask_name(name: str, NK: int) -> str:
-    """The counter of a mask launch: code rows past 65,535 bases take the
-    wide launch (MASK_MAX_L in csrc/mask_segments.cu)."""
+    """The counter of a launch of csrc/mask_segments.cu: code rows past
+    65,535 bases count as "<name>_wide" (mask+segments and mask from flags
+    take their wide launch there, MASK_MAX_L; the shard flags keep their
+    kernel)."""
     return f"{name}_wide" if NK + 15 > 0xFFFF else name
 
 
@@ -278,14 +282,23 @@ def launch_mask_segments(pr, lengths, gp, B, NK, index, mismatch_thr, out,
     _done(_mask_name("mask_segments", NK), err)
 
 
-def launch_shard_flags(pr, gp, B, NK, index, words) -> None:
-    dstride, D = _dupe_args(index)
+def launch_shard_flags(prs, indexes, lengths, gp, NK, words, accumulate: bool) -> None:
+    """One launch over the shards' stride-1 probe results `prs` (at most
+    MAX_FLAG_SHARDS in csrc/mask_segments.cu, one table layout); their
+    pointers and dupe parameters go by value. `accumulate`: OR into
+    `words`, else store every word."""
+    n = len(prs)
+    ll, ii = ctypes.c_longlong * n, ctypes.c_int * n
+    dupe = [_dupe_args(ix) for ix in indexes]
     with torch.cuda.device(words.device):
         err = library().gf_shard_flags(
-            pr.data_ptr(), gp.data_ptr(), B, NK, index.dupes.data_ptr(), dstride, D,
-            int(index.split), index.cbits, index.pos_bias, words.data_ptr(), _stream(words),
+            n, ll(*(p.data_ptr() for p in prs)), ll(*(ix.dupes.data_ptr() for ix in indexes)),
+            ii(*(d[0] for d in dupe)), ii(*(d[1] for d in dupe)),
+            ii(*(ix.cbits for ix in indexes)), ii(*(ix.pos_bias for ix in indexes)),
+            int(indexes[0].split), lengths.data_ptr(), gp.data_ptr(), words.shape[0], NK,
+            int(accumulate), words.data_ptr(), _stream(words),
         )
-    _done("shard_flags", err)
+    _done(_mask_name("shard_flags", NK), err)
 
 
 def launch_mask_from_flags(words, lengths, gp, B, NK, mismatch_thr, out, scratch=None,

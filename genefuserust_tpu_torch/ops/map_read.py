@@ -14,7 +14,7 @@ pass 2 apart at their seams, with a wrapper and plain version each:
 
   vote_counts      the vote's two entries with their counts, no gate (vote.cu)
   merge_top2       the shards' entries merged, then the gate        (vote.cu)
-  shard_flags      one shard's per-k-mer flags ORed into bit planes (mask_segments.cu)
+  shard_flags      the shards' per-k-mer flags ORed into bit planes (mask_segments.cu)
   mask_from_flags  mask + extract_segments from those planes        (mask_segments.cu)
 
 The vote and mask+segments have no width limit: rows too wide for the
@@ -76,6 +76,8 @@ VOTE_WARP_KEYS = 256
 # take the wide launch (64-bit chain keys)
 MASK_MAX_WIDTH = 0xFFFF
 MAX_SHARDS = 8  # shards merge_top2's kernel takes (MAX_SHARDS in csrc/vote.cu)
+# shards one shard_flags launch takes (MAX_FLAG_SHARDS in csrc/mask_segments.cu)
+MAX_FLAG_SHARDS = 8
 
 
 class MapReadResult(NamedTuple):
@@ -640,29 +642,56 @@ def mask_segments(pr, lengths, gp, index: TorchIndex, mismatch_thr: int, smem_ca
     return out
 
 
-def shard_flags(pr, gp, index: TorchIndex, words):
-    """One shard's pass-2 flags ORed into `words` (B, flag_words(NK), 2)
-    int32 in place, -> words. pr: its full-stride probe results (B, NK,
-    2); gp: the merged (B, 4) [h1, l1, h2, l2]. One warp a (row, chunk of
-    32 k-mers) ballots them."""
-    dev = pr.device
-    cuda.check_tensor(pr, "probe results", torch.int32, 3, dev)
+def shard_flags(prs, lengths, gp, indexes, words=None):
+    """The pass-2 flags of shards whose stride-1 probe results `prs` (each
+    (B, NK, 2), one a shard of `indexes`, all on one device) ORed over the
+    shards -> words (B, flag_words(NK), 2) int32 [flag 3, flag >= 2], bit
+    j of word c = k-mer 32c + j. lengths: the rows' (B,) lengths; gp: the
+    merged (B, 4) [h1, l1, h2, l2]. One launch: a warp a row (and span of
+    32 words) ORs the shards' ballots in its registers and writes each word
+    once. `words` None: a new tensor, every word stored; else the flags are
+    ORed into `words` in place (a later group of the same rows' shards). A
+    row's k-mers from its length - 15 on are not read: the probe makes
+    each of them EMPTY, which flags nothing, so the words equal
+    shard_flags_plain's OR over the shards on probe results."""
+    S = len(prs)
+    if not 1 <= S <= MAX_FLAG_SHARDS or len(indexes) != S:
+        raise ValueError(f"shard_flags: 1 to {MAX_FLAG_SHARDS} shards with a table each, "
+                         f"got {S} results and {len(indexes)} tables")
+    dev = prs[0].device
+    B, NK, two = prs[0].shape
+    for pr, index in zip(prs, indexes):
+        cuda.check_tensor(pr, "probe results", torch.int32, 3, dev)
+        _check_index(index, dev)
+        if pr.shape != prs[0].shape:
+            raise ValueError("shard_flags: the shards' probe results differ in shape")
+    cuda.check_tensor(lengths, "lengths", torch.int32, 1, dev)
     cuda.check_tensor(gp, "gp", torch.int32, 2, dev)
-    cuda.check_tensor(words, "words", torch.int32, 3, dev)
-    _check_index(index, dev)
-    B, NK, two = pr.shape
-    if two != 2 or tuple(gp.shape) != (B, 4) or tuple(words.shape) != (B, flag_words(NK), 2):
+    if words is not None:
+        cuda.check_tensor(words, "words", torch.int32, 3, dev)
+    if (two != 2 or lengths.shape[0] != B or tuple(gp.shape) != (B, 4)
+            or (words is not None and tuple(words.shape) != (B, flag_words(NK), 2))):
         raise ValueError("shard_flags: bad shapes")
+    if len({ix.split for ix in indexes}) != 1:
+        raise ValueError("shard_flags: the shards of a launch share one table layout")
     if dev.type == "cpu":
-        return words.bitwise_or_(shard_flags_plain(pr, gp, index))
+        out = shard_flags_plain(prs[0], gp, indexes[0])
+        for pr, index in zip(prs[1:], indexes[1:]):
+            out |= shard_flags_plain(pr, gp, index)
+        return out if words is None else words.bitwise_or_(out)
+    out = torch.empty((B, flag_words(NK), 2), dtype=torch.int32, device=dev) \
+        if words is None else words
     if B:
-        cuda.launch_shard_flags(pr, gp, B, NK, index, words)
-    return words
+        cuda.launch_shard_flags(prs, indexes, lengths, gp, NK, out, words is not None)
+    return out
 
 
 def mask_from_flags(words, lengths, gp, NK: int, mismatch_thr: int, smem_cap=None):
     """Mask+segments from merged flag words (B, flag_words(NK), 2) -> the
-    (B, 10) rows of mask_segments; wide rows and `smem_cap` as there."""
+    (B, 10) rows of mask_segments; wide rows and `smem_cap` as there. On
+    the narrow launch a row takes a segment of 8, 16 or 32 lanes (the
+    least that holds flag_words(NK) words; 4, 2 or 1 rows a warp), a word
+    a lane, and stops at its own last word."""
     dev = words.device
     cuda.check_tensor(words, "words", torch.int32, 3, dev)
     cuda.check_tensor(lengths, "lengths", torch.int32, 1, dev)

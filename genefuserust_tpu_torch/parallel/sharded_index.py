@@ -31,7 +31,8 @@ through `.to()` (NCCL collectives wait for the multi-GPU slice):
 
   each shard   probe (stride 2) -> vote_counts        -> (B, 6) to device 0
   device 0     merge_top2 over the (S, B, 6) rows     -> gate and top two
-  each shard   probe (stride 1) -> shard_flags        -> ORed flag words
+  each device  probe (stride 1) of its shards, one shard_flags launch
+               over them (groups past FLAGS_GROUP_BYTES) -> ORed flag words
   device 0     the other devices' words ORed in; mask_from_flags
 """
 
@@ -208,6 +209,37 @@ def table_bytes(indexes: List[TorchIndex]) -> int:
                for t in (ix.table, ix.vals, ix.dupes))
 
 
+# The stride-1 probe results of one device's shards that a shard_flags
+# launch takes at once, at most (bytes). A call's peak device memory grows
+# by at most this over holding one shard's results at a time; a shard
+# whose results pass it alone takes a launch of its own. At 8,192 rows of
+# width 224 a shard's results are 13.7 MB, so 4 shards take one launch.
+FLAGS_GROUP_BYTES = 512 << 20
+
+
+def flag_groups(n_shards: int, shard_bytes: int):
+    """The shards of one device in groups, in order, each a shard_flags
+    launch: as many as fit in FLAGS_GROUP_BYTES of probe results (at least
+    one, at most MAX_FLAG_SHARDS) -> [range of shard positions]."""
+    per = max(1, min(M.MAX_FLAG_SHARDS, FLAGS_GROUP_BYTES // max(1, shard_bytes)))
+    return [range(a, min(n_shards, a + per)) for a in range(0, n_shards, per)]
+
+
+def device_flags(codes, lengths, gp, indexes: List[TorchIndex]):
+    """Pass 2's flag words of shards that lie on one device (codes,
+    lengths and gp on it too): each group of `flag_groups` probed (stride
+    1) and flagged in one launch, the first group's launch storing the
+    words and each later one ORing into them -> (B, nw, 2) int32."""
+    B, L = codes.shape
+    words = None
+    for group in flag_groups(len(indexes), B * (L - KMER + 1) * 8):
+        ixs = [indexes[s] for s in group]
+        prs = [M.probe(codes, lengths, 1, ix) for ix in ixs]
+        words = M.shard_flags(prs, lengths, gp, ixs, words)
+        del prs
+    return words
+
+
 def sharded_map_read(codes, lengths, indexes: List[TorchIndex], major_req: int = 40,
                      minor_req: int = 20, mismatch_thr: int = 10) -> M.MapReadResult:
     """Both passes of map_read over shard tables -> the MapReadResult of
@@ -228,11 +260,10 @@ def sharded_map_read(codes, lengths, indexes: List[TorchIndex], major_req: int =
     gp = v[:, 1:5].contiguous()
     B, L = codes.shape
     NK = L - KMER + 1
-    gps = {d: gp.to(d) for d in inputs}
-    words = {d: torch.zeros((B, M.flag_words(NK), 2), dtype=torch.int32, device=d)
-             for d in inputs}
-    for ix, d in zip(indexes, devs):
-        M.shard_flags(M.probe(*inputs[d], 1, ix), gps[d], ix, words[d])
+    words = {}
+    for d in inputs:
+        mine = [ix for ix, e in zip(indexes, devs) if e == d]
+        words[d] = device_flags(*inputs[d], gp.to(d), mine)
     merged = words[dev0]
     for d, w in words.items():
         if d != dev0:

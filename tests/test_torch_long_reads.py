@@ -172,8 +172,7 @@ def test_wide_mask_plain_and_mirror_match_jax(panel_reads, panel_ix, layout):
     assert np.array_equal(got, exp)
     assert (got[:, 4] > tm.MASK_MAX_WIDTH).any() and got[1, 0] == 1
     assert np.array_equal(_kernel_mask_segments(pr, lens, gp, index, wide=True), exp)
-    words = tm.shard_flags(pr, gp, index, torch.zeros((3, tm.flag_words(NK), 2),
-                                                      dtype=torch.int32))
+    words = tm.shard_flags([pr], lens, gp, [index])
     assert np.array_equal(tm.mask_from_flags(words, lens, gp, NK, 10).numpy(), exp)
 
 
@@ -350,8 +349,7 @@ def test_wide_kernels_match_plain(panel_reads, panel_ix, layout, cuda_device):
     exp = tm.mask_segments_plain(pr1, lens, gp, cpu, 10)
     got = tm.mask_segments(pr1.to(cuda_device), ld, gp.to(cuda_device), dev, 10)
     assert torch.equal(got.cpu(), exp)
-    words = torch.zeros((3, tm.flag_words(NK), 2), dtype=torch.int32, device=cuda_device)
-    tm.shard_flags(pr1.to(cuda_device), gp.to(cuda_device), dev, words)
+    words = tm.shard_flags([pr1.to(cuda_device)], ld, gp.to(cuda_device), [dev])
     assert torch.equal(words.cpu(), tm.shard_flags_plain(pr1, gp, cpu))
     assert torch.equal(tm.mask_from_flags(words, ld, gp.to(cuda_device), NK, 10).cpu(), exp)
 

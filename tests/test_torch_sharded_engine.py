@@ -209,12 +209,11 @@ def test_sharded_kernels_match_plain(workload, shards, cuda_device):
     assert torch.equal(tm.merge_top2(v.to(cuda_device), 40, 20).cpu(), m)
     gp = m[:, 1:5].contiguous()
     NK = 160 - 15
-    words = torch.zeros((len(seqs), tm.flag_words(NK), 2), dtype=torch.int32)
-    wd = words.to(cuda_device)
+    words = wd = None
     for c, d in zip(cpu, dev):
         pr1 = tm.probe(ct, lt, 1, c)
-        tm.shard_flags(pr1, gp, c, words)
-        tm.shard_flags(pr1.to(cuda_device), gp.to(cuda_device), d, wd)
+        words = tm.shard_flags([pr1], lt, gp, [c], words)
+        wd = tm.shard_flags([pr1.to(cuda_device)], ld, gp.to(cuda_device), [d], wd)
         assert torch.equal(wd.cpu(), words)
     exp = tm.mask_from_flags_plain(words, lt, gp, NK, 10)
     assert torch.equal(tm.mask_from_flags(wd, ld, gp.to(cuda_device), NK, 10).cpu(), exp)

@@ -17,7 +17,20 @@ from genefuserust_tpu_torch.ops import map_read as tm
 from genefuserust_tpu_torch.ops.hashtable import EMPTY
 from genefuserust_tpu_torch.ops.index import build_packed_index, index_to_torch
 from genefuserust_tpu_torch.parallel import sharded_index as tsi
-from test_torch_map_read import _ballots, _mask_route, _row_words, _window16
+from test_torch_map_read import (
+    M32,
+    _ballots,
+    _below,
+    _kmer_flags,
+    _last_head,
+    _linked,
+    _mask_route,
+    _next_linked,
+    _row_words,
+    _segment,
+    _window16,
+    _word_chains,
+)
 
 MOTIF = "ACGTTGCAACGGTTACGATCCAGTTACG"
 CPU = torch.device("cpu")
@@ -341,29 +354,114 @@ def _wrap32(a):
     return torch.from_numpy(((a + 2**31) % 2**32 - 2**31).astype(np.int32))
 
 
-def _kernel_shard_flags(pr, gp, index, words):
-    """shard_flags_kernel step for step: per (row, chunk of 32 k-mers) the
-    two ballots, ORed into the row's words."""
-    B, NK = pr.shape[:2]
-    keys, cv = tm._keys_at(index, pr, 1)
-    g1 = tm.gplong(gp[:, 0], gp[:, 1])[:, None, None]
-    g2 = tm.gplong(gp[:, 2], gp[:, 3])[:, None, None]
-    f3 = (cv & ((keys - g1).abs() <= 1)).any(-1).numpy()
-    f2 = f3 | (cv & ((keys - g2).abs() <= 1)).any(-1).numpy()
-    out = words.numpy().astype(np.int64) & 0xFFFFFFFF
+def _kernel_shard_flags(prs, lengths, gp, indexes, words=None):
+    """shard_flags_kernel step for step: a warp a (row, span of 32 words),
+    a word a lane. Only the row's own k-mers (below its length - 15) are
+    read; per shard, the chunks' two ballots are ORed into the lane of the
+    chunk's word. `words` None: every word of the span stored (zero past
+    the row's own chunks); else ORed into the row's own words."""
+    span = 32  # FLAGS_SPAN in csrc/mask_segments.cu
+    B, NK = prs[0].shape[:2]
+    L = NK + 15
+    nw = tm.flag_words(NK)
+    flags = [_kmer_flags(pr, gp, ix) for pr, ix in zip(prs, indexes)]
+    out = (np.zeros((B, nw, 2), np.int64) if words is None
+           else words.numpy().astype(np.int64) & 0xFFFFFFFF)
     for b in range(B):
-        for c, (w3, w2) in enumerate(zip(_ballots(f3[b], -(-NK // 32)),
-                                         _ballots(f2[b], -(-NK // 32)))):
-            out[b, c, 0] |= w3
-            out[b, c, 1] |= w2
-    return torch.from_numpy(((out + 2**31) % 2**32 - 2**31).astype(np.int32))
+        nk = max(0, min(int(lengths[b]), L) - 15)
+        own = -(-nk // 32)
+        for c0 in range(0, nw, span):
+            ce = min(c0 + span, own)
+            lanes = np.zeros((span, 2), np.int64)
+            for f3, f2 in flags:
+                for c in range(c0, ce):
+                    i = np.arange(32 * c, 32 * c + 32)
+                    inside = i < nk
+                    w3 = _ballots(f3[b, np.minimum(i, NK - 1)] & inside, 1)[0]
+                    w2 = _ballots(f2[b, np.minimum(i, NK - 1)] & inside, 1)[0]
+                    lanes[c - c0] |= (w3, w2)
+            for lane in range(span):
+                w = c0 + lane
+                if words is None and w < nw:
+                    out[b, w] = lanes[lane]
+                elif words is not None and w < ce:
+                    out[b, w] |= lanes[lane]
+    return _wrap32(out)
+
+
+def _flags_segment(nw):
+    """The lanes a row takes on mask_from_flags' narrow launch."""
+    return 8 if nw <= 8 else 16 if nw <= 16 else 32
+
+
+def _seg_words(wrow, r, SEG, nwr, lim, prev):
+    """seg_word over one round's lanes: each lane's word w = r * SEG + sl,
+    its flags (zero from nwr on), window, in-bounds mask words and linked
+    bases, the previous word from the previous lane (lane 0: `prev`, the
+    previous round's last word) -> ([per lane (f3, f2, a3, a2, k3, k2)],
+    the round's mismatches)."""
+    lanes, miss = [], 0
+    for sl in range(SEG):
+        w = r * SEG + sl
+        f3, f2 = (int(wrow[w, 0]), int(wrow[w, 1])) if w < nwr else (0, 0)
+        p = lanes[sl - 1] if sl else prev
+        inb = _below(w, lim)
+        m2 = _window16(f2, p[1])
+        a3, a2 = _window16(f3, p[0]) & inb, m2 & inb
+        miss += bin(~m2 & inb & M32).count("1")
+        k3 = _linked(a3, p[2], 0, 0)
+        k2 = _linked(a2 & ~a3 & M32, p[3] & ~p[2] & M32, a3, p[2])
+        lanes.append((f3, f2, a3, a2, k3, k2))
+    return lanes, miss
+
+
+def _seg_row(wrow, n, L, nw, mismatch_thr):
+    """mask_from_flags_kernel (narrow) on one row: a segment of SEG lanes,
+    rounds of SEG words up to the row's own last word, a word's next from
+    the next lane or the next round's lane 0, the heads carried by a
+    segmented max-scan and a carry over rounds -> [v3, v2, s3, s2, e3, e2]."""
+    SEG = _flags_segment(nw)
+    lim = min(n, L)
+    nwr = -(-lim // 32)
+    rounds = -(-nwr // 32) if SEG == 32 else 1
+    zero = (0,) * 6
+    cur, miss = _seg_words(wrow, 0, SEG, nwr, lim, zero)
+    best, carry = {3: 0, 2: 0}, {3: -1, 2: -1}
+    for r in range(rounds):
+        nxt, m = _seg_words(wrow, r + 1, SEG, nwr, lim, cur[-1]) if r + 1 < rounds else \
+            ([zero] * SEG, 0)
+        miss += m
+        heads, ends = {3: [], 2: []}, {3: [], 2: []}
+        for sl in range(SEG):
+            w = r * SEG + sl
+            _, _, a3, a2, k3, k2 = cur[sl]
+            _, _, n3, n2, nk3, nk2 = cur[sl + 1] if sl + 1 < SEG else nxt[0]
+            o2, no2, last = a2 & ~a3 & M32, n2 & ~n3 & M32, _below(w, n - 1)
+            h3, h2 = a3 & ~k3 & last, o2 & ~k2 & last
+            heads[3].append(h3)
+            heads[2].append(h2)
+            ends[3].append((k3 | h3) & ~_next_linked(k3, nk3, a3, n3) & M32)
+            ends[2].append((k2 | h2) & ~_next_linked(k2, nk2, o2, no2) & M32)
+        for t in (3, 2):
+            scan = np.maximum.accumulate([_last_head(r * SEG + sl, heads[t][sl])
+                                          for sl in range(SEG)])
+            for sl in range(SEG):
+                before = max(carry[t], int(scan[sl - 1]) if sl else -1)
+                best[t] = max(best[t], _word_chains(r * SEG + sl, heads[t][sl], ends[t][sl],
+                                                    before, 16, 0xFFFF))
+            carry[t] = max(carry[t], int(scan[-1]))
+        cur = nxt
+    ok = int(miss <= mismatch_thr)
+    (v3, s3, e3), (v2, s2, e2) = (_segment(best[t], 16, 0xFFFF) for t in (3, 2))
+    return [v3 & ok, v2 & ok, s3, s2, e3, e2]
 
 
 def _kernel_mask_from_flags(words, lengths, gp, NK, mismatch_thr=10, wide=False):
-    """mask_from_flags_kernel step for step: one word a lane, the window
-    of (this, previous) word, popcounts, then the chain steps of
-    mask_segments (`_kernel_segments`). `wide`: the wide launch, a row's
-    words only up to its own length, a long row by the block
+    """mask_from_flags_kernel step for step (_seg_row: a row on a segment
+    of 8, 16 or 32 lanes, shuffles for neighbour words, each row's own
+    words only). `wide`: the wide launch, a word a lane over a row's own
+    words, the window of (this, previous) word, then the chain steps of
+    mask_segments (`_kernel_segments`), a long row by the block
     (`_block_segments`, the route of `_mask_route`)."""
     B, nw, _ = words.shape
     L = NK + 15
@@ -371,53 +469,66 @@ def _kernel_mask_from_flags(words, lengths, gp, NK, mismatch_thr=10, wide=False)
     out = np.zeros((B, 10), np.int64)
     for b in range(B):
         n = int(lengths[b])
-        nwr = -(-min(n, L) // 32) if wide else nw
+        if not wide:
+            out[b] = _seg_row(w[b], n, L, nw, mismatch_thr) + gp[b, [0, 2, 1, 3]].tolist()
+            continue
+        nwr = -(-min(n, L) // 32)
         m3 = [_window16(int(w[b, c, 0]), int(w[b, c - 1, 0]) if c else 0) for c in range(nwr)]
         m2 = [_window16(int(w[b, c, 1]), int(w[b, c - 1, 1]) if c else 0) for c in range(nwr)]
-        route = _mask_route(n, L) if wide else "warp"
-        out[b] = _row_words(m3, m2, n, L, mismatch_thr, wide, route) + \
+        out[b] = _row_words(m3, m2, n, L, mismatch_thr, wide, _mask_route(n, L)) + \
             gp[b, [0, 2, 1, 3]].tolist()
     return out
 
 
-@pytest.mark.parametrize("layout", ["kv2", "split"])
-def test_flags_and_mask_from_flags_match_jax_pass2(panels, layout):
-    """Two shards' flags (each a table's candidates) ORed together, then
-    mask+segments from the words: the plain versions and the kernels'
-    mirrors against JAX's pass 2 on the max of the two shards' flags."""
+def _probe_like(pr, lengths):
+    """pr with every k-mer from a row's length - 15 on EMPTY, as the probe
+    writes them (test_probe_results_past_a_row_length_are_empty)."""
+    nk = (lengths.long() - 15).clamp(min=0)
+    past = torch.arange(pr.shape[1])[None, :] >= nk[:, None]
+    return torch.where(past[..., None], torch.tensor([EMPTY, 0], dtype=torch.int32), pr)
+
+
+def _jax_flags(prs, gp, indexes):
+    """JAX's pass-2 flags of each shard (_eq_pm1 on its candidates) and
+    their max over the shards (the pmax) -> (B, NK) jnp int32."""
     import jax.numpy as jnp
 
     from genefuserust_tpu.ops import map_read as jm
 
-    _, ix = panels["two"]
-    index = index_to_torch(build_packed_index(ix, layout), CPU)
-    (pa, gp), (pb, _) = _flag_case(index, seed=1), _flag_case(index, seed=2)
-    B, NK = pa.shape[:2]
-    nw = tm.flag_words(NK)
-    words = torch.zeros((B, nw, 2), dtype=torch.int32)
-    mirror = words.clone()
-    for pr in (pa, pb):
-        tm.shard_flags(pr, gp, index, words)
-        mirror = _kernel_shard_flags(pr, gp, index, mirror)
-        assert torch.equal(words, mirror)
-    lengths = torch.from_numpy(np.random.default_rng(3).integers(0, NK + 16, B).astype(np.int32))
-    lengths[:4] = NK + 15
-    got = tm.mask_from_flags(words, lengths, gp, NK, 10).numpy()
-    assert np.array_equal(got, _kernel_mask_from_flags(words, lengths, gp, NK))
-    # JAX: the flags of each shard (_eq_pm1 on its candidates), their max,
-    # the window, the mismatch count and extract_segments
     flags = []
-    for pr in (pa, pb):
+    g = gp.numpy()
+    for pr, index in zip(prs, indexes):
         keys, cv = tm._keys_at(index, pr, 1)
         hi, lo = (keys >> 32).to(torch.int32).numpy(), tm._i32(keys).numpy()
-        g = gp.numpy()
         m1 = jm._eq_pm1(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(g[:, 0, None, None]),
                         jnp.asarray(g[:, 1, None, None]))
         m2 = jm._eq_pm1(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(g[:, 2, None, None]),
                         jnp.asarray(g[:, 3, None, None]))
         cvj = jnp.asarray(cv.numpy())
         flags.append(jnp.max(jnp.where(cvj & m1, 3, jnp.where(cvj & m2, 2, 0)), axis=2))
-    flag = jnp.maximum(*flags)
+    flag = flags[0]
+    for f in flags[1:]:
+        flag = jnp.maximum(flag, f)
+    return flag
+
+
+def _flag_bits(flag):
+    """(B, NK) flags -> the (B, nw, 2) int32 words of the flag planes."""
+    f = np.asarray(flag)
+    nw = tm.flag_words(f.shape[1])
+    return _wrap32(np.stack([np.array([_ballots(r == 3, nw) for r in f], np.int64),
+                             np.array([_ballots(r >= 2, nw) for r in f], np.int64)], -1))
+
+
+def _jax_from_flags(flag, lengths, mismatch_thr=10):
+    """JAX's pass 2 after the flags: the 16-wide window, the mismatch
+    count and extract_segments -> (B, 6) [v3, v2, s3, s2, e3, e2]."""
+    import jax.numpy as jnp
+
+    from genefuserust_tpu.ops import map_read as jm
+
+    flag = jnp.asarray(np.asarray(flag))
+    B, NK = flag.shape
     L = NK + 15
     padded = jnp.concatenate([jnp.zeros((B, 15), flag.dtype), flag,
                               jnp.zeros((B, 15), flag.dtype)], 1)
@@ -426,9 +537,263 @@ def test_flags_and_mask_from_flags_match_jax_pass2(panels, layout):
         mask = jnp.maximum(mask, padded[:, 15 - j : 15 - j + L])
     lj = jnp.asarray(lengths.numpy())
     within = jnp.arange(L)[None, :] < lj[:, None]
-    read_ok = np.asarray(jnp.sum((mask < 2) & within, axis=1) <= 10)
-    for t, (vc, sc, ec) in ((3, (0, 2, 4)), (2, (1, 3, 5))):
-        v, s, e = (np.asarray(x) for x in jm.extract_segments(mask, lj, t))
-        assert np.array_equal(got[:, vc], v & read_ok)
-        assert np.array_equal(got[:, sc], s) and np.array_equal(got[:, ec], e)
+    read_ok = np.asarray(jnp.sum((mask < 2) & within, axis=1) <= mismatch_thr)
+    (v3, s3, e3), (v2, s2, e2) = ((np.asarray(x) for x in jm.extract_segments(mask, lj, t))
+                                  for t in (3, 2))
+    return np.stack([v3 & read_ok, v2 & read_ok, s3, s2, e3, e2], 1).astype(np.int64)
+
+
+@pytest.mark.parametrize("layout", ["kv2", "split"])
+def test_flags_and_mask_from_flags_match_jax_pass2(panels, layout):
+    """Two shards' flags (each a table's candidates) ORed together, then
+    mask+segments from the words: the plain versions and the kernels'
+    mirrors against JAX's pass 2 on the max of the two shards' flags. The
+    probe results past a row's length are EMPTY, as the probe writes them;
+    the two shards in one launch, and in two (the second ORs)."""
+    _, ix = panels["two"]
+    index = index_to_torch(build_packed_index(ix, layout), CPU)
+    (pa, gp), (pb, _) = _flag_case(index, seed=1), _flag_case(index, seed=2)
+    B, NK = pa.shape[:2]
+    lengths = torch.from_numpy(np.random.default_rng(3).integers(0, NK + 16, B).astype(np.int32))
+    lengths[:4] = NK + 15
+    pa, pb = _probe_like(pa, lengths), _probe_like(pb, lengths)
+    words = tm.shard_flags([pa, pb], lengths, gp, [index, index])
+    assert torch.equal(words, _kernel_shard_flags([pa, pb], lengths, gp, [index, index]))
+    first = tm.shard_flags([pa], lengths, gp, [index])
+    mirror = _kernel_shard_flags([pa], lengths, gp, [index])
+    assert torch.equal(first, mirror)
+    assert torch.equal(tm.shard_flags([pb], lengths, gp, [index], first), words)
+    assert torch.equal(_kernel_shard_flags([pb], lengths, gp, [index], mirror), words)
+    flag = _jax_flags([pa, pb], gp, [index, index])
+    assert torch.equal(words, _flag_bits(flag))
+    got = tm.mask_from_flags(words, lengths, gp, NK, 10).numpy()
+    assert np.array_equal(got, _kernel_mask_from_flags(words, lengths, gp, NK))
+    # JAX: the flags of each shard (_eq_pm1 on its candidates), their max,
+    # the window, the mismatch count and extract_segments
+    assert np.array_equal(got[:, :6], _jax_from_flags(flag, lengths))
     assert got[:, 0].any() or got[:, 1].any() or (got[:, 4] > 0).any()
+
+
+# ---------------- pass 2 of the sharded path: edge rows, groups, word counts ----------------
+
+
+def _edge_reads(panel):
+    """_reads plus rows the sharded pass 2 must bound by their lengths:
+    empty rows (the sharded engine pads its batch to a power of two with
+    them), rows of 1-17 bases, rows whose last k-mer ends a chunk of 32
+    (lengths 47 and 143: 32 and 128 k-mers) or starts one (48, 144), and
+    one long read (1,100 bases, two spans of 32 words) that pads the rest."""
+    reads = _reads(panel)
+    _, chrom, start, _ = panel.genes[0]
+    s = panel.contigs[chrom]
+    reads += ["", ""] + [s[start + 900 : start + 900 + n] for n in (1, 15, 16, 17, 47, 48, 143,
+                                                                    144)]
+    reads.insert(5, s[start + 2000 : start + 3100])
+    return reads
+
+
+@pytest.mark.parametrize("layout,stride", [("kv2", 1), ("kv2", 2), ("split", 1), ("split", 2)])
+def test_probe_results_past_a_row_length_are_empty(panels, layout, stride):
+    """What the bounded shard flags rest on: the probe writes EMPTY for
+    every k-mer from a row's length - 15 on, even where the code row holds
+    valid bases there."""
+    panel, ix = panels["six"]
+    index = index_to_torch(build_packed_index(ix, layout), CPU)
+    _, chrom, start, _ = panel.genes[3]
+    s = panel.contigs[chrom]
+    rng = np.random.default_rng(stride)
+    lens = np.array([0, 1, 15, 16, 17, 31, 32, 47, 48, 100, 159, 160], np.int32)
+    offs = rng.integers(0, 6000, len(lens))
+    codes = np.stack([encode_bases(s[start + o : start + o + 160]) for o in offs])
+    pr = tm.probe(torch.from_numpy(codes), torch.from_numpy(lens), stride, index)
+    nk = np.maximum(lens.astype(np.int64) - 15, 0)
+    past = (np.arange(pr.shape[1])[None, :] * stride) >= nk[:, None]
+    assert (pr[..., 0].numpy()[past] == EMPTY).all() and (pr[..., 1].numpy()[past] == 0).all()
+    assert (pr[..., 0].numpy()[~past] != EMPTY).any()
+
+
+@pytest.mark.parametrize("cap_shards", [1, 2, 3, 4])
+def test_sharded_map_read_flag_groups_match_jax(panels, cap_shards, monkeypatch):
+    """The sharded map_read with its shards' flags in groups of 1 to 4 (a
+    cap of that many shards' probe results; the first launch stores, each
+    later one ORs) on the edge rows at the long read's padded width: equal
+    to JAX's build_sharded_map_read on 4 virtual devices."""
+    panel, ix = panels["six"]
+    reads = _edge_reads(panel)
+    L = -(-max(map(len, reads)) // 32) * 32
+    exp = _segments(*_jax_sharded(ix, 4, reads, L))
+    _, packs = tsi.pack_index_sharded(ix, 4)
+    codes, lens = (torch.from_numpy(a) for a in _batch(reads, L))
+    shard = codes.shape[0] * (L - 15) * 8
+    monkeypatch.setattr(tsi, "FLAGS_GROUP_BYTES", cap_shards * shard)
+    groups = tsi.flag_groups(4, shard)
+    assert [len(g) for g in groups] == {1: [1] * 4, 2: [2, 2], 3: [3, 1], 4: [4]}[cap_shards]
+    r = tsi.sharded_map_read(codes, lens, tsi.shard_indexes(packs, [CPU] * 4))
+    assert _segments(*(x.numpy() for x in r)) == exp
+    assert sum(len(g) == 2 for g in exp) >= 6
+
+
+def test_shard_flags_mirror_on_edge_rows(panels, monkeypatch):
+    """The shard flags' mirror on 4 split shards' probe results of the edge
+    rows (lengths 0-17, chunk edges, the long read's two spans): one launch
+    over the 4 shards, and groups whose later launches OR, against plain
+    and JAX's pmax of the shards' flags; then mask from flags against JAX."""
+    panel, ix = panels["six"]
+    reads = _edge_reads(panel)
+    L = -(-max(map(len, reads)) // 32) * 32
+    codes, lens = (torch.from_numpy(a) for a in _batch(reads, L))
+    _, packs = tsi.pack_index_sharded(ix, 4)
+    indexes = tsi.shard_indexes(packs, [CPU] * 4)
+    v = tm.merge_top2(torch.stack([tm.vote_counts(tm.probe(codes, lens, 2, x), x, lens)
+                                   for x in indexes]), 40, 20)
+    gp = v[:, 1:5].contiguous()
+    prs = [tm.probe(codes, lens, 1, x) for x in indexes]
+    NK = L - 15
+    assert tm.flag_words(NK) > 32  # the long row spans two warps
+    words = tm.shard_flags(prs, lens, gp, indexes)
+    assert torch.equal(_kernel_shard_flags(prs, lens, gp, indexes), words)
+    mirror = _kernel_shard_flags(prs[:3], lens, gp, indexes[:3])
+    assert torch.equal(_kernel_shard_flags(prs[3:], lens, gp, indexes[3:], mirror), words)
+    monkeypatch.setattr(tsi, "FLAGS_GROUP_BYTES", codes.shape[0] * NK * 8)  # a shard a group
+    assert torch.equal(tsi.device_flags(codes, lens, gp, indexes), words)
+    flag = _jax_flags(prs, gp, indexes)
+    assert torch.equal(words, _flag_bits(flag))
+    assert (words[lens <= 15] == 0).all() and words.any()
+    got = tm.mask_from_flags(words, lens, gp, NK, 10).numpy()
+    assert np.array_equal(_kernel_mask_from_flags(words, lens, gp, NK), got)
+    assert np.array_equal(got[:, :6], _jax_from_flags(flag, lens))
+    assert got[:, 0].sum() >= 6
+
+
+def _flag_rows(B, NK, lengths, seed):
+    """(B, NK) k-mer flags 0/2/3 of a row's own k-mers: most rows as a
+    junction read flags them (3 up to a split, 2 after it) with holes of
+    1-30 k-mers (a hole past 15 k-mers leaves bases unmasked: chains that
+    link across at most 10 of them and chains that break, and mismatches
+    around the threshold), the rest sparse runs; noise past a row's length
+    (the kernel must not read it)."""
+    rng = np.random.default_rng(seed)
+    f = np.zeros((B, NK), np.int32)
+    for b in range(B):
+        nk = max(0, min(int(lengths[b]), NK + 15) - 15)
+        if nk and rng.random() < 0.7:
+            split = int(rng.integers(0, nk + 1))
+            f[b, :split], f[b, split:nk] = (3, 2) if rng.random() < 0.8 else (2, 3)
+            for _ in range(int(rng.integers(0, 4))):
+                a = int(rng.integers(0, nk))
+                f[b, a : min(nk, a + int(rng.integers(1, 31)))] = 0
+        elif nk:
+            for _ in range(int(rng.integers(1, 6))):
+                a = int(rng.integers(0, nk))
+                run = f[b, a : min(nk, a + int(rng.integers(1, 90)))]
+                run[:] = np.maximum(run, rng.choice([2, 3]))
+        f[b, nk:] = rng.choice([0, 2, 3], NK - nk)
+    return f
+
+
+@pytest.mark.parametrize("nw", [1, 7, 8, 9, 16, 17, 32, 33, 132])
+def test_mask_from_flags_mirror_at_word_counts(nw):
+    """The narrow mask from flags at every segment width and its edges
+    (8, 16 or 32 lanes a row; two rounds at 33 words), rows of different
+    lengths sharing a warp (4 and 2 rows a warp), lengths 0-16, the full
+    width and past it; at 132 words a 4,200-base row among rows of 150
+    bases (width 4,224). Mirror, plain and JAX's window + extract_segments
+    on the same flags, exactly."""
+    L = 32 * nw - (5 if nw > 1 else 8)
+    NK = L - 15
+    assert tm.flag_words(NK) == nw
+    rng = np.random.default_rng(nw)
+    B = 41
+    if nw == 132:
+        lengths = np.full(B, 150)
+        lengths[[3, 17]] = (4200, 4224)
+    else:
+        lengths = rng.integers(0, L + 1, B)
+        lengths[:8] = [0, 1, 15, 16, L, L + 9, 32 * (nw - 1) + 1, 32 * nw - 1]
+    lengths = torch.from_numpy(lengths.astype(np.int32))
+    flag = _flag_rows(B, NK, lengths, seed=nw)
+    words = _flag_bits(flag)
+    gp = torch.from_numpy(rng.integers(-2**31, 2**31, (B, 4)).astype(np.int32))
+    got = tm.mask_from_flags(words, lengths, gp, NK, 10).numpy()
+    assert np.array_equal(_kernel_mask_from_flags(words, lengths, gp, NK), got)
+    assert np.array_equal(got[:, :6], _jax_from_flags(flag, lengths))
+    assert np.array_equal(got[:, 6:], gp.numpy()[:, [0, 2, 1, 3]])
+    if nw > 1:
+        assert got[:, 0].any() and got[:, 1].any() and not got[:, 0].all()
+
+
+# ---------------- the kernels on the card ----------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["kv2", "split"])
+def test_shard_flags_and_mask_kernels_match_plain(panels, layout, cuda_device):
+    """_flag_case's two shards on the card: one launch, two launches (the
+    second ORs), bit-equal to plain; mask from flags bit-equal."""
+    _, ix = panels["two"]
+    packed = build_packed_index(ix, layout)
+    index, dev = index_to_torch(packed, CPU), index_to_torch(packed, cuda_device)
+    (pa, gp), (pb, _) = _flag_case(index, seed=1), _flag_case(index, seed=2)
+    lengths = torch.from_numpy(np.random.default_rng(3).integers(
+        0, pa.shape[1] + 16, pa.shape[0]).astype(np.int32))
+    pa, pb = _probe_like(pa, lengths), _probe_like(pb, lengths)
+    exp = tm.shard_flags([pa, pb], lengths, gp, [index, index])
+    pad, pbd, ld, gd = (t.to(cuda_device) for t in (pa, pb, lengths, gp))
+    assert torch.equal(tm.shard_flags([pad, pbd], ld, gd, [dev, dev]).cpu(), exp)
+    first = tm.shard_flags([pad], ld, gd, [dev])
+    assert torch.equal(tm.shard_flags([pbd], ld, gd, [dev], first).cpu(), exp)
+    NK = pa.shape[1]
+    assert torch.equal(tm.mask_from_flags(exp.to(cuda_device), ld, gd, NK, 10).cpu(),
+                       tm.mask_from_flags_plain(exp, lengths, gp, NK, 10))
+
+
+@pytest.mark.cuda
+def test_sharded_pass2_kernels_on_edge_rows(panels, cuda_device, monkeypatch):
+    """The edge rows on 4 split shards on the card: the probe EMPTY past
+    each row's length, the shard flags in one launch and in groups,
+    sharded_map_read equal to the CPU's."""
+    panel, ix = panels["six"]
+    reads = _edge_reads(panel)
+    L = -(-max(map(len, reads)) // 32) * 32
+    codes, lens = (torch.from_numpy(a) for a in _batch(reads, L))
+    _, packs = tsi.pack_index_sharded(ix, 4)
+    cpu = tsi.shard_indexes(packs, [CPU] * 4)
+    card = tsi.shard_indexes(packs, [cuda_device] * 4)
+    cd, ld = codes.to(cuda_device), lens.to(cuda_device)
+    gp = tm.merge_top2(torch.stack([tm.vote_counts(tm.probe(codes, lens, 2, x), x, lens)
+                                    for x in cpu]), 40, 20)[:, 1:5].contiguous()
+    prs = [tm.probe(cd, ld, 1, x) for x in card]
+    for pr, x in zip(prs, cpu):
+        assert torch.equal(pr.cpu(), tm.probe(codes, lens, 1, x))
+    exp = tm.shard_flags([p.cpu() for p in prs], lens, gp, cpu)
+    gd = gp.to(cuda_device)
+    assert torch.equal(tm.shard_flags(prs, ld, gd, card).cpu(), exp)
+    shard = codes.shape[0] * (L - 15) * 8
+    for cap in (shard, 2 * shard, 3 * shard):
+        monkeypatch.setattr(tsi, "FLAGS_GROUP_BYTES", cap)
+        assert torch.equal(tsi.device_flags(cd, ld, gd, card).cpu(), exp)
+    got = tsi.sharded_map_read(cd, ld, card)
+    for g, e in zip(got, tsi.sharded_map_read(codes, lens, cpu)):
+        assert torch.equal(g.cpu(), e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [1, 7, 8, 9, 16, 17, 32, 33, 132])
+def test_mask_from_flags_kernel_at_word_counts(nw, cuda_device):
+    L = 32 * nw - (5 if nw > 1 else 8)
+    NK = L - 15
+    rng = np.random.default_rng(nw)
+    B = 1000
+    lengths = torch.from_numpy(rng.integers(0, L + 1, B).astype(np.int32))
+    words = _flag_bits(_flag_rows(B, NK, lengths, seed=nw))
+    gp = torch.from_numpy(rng.integers(-2**31, 2**31, (B, 4)).astype(np.int32))
+    got = tm.mask_from_flags(words.to(cuda_device), lengths.to(cuda_device), gp.to(cuda_device),
+                             NK, 10)
+    assert torch.equal(got.cpu(), tm.mask_from_flags_plain(words, lengths, gp, NK, 10))

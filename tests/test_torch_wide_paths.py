@@ -37,7 +37,7 @@ from test_torch_map_read import (
     _mask_route,
     _vote_routes,
 )
-from test_torch_sharded_index import _kernel_mask_from_flags
+from test_torch_sharded_index import _kernel_mask_from_flags, _kernel_shard_flags
 
 CPU = torch.device("cpu")
 ST = Settings()
@@ -106,9 +106,8 @@ def _mask_routes(lens, pr1, smem_cap=None):
     return [_mask_route(int(n), L, smem_cap) for n in lens]
 
 
-def _flag_words(pr1, gp, index):
-    words = torch.zeros((pr1.shape[0], tm.flag_words(pr1.shape[1]), 2), dtype=torch.int32)
-    return tm.shard_flags(pr1, gp, index, words)
+def _flag_words(pr1, lens, gp, index):
+    return tm.shard_flags([pr1], lens, gp, [index])
 
 
 # ---------------- the long reads, kv2 and split ----------------
@@ -179,7 +178,7 @@ def test_wide_mask_mirror_matches_jax_pass2_and_batch(long_cases, layout):
     assert np.array_equal(got, exp)
     assert np.array_equal(tm.mask_segments(pr1, lens, gp, index, THR).numpy(), exp)
     NK = pr1.shape[1]
-    words = _flag_words(pr1, gp, index)
+    words = _flag_words(pr1, lens, gp, index)
     assert np.array_equal(_kernel_mask_from_flags(words, lens, gp, NK, THR, wide=True), exp)
     # the batch: a segment is valid only where the vote gate passed
     ok = c["pass1"][:, :1]
@@ -205,7 +204,7 @@ def test_wide_paths_global_route_on_the_long_batch(long_cases, layout):
     seg = _kernel_mask_rows(pr1, lens, gp, index, THR)
     assert np.array_equal(seg, tm.mask_segments(pr1, lens, gp, index, THR,
                                                 smem_cap=MASK_CAP).numpy())
-    words = _flag_words(pr1, gp, index)
+    words = _flag_words(pr1, lens, gp, index)
     assert np.array_equal(_kernel_mask_from_flags(words, lens, gp, pr1.shape[1], THR, wide=True),
                           tm.mask_from_flags(words, lens, gp, pr1.shape[1], THR, MASK_CAP).numpy())
     with pytest.raises(ValueError):
@@ -297,10 +296,70 @@ def test_one_wide_row_among_short_rows_mask(mixed_batch):
     plain = _merge_rows(m, tm.mask_segments_plain(short, lshort, gshort, index, THR).numpy(),
                         tm.mask_segments_plain(long, llong, glong, index, THR).numpy())
     assert np.array_equal(plain, exp)
-    words = _in_chunks(_flag_words, [pr1, gp], 32, index)
+    words = _in_chunks(_flag_words, [pr1, lens, gp], 32, index)
     assert np.array_equal(_kernel_mask_from_flags(words, lens, gp, pr1.shape[1], THR, wide=True),
                           exp)
     assert exp[:, 0].sum() >= 10
+
+
+# ---------------- the sharded pass 2 at padded widths ----------------
+
+
+def _batch_4224(panel_reads, panel_ix, layout):
+    """The 4,200-base read (row 17) among 80 reads of 150 bases, padded to
+    4,224 bases -> codes, lengths, the table (packed, on the CPU), the
+    vote's keys and the stride-1 probe results."""
+    panel, reads = panel_reads
+    pairs = plant_fusion_pairs(panel, n_support=10, n_background=30)
+    seqs = [r.seq for p in pairs for r in (p.left, p.right)]
+    seqs.insert(17, reads[0])
+    W = -(-max(map(len, seqs)) // 32) * 32
+    assert W == 4224 and sum(len(q) == 150 for q in seqs) == len(seqs) - 1
+    codes = np.full((len(seqs), W), 255, np.uint8)
+    for i, q in enumerate(seqs):
+        codes[i, : len(q)] = encode_bases(q)
+    codes = torch.from_numpy(codes)
+    lens = torch.tensor([len(q) for q in seqs], dtype=torch.int32)
+    packed = build_packed_index(panel_ix, layout)
+    index = index_to_torch(packed, CPU)
+    gp = tm.vote(tm.probe(codes, lens, 2, index), index, *REQS)[:, 1:5].contiguous()
+    return codes, lens, packed, index, gp, tm.probe(codes, lens, 1, index)
+
+
+@pytest.mark.parametrize("layout", ["kv2", "split"])
+def test_sharded_pass2_mirrors_on_a_4200_base_row_among_150(panel_reads, panel_ix, layout):
+    """The 4,200-base read among 80 reads of 150 bases, every row padded to
+    4,224 bases: the shard flags' mirror (the long row over 5 spans of 32
+    words, the short rows' 5 words each, zero past them) and the narrow
+    mask from flags' mirror (a warp a row, the long row in 5 rounds)
+    against JAX map_read_pass2 and plain, exactly."""
+    codes, lens, packed, index, gp, pr1 = _batch_4224(panel_reads, panel_ix, layout)
+    NK = pr1.shape[1]
+    words = _flag_words(pr1, lens, gp, index)
+    assert torch.equal(words, tm.shard_flags_plain(pr1, gp, index))
+    assert torch.equal(_kernel_shard_flags([pr1], lens, gp, [index]), words)
+    exp = _jax_pass2(pr1, lens, gp, packed)
+    got = tm.mask_from_flags(words, lens, gp, NK, THR).numpy()
+    assert np.array_equal(got, exp)
+    assert np.array_equal(_kernel_mask_from_flags(words, lens, gp, NK, THR), exp)
+    assert exp[17, :2].all() and exp[17, 4:6].max() > 4000 and exp[:, 0].sum() >= 10
+
+
+def test_shard_flags_mirror_on_the_mixed_batch(mixed_batch):
+    """The shard flags at width 70,016: the 70,000-base row over 69 spans
+    of 32 words, the 220 rows of 150 bases on their first 5 words and
+    zero past them; the mirror (in row chunks) against plain, stored and
+    ORed into the words of a first launch."""
+    m = mixed_batch
+    pr1, lens, index = m["pr1"], m["lens"], m["index"]
+    gp = _in_chunks(tm.vote_plain, [m["pr"]], 32, index, *REQS)[:, 1:5].contiguous()
+    plain = _in_chunks(lambda p, g: tm.shard_flags_plain(p, g, index), [pr1, gp], 32)
+    got = _in_chunks(lambda p, n, g: _kernel_shard_flags([p], n, g, [index]), [pr1, lens, gp], 16)
+    assert torch.equal(got, plain)
+    half = torch.where(torch.arange(got.shape[0])[:, None, None] % 2 == 0, got, 0)
+    assert torch.equal(_in_chunks(lambda p, n, g, w: _kernel_shard_flags([p], n, g, [index], w),
+                                  [pr1, lens, gp, half], 16), got)
+    assert got[m["wide_row"], 2000:].any() and not got[:, 5:][lens == 150].any()
 
 
 # ---------------- chains across the block step's edges ----------------
@@ -500,7 +559,7 @@ def test_wide_kernels_match_plain_on_the_long_batch_with_caps(long_inputs, layou
     prd, pr1d, ld = _on(cuda_device, pr, pr1, lens)
     gp = tm.vote_plain(pr, index, *REQS)[:, 1:5].contiguous()
     gpd = gp.to(cuda_device)
-    words = _flag_words(pr1, gp, index)
+    words = _flag_words(pr1, lens, gp, index)
     for vcap, mcap in ((None, None), (VOTE_CAP, MASK_CAP)):
         assert torch.equal(tm.vote(prd, dev, *REQS, ld, vcap).cpu(),
                            tm.vote_plain(pr, index, *REQS))
@@ -510,6 +569,7 @@ def test_wide_kernels_match_plain_on_the_long_batch_with_caps(long_inputs, layou
         assert torch.equal(tm.mask_segments(pr1d, ld, gpd, dev, THR, mcap).cpu(), exp)
         assert torch.equal(tm.mask_from_flags(words.to(cuda_device), ld, gpd, pr1.shape[1], THR,
                                               mcap).cpu(), exp)
+    assert torch.equal(tm.shard_flags([pr1d], ld, gpd, [dev]).cpu(), words)
 
 
 @pytest.mark.cuda
@@ -521,7 +581,7 @@ def test_wide_kernels_match_plain_on_the_mixed_batch(mixed_batch, cuda_device):
     v = _in_chunks(tm.vote_plain, [pr], 32, index, *REQS)
     gp = v[:, 1:5].contiguous()
     seg = _in_chunks(tm.mask_segments_plain, [pr1, lens, gp], 16, index, THR)
-    words = _in_chunks(_flag_words, [pr1, gp], 32, index).to(cuda_device)
+    words = _in_chunks(_flag_words, [pr1, lens, gp], 32, index).to(cuda_device)
     for vcap, mcap in ((None, None), (VOTE_CAP, MASK_CAP)):
         assert torch.equal(tm.vote(prd, dev, *REQS, ld, vcap).cpu(), v)
         assert torch.equal(tm.vote_counts(prd, dev, ld, vcap).cpu(),
@@ -529,6 +589,21 @@ def test_wide_kernels_match_plain_on_the_mixed_batch(mixed_batch, cuda_device):
         gpd = gp.to(cuda_device)
         assert torch.equal(tm.mask_segments(pr1d, ld, gpd, dev, THR, mcap).cpu(), seg)
         assert torch.equal(tm.mask_from_flags(words, ld, gpd, pr1.shape[1], THR, mcap).cpu(), seg)
+    assert torch.equal(tm.shard_flags([pr1d], ld, gpd, [dev]), words)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["kv2", "split"])
+def test_sharded_pass2_kernels_on_a_4200_base_row_among_150(panel_reads, panel_ix, layout,
+                                                             cuda_device):
+    codes, lens, packed, index, gp, pr1 = _batch_4224(panel_reads, panel_ix, layout)
+    dev = index_to_torch(packed, cuda_device)
+    pr1d, ld, gpd = _on(cuda_device, pr1, lens, gp)
+    words = tm.shard_flags([pr1d], ld, gpd, [dev])
+    exp = tm.shard_flags_plain(pr1, gp, index)
+    assert torch.equal(words.cpu(), exp)
+    assert torch.equal(tm.mask_from_flags(words, ld, gpd, pr1.shape[1], THR).cpu(),
+                       tm.mask_from_flags_plain(exp, lens, gp, pr1.shape[1], THR))
 
 
 @pytest.mark.cuda
