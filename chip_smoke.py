@@ -17,21 +17,26 @@ Phases, one result line each; any failure raises and exits non-zero:
              packed kv4, kv8 and split. The glue of fused_scan_lanes
              (csrc/fused_glue.cu): the lanes' unpack and its exceptions
              (G1, a launch of each a batch), the survivor compaction with
-             the bitmap (G2: count, then place, over tiles of rows) and
-             the survivor rows (G3) on the batch's own three lanes, its
-             votes and cap 1024, each new kernel also alone; then on edge
-             batches: the lanes cut to row counts that are not multiples
-             of 32 with exceptions at negative columns and a cap below the
-             survivors; N a multiple of the compaction tile (cap past N)
-             and a tile -1 and +1; pad entries only; the lanes split
-             into more than one unpack launch takes. Each beside its
-             library call where one exists, and with --glue-baseline DIR
-             beside another checkout's unpack and compaction. Kernel and
-             plain times from CUDA events.
+             the bitmap and the survivors' code rows (G2: count, then
+             place, over tiles of rows, the place launch copying the
+             placed rows) on the batch's own three lanes, its votes and
+             cap 1024, each kernel also alone, survivor_rows (G3, the
+             rows of lanes past the place launch's 8) too;
+             then on edge batches: the lanes cut to row counts that are
+             not multiples of 32 with exceptions at negative columns and a
+             cap below the survivors; N a multiple of the compaction tile
+             (cap past N) and a tile -1 and +1; pad entries only; cap 0
+             (no row placed); the lanes split into 12, more than one unpack or place launch
+             takes, also through fused_scan_lanes (its survivor_rows
+             launch: that kernel's path). Each beside its library call
+             where one exists, and with --glue-baseline DIR beside another
+             checkout's unpack and compaction with its survivor_rows
+             launch. Kernel and plain times from CUDA events.
   4 golden   tests/goldens/planted.{json,html} through TorchEngine, byte
              for byte (timestamps stripped), at survivor cap 1024 and 2
   5 cli      262,144 read pairs (plus two planted fusions) through the
-             port's CLI: every kernel launched, >= 1 fusion reported; the
+             port's CLI: every kernel of the scan launched (survivor_rows
+             not: 3 lanes), >= 1 fusion reported; the
              edit-distance flushes it made, re-encoded, kernel bit-equal
              to plain and to host Myers; the Myers kernel timed on the
              largest of them and on the one nearest 100 jobs
@@ -68,9 +73,11 @@ Phases, one result line each; any failure raises and exits non-zero:
              equal to TorchEngine's single-table scan of the same reads,
              and on the first 4,096 pairs/reads to the host oracle's; one
              shard flags launch a call (the 4 shards in one launch). The
-             split probe, the vote's counts mode, the merge, the flags and
-             mask+segments from flags bit-equal to plain at the scan's
-             largest batch, timed. Then the wide paths: a 4,200-base and a
+             split probe, the vote's counts mode, the merge (the whole
+             step from the shards' rows to the gate and keys, and its
+             other read design), the flags and mask+segments from flags
+             bit-equal to plain at the scan's largest batch, timed. Then
+             the wide paths: a 4,200-base and a
              70,000-base read among 62 others, single-end and as R1 of
              pairs, through TorchEngine and the sharded engine, reports
              equal to the host oracle's; at the largest wide call of each
@@ -114,20 +121,23 @@ bit-equal to plain), prints it and stops: no contract line.
 stops (no contract line): a copy of this script beside another checkout's
 genefuserust_tpu_torch profiles that checkout's warm scan.
 --glue-sweep runs phases 1-3, then builds csrc/fused_glue.cu at each
-compaction tile of GLUE_SWEEP_TILES and times the compaction on phase
-3's first batch and its tile edges (each held bit-equal to plain), prints
+compaction tile of GLUE_SWEEP_TILES and times the compaction with the
+code rows on phase 3's first batch and its tile edges (each held
+bit-equal to plain), prints
 it and stops: no contract line. --glue-baseline DIR (another checkout's
 csrc/, e.g. the parent's from `git archive`) adds that build's lane unpack
 and compaction, timed on phase 3's batch, to phase 3's glue lines.
 --wide-baseline DIR (another checkout's csrc/, e.g. the parent's) builds
-its vote.cu and mask_segments.cu and times their kernels on the same
-inputs, each held bit-equal to plain: phase 3's vote and mask+segments
-(between two timings of this checkout's, and mask_segments_kernel's
-machine code against the parent's, cuobjdump -sass), phase 13's shard
-flags (the parent's zero-fill and launch a shard) and mask from flags at
-the scan's largest call, each wide kernel at phase 13's calls and at its
-4,096-row lane, and the parent's sharded_map_read's peak device memory
-beside this checkout's at the wide calls.
+its probe.cu, vote.cu and mask_segments.cu and times their kernels on the
+same inputs, each held bit-equal to plain: phase 3's probe, vote and
+mask+segments (between two timings of this checkout's, and the machine
+code of probe_kernel, vote_kernel and mask_segments_kernel against the
+parent's, cuobjdump -sass), phase 13's merge (the parent's stack, merge
+launch, compare and slice), shard flags and mask from flags at the
+scan's largest call, each wide
+kernel at phase 13's calls and at its 4,096-row lane, and the parent's
+sharded_map_read's peak device memory beside this checkout's at the wide
+calls.
 --gather-sweep runs phases 1-3, then the gather's launch-shape sweep
 (blocks a tile x row loads a thread: at (a2) for rows narrower than 16
 bytes, at (b) and at rows of 256, 512 and 1,024 int32 for rows of whole
@@ -167,13 +177,13 @@ SHARD_PAIRS = BATCH
 MESH_ENTRIES = 4  # phase 14: TorchEngine entries, all on the one card
 LONG_READ = 250_000  # phase 14 (e): past what staging a tile's rows whole allowed
 LONG_BATCH = 64
-# kernels the build compiles: probe 4 (kv2, kv4, kv8, split), vote 3 (the
-# vote, its wide path, the shards' merge), mask_segments 10 (kv and split,
-# each narrow and wide; the shards' flags, kv and split; from flags, narrow
-# on segments of 8, 16 and 32 lanes, and wide), gather_sum 3 (vector
-# widths), edit_distance 1, fused_glue 5 (unpack, exceptions, count, place,
-# survivor rows)
-N_COMPILED = 26
+# kernels the build compiles: probe 4 (kv2, kv4, kv8, split), vote 10 (the
+# vote, its wide path, the shards' merge for 1 to 8 shards), mask_segments
+# 10 (kv and split, each narrow and wide; the shards' flags, kv and split;
+# from flags, narrow on segments of 8, 16 and 32 lanes, and wide),
+# gather_sum 3 (vector widths), edit_distance 1, fused_glue 5 (unpack,
+# exceptions, count, place with the code rows, survivor rows)
+N_COMPILED = 33
 # the probe's launch-shape sweep (--probe-sweep): queries a thread, table-row
 # cache policy (PROBE_POLICY in csrc/probe.cu), threads a block
 PROBE_SWEEP_Q = (1, 2, 4, 8)
@@ -190,10 +200,12 @@ GATHER_SWEEP_TABLE_BYTES = 1 << 31
 # phase 3 times mask+segments again on its survivors padded to this width,
 # past the engine's widest lane for 150-base pairs (Wcap 288)
 MASK_WIDE = 320
-# the kernels of the scan path (phases 5, 11, 12)
+# the kernels of the scan path (phases 5, 11, 12): the glue's but
+# survivor_rows, which a batch of at most MAX_LANES lanes (every engine's)
+# leaves to the place launch; phase 3's 12-lane scan launches it
 GLUE_KERNELS = ("lane_unpack", "lane_exceptions", "compact_count", "compact_place",
                 "survivor_rows")
-SCAN_KERNELS = ("probe", "vote", "mask_segments", *GLUE_KERNELS)
+SCAN_KERNELS = ("probe", "vote", "mask_segments", *GLUE_KERNELS[:4])
 # the compaction's tiles that --glue-sweep builds and times
 GLUE_SWEEP_TILES = (256, 512, 1024, 2048, 4096, 8192)
 SURVIVOR_CAP = 1024  # TorchEngine's survivor cap (_surv_cap)
@@ -238,6 +250,8 @@ def say(phase: str, **kv) -> None:
 
 
 def max_abs_err(got, exp) -> int:
+    if not exp.numel():
+        return 0
     return int((got.to(exp.device).long() - exp.long()).abs().max())
 
 
@@ -543,12 +557,13 @@ def phase_kernels(data: dict) -> dict:
     b1, q1, l1, b2, q2, l2 = (a[:BATCH] for a in data["block"])
     sh = TorchEngine(Settings(), device="cpu")._st0_produce(b1, q1, l1, b2, q2, l2)
     W = sh["widths"][0]
+    lens_l = torch.split(sh["lens_d"], [b.shape[0] for b in sh["bufs_d"]])
     lanes = []
     for li in (0, 2):
         c = lane_codes(sh["bufs_d"][li], sh["widths"][li], sh["exc_d"], sh["offs"][li])
         full = torch.full((c.shape[0], W), 255, dtype=torch.uint8)
         full[:, : c.shape[1]] = c
-        lanes.append((full, sh["lens_d"][li]))
+        lanes.append((full, lens_l[li]))
     codes = torch.cat([c for c, _ in lanes])[:BATCH].contiguous().to(dev)
     lens = torch.cat([n for _, n in lanes])[:BATCH].contiguous().to(dev)
     say("3 kernels", tolerance="0 (integer outputs, bit-equal)", panel_bp=PANEL_BP,
@@ -579,6 +594,15 @@ def phase_kernels(data: dict) -> dict:
                               f"{PASS1_STEP}", rows_needed=rows["rows"], rows_loaded=loaded,
                         h1_hit_share=round(rows["hits_at_h1"] / max(1, rows["hits"]), 6))
     data["probe_batch"] = dict(rows=rows, index=index, ms=ms)
+    base = wide_base(data)
+    if base:
+        # the parent's probe between two timings of this checkout's
+        rec["probe"]["parent_ms"] = parent_ms(
+            "probe", lambda: base.probe(codes, lens, PASS1_STEP, index), pr, 20)
+        rec["probe"]["again_ms"] = event_ms(lambda: tm.probe(codes, lens, PASS1_STEP, index), 20)
+        say("3 kernels", kernel="probe", baseline=base.csrc, ms=f"{ms:.4f}",
+            parent_ms=f"{rec['probe']['parent_ms']:.4f}",
+            again_ms=f"{rec['probe']['again_ms']:.4f}", equal=True)
     if data["probe_sweep"]:
         sweep = sweep_probe(codes, lens, index, pr)
         best = min(sweep, key=sweep.get)
@@ -605,7 +629,6 @@ def phase_kernels(data: dict) -> dict:
         OPS["vote_sample"] * pr.shape[0] * pr.shape[1]
         + OPS["vote_candidate"] * int(n_cand.sum())))
     rec["vote"]["shape"] = f"{pr.shape[0]}x{pr.shape[1]} samples, D {index.D}"
-    base = wide_base(data)
     if base:
         # the parent's vote between two timings of this checkout's
         rec["vote"]["parent_ms"] = parent_ms("vote", lambda: base.vote(pr, index, 40, 20), v, 20)
@@ -659,16 +682,19 @@ def phase_kernels(data: dict) -> dict:
             "mask_segments", lambda: base.mask(pr1, slens, gp, index, 10), seg, 20)
         rec["mask_segments"]["again_ms"] = event_ms(
             lambda: tm.mask_segments(pr1, slens, gp, index, 10), 20)
-        # its machine code against the parent's, instruction for instruction
-        sass = base.sass("mask_segments_kernel")
-        rec["mask_segments"]["sass"] = dict(
-            equal=sass["this"] == sass["parent"] and bool(sass["this"]),
-            instructions=[len(v) for v in sass["this"].values()],
-            parent_instructions=[len(v) for v in sass["parent"].values()])
         say("3 kernels", kernel="mask_segments", baseline=base.csrc, ms=f"{ms:.4f}",
             parent_ms=f"{rec['mask_segments']['parent_ms']:.4f}",
-            again_ms=f"{rec['mask_segments']['again_ms']:.4f}", equal=True,
-            sass=json.dumps(rec["mask_segments"]["sass"], separators=(",", ":")))
+            again_ms=f"{rec['mask_segments']['again_ms']:.4f}", equal=True)
+        # the three kernels' machine code against the parent's, instruction
+        # for instruction (the sources of two of them were edited elsewhere)
+        for k in ("probe", "vote", "mask_segments"):
+            sass = base.sass(f"{k}_kernel")
+            rec[k]["sass"] = dict(
+                equal=sass["this"] == sass["parent"] and bool(sass["this"]),
+                instructions=[len(v) for v in sass["this"].values()],
+                parent_instructions=[len(v) for v in sass["parent"].values()])
+            say("3 kernels", kernel=k, baseline=base.csrc,
+                sass=json.dumps(rec[k]["sass"], separators=(",", ":")))
     say("3 kernels", kernel="mask_segments", rows=seg.shape[0], width=scodes.shape[1],
         two_segment_rows=int((seg[:, 0] & seg[:, 1]).sum()), ms=f"{ms:.4f}",
         plain_ms=f"{pms:.4f}", bound_ms=f"{rec['mask_segments']['bound_ms']:.5f}",
@@ -729,19 +755,24 @@ def glue_kernels(sh, index, data) -> dict:
     """The kernels of csrc/fused_glue.cu against their plain versions,
     bit-equal and timed. (i) The batch's own lanes as fused_scan_lanes
     runs them: the unpack and its exceptions (`lanes_codes`, one launch of
-    each for the three lanes), the compaction on their votes at cap
-    SURVIVOR_CAP (`compact`: count, then place), the survivor rows; then
-    each of the four new kernels alone on the same inputs. (ii) Edge
-    batches built from those lanes: cut to row counts that are not
+    each for the three lanes), the compaction with the survivors' code
+    rows on their votes at cap SURVIVOR_CAP (`compact`: count, then place,
+    which copies the placed rows); then each kernel alone on the same
+    inputs, survivor_rows (the launch of the rows of lanes past the place
+    launch's) too. (ii)
+    Edge batches built from those lanes: cut to row counts that are not
     multiples of 32 with entries at negative columns and a cap of half the
     survivors; cut so that N is a multiple of the compaction tile with a
     cap past N (c spans every tile), and to a tile - 1 and + 1; the
-    exceptions replaced by pad entries only; the lanes split into more
-    than one unpack launch takes. With data["glue_baseline"], another
-    checkout's csrc/ (the parent's one-launch-a-lane unpack and one-block
-    compaction), that build's two kernels are timed on (i)'s inputs.
-    Keeps (label, v, lens, cap) of (i) and of the tile edges for the
-    compaction's tile sweep. -> the kernels' records."""
+    exceptions replaced by pad entries only; a cap of 0; the lanes split
+    into 12, more than one unpack or place launch takes (the rows of lanes
+    8-11 through survivor_rows), also as a whole fused_scan_lanes call
+    with the launch counts set to 0 before it: survivor_rows' path. With
+    data["glue_baseline"], another checkout's csrc/ (the parent's
+    unpack, count, place and survivor_rows launches), that build's kernels
+    are timed on (i)'s inputs. Keeps (label, v, lens, cap, code lanes) of
+    (i) and of the tile edges for the compaction's tile sweep. -> the
+    kernels' records."""
     import torch
 
     from genefuserust_tpu_torch.config import PASS1_STEP
@@ -755,6 +786,10 @@ def glue_kernels(sh, index, data) -> dict:
     tile = cuda.compact_tile()
     data["glue_batches"] = []
 
+    def plain_rows(v, L, cap, codes, Wmax):
+        res = tf.compact_plain(v, L, cap)
+        return (*res, tf.survivor_rows_plain(codes, res[0][: res[1].shape[0], 0], Wmax))
+
     def run(bufs, widths, lens, exc, cap, label, reps=5, plain_reps=1):
         codes, err1, ms1, pms1 = _timed_pair(
             f"lanes_codes ({label})", lambda: tf.lanes_codes(bufs, widths, exc),
@@ -763,15 +798,15 @@ def glue_kernels(sh, index, data) -> dict:
                        for ci, ln in zip(codes, lens)])
         L = torch.cat(lens)
         N = v.shape[0]
-        (out, slens, gp, okw), err2, ms2, pms2 = _timed_pair(
-            f"compact ({label})", lambda: tf.compact(v, L, cap),
-            lambda: tf.compact_plain(v, L, cap), reps=reps, plain_reps=plain_reps)
+        Wmax = max(widths)
+        (out, slens, gp, okw, rows), err2, ms2, pms2 = _timed_pair(
+            f"compact with rows ({label})", lambda: tf.compact(v, L, cap, codes, Wmax),
+            lambda: plain_rows(v, L, cap, codes, Wmax), reps=reps, plain_reps=plain_reps)
         c = slens.shape[0]
         sidx = out[:c, 0]
-        Wmax = max(widths)
-        rows, err3, ms3, pms3 = _timed_pair(
+        _, err3, ms3, pms3 = _timed_pair(
             f"survivor_rows ({label})", lambda: tf.survivor_rows(codes, sidx, Wmax),
-            lambda: tf.survivor_rows_plain(codes, sidx, Wmax), reps=reps,
+            lambda: tf.survivor_rows_plain(codes, sidx, Wmax), exp=rows, reps=reps,
             plain_reps=plain_reps)
         S = int(out[cap, 0])
         say("3 kernels", kernel="fused_glue", batch=label, lanes=len(bufs),
@@ -779,21 +814,22 @@ def glue_kernels(sh, index, data) -> dict:
             tiles=-(-N // tile), N_mod_tile=N % tile, exceptions=exc.shape[0],
             pad_entries=int((exc[:, 0] >= N).sum()), negative_cols=int((exc[:, 1] < 0).sum()),
             cap=cap, survivors=S, rows_placed=c, lanes_codes_ms=f"{ms1:.4f}",
-            lanes_codes_plain_ms=f"{pms1:.4f}", compact_ms=f"{ms2:.4f}",
-            compact_plain_ms=f"{pms2:.4f}", survivor_rows_ms=f"{ms3:.4f}",
+            lanes_codes_plain_ms=f"{pms1:.4f}", compact_with_rows_ms=f"{ms2:.4f}",
+            compact_with_rows_plain_ms=f"{pms2:.4f}", survivor_rows_ms=f"{ms3:.4f}",
             survivor_rows_plain_ms=f"{pms3:.4f}", equal=True,
             max_abs_err=max(err1, err2, err3))
         return dict(bufs=bufs, widths=widths, exc=exc, codes=codes, v=v, L=L, cap=cap, out=out,
-                    sidx=sidx, rows=rows, S=S, c=c, N=N, err=max(err1, err2, err3),
-                    ms=(ms1, ms2, ms3), pms=(pms1, pms2, pms3))
+                    slens=slens, gp=gp, okw=okw, sidx=sidx, rows=rows, S=S, c=c, N=N,
+                    err=max(err1, err2, err3), ms=(ms1, ms2, ms3), pms=(pms1, pms2, pms3))
 
     widths = list(sh["widths"])
     bufs = [b.to(dev) for b in sh["bufs_d"]]
-    lens = [n.to(dev) for n in sh["lens_d"]]
+    lens = [n.to(dev) for n in torch.split(sh["lens_d"], [b.shape[0] for b in bufs])]
     exc = sh["exc_d"].to(dev)
     offs = sh["offs"][: len(bufs)]
     real = run(bufs, widths, lens, exc, SURVIVOR_CAP, f"first {BATCH} pairs", 20, 3)
-    data["glue_batches"].append(("first batch", real["v"], real["L"], SURVIVOR_CAP))
+    data["glue_batches"].append(("first batch", real["v"], real["L"], SURVIVOR_CAP,
+                                 real["codes"]))
 
     # (ii) the edge batches, built from the same lanes
     def cut_lanes(cut):
@@ -835,14 +871,20 @@ def glue_kernels(sh, index, data) -> dict:
         check(e["N"] % tile == extra_rows % tile and (cap < e["N"] or e["c"] == e["N"] > tile),
               f"the batch '{label}' is not the edge case it names")
         edges.append(e)
-        data["glue_batches"].append((label, e["v"], e["L"], cap))
+        data["glue_batches"].append((label, e["v"], e["L"], cap, e["codes"]))
     # exceptions that are the engine's pad entries only (row N)
     pad = torch.tensor([[real["N"], max(widths)]] * 32, dtype=torch.int32, device=dev)
     e = run(bufs, widths, lens, pad, SURVIVOR_CAP, "pad entries only")
     check(e["N"] == real["N"], "the pad-only batch changed its lanes")
     edges.append(e)
-    # more lanes than one unpack launch takes: each lane in 4 row ranges
-    # (the concatenated row space, so the exceptions, stay as they are)
+    # cap 0: no row is placed, so the place launch copies none (its rows
+    # tensor is empty)
+    e = run(bufs, widths, lens, exc, 0, "cap 0")
+    check(e["c"] == 0 and e["rows"].shape == (0, max(widths)), "cap 0 placed rows")
+    edges.append(e)
+    # more lanes than one unpack or place launch takes: each lane in 4 row
+    # ranges (the concatenated row space, so the exceptions, stay as they
+    # are)
     mbufs, mwidths, mlens = [], [], []
     for b, ln, W in zip(bufs, lens, widths):
         cuts = np.linspace(0, b.shape[0], 5).astype(int).tolist()
@@ -852,11 +894,28 @@ def glue_kernels(sh, index, data) -> dict:
             mwidths.append(W)
     check(len(mbufs) > cuda.MAX_LANES, "the split batch fits one unpack launch")
     e = run(mbufs, mwidths, mlens, exc, SURVIVOR_CAP, f"{len(mbufs)} lanes")
-    check(torch.equal(e["out"], real["out"]), "the split lanes' compaction differs from the batch's")
+    check(torch.equal(e["out"], real["out"]) and torch.equal(e["rows"], real["rows"]),
+          "the split lanes' compaction differs from the batch's")
     edges.append(e)
+    # survivor_rows' path: the 12 lanes through fused_scan_lanes, equal to
+    # the batch's 3 (the same rows in the same order)
+    scan3 = tf.fused_scan_lanes(bufs, torch.cat(lens), exc, index, widths=widths,
+                                cap=SURVIVOR_CAP)
+    cuda.reset_launches()
+    scan12 = tf.fused_scan_lanes(mbufs, torch.cat(mlens), exc, index, widths=mwidths,
+                                 cap=SURVIVOR_CAP)
+    torch.cuda.synchronize()
+    rows_path = dict(cuda.LAUNCHES)
+    check(all(torch.equal(a, b) for a, b in zip(scan12, scan3)),
+          "fused_scan_lanes over 12 lanes differs from the same rows in 3")
+    check(rows_path["survivor_rows"] == 1 and rows_path["compact_place"] == 1,
+          f"12 lanes: {rows_path['survivor_rows']} survivor_rows launches (1 expected)")
+    data["rows_path_launches"] = rows_path
+    say("3 kernels", kernel="survivor_rows", path=f"fused_scan_lanes, {len(mbufs)} lanes",
+        launches=json.dumps({k: rows_path[k] for k in SCAN_KERNELS + ("survivor_rows",)},
+                            separators=(",", ":")), equal_to_3_lanes=True)
 
-    # each new kernel alone on (i)'s inputs, beside the plain version of
-    # its step
+    # each kernel alone on (i)'s inputs, beside the plain version of its step
     outs = [torch.empty((b.shape[0], W), dtype=torch.uint8, device=dev)
             for b, W in zip(bufs, widths)]
     unpacked = [unpack_seq2(b, W).contiguous() for b, W in zip(bufs, widths)]
@@ -876,28 +935,31 @@ def glue_kernels(sh, index, data) -> dict:
     one["lane_exceptions"] = _timed_pair(
         "lane_exceptions", exceptions, lambda: [tf.lane_exceptions_plain(u, exc, o)
                                                 for u, o in zip(unpacked, offs)])
-    v, L, N, c = real["v"], real["L"], real["N"], real["c"]
+    v, L, N, c, codes = real["v"], real["L"], real["N"], real["c"], real["codes"]
+    Wmax = max(widths)
     okw = torch.empty((N + 31) // 32, dtype=torch.int32, device=dev)
     tcnt = torch.empty(-(-N // tile), dtype=torch.int32, device=dev)
     out = torch.empty_like(real["out"])
     slens = torch.empty(c, dtype=torch.int32, device=dev)
     gp = torch.empty((c, 4), dtype=torch.int32, device=dev)
+    rows = torch.empty((c, Wmax), dtype=torch.uint8, device=dev)
 
     def count():
         cuda.launch_compact_count(v, okw, tcnt)
         return okw, tcnt
 
     def place():
-        cuda.launch_compact_place(v, L, SURVIVOR_CAP, okw, tcnt, out, slens, gp)
-        return out, slens, gp
+        cuda.launch_compact_place(v, L, SURVIVOR_CAP, okw, tcnt, out, slens, gp, codes, offs,
+                                  rows)
+        return out, slens, gp, rows
 
     one["compact_count"] = _timed_pair("compact_count", count,
                                        lambda: tf.compact_count_plain(v, tile))
     # the plain version of the place step is the whole compaction's (it
-    # also builds the bitmap)
-    one["compact_place"] = _timed_pair("compact_place", place,
-                                       lambda: tf.compact_plain(v, L, SURVIVOR_CAP)[:3])
-
+    # also builds the bitmap) with the survivor rows'
+    one["compact_place"] = _timed_pair(
+        "compact_place", place,
+        lambda: (lambda p: p[:3] + p[4:])(plain_rows(v, L, SURVIVOR_CAP, codes, Wmax)))
     # the parent design on the same inputs (another checkout's build)
     before = {}
     if data.get("glue_baseline"):
@@ -907,28 +969,29 @@ def glue_kernels(sh, index, data) -> dict:
     # writes the codes; the exceptions read the list and write the entries
     # that land; the count reads the vote rows (their gate column spans
     # every sector) and writes the words and the tile counts; the place
-    # step reads those, the placed rows' lengths and keys and writes
-    # `out`, slens and gp; the survivor rows read the sidx column and each
-    # placed row at its lane's width and write the (c, Wmax) rows
+    # step reads those, the placed rows' lengths, keys and code rows (each
+    # at its lane's width) and writes `out`, slens, gp and the (c, Wmax)
+    # code rows; survivor_rows reads the sidx column and the same code rows
+    # and writes the same (c, Wmax) rows
     r, col = exc[:, 0].long(), exc[:, 1].long()
     landed = 0
     for o, b, W in zip(offs, bufs, widths):
         cc = torch.where(col < 0, col + W, col)
         landed += int(((r >= o) & (r < o + b.shape[0]) & (cc >= 0) & (cc < W)).sum())
-    codes_bytes = sum(ci.numel() for ci in real["codes"])
+    codes_bytes = sum(ci.numel() for ci in codes)
+    lane_w = torch.tensor([W for W, b in zip(widths, bufs) for _ in range(b.shape[0])],
+                          device=dev)
+    rows_bytes = int(lane_w[real["sidx"].long()].sum()) + real["rows"].numel()
     nbytes = dict(
         lane_unpack=sum(b.numel() for b in bufs) + codes_bytes,
         lane_exceptions=exc.numel() * 4 + landed,
         compact_count=v.numel() * 4 + okw.numel() * 4 + tcnt.numel() * 4,
         compact_place=(okw.numel() * 4 + tcnt.numel() * 4 + c * 20 + out.numel() * 4 + c * 4
-                       + c * 16))
-    lane_w = torch.tensor([W for W, b in zip(widths, bufs) for _ in range(b.shape[0])],
-                          device=dev)
-    nbytes["survivor_rows"] = (c * 4 + int(lane_w[real["sidx"].long()].sum())
-                               + real["rows"].numel())
+                       + c * 16 + rows_bytes),
+        survivor_rows=c * 4 + rows_bytes)
     pair_bytes = dict(lane_unpack=sum(b.numel() for b in bufs) + exc.numel() * 4 + codes_bytes,
                       compact=v.numel() * 4 + c * 4 + out.numel() * 4 + c * 4 + c * 16
-                      + okw.numel() * 4)
+                      + okw.numel() * 4 + rows_bytes)
     # the library calls: the compaction's argsort of its keys alone; the
     # survivor rows' index_select from the whole (N, Wmax) matrix of the
     # lanes, built beforehand, and the same with the matrix's build
@@ -936,13 +999,12 @@ def glue_kernels(sh, index, data) -> dict:
     iota = torch.arange(N, device=dev)
     keys = torch.where(ok, iota, N + iota)
     lib_sort = event_ms(lambda: torch.argsort(keys), 20)
-    Wmax = max(widths)
     sidx64 = real["sidx"].long()
 
     def padded_matrix():
         m = torch.full((N, Wmax), 255, dtype=torch.uint8, device=dev)
         at = 0
-        for ci in real["codes"]:
+        for ci in codes:
             m[at : at + ci.shape[0], : ci.shape[1]] = ci
             at += ci.shape[0]
         return m
@@ -955,8 +1017,10 @@ def glue_kernels(sh, index, data) -> dict:
         lane_unpack=f"{len(bufs)} lanes ({lanes_shape} codes), one launch",
         lane_exceptions=f"{exc.shape[0]} exceptions, {landed} in the lanes, one launch",
         compact_count=f"N {N} vote rows, {tcnt.numel()} tiles of {tile}",
-        compact_place=f"N {N}, cap {SURVIVOR_CAP}, {real['S']} survivors",
-        survivor_rows=f"{c} rows of width {Wmax} from {len(bufs)} lanes")
+        compact_place=f"N {N}, cap {SURVIVOR_CAP}, {real['S']} survivors, {c} code rows of "
+                      f"width {Wmax} copied",
+        survivor_rows=f"{c} rows of width {Wmax} from {len(bufs)} lanes, alone (the scan's "
+                      f"are the place launch's)")
     pairs = dict(lane_unpack=("lane_unpack", "lane_exceptions", 0),
                  compact=("compact_count", "compact_place", 1))
     rec = {}
@@ -997,10 +1061,12 @@ def glue_kernels(sh, index, data) -> dict:
 
 
 def glue_baseline(csrc: str, real: dict) -> dict:
-    """Another checkout's lane unpack (`gf_lane_unpack`, one launch a lane)
-    and compaction (`gf_compact`, one block), built from its csrc/, on the
-    inputs of phase 3's batch: bit-equal to plain, timed -> {"lane_unpack":
-    ms, "compact": ms} for the batch."""
+    """Another checkout's glue (the parent's), built from its csrc/, on the
+    inputs of phase 3's batch: its unpack and exceptions (the same entry
+    points as this checkout's), and its compaction with the survivor rows
+    as it ran them, count, place (`gf_compact_place` without the lanes)
+    and a survivor_rows launch; each bit-equal to plain, timed ->
+    {"lane_unpack": ms, "compact": ms} for the batch."""
     import ctypes
 
     import torch
@@ -1010,49 +1076,56 @@ def glue_baseline(csrc: str, real: dict) -> dict:
 
     lib = cuda.load(cuda.build(("fused_glue.cu",), csrc=os.path.abspath(csrc)))
     P_, I_ = ctypes.c_void_p, ctypes.c_int
-    lib.gf_lane_unpack.argtypes = [P_, I_, I_, I_, P_, I_, ctypes.c_longlong, P_, P_]
-    lib.gf_compact.argtypes = [P_, P_, I_, I_, P_, P_, P_, P_, P_]
-    bufs, widths, exc = real["bufs"], real["widths"], real["exc"]
+    lib.gf_compact_place.argtypes = [P_, P_, I_, I_, P_, P_, P_, P_, P_, P_]
+    bufs, widths, exc, codes = real["bufs"], real["widths"], real["exc"], real["codes"]
     v, L, cap, N, c = real["v"], real["L"], real["cap"], real["N"], real["c"]
+    Wmax = max(widths)
     dev = v.device
     stream = torch.cuda.current_stream(dev).cuda_stream
+    offs = [sum(b.shape[0] for b in bufs[:i]) for i in range(len(bufs))]
 
     def unpack():
-        outs, off = [], 0
-        for b, W in zip(bufs, widths):
-            o = torch.empty((b.shape[0], W), dtype=torch.uint8, device=dev)
-            check(lib.gf_lane_unpack(b.data_ptr(), b.shape[0], W, b.shape[1], exc.data_ptr(),
-                                     exc.shape[0], off, o.data_ptr(), stream) == 0,
-                  "the baseline's lane unpack failed to launch")
-            outs.append(o)
-            off += b.shape[0]
+        outs = [torch.empty((b.shape[0], W), dtype=torch.uint8, device=dev)
+                for b, W in zip(bufs, widths)]
+        cuda.launch_lanes_unpack(bufs, widths, offs, outs, lib=lib)
+        cuda.launch_lane_exceptions(bufs, widths, offs, outs, exc, lib=lib)
         return outs
 
-    def compact():
+    def compact_rows():
         out = torch.empty((cap + 1, 13), dtype=torch.int32, device=dev)
         slens = torch.empty(c, dtype=torch.int32, device=dev)
         gp = torch.empty((c, 4), dtype=torch.int32, device=dev)
         okw = torch.empty((N + 31) // 32, dtype=torch.int32, device=dev)
-        check(lib.gf_compact(v.data_ptr(), L.data_ptr(), N, cap, out.data_ptr(),
-                             slens.data_ptr(), gp.data_ptr(), okw.data_ptr(), stream) == 0,
-              "the baseline's compaction failed to launch")
-        return out, slens, gp, okw
+        tcnt = torch.empty(-(-N // cuda.compact_tile(lib)), dtype=torch.int32, device=dev)
+        cuda.launch_compact_count(v, okw, tcnt, lib=lib)
+        check(lib.gf_compact_place(v.data_ptr(), L.data_ptr(), N, cap, okw.data_ptr(),
+                                   tcnt.data_ptr(), out.data_ptr(), slens.data_ptr(),
+                                   gp.data_ptr(), stream) == 0,
+              "the baseline's place launch failed")
+        rows = torch.empty((c, Wmax), dtype=torch.uint8, device=dev)
+        n = len(codes)
+        ll, ii = ctypes.c_longlong * n, ctypes.c_int * n
+        check(lib.gf_survivor_rows(n, ll(*(t.data_ptr() for t in codes)), ll(*offs),
+                                   ii(*(t.shape[0] for t in codes)),
+                                   ii(*(t.shape[1] for t in codes)), out.data_ptr(), 13, c,
+                                   Wmax, rows.data_ptr(), stream) == 0,
+              "the baseline's survivor_rows launch failed")
+        return out, slens, gp, okw, rows
 
-    _, _, ms1, _ = _timed_pair("lane_unpack (baseline)", unpack,
-                               lambda: tf.lanes_codes_plain(bufs, widths, exc), reps=20,
-                               plain_reps=1)
-    _, _, ms2, _ = _timed_pair("compact (baseline)", compact,
-                               lambda: tf.compact_plain(v, L, cap), reps=20, plain_reps=1)
-    say("3 kernels", baseline=csrc, lane_unpack_ms=f"{ms1:.4f}", compact_ms=f"{ms2:.4f}",
-        equal=True)
+    exp = tuple(real[k] for k in ("out", "slens", "gp", "okw", "rows"))
+    ms1 = parent_ms("lane_unpack (baseline)", unpack,
+                    tuple(tf.lanes_codes_plain(bufs, widths, exc)), 20)
+    ms2 = parent_ms("compact with rows (baseline)", compact_rows, exp, 20)
+    say("3 kernels", baseline=csrc, lane_unpack_ms=f"{ms1:.4f}",
+        compact_with_rows_ms=f"{ms2:.4f}", equal=True)
     return {"lane_unpack": ms1, "compact": ms2}
 
 
 def sweep_glue(data: dict, reps: int = 40) -> dict:
     """The compaction's tile (GLUE_COMPACT_TILE) swept over
     GLUE_SWEEP_TILES, each a build of csrc/fused_glue.cu, on phase 3's
-    first batch and its tile edges: count + place bit-equal to plain, then
-    timed -> {batch label: {tile: ms}}."""
+    first batch and its tile edges: count + place with the code rows
+    bit-equal to plain, then timed -> {batch label: {tile: ms}}."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -1068,8 +1141,11 @@ def sweep_glue(data: dict, reps: int = 40) -> dict:
     say("3 kernels", kernel="compact", sweep_builds=len(paths),
         build_s=f"{time.perf_counter() - t0:.1f}")
     res = {}
-    for label, v, L, cap in data["glue_batches"]:
+    for label, v, L, cap, codes in data["glue_batches"]:
+        Wmax = max(ci.shape[1] for ci in codes)
+        offs = [sum(ci.shape[0] for ci in codes[:k]) for k in range(len(codes))]
         exp = tf.compact_plain(v, L, cap)
+        exp = (*exp, tf.survivor_rows_plain(codes, exp[0][: exp[1].shape[0], 0], Wmax))
         res[label] = {}
         for T, path in zip(GLUE_SWEEP_TILES, paths):
             lib = cuda.load(path)
@@ -1082,9 +1158,11 @@ def sweep_glue(data: dict, reps: int = 40) -> dict:
                 gp = torch.empty((c, 4), dtype=torch.int32, device=v.device)
                 okw = torch.empty((N + 31) // 32, dtype=torch.int32, device=v.device)
                 tcnt = torch.empty(-(-N // T), dtype=torch.int32, device=v.device)
+                rows = torch.empty((c, Wmax), dtype=torch.uint8, device=v.device)
                 cuda.launch_compact_count(v, okw, tcnt, lib=lib)
-                cuda.launch_compact_place(v, L, cap, okw, tcnt, out, slens, gp, lib=lib)
-                return out, slens, gp, okw
+                cuda.launch_compact_place(v, L, cap, okw, tcnt, out, slens, gp, codes, offs, rows,
+                                          lib=lib)
+                return out, slens, gp, okw, rows
 
             got = run()
             check(all(torch.equal(g, e) for g, e in zip(got, exp)),
@@ -1290,6 +1368,9 @@ def phase_cli(data: dict, smi_line: str) -> dict:
     n_fusions = len(json.load(open(js))["fusions"])
     for k in SCAN_KERNELS:
         check(launches[k] > 0, f"kernel {k} was not launched by the CLI run")
+    # the engine's 3 lanes: the place launch copies the survivors' rows
+    check(launches["survivor_rows"] == 0,
+          f"the CLI run launched survivor_rows {launches['survivor_rows']} times (0 expected)")
     check(n_fusions >= 1, "the CLI run reported no fusion")
     # a cold job: its wall time holds the host build and upload of the kv2
     # table, which phase 3 already paid once for the same panel
@@ -1834,25 +1915,26 @@ def largest_wide_launches():
 
 
 class WideBaseline:
-    """Another checkout's csrc/vote.cu and csrc/mask_segments.cu (the
-    parent's), built from that csrc/ and run on the same inputs as this
-    checkout's kernels. Their entry points take this checkout's arguments
-    but gf_shard_flags, which there takes one shard's probe results and ORs
-    its flags into words zeroed before the first shard: the parent's vote,
-    mask+segments and mask from flags run through this checkout's wrappers
-    with the parent's library in the port's place (`active`), its shard
-    flags a launch a shard into zeroed words, as its sharded_map_read ran
-    them."""
+    """Another checkout's csrc/probe.cu, csrc/vote.cu and
+    csrc/mask_segments.cu (the parent's), built from that csrc/ and run on
+    the same inputs as this checkout's kernels. Their entry points take
+    this checkout's arguments but gf_merge_top2, which there takes the
+    shards' rows stacked (S, B, 6) and writes (B, 5) [ok, h1, l1, h2, l2]:
+    the parent's probe, vote, mask+segments, shard flags and mask from
+    flags run through this checkout's wrappers with the parent's library
+    in the port's place (`active`), its merge after a stack and before the
+    compare and the slice, as its sharded_map_read ran them."""
 
     def __init__(self, csrc: str):
         import ctypes
 
         from genefuserust_tpu_torch.ops import cuda
 
-        self.path = cuda.build(("vote.cu", "mask_segments.cu"), csrc=os.path.abspath(csrc))
+        self.path = cuda.build(("probe.cu", "vote.cu", "mask_segments.cu"),
+                               csrc=os.path.abspath(csrc))
         self.lib = cuda.load(self.path)
         P_, I_ = ctypes.c_void_p, ctypes.c_int
-        self.lib.gf_shard_flags.argtypes = [P_, P_, I_, I_, P_, I_, I_, I_, I_, I_, P_, P_]
+        self.lib.gf_merge_top2.argtypes = [P_, I_, I_, I_, I_, I_, P_, P_]
         self.csrc = csrc
 
     @contextlib.contextmanager
@@ -1866,6 +1948,28 @@ class WideBaseline:
             yield
         finally:
             cuda._lib = saved
+
+    def probe(self, codes, lengths, stride, index):
+        from genefuserust_tpu_torch.ops import map_read as tm
+
+        with self.active():
+            return tm.probe(codes, lengths, stride, index)
+
+    def merge_step(self, votes):
+        """The parent's step from the shards' (B, 6) rows to what pass 2
+        takes: a stack, its merge launch, then the gate column compared and
+        the keys sliced contiguous -> (ok, gp)."""
+        import torch
+
+        from genefuserust_tpu_torch.config import PASS1_STEP
+
+        stacked = torch.stack(votes)
+        S, B, _ = stacked.shape
+        v = torch.empty((B, 5), dtype=torch.int32, device=stacked.device)
+        check(self.lib.gf_merge_top2(stacked.data_ptr(), S, B, PASS1_STEP, 40, 20, v.data_ptr(),
+                                     torch.cuda.current_stream(v.device).cuda_stream) == 0,
+              "the parent's merge failed to launch")
+        return v[:, 0] != 0, v[:, 1:5].contiguous()
 
     def vote(self, pr, index, major_req, minor_req, counts=False, lengths=None):
         from genefuserust_tpu_torch.ops import map_read as tm
@@ -1886,44 +1990,29 @@ class WideBaseline:
         with self.active():
             return tm.mask_from_flags(words, lengths, gp, NK, mismatch_thr)
 
-    def shard_flags(self, prs, gp, indexes):
-        """The parent's shard flags: the words zeroed, then a launch a shard."""
-        import torch
-
-        from genefuserust_tpu_torch.ops import cuda
+    def shard_flags(self, prs, lengths, gp, indexes):
         from genefuserust_tpu_torch.ops import map_read as tm
 
-        B, NK, _ = prs[0].shape
-        words = torch.zeros((B, tm.flag_words(NK), 2), dtype=torch.int32, device=gp.device)
-        st = torch.cuda.current_stream(gp.device).cuda_stream
-        for pr, ix in zip(prs, indexes):
-            dstride, D = cuda._dupe_args(ix)
-            check(self.lib.gf_shard_flags(pr.data_ptr(), gp.data_ptr(), B, NK,
-                                          ix.dupes.data_ptr(), dstride, D, int(ix.split),
-                                          ix.cbits, ix.pos_bias, words.data_ptr(), st) == 0,
-                  "the parent's shard flags failed to launch")
-        return words
+        with self.active():
+            return tm.shard_flags(prs, lengths, gp, indexes)
 
     def sharded_map_read(self, codes, lens, indexes):
         """The parent's sharded_map_read on one device, for its peak memory:
-        pass 1 as this checkout's; the words zeroed, then each shard probed
-        (stride 1) and flagged by its own launch, one shard's probe results
-        held at a time; mask from flags -> the (B, 10) rows."""
+        pass 1 as this checkout's, the parent's merge step, then its shard
+        flags (each group of shards probed and flagged by a launch) and
+        mask from flags -> the (B, 10) rows."""
         import torch
 
         from genefuserust_tpu_torch.config import PASS1_STEP
         from genefuserust_tpu_torch.ops import map_read as tm
+        from genefuserust_tpu_torch.parallel import sharded_index as tsi
 
-        votes = torch.stack([tm.vote_counts(tm.probe(codes, lens, PASS1_STEP, ix), ix, lens)
-                             for ix in indexes])
-        v = tm.merge_top2(votes, 40, 20)
-        gp = v[:, 1:5].contiguous()
-        NK = codes.shape[1] - 15
-        words = self.shard_flags([tm.probe(codes, lens, 1, indexes[0])], gp, indexes[:1])
-        for ix in indexes[1:]:
-            words |= self.shard_flags([tm.probe(codes, lens, 1, ix)], gp, [ix])
-        r = self.mask_from_flags(words, lens, gp, NK, 10)
-        return torch.cat([r[:, :2] & v[:, :1], r[:, 2:]], 1)
+        ok, gp = self.merge_step([tm.vote_counts(tm.probe(codes, lens, PASS1_STEP, ix), ix, lens)
+                                  for ix in indexes])
+        with self.active():
+            words = tsi.device_flags(codes, lens, gp, indexes)
+        r = self.mask_from_flags(words, lens, gp, codes.shape[1] - 15, 10)
+        return torch.cat([r[:, :2] & ok[:, None].int(), r[:, 2:]], 1)
 
     def sass(self, name: str) -> dict:
         """{function: its instructions} of the kernels whose mangled name
@@ -2068,7 +2157,8 @@ def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3, base=None):
     """Each kernel of sharded_map_read against its plain version at one
     call's inputs, timed, with its bound (the shard flags' from what the
     rows need, the padded rows' beside it), the shard flags and mask from
-    flags also beside the parent's kernels (`base`, a WideBaseline) ->
+    flags also beside the parent's kernels (`base`, a WideBaseline), the
+    merge also beside the parent's step ->
     (records probe_split, vote_counts, merge_top2, shard_flags,
     mask_from_flags; the per-shard stride-2 and stride-1 probe results, the
     merged gp and the segments)."""
@@ -2112,17 +2202,24 @@ def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3, base=None):
         OPS["vote_sample"] * S * B * NS + OPS["vote_candidate"] * sum(int(c.sum()) for c in cands)))
     rec["vote_counts"]["shape"] = (f"{S} shards x {B}x{NS} samples, D {indexes[0].D}, "
                                    f"most valid keys a row {max(int(c.max()) for c in cands)}")
-    merged, err, ms, pms = _timed_pair(
-        f"merge_top2 ({B} rows)", lambda: tm.merge_top2(votes, 40, 20),
-        lambda: tm.merge_top2_plain(votes, 40, 20), reps=reps, plain_reps=plain_reps)
+    # the merge: the whole step from the shards' rows, where the vote wrote
+    # them, to what pass 2 takes (ok, gp); the parent's step (a stack, its
+    # merge, the compare and the slice) beside it
+    vl = list(votes)
+    (ok, gp), err, ms, pms = _timed_pair(
+        f"merge_top2 ({B} rows)", lambda: tm.merge_top2(vl, 40, 20),
+        lambda: tm.merge_top2_plain(vl, 40, 20), reps=reps, plain_reps=plain_reps)
     rec["merge_top2"] = dict(err=err, ms=ms, plain_ms=pms, **bound(
-        votes.numel() * 4 + merged.numel() * 4, OPS["merge_candidate"] * 2 * S * B))
-    rec["merge_top2"]["shape"] = f"({S}, {B}, 6) counts rows"
-    gp = merged[:, 1:5].contiguous()
+        votes.numel() * 4 + gp.numel() * 4 + ok.numel(), OPS["merge_candidate"] * 2 * S * B))
+    rec["merge_top2"]["shape"] = f"{S} shards' ({B}, 6) counts rows -> ok ({B},), gp ({B}, 4)"
+    if base:
+        rec["merge_top2"]["parent_ms"] = parent_ms(
+            f"merge_top2 ({B} rows, the parent's step)", lambda: base.merge_step(vl), (ok, gp),
+            reps)
     pr1s = [tm.probe(codes, lens, 1, ix) for ix in indexes]
 
     # the whole call from the shards' probe results to the words: one
-    # launch over the 4 shards (the parent: a zero-fill and a launch a shard)
+    # launch over the 4 shards
     words, err, ms, pms = _timed_pair(
         f"shard_flags ({S} shards, {B}x{NK})", lambda: tm.shard_flags(pr1s, lens, gp, indexes),
         lambda: or_plain(pr1s, gp, indexes), reps=reps, plain_reps=plain_reps)
@@ -2135,7 +2232,8 @@ def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3, base=None):
                               padded_bound_ms=bound(need["padded_bytes"], ops)["bound_ms"])
     if base:
         rec["shard_flags"]["parent_ms"] = parent_ms(
-            f"shard_flags ({B}x{NK})", lambda: base.shard_flags(pr1s, gp, indexes), words, reps)
+            f"shard_flags ({B}x{NK})", lambda: base.shard_flags(pr1s, lens, gp, indexes), words,
+            reps)
     seg, err, ms, pms = _timed_pair(
         f"mask_from_flags ({B}x{W})", lambda: tm.mask_from_flags(words, lens, gp, NK, 10),
         lambda: tm.mask_from_flags_plain(words, lens, gp, NK, 10), reps=reps,
@@ -2617,7 +2715,7 @@ def wide_lane(data: dict, kv2, wide_read: str, base, shards=None, reps: int = 5)
     fops = OPS["mask_candidate"] * mneed["cand"]
     record("shard_flags", "shard_flags_wide", lambda: tm.shard_flags([pr1], lens, gp, [kv2]),
            lambda: _chunked(tm.shard_flags_plain, [pr1, gp], 64, kv2), fneed["bytes"], fops,
-           None, base and (lambda: base.shard_flags([pr1], gp, [kv2])))
+           None, base and (lambda: base.shard_flags([pr1], lens, gp, [kv2])))
     recs["shard_flags_wide"]["padded_bound_ms"] = bound(fneed["padded_bytes"], fops)["bound_ms"]
     # a later group's launch ORs into the words of the first: here into the
     # even rows' words, the odd rows' zeroed
@@ -2878,11 +2976,12 @@ def main(argv=None) -> int:
                         help="phases 1-3 and the compaction's tile sweep, then stop")
     ap.add_argument("--glue-baseline", metavar="DIR",
                     help="another checkout's csrc/: phase 3 also times its fused_glue.cu's "
-                         "lane unpack and compaction")
+                         "lane unpack and compaction with its survivor rows")
     ap.add_argument("--wide-baseline", metavar="DIR",
-                    help="another checkout's csrc/: phases 3 and 13 also time its vote.cu's "
-                         "and mask_segments.cu's kernels on the same inputs (shard flags a "
-                         "launch a shard), and compare mask_segments_kernel's SASS")
+                    help="another checkout's csrc/: phases 3 and 13 also time its probe.cu's, "
+                         "vote.cu's and mask_segments.cu's kernels on the same inputs (the "
+                         "merge after a stack), and compare probe_kernel's, vote_kernel's and "
+                         "mask_segments_kernel's SASS")
     args = ap.parse_args(argv)
     import torch
 
@@ -2987,15 +3086,18 @@ def main(argv=None) -> int:
                    **{k: "fused_glue" for k in GLUE_KERNELS})
     # launches: each kernel's count over phase 5's CLI scan, the main path;
     # gather_sum is off it, so its count is that of its own entry point
-    # (phase 8). No single PyTorch call computes the other functions than
-    # survivor_rows (index_select; the compaction's argsort is on its
-    # "pair" record) (library_ms null): see PERF.md's kernel table for each
-    # reason.
+    # (phase 8), and survivor_rows, which the main path leaves to the
+    # place launch, that of phase 3's 12-lane fused_scan_lanes call (its
+    # rows of lanes 8-11). No single PyTorch call computes the other
+    # functions than survivor_rows (index_select; the compaction's argsort
+    # is on its "pair" record) (library_ms null): see PERF.md's kernel
+    # table for each reason.
     rec["gather_sum"] = dict(gather, shape="int32[2^22, 128] table, 2^17 rows, 1 lane")
     rec["edit_distance"] = dict(edit, err=max(edit["err"], data["ed_err"]),
                                 main_path_flushes=data["ed_main"],
                                 fusion_rich_launches=rich_launches["edit_distance"])
-    launches = dict(launches, gather_sum=gather["launches"])
+    launches = dict(launches, gather_sum=gather["launches"],
+                    survivor_rows=data["rows_path_launches"]["survivor_rows"])
     # phase 13's kernels: launches over its 4-shard paired scan (probe_split
     # and the sharded stages) and over its wide-read scans (the wide paths)
     rec.update(sharded["rec"])

@@ -10,12 +10,14 @@
 //                           that falls in a lane;
 //   compact_count_kernel    :560-567 and the count of :509-518: the
 //                           okwords bitmap and each tile's survivor count;
-//   compact_place_kernel    :509-518 and :555-558: the stable survivor
-//                           compaction (the argsort of where(ok, i, N + i)),
-//                           the survivors' lengths and vote keys, the count;
-//   survivor_rows_kernel    :523-532: the survivors' code rows, taken from
-//                           the unpacked lanes and padded with 255 to the
-//                           widest lane.
+//   compact_place_kernel    :509-518, :523-532 and :555-558: the stable
+//                           survivor compaction (the argsort of where(ok, i,
+//                           N + i)), the survivors' lengths and vote keys,
+//                           the count, and the placed rows' code rows, taken
+//                           from the unpacked lanes and padded with 255 to
+//                           the widest lane;
+//   survivor_rows_kernel    :523-532 for the rows of lanes past the place
+//                           launch's MAX_LANES (a batch of more lanes).
 //
 // What bounds them on the H100: bytes, and at the main path's sizes the
 // latency of a launch. A 65,536-pair batch (~80,000 lane rows) unpacks
@@ -51,9 +53,15 @@
 //     the zeros of `out`. No atomics and no look-back, so the order is fixed
 //     by the data; the tile counts are scratch that the count launch writes
 //     whole, so nothing needs a reset;
-//   - the survivor rows are copied straight from the lanes (a table of
-//     their pointers, offsets, rows and widths passed by value), 16 bytes
-//     a thread where both rows allow it, 255 past a lane's width.
+//   - the place launch also copies each placed row's codes, straight from
+//     its lane (a table of up to MAX_LANES lanes' pointers, offsets, rows
+//     and widths passed by value), in 16-byte chunks where both rows allow
+//     it, 255 past a lane's width: the copy needs the slot and source row
+//     that the launch has just computed, so it costs no launch of its own:
+//     the slots are spread evenly over the launch's blocks, each block
+//     finding its slots' rows;
+//   - the rows of lanes past the first MAX_LANES take survivor_rows_kernel,
+//     16 bytes a thread, a launch for each further MAX_LANES lanes.
 // tests/test_torch_fused_glue.py mirrors these steps (_kernel_lanes_unpack,
 // _kernel_compact, _kernel_survivor_rows) and holds them to JAX.
 #include <cstdint>
@@ -80,6 +88,7 @@ constexpr int COMPACT_WPW = COMPACT_TILE / (32 * COMPACT_WARPS);  // bitmap word
 static_assert(COMPACT_TILE % (32 * COMPACT_WARPS) == 0 && COMPACT_WPW >= 1 && COMPACT_WPW <= 32,
               "a warp holds its tile's words one a lane");
 constexpr int OUT_COLS = 13;  // fused_scan_lanes' result rows
+constexpr int PLACE_CHUNKS = 4;     // a lane's 16-byte chunks of a row loaded before stored
 constexpr int ROWS_THREADS = 256;
 constexpr int ROWS_MAX_BLOCKS = 132 * 16;
 constexpr int MAX_LANES = 8;
@@ -233,16 +242,184 @@ __device__ __forceinline__ int warp_sum(int x) {
   return x;
 }
 
+// The lanes whose code rows a launch copies, by value: lane q's (rows[q],
+// width[q]) uint8 codes at ptr[q], its first row at off[q] of the
+// concatenated row space.
+struct Lanes {
+  const uint8_t* ptr[MAX_LANES];
+  long long off[MAX_LANES];
+  int rows[MAX_LANES];
+  int width[MAX_LANES];
+  int n;
+};
+
+__device__ __forceinline__ uint8_t code_at(const uint8_t* src, int j, int Wi) {
+  return j < Wi ? __ldg(src + j) : INVALID_CODE;
+}
+
+// Code row s of the lane of `lanes` that holds it -> its first code and
+// width, or false where no lane of the table holds it. The lanes are
+// scanned with constant indexes, so the table stays in the parameter bank.
+__device__ __forceinline__ bool lane_row(const Lanes& lanes, long long s, const uint8_t*& src,
+                                         int& Wi) {
+  bool found = false;
+#pragma unroll
+  for (int q = 0; q < MAX_LANES; ++q) {
+    if (q < lanes.n && s >= lanes.off[q] && s < lanes.off[q] + lanes.rows[q]) {
+      src = lanes.ptr[q] + (s - lanes.off[q]) * lanes.width[q];
+      Wi = lanes.width[q];
+      found = true;
+    }
+  }
+  return found;
+}
+
+// Bytes [j, j + 16) of a code row of width Wi padded with 255: one aligned
+// 16-byte load where the row allows it.
+__device__ __forceinline__ uint4 row_chunk(const uint8_t* src, int j, int Wi) {
+  if (j + 16 <= Wi && ((uintptr_t)(src + j) & 15) == 0)
+    return __ldg(reinterpret_cast<const uint4*>(src + j));
+  uint32_t w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    w[q] = (uint32_t)code_at(src, j + 4 * q, Wi) | (uint32_t)code_at(src, j + 4 * q + 1, Wi) << 8 |
+           (uint32_t)code_at(src, j + 4 * q + 2, Wi) << 16 |
+           (uint32_t)code_at(src, j + 4 * q + 3, Wi) << 24;
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The chunk into bytes [j, min(j + 16, Wmax)) of an output row.
+__device__ __forceinline__ void put_chunk(uint8_t* dst, int j, int Wmax, uint4 val) {
+  if (j + 16 <= Wmax && ((uintptr_t)(dst + j) & 15) == 0) {
+    *reinterpret_cast<uint4*>(dst + j) = val;
+    return;
+  }
+  const uint32_t w[4] = {val.x, val.y, val.z, val.w};
+  const int n = min(16, Wmax - j);
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    if (k < n) dst[j + k] = (uint8_t)(w[k >> 2] >> (8 * (k & 3)));
+}
+
+// The position of the n-th (from 0) one bit of m, which has more than n.
+__device__ __forceinline__ int nth_bit(unsigned m, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int k = __popc(m & ((1u << w) - 1u));
+    if (n >= k) {
+      n -= k;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// The place launch's slot table for slots [r0, r1), every thread of the
+// block calling: copy_tile[s - r0] = the tile t of slot s, copy_rank[s -
+// r0] = its rank among t's survivors (>= 0) or -1 - its rank among t's
+// other rows. Tile t holds the survivor slots [cs, cs + n), cs the
+// survivors of the tiles before it (a block scan of the tile counts, a
+// chunk of COMPACT_THREADS tiles at a time), and the other slots [cn, cn +
+// rows - n), cn = S + the other rows of the tiles before it.
+__device__ __forceinline__ void slot_table(const int32_t* __restrict__ tile_cnt, int ntiles,
+                                           int N, int S, int r0, int r1, int* copy_tile,
+                                           int* copy_rank, int* warp_tot) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int carry = 0;
+  for (int t0 = 0; t0 < ntiles; t0 += COMPACT_THREADS) {
+    const int t = t0 + threadIdx.x;
+    const int n = t < ntiles ? __ldg(tile_cnt + t) : 0;
+    int inc = n;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL_MASK, inc, o);
+      if (lane >= o) inc += y;
+    }
+    if (lane == 31) warp_tot[warp] = inc;
+    __syncthreads();
+    int cs = carry + inc - n;
+#pragma unroll
+    for (int w = 0; w < COMPACT_WARPS; ++w) {
+      cs += w < warp ? warp_tot[w] : 0;
+      carry += warp_tot[w];
+    }
+    __syncthreads();
+    if (t < ntiles) {
+      const int nrows = min(COMPACT_TILE, N - t * COMPACT_TILE);
+      const int cn = S + t * COMPACT_TILE - cs;
+      for (int s = max(r0, cs); s < min(r1, cs + n); ++s) {
+        copy_tile[s - r0] = t;
+        copy_rank[s - r0] = s - cs;
+      }
+      for (int s = max(r0, cn); s < min(r1, cn + nrows - n); ++s) {
+        copy_tile[s - r0] = t;
+        copy_rank[s - r0] = -1 - (s - cn);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The row of a slot from its table entry (tile t, rank rk), a half-warp a
+// slot, every lane of the warp calling: the rank-th one bit of the tile's
+// words (their complement for another row, rows past N masked) -> the
+// row, or -1 where the half-warp has no slot (active false).
+__device__ __forceinline__ int slot_row(const int32_t* __restrict__ okwords, int nw, int N,
+                                        bool active, int t, int rk) {
+  const int lane = threadIdx.x & 31, half = lane >> 4, t16 = lane & 15;
+  const bool surv = rk >= 0;
+  const int rank = surv ? rk : -1 - rk;
+  int row = -1, acc = 0;
+  for (int g = 0; g < COMPACT_TILE / 32; g += 16) {
+    const int wi = t * (COMPACT_TILE / 32) + g + t16;
+    unsigned m = 0u;
+    if (active && g + t16 < COMPACT_TILE / 32 && wi < nw) {
+      m = (unsigned)__ldg(okwords + wi);
+      if (!surv) m = ~m;
+      if (32 * (wi + 1) > N) m &= (1u << (N - 32 * wi)) - 1u;
+    }
+    const int pc = __popc(m);
+    int inc = pc;
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1) {
+      const int y = __shfl_up_sync(FULL_MASK, inc, o, 16);
+      if (t16 >= o) inc += y;
+    }
+    const bool here = row < 0 && acc + inc - pc <= rank && rank < acc + inc;
+    const unsigned hit = (__ballot_sync(FULL_MASK, here) >> (16 * half)) & 0xffffu;
+    const int at = hit ? __ffs(hit) - 1 : 0;
+    const unsigned ms = __shfl_sync(FULL_MASK, m, at, 16);
+    const int skip = __shfl_sync(FULL_MASK, acc + inc - pc, at, 16);  // ones before word at
+    if (hit) row = 32 * (t * (COMPACT_TILE / 32) + g + at) + nth_bit(ms, rank - skip);
+    acc += __shfl_sync(FULL_MASK, inc, 15, 16);
+  }
+  return row;
+}
+
 // The tiles of compact_count_kernel, after it: row i of tile b takes slot
 // pre(i) if it survives, else S + i - pre(i), and is written where the
 // slot is below c = min(cap, N): out[slot, 0:2] = [i, ok], slens[slot] =
-// ok ? lens[i] : 0, gp[slot] = v[i, 1:5]. out[cap, 0] = S, and every other
-// cell of out (cap + 1, 13) is zero.
+// ok ? lens[i] : 0, gp[slot] = v[i, 1:5], and, where a lane of `lanes`
+// holds row i, rows[slot] = its code row padded with 255 to Wmax.
+// out[cap, 0] = S, and every other cell of out (cap + 1, 13) is zero.
+// The rows to copy are not spread like the tiles: the non-survivors that
+// fill slots [S, c) are the first rows, in the first few tiles (~926 of
+// the main path's 1,024 in 4 tiles of 315). So block b copies slots
+// [b * per, (b + 1) * per), per = ceil(c / blocks): a block scan of the
+// tile counts gives each slot its tile and its rank among the tile's
+// survivors (or non-survivors), and a half-warp finds that rank's bit in
+// the tile's words and copies the row, 16 lanes a row, PLACE_CHUNKS chunks
+// a lane loaded before they are stored. Copying a row where it is placed
+// (the placing thread, or the placing warp 16 lanes a row) left most of
+// the copy to the first 4 blocks and was slower on the H100 (PERF.md).
 __global__ void __launch_bounds__(COMPACT_THREADS)
 compact_place_kernel(const int32_t* __restrict__ v, const int32_t* __restrict__ lens, int N,
                      int cap, const int32_t* __restrict__ okwords,
                      const int32_t* __restrict__ tile_cnt, int ntiles, int32_t* __restrict__ out,
-                     int32_t* __restrict__ slens, int32_t* __restrict__ gp) {
+                     int32_t* __restrict__ slens, int32_t* __restrict__ gp, Lanes lanes,
+                     int Wmax, uint8_t* __restrict__ rows) {
   __shared__ int sums[3][COMPACT_WARPS];  // earlier tiles, all tiles, this warp's words
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = min(cap, N);
@@ -288,7 +465,8 @@ compact_place_kernel(const int32_t* __restrict__ v, const int32_t* __restrict__ 
     const int p = pre + __popc(m & below);
     const bool ok = (m >> lane) & 1u;
     const int slot = ok ? p : S + i - p;
-    if (i < N && slot < c) {
+    const bool placed = i < N && slot < c;
+    if (placed) {
       out[(long long)slot * OUT_COLS] = i;
       out[(long long)slot * OUT_COLS + 1] = ok;
       slens[slot] = ok ? __ldg(lens + i) : 0;
@@ -298,18 +476,38 @@ compact_place_kernel(const int32_t* __restrict__ v, const int32_t* __restrict__ 
     }
     pre += __popc(m);
   }
-}
-
-struct Lanes {
-  const uint8_t* ptr[MAX_LANES];
-  long long off[MAX_LANES];
-  int rows[MAX_LANES];
-  int width[MAX_LANES];
-  int n;
-};
-
-__device__ __forceinline__ uint8_t code_at(const uint8_t* src, int j, int Wi) {
-  return j < Wi ? __ldg(src + j) : INVALID_CODE;
+  // block b copies slots [b * per, (b + 1) * per), a half-warp a slot, 16
+  // lanes a row, PLACE_CHUNKS chunks a lane loaded before they are stored
+  if (lanes.n == 0 || c == 0) return;
+  __shared__ int copy_tile[COMPACT_THREADS], copy_rank[COMPACT_THREADS], warp_tot[COMPACT_WARPS];
+  const int per = (c + gridDim.x - 1) / gridDim.x;  // <= COMPACT_TILE: c <= N
+  const int lo = min(c, (int)blockIdx.x * per), hi = min(c, lo + per);
+  const int half = lane >> 4, t16 = lane & 15;
+  const int cw = (Wmax + 15) >> 4;
+  for (int r0 = lo; r0 < hi; r0 += COMPACT_THREADS) {
+    const int r1 = min(hi, r0 + COMPACT_THREADS);
+    slot_table(tile_cnt, ntiles, N, S, r0, r1, copy_tile, copy_rank, warp_tot);
+    for (int j0 = r0; j0 < r1; j0 += 2 * COMPACT_WARPS) {
+      const int j = j0 + 2 * warp + half;
+      const bool active = j < r1;
+      const int row = slot_row(okwords, nw, N, active, active ? copy_tile[j - r0] : 0,
+                               active ? copy_rank[j - r0] : 0);
+      const uint8_t* src = nullptr;
+      int Wi = 0;
+      if (row < 0 || !lane_row(lanes, row, src, Wi)) continue;
+      uint8_t* dst = rows + (long long)j * Wmax;
+      for (int q0 = t16; q0 < cw; q0 += 16 * PLACE_CHUNKS) {
+        uint4 val[PLACE_CHUNKS];
+#pragma unroll
+        for (int q = 0; q < PLACE_CHUNKS; ++q)
+          if (q0 + 16 * q < cw) val[q] = row_chunk(src, 16 * (q0 + 16 * q), Wi);
+#pragma unroll
+        for (int q = 0; q < PLACE_CHUNKS; ++q)
+          if (q0 + 16 * q < cw) put_chunk(dst, 16 * (q0 + 16 * q), Wmax, val[q]);
+      }
+    }
+    __syncthreads();
+  }
 }
 
 // out (c, Wmax): row r is the code row sidx[r * sstride] of the lane that
@@ -433,18 +631,36 @@ extern "C" int gf_compact_count(const void* v, int N, void* okwords, void* tile_
 }
 
 // after gf_compact_count on the same v (none for N = 0): out (cap + 1,
-// 13), slens (c,), gp (c, 4), c = min(cap, N)
+// 13), slens (c,), gp (c, 4), c = min(cap, N). nlanes (0..MAX_LANES) code
+// lanes, ptrs, offs, rows, widths host arrays of their pointers, first
+// rows, rows and widths (<= Wmax), passed by value: the rows that they
+// hold are copied into `codes` (c, Wmax), 255 past a lane's width (none
+// for nlanes 0 or c 0, and then codes may be NULL).
 extern "C" int gf_compact_place(const void* v, const void* lens, int N, int cap,
                                 const void* okwords, const void* tile_cnt, void* out,
-                                void* slens, void* gp, void* stream) {
+                                void* slens, void* gp, int nlanes, const long long* ptrs,
+                                const long long* offs, const int* rows, const int* widths,
+                                int Wmax, void* codes, void* stream) {
   if (N < 0 || N >= (1 << 30) || cap < 0 ||
-      (long long)(cap + 1LL) * gf::OUT_COLS >= (1LL << 31) || (uintptr_t)gp % 16)
+      (long long)(cap + 1LL) * gf::OUT_COLS >= (1LL << 31) || (uintptr_t)gp % 16 ||
+      nlanes < 0 || nlanes > gf::MAX_LANES ||
+      (nlanes && (Wmax < 1 || (codes == nullptr && cap > 0 && N > 0))))
     return (int)cudaErrorInvalidValue;
+  gf::Lanes lanes{};
+  for (int q = 0; q < nlanes; ++q) {
+    if (rows[q] < 0 || widths[q] < 1 || widths[q] > Wmax) return (int)cudaErrorInvalidValue;
+    lanes.ptr[q] = (const uint8_t*)ptrs[q];
+    lanes.off[q] = offs[q];
+    lanes.rows[q] = rows[q];
+    lanes.width[q] = widths[q];
+  }
+  lanes.n = nlanes;
   const int ntiles = (N + gf::COMPACT_TILE - 1) / gf::COMPACT_TILE;
   gf::compact_place_kernel<<<ntiles > 0 ? ntiles : 1, gf::COMPACT_THREADS, 0,
                              (cudaStream_t)stream>>>(
       (const int32_t*)v, (const int32_t*)lens, N, cap, (const int32_t*)okwords,
-      (const int32_t*)tile_cnt, ntiles, (int32_t*)out, (int32_t*)slens, (int32_t*)gp);
+      (const int32_t*)tile_cnt, ntiles, (int32_t*)out, (int32_t*)slens, (int32_t*)gp, lanes,
+      Wmax, (uint8_t*)codes);
   return (int)cudaGetLastError();
 }
 

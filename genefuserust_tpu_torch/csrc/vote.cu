@@ -86,7 +86,8 @@ constexpr int VOTE_WIDE_THREADS = 1024;
 constexpr int VOTE_WIDE_GROUP = 4;  // chunks of 32 samples whose loads go out together
 constexpr int VOTE_SMEM_KEYS = 28672;  // the wide path's keys in shared memory (224 KB)
 constexpr int VOTE_WALK_MAX = 2048;  // samples a warp walks on the wide path (~4,110 bases)
-constexpr int MAX_SHARDS = 8;  // merge_top2_kernel keeps 2 * S candidates in registers
+constexpr int MAX_SHARDS = 8;  // merge_top2_kernel, built for 1 to 8 shards
+constexpr int MERGE_ROWS = 64;  // merge_top2_kernel's rows a block, a thread a row
 
 // a key that may be voted for: not gplong 0 and not an INT32_MAX contig
 __device__ __forceinline__ bool votable(long long k) {
@@ -604,7 +605,19 @@ vote_wide_kernel(const int32_t* __restrict__ pr, int B, int NS,
 // ascending; a count <= 0 ties with every other such entry and sorts after
 // the rest; ties keep the candidates' order (a stable sort: JAX's sort
 // leaves the order of those ties open, and they reach only rows the gate
-// fails). The first two are the top two: -> [ok, h1, l1, h2, l2].
+// fails). The first two are the top two.
+//
+// What bounds it: a launch. At the sharded scan's 8,192 rows and 4 shards
+// it reads 0.8 MB and writes 0.16 MB, 0.3 us at 3.35 TB/s. So the shards'
+// rows are read where the vote wrote them (a by-value table of their
+// pointers; no stack of them first), MERGE_ROWS rows a block spread over
+// the card, and what pass 2 takes is written as it takes it: the keys
+// (B, 4) [h1, l1, h2, l2] in one 16-byte store a row and the gate (B,) as
+// bytes, no slicing after. A kernel for each shard count keeps just its
+// 2S candidates in registers, and a tournament of top twos finds the two
+// in log2(2S) rounds of compares rather than a chain of 2 x 2S. A shard's
+// 24-byte row is three 8-byte loads (staging the block's rows through
+// shared memory first, in coalesced loads, was slower on the H100).
 __device__ __forceinline__ bool merge_before(int ca, int ha, int la, int cb, int hb, int lb) {
   if ((ca > 0) != (cb > 0)) return ca > 0;
   if (ca <= 0) return false;
@@ -613,43 +626,68 @@ __device__ __forceinline__ bool merge_before(int ca, int ha, int la, int cb, int
   return (uint32_t)la < (uint32_t)lb;
 }
 
-__global__ void merge_top2_kernel(const int32_t* __restrict__ votes, int S, int B, int step,
-                                  int major_req, int minor_req, int32_t* __restrict__ out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int c[2 * MAX_SHARDS], h[2 * MAX_SHARDS], l[2 * MAX_SHARDS];
-#pragma unroll
-  for (int k = 0; k < 2 * MAX_SHARDS; ++k) {
-    if (k < 2 * S) {
-      const int32_t* v = votes + ((long long)(k % S) * B + b) * 6 + (k < S ? 0 : 3);
-      c[k] = __ldg(v);
-      h[k] = __ldg(v + 1);
-      l[k] = __ldg(v + 2);
+// the shards' (B, 6) counts-mode rows, by value
+struct MergeShards {
+  const int2* rows[MAX_SHARDS];
+};
+
+struct Cand {
+  int c, h, l;
+};
+
+__device__ __forceinline__ bool cand_before(const Cand& a, const Cand& b) {
+  return merge_before(a.c, a.h, a.l, b.c, b.h, b.l);
+}
+
+// The top two of candidates x[LO, LO + N) in the merge's order, every
+// candidate of the range before every later one on ties: the two halves'
+// top twos, the left's first unless the right's first precedes it, and
+// the second the better of the two that can be second. A tournament: log2
+// N rounds of compares on the critical path, not 2N in a chain. (N = 1
+// leaves `second` as it was.)
+template <int LO, int N>
+__device__ __forceinline__ void top2(const Cand* x, Cand& first, Cand& second) {
+  if constexpr (N == 1) {
+    first = x[LO];
+  } else {
+    constexpr int H = N / 2;
+    Cand a1, a2, b1, b2;
+    top2<LO, H>(x, a1, a2);
+    top2<LO + H, N - H>(x, b1, b2);
+    const bool right = cand_before(b1, a1);
+    first = right ? b1 : a1;
+    if constexpr (H == 1 && N - H == 1) {
+      second = right ? a1 : b1;
+    } else if constexpr (H == 1) {  // the left half is one candidate
+      second = right ? (cand_before(b2, a1) ? b2 : a1) : b1;
+    } else if constexpr (N - H == 1) {  // the right half is one candidate
+      second = right ? a1 : (cand_before(b1, a2) ? b1 : a2);
+    } else {
+      second = right ? (cand_before(b2, a1) ? b2 : a1) : (cand_before(b1, a2) ? b1 : a2);
     }
   }
-  int i1 = 0;
+}
+
+template <int S>
+__global__ void __launch_bounds__(MERGE_ROWS)
+merge_top2_kernel(MergeShards shards, int B, int step, int major_req, int minor_req,
+                  int4* __restrict__ gp, uint8_t* __restrict__ ok) {
+  const int b = blockIdx.x * MERGE_ROWS + threadIdx.x;
+  // x[s] is shard s's first entry, x[S + s] its second: the order of
+  // [c1 of 0..S-1, c2 of 0..S-1]
+  Cand x[2 * S];
+  if (b >= B) return;
 #pragma unroll
-  for (int k = 1; k < 2 * MAX_SHARDS; ++k)
-    if (k < 2 * S && merge_before(c[k], h[k], l[k], c[i1], h[i1], l[i1])) i1 = k;
-  int i2 = i1 == 0 ? 1 : 0;
-#pragma unroll
-  for (int k = 0; k < 2 * MAX_SHARDS; ++k)
-    if (k < 2 * S && k != i1 && merge_before(c[k], h[k], l[k], c[i2], h[i2], l[i2])) i2 = k;
-  // registers are indexed by constants only: pick the two entries by a scan
-  int g1c = 0, g1h = 0, g1l = 0, g2c = 0, g2h = 0, g2l = 0;
-#pragma unroll
-  for (int k = 0; k < 2 * MAX_SHARDS; ++k) {
-    if (k == i1) { g1c = c[k]; g1h = h[k]; g1l = l[k]; }
-    if (k == i2) { g2c = c[k]; g2h = h[k]; g2l = l[k]; }
+  for (int s = 0; s < S; ++s) {
+    const int2* r = shards.rows[s] + 3LL * b;
+    const int2 x0 = __ldg(r), x1 = __ldg(r + 1), x2 = __ldg(r + 2);
+    x[s] = Cand{x0.x, x0.y, x1.x};
+    x[S + s] = Cand{x1.y, x2.x, x2.y};
   }
-  g1c = max(g1c, 0);
-  g2c = max(g2c, 0);
-  int32_t* o = out + (long long)b * 5;
-  o[0] = (g1c * step >= major_req) && (g2c * step >= minor_req);
-  o[1] = g1h;
-  o[2] = g1l;
-  o[3] = g2h;
-  o[4] = g2l;
+  Cand g1, g2;
+  top2<0, 2 * S>(x, g1, g2);
+  gp[b] = make_int4(g1.h, g1.l, g2.h, g2.l);
+  ok[b] = (max(g1.c, 0) * step >= major_req) && (max(g2.c, 0) * step >= minor_req);
 }
 
 }  // namespace gf
@@ -723,14 +761,34 @@ extern "C" int gf_vote_wide(const void* pr, int B, int NS, const void* lengths,
   return (int)cudaGetLastError();
 }
 
-// votes: (S, B, 6) int32 counts-mode rows of S shards; out: (B, 5) int32
-// [ok, h1, l1, h2, l2] with ok = c1 * step >= major_req && c2 * step >=
-// minor_req on the merged counts.
-extern "C" int gf_merge_top2(const void* votes, int S, int B, int step, int major_req,
-                             int minor_req, void* out, void* stream) {
-  if (S < 1 || S > gf::MAX_SHARDS || B < 0) return (int)cudaErrorInvalidValue;
+// rows: S host entries, the pointers of the shards' (B, 6) int32
+// counts-mode rows (8-byte aligned), passed by value; gp: (B, 4) int32
+// [h1, l1, h2, l2] of the merged top two (16-byte aligned); ok: (B,)
+// bytes, c1 * step >= major_req && c2 * step >= minor_req on the merged
+// counts (a count below 0 as 0).
+extern "C" int gf_merge_top2(int S, const long long* rows, int B, int step, int major_req,
+                             int minor_req, void* gp, void* ok, void* stream) {
+  if (S < 1 || S > gf::MAX_SHARDS || B < 0 || (uintptr_t)gp % 16)
+    return (int)cudaErrorInvalidValue;
+  gf::MergeShards shards{};
+  for (int s = 0; s < S; ++s) {
+    if (rows[s] % 8) return (int)cudaErrorInvalidValue;
+    shards.rows[s] = (const int2*)rows[s];
+  }
   if (B == 0) return (int)cudaSuccess;
-  gf::merge_top2_kernel<<<(B + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)votes, S, B, step, major_req, minor_req, (int32_t*)out);
+  const int grid = (B + gf::MERGE_ROWS - 1) / gf::MERGE_ROWS;
+  cudaStream_t st = (cudaStream_t)stream;
+  int4* g = (int4*)gp;
+  uint8_t* o = (uint8_t*)ok;
+  switch (S) {  // a kernel for each shard count: its candidates in registers
+#define GF_MERGE(n)                                                                         \
+  case n:                                                                                   \
+    gf::merge_top2_kernel<n><<<grid, gf::MERGE_ROWS, 0, st>>>(shards, B, step, major_req, \
+                                                              minor_req, g, o);             \
+    break;
+    GF_MERGE(1) GF_MERGE(2) GF_MERGE(3) GF_MERGE(4) GF_MERGE(5) GF_MERGE(6) GF_MERGE(7)
+    GF_MERGE(8)
+#undef GF_MERGE
+  }
   return (int)cudaGetLastError();
 }

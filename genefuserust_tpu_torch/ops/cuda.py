@@ -21,7 +21,9 @@ past 65,535 bases).
 The glue of fused_scan_lanes counts each of its kernels under its own
 name: "lane_unpack" and "lane_exceptions" (one of each for up to
 MAX_LANES lanes), "compact_count" and "compact_place" (one of each a
-compaction; no count launch for zero rows) and "survivor_rows".
+compaction; no count launch for zero rows; the place launch also copies
+the code rows of up to MAX_LANES lanes) and "survivor_rows" (the code
+rows of each further MAX_LANES lanes).
 """
 
 from __future__ import annotations
@@ -52,8 +54,8 @@ LAUNCHES = {"probe": 0, "vote": 0, "mask_segments": 0, "gather_sum": 0, "edit_di
             "mask_from_flags_wide": 0,
             "lane_unpack": 0, "lane_exceptions": 0, "compact_count": 0, "compact_place": 0,
             "survivor_rows": 0}
-# lanes one unpack, exception or survivor_rows launch takes (MAX_LANES in
-# csrc/fused_glue.cu)
+# lanes one unpack, exception, place or survivor_rows launch takes
+# (MAX_LANES in csrc/fused_glue.cu)
 MAX_LANES = 8
 
 _lib = None
@@ -129,7 +131,7 @@ _ARGTYPES = {
     "gf_vote": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "gf_vote_wide": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I,
                      _P, _P],
-    "gf_merge_top2": [_P, _I, _I, _I, _I, _I, _P, _P],
+    "gf_merge_top2": [_I, _LLP, _I, _I, _I, _I, _P, _P, _P],
     "gf_mask_segments": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "gf_shard_flags": [_I, _LLP, _LLP, _IP, _IP, _IP, _IP, _I, _P, _P, _I, _I, _I, _P, _P],
     "gf_mask_from_flags": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
@@ -139,7 +141,8 @@ _ARGTYPES = {
     "gf_lane_exceptions": [_I, _LLP, _LLP, _LLP, _IP, _IP, _IP, _P, _I, _P],
     "gf_compact_tile": [],
     "gf_compact_count": [_P, _I, _P, _P, _P],
-    "gf_compact_place": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "gf_compact_place": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _LLP, _LLP, _IP, _IP, _I, _P,
+                         _P],
     "gf_survivor_rows": [_I, _LLP, _LLP, _IP, _IP, _P, _I, _I, _I, _P, _P],
 }
 
@@ -250,11 +253,14 @@ def launch_vote_wide(pr, B, NS, index, step, major_req, minor_req, counts, wide,
     _done(name if scratch is None else f"{name}_global", err)
 
 
-def launch_merge_top2(votes, step, major_req, minor_req, out) -> None:
-    S, B, _ = votes.shape
-    with torch.cuda.device(out.device):
-        err = library().gf_merge_top2(votes.data_ptr(), S, B, step, major_req, minor_req,
-                                      out.data_ptr(), _stream(out))
+def launch_merge_top2(votes, step, major_req, minor_req, gp, ok) -> None:
+    """`votes`: the shards' (B, 6) rows, at most MAX_SHARDS in csrc/vote.cu;
+    their pointers go by value."""
+    n = len(votes)
+    with torch.cuda.device(gp.device):
+        err = library().gf_merge_top2(
+            n, (ctypes.c_longlong * n)(*(v.data_ptr() for v in votes)), gp.shape[0], step,
+            major_req, minor_req, gp.data_ptr(), ok.data_ptr(), _stream(gp))
     _done("merge_top2", err)
 
 
@@ -372,12 +378,21 @@ def launch_compact_count(v, okwords, tile_cnt, lib=None) -> None:
     _done("compact_count", err)
 
 
-def launch_compact_place(v, lens, cap: int, okwords, tile_cnt, out, slens, gp,
-                         lib=None) -> None:
+def launch_compact_place(v, lens, cap: int, okwords, tile_cnt, out, slens, gp, lanes=(),
+                         offs=(), codes=None, lib=None) -> None:
+    """`lanes`: at most MAX_LANES (P_i, W_i) uint8 code tensors, their rows
+    at `offs` in the concatenated row space (the table goes by value);
+    the rows they hold are copied into `codes` (c, Wmax) as they are
+    placed."""
+    n = len(lanes)
+    ll, ii = ctypes.c_longlong * n, ctypes.c_int * n
     with torch.cuda.device(out.device):
         err = (lib or library()).gf_compact_place(
             v.data_ptr(), lens.data_ptr(), v.shape[0], cap, okwords.data_ptr(),
-            tile_cnt.data_ptr(), out.data_ptr(), slens.data_ptr(), gp.data_ptr(), _stream(out))
+            tile_cnt.data_ptr(), out.data_ptr(), slens.data_ptr(), gp.data_ptr(), n,
+            ll(*(t.data_ptr() for t in lanes)), ll(*offs), ii(*(t.shape[0] for t in lanes)),
+            ii(*(t.shape[1] for t in lanes)), 0 if codes is None else codes.shape[1],
+            _ptr(codes), _stream(out))
     _done("compact_place", err)
 
 

@@ -17,9 +17,12 @@ tensors and run the plain versions beside them for CPU tensors:
                  lane_codes is its one-lane case
   compact        stable survivor compaction and okwords, over tiles of
                  rows spread across the card: a count launch (the bitmap
-                 and each tile's survivors), then a place launch
-                 (compact_count_kernel, compact_place_kernel)
-  survivor_rows  the survivors' code rows, 255-padded (survivor_rows_kernel)
+                 and each tile's survivors), then a place launch that also
+                 copies the placed rows' codes, 255-padded, from up to
+                 cuda.MAX_LANES lanes (compact_count_kernel,
+                 compact_place_kernel)
+  survivor_rows  the placed rows' codes from further lanes, 255-padded
+                 (survivor_rows_kernel)
 """
 
 from __future__ import annotations
@@ -177,13 +180,17 @@ def lane_codes(buf, W: int, exc, off: int) -> torch.Tensor:
     return lanes_codes([buf], [W], exc, off)[0]
 
 
-def compact(v, lens, cap: int):
-    """compact_plain's (out, slens, gp, okwords). On the card, over tiles
+def compact(v, lens, cap: int, lanes=None, Wmax: int = 0):
+    """compact_plain's (out, slens, gp, okwords), and given the code
+    `lanes` (P_i, W_i) uint8 whose rows are v's, survivor_rows_plain's
+    (c, Wmax) rows of out[:c, 0] as a fifth output. On the card, over tiles
     of cuda.compact_tile() rows, a block a tile: the count launch ballots
     the gate bits 32 rows a word (okwords) and counts each tile's
     survivors; the place launch gives row i the slot pre(i) (the survivors
     before it) if it survives, else S + i - pre(i), writes the rows whose
-    slot is below min(cap, N), and writes `out` whole, its zeros too."""
+    slot is below min(cap, N) with their codes from the first
+    cuda.MAX_LANES lanes, and writes `out` whole, its zeros too. The codes
+    of each further cuda.MAX_LANES lanes take a survivor_rows launch."""
     dev = v.device
     cuda.check_tensor(v, "votes", torch.int32, 2, dev)
     cuda.check_tensor(lens, "lens", torch.int32, 1, dev)
@@ -192,8 +199,16 @@ def compact(v, lens, cap: int):
             or not 0 <= cap < (1 << 31) // OUT_COLS - 1):
         raise ValueError(f"compact: bad shapes v={tuple(v.shape)} lens={tuple(lens.shape)} "
                          f"cap={cap}")
+    if lanes is not None:
+        _check_lanes(lanes, dev, Wmax, "compact")
+        held = sum(t.shape[0] for t in lanes)
+        if held != N:
+            raise ValueError(f"compact: the lanes hold {held} rows, v {N}")
     if dev.type == "cpu":
-        return compact_plain(v, lens, cap)
+        res = compact_plain(v, lens, cap)
+        if lanes is None:
+            return res
+        return (*res, survivor_rows_plain(lanes, res[0][: res[1].shape[0], 0], Wmax))
     c = min(cap, N)
     out = torch.empty((cap + 1, OUT_COLS), dtype=torch.int32, device=dev)
     slens = torch.empty(c, dtype=torch.int32, device=dev)
@@ -202,27 +217,52 @@ def compact(v, lens, cap: int):
     tile_cnt = torch.empty(-(-N // cuda.compact_tile()), dtype=torch.int32, device=dev)
     if N:
         cuda.launch_compact_count(v, okwords, tile_cnt)
-    cuda.launch_compact_place(v, lens, cap, okwords, tile_cnt, out, slens, gp)
-    return out, slens, gp, okwords
+    if lanes is None:
+        cuda.launch_compact_place(v, lens, cap, okwords, tile_cnt, out, slens, gp)
+        return out, slens, gp, okwords
+    rows = torch.empty((c, Wmax), dtype=torch.uint8, device=dev)
+    offs = _lane_offsets(lanes)
+    first = slice(0, cuda.MAX_LANES)
+    cuda.launch_compact_place(v, lens, cap, okwords, tile_cnt, out, slens, gp, lanes[first],
+                              offs[first], rows)
+    for g in range(cuda.MAX_LANES, len(lanes) if c else 0, cuda.MAX_LANES):
+        group = slice(g, g + cuda.MAX_LANES)
+        cuda.launch_survivor_rows(lanes[group], offs[group], out[:c, 0], rows)
+    return out, slens, gp, okwords, rows
+
+
+def _check_lanes(lanes, dev, Wmax: int, name: str) -> None:
+    for t in lanes:
+        cuda.check_tensor(t, "lane codes", torch.uint8, 2, dev)
+    if not lanes or max(t.shape[1] for t in lanes) > Wmax:
+        raise ValueError(f"{name}: lanes wider than Wmax {Wmax}")
+
+
+def _lane_offsets(lanes) -> list:
+    """Each lane's first row in the lanes' concatenated row space."""
+    offs, at = [], 0
+    for t in lanes:
+        offs.append(at)
+        at += t.shape[0]
+    return offs
 
 
 def survivor_rows(lanes, sidx, Wmax: int) -> torch.Tensor:
     """survivor_rows_plain's (c, Wmax) rows. sidx may be a strided view
     (a column of compact's `out`). On the card the rows are copied from
-    the lanes into a fresh tensor, at most cuda.MAX_LANES lanes a launch."""
+    the lanes into a fresh tensor, at most cuda.MAX_LANES lanes a launch
+    (the scan's own rows come from compact's place launch; this is its
+    launch for lanes past those)."""
     dev = sidx.device
     if sidx.dtype != torch.int32 or sidx.dim() != 1:
         raise ValueError(f"survivor_rows: sidx must be 1-D int32, got {sidx.dim()}-D "
                          f"{sidx.dtype}")
-    for t in lanes:
-        cuda.check_tensor(t, "lane codes", torch.uint8, 2, dev)
-    if not lanes or max(t.shape[1] for t in lanes) > Wmax:
-        raise ValueError(f"survivor_rows: lanes wider than Wmax {Wmax}")
+    _check_lanes(lanes, dev, Wmax, "survivor_rows")
     if dev.type == "cpu":
         return survivor_rows_plain(lanes, sidx, Wmax)
     c = sidx.shape[0]
     out = torch.empty((c, Wmax), dtype=torch.uint8, device=dev)
-    offs = [sum(t.shape[0] for t in lanes[:i]) for i in range(len(lanes))]
+    offs = _lane_offsets(lanes)
     for g in range(0, len(lanes) if c else 0, cuda.MAX_LANES):
         cuda.launch_survivor_rows(lanes[g : g + cuda.MAX_LANES],
                                   offs[g : g + cuda.MAX_LANES], sidx, out)
@@ -234,10 +274,16 @@ def fused_scan_lanes(bufs, lens_t, exc, index: TorchIndex, *, widths, cap: int,
                      mismatch_thr: int = 10):
     """Scan any number of width-bucketed lanes in one call.
 
-    bufs: (P_i, ceil(widths[i]/4)) uint8 2-bit rows; lens_t: (P_i,) int32;
-    exc: (E, 2) int32 [row, col] of non-ACGT bases in the concatenated row
-    space (pad entries point out of bounds and are dropped; a column in
-    [-W_i, -1] counts from the row's end, as in JAX).
+    bufs: (P_i, ceil(widths[i]/4)) uint8 2-bit rows; lens_t: the rows'
+    int32 lengths, one (sum P_i,) tensor in row order (JAX takes a tensor
+    a lane; here each lane's are a view of it); exc: (E, 2) int32 [row,
+    col] of non-ACGT bases in the concatenated row space (pad entries
+    point out of bounds and are dropped; a column in [-W_i, -1] counts
+    from the row's end, as in JAX).
+
+    Each lane's vote writes its rows of one (N, 5) buffer, so the
+    compaction reads the votes and lengths where they lie; its place
+    launch copies the survivors' code rows.
 
     Returns (out, okwords):
       out      (cap + 1, 13) int32 — per survivor [sidx, svalid, valid0,
@@ -246,12 +292,18 @@ def fused_scan_lanes(bufs, lens_t, exc, index: TorchIndex, *, widths, cap: int,
       okwords  (ceil(N/32),) int32 — the vote-gate bitmap, bit k of word w
                = row 32w + k, as the int32 bit pattern of a uint32 OR.
     """
+    rows = [b.shape[0] for b in bufs]
+    if not isinstance(lens_t, torch.Tensor) or lens_t.shape != (sum(rows),):
+        raise ValueError(f"fused_scan_lanes: lens_t must be one ({sum(rows)},) tensor")
     codes_l = lanes_codes(bufs, widths, exc)
-    votes = [vote(probe(ci, ln, PASS1_STEP, index), index, major_req, minor_req, ln)
-             for ci, ln in zip(codes_l, lens_t)]
-    out, slens, gp, okwords = compact(torch.cat(votes), torch.cat(lens_t), cap)
+    votes = torch.empty((lens_t.shape[0], 5), dtype=torch.int32, device=exc.device)
+    at = 0
+    for ci, ln in zip(codes_l, torch.split(lens_t, rows)):
+        vote(probe(ci, ln, PASS1_STEP, index), index, major_req, minor_req, ln,
+             out=votes[at : at + ci.shape[0]])
+        at += ci.shape[0]
+    out, slens, gp, okwords, scodes = compact(votes, lens_t, cap, codes_l, max(widths))
     c = slens.shape[0]
-    scodes = survivor_rows(codes_l, out[:c, 0], max(widths))
     out[:c, 2:12] = mask_segments(probe(scodes, slens, 1, index), slens, gp, index,
                                   mismatch_thr)
     return out, okwords

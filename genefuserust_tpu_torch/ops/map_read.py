@@ -355,13 +355,14 @@ def vote_plain(pr, index: TorchIndex, major_req: int, minor_req: int):
 
 def merge_top2_plain(votes, major_req: int, minor_req: int):
     """Plain twin of the merge kernel (`_merge_top2` and the gate of the
-    JAX sharded map_read): S shards' counts-mode rows (S, B, 6) -> (B, 5)
-    int32 [ok, h1, l1, h2, l2]. A row's 2S candidates, [c1 of shards
-    0..S-1, c2 of shards 0..S-1], sort by count descending, then (hi, lo
-    unsigned) ascending; counts <= 0 tie with each other after the rest.
-    The sort is stable: JAX's is not, so where fewer than two counts are
-    positive the missing entry's (hi, lo) may differ from JAX's; the gate
-    fails such a row."""
+    JAX sharded map_read): S shards' counts-mode rows, a sequence of (B, 6)
+    int32 tensors -> (ok (B,) bool, gp (B, 4) int32 [h1, l1, h2, l2]). A
+    row's 2S candidates, [c1 of shards 0..S-1, c2 of shards 0..S-1], sort
+    by count descending, then (hi, lo unsigned) ascending; counts <= 0 tie
+    with each other after the rest. The sort is stable: JAX's is not, so
+    where fewer than two counts are positive the missing entry's (hi, lo)
+    may differ from JAX's; the gate fails such a row."""
+    votes = torch.stack(list(votes))
     c = torch.cat([votes[:, :, 0], votes[:, :, 3]], 0).T
     h = torch.cat([votes[:, :, 1], votes[:, :, 4]], 0).T
     lo = torch.cat([votes[:, :, 2], votes[:, :, 5]], 0).T
@@ -374,7 +375,7 @@ def merge_top2_plain(votes, major_req: int, minor_req: int):
         order = order.gather(1, torch.sort(k, dim=1, stable=True).indices)
     c, h, lo = (x.gather(1, order[:, :2]) for x in (c, h, lo))
     ok = _gate(c[:, 0].clamp_min(0), c[:, 1].clamp_min(0), major_req, minor_req)
-    return torch.stack([ok.to(torch.int32), h[:, 0], lo[:, 0], h[:, 1], lo[:, 1]], dim=1)
+    return ok, torch.stack([h[:, 0], lo[:, 0], h[:, 1], lo[:, 1]], dim=1)
 
 
 def _pass2_flags(pr, gp, index: TorchIndex):
@@ -528,7 +529,7 @@ def _smem_cap(smem_cap, least: int) -> int:
 
 
 def _vote(pr, index: TorchIndex, major_req: int, minor_req: int, counts: bool, lengths,
-          smem_cap):
+          smem_cap, out=None):
     dev = pr.device
     cuda.check_tensor(pr, "probe results", torch.int32, 3, dev)
     _check_index(index, dev)
@@ -540,11 +541,17 @@ def _vote(pr, index: TorchIndex, major_req: int, minor_req: int, counts: bool, l
         if lengths.shape[0] != B:
             raise ValueError(f"vote: {lengths.shape[0]} lengths for {B} rows")
     keys_cap = _smem_cap(smem_cap, 8) // 8
+    cols = 6 if counts else 5
+    if out is not None:
+        cuda.check_tensor(out, "out", torch.int32, 2, dev)
+        if out.shape != (B, cols):
+            raise ValueError(f"vote: out must be ({B}, {cols}), got {tuple(out.shape)}")
     if dev.type == "cpu":
-        if counts:
-            return vote_counts_plain(pr, index)
-        return vote_plain(pr, index, major_req, minor_req)
-    out = torch.empty((B, 6 if counts else 5), dtype=torch.int32, device=dev)
+        res = vote_counts_plain(pr, index) if counts else vote_plain(pr, index, major_req,
+                                                                      minor_req)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty((B, cols), dtype=torch.int32, device=dev)
     if not B:
         return out
     P2 = vote_width(NS, index.D)
@@ -565,7 +572,7 @@ def _vote(pr, index: TorchIndex, major_req: int, minor_req: int, counts: bool, l
 
 
 def vote(pr, index: TorchIndex, major_req: int, minor_req: int, lengths=None,
-         smem_cap=None):
+         smem_cap=None, out=None):
     """Kernel 2: pass-1 probe results (B, NS, 2) -> (B, 5) int32
     [ok, h1, l1, h2, l2]. One warp sorts and counts one row's valid
     candidates; a row of more than VOTE_WARP_KEYS goes to the block. When
@@ -577,8 +584,10 @@ def vote(pr, index: TorchIndex, major_req: int, minor_req: int, lengths=None,
     sorts it in global scratch sized by the counts. `lengths`: the (B,)
     int32 lengths of the code rows `pr` was probed from; given, the wide
     path walks a row's samples only up to its length (the probe makes
-    every later one a miss, so the result is the same)."""
-    return _vote(pr, index, major_req, minor_req, False, lengths, smem_cap)
+    every later one a miss, so the result is the same). `out`: None, or
+    a contiguous (B, 5) int32 tensor (rows of a larger buffer) that the
+    rows are written into and that is returned."""
+    return _vote(pr, index, major_req, minor_req, False, lengths, smem_cap, out)
 
 
 def vote_counts(pr, index: TorchIndex, lengths=None, smem_cap=None):
@@ -589,21 +598,29 @@ def vote_counts(pr, index: TorchIndex, lengths=None, smem_cap=None):
 
 
 def merge_top2(votes, major_req: int, minor_req: int):
-    """The shards' counts-mode rows (S, B, 6), on one device -> (B, 5)
-    int32 [ok, h1, l1, h2, l2]: the global top two and the gate, one
-    thread a row (merge_top2_plain has the order)."""
-    dev = votes.device
-    cuda.check_tensor(votes, "votes", torch.int32, 3, dev)
-    S, B, six = votes.shape
-    if six != 6 or not 1 <= S <= MAX_SHARDS:
-        raise ValueError(f"merge_top2: (S, B, 6) with 1 <= S <= {MAX_SHARDS}, "
-                         f"got {tuple(votes.shape)}")
+    """The shards' counts-mode rows, a sequence of S (B, 6) int32 tensors on
+    one device (each as the vote wrote it) -> (ok (B,) bool, gp (B, 4)
+    int32 [h1, l1, h2, l2]): the gate and the global top two, what pass 2
+    takes (merge_top2_plain has the order). On the card one launch reads
+    the shards' rows where they lie (their pointers by value), a thread a
+    row, and writes both outputs."""
+    votes = list(votes)
+    if not 1 <= len(votes) <= MAX_SHARDS:
+        raise ValueError(f"merge_top2: 1 to {MAX_SHARDS} shards, got {len(votes)}")
+    dev = votes[0].device
+    for v in votes:
+        cuda.check_tensor(v, "votes", torch.int32, 2, dev)
+        if v.shape != (votes[0].shape[0], 6):
+            raise ValueError(f"merge_top2: (B, 6) rows a shard, got "
+                             f"{[tuple(x.shape) for x in votes]}")
     if dev.type == "cpu":
         return merge_top2_plain(votes, major_req, minor_req)
-    out = torch.empty((B, 5), dtype=torch.int32, device=dev)
+    B = votes[0].shape[0]
+    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    gp = torch.empty((B, 4), dtype=torch.int32, device=dev)
     if B:
-        cuda.launch_merge_top2(votes, PASS1_STEP, major_req, minor_req, out)
-    return out
+        cuda.launch_merge_top2(votes, PASS1_STEP, major_req, minor_req, gp, ok)
+    return ok, gp
 
 
 def _mask_scratch(B: int, NK: int, dev, smem_cap: int):

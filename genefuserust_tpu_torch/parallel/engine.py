@@ -257,7 +257,7 @@ class TorchEngine:
             return
         cur = torch.cuda.current_stream(sh["entry"].device)
         cur.wait_event(ev)
-        for t in (*sh["bufs_d"], *sh["lens_d"], sh["exc_d"]):
+        for t in (*sh["bufs_d"], sh["lens_d"], sh["exc_d"]):
             t.record_stream(cur)
 
     # ------------- index -------------
@@ -563,7 +563,9 @@ class TorchEngine:
             exc[len(m_exc) : n_exc, 1] = u_exc[:, 1]
         out = self._timed("st0.upload", lambda: dict(
             bufs_d=tuple(self._put_batch(b, dev) for b in bufs),
-            lens_d=tuple(self._put_batch(x, dev) for x in lens_arrs),
+            # every lane's lengths in one upload: the scan takes each lane's
+            # view of them and the compaction all of them
+            lens_d=self._put_batch(np.concatenate(lens_arrs), dev),
             exc_d=self._put_batch(exc, dev),
         ))
         out.update(
@@ -685,7 +687,7 @@ class TorchEngine:
         dev = entry.device
         with torch.cuda.stream(entry.stream):
             out_t, _ = self._scan(
-                c["tbl"], (self._put_batch(sbuf, dev),), (self._put_batch(lens, dev),),
+                c["tbl"], (self._put_batch(sbuf, dev),), self._put_batch(lens, dev),
                 self._put_batch(exc, dev), (W,), pb,
             )
             res = out_t.cpu().numpy()
@@ -812,7 +814,7 @@ class TorchEngine:
             exc[: len(er), 1] = ec
             with torch.cuda.stream(entry.stream):
                 out_d, _ = self._scan(
-                    tbl, (self._put_batch(buf, dev),), (self._put_batch(ln, dev),),
+                    tbl, (self._put_batch(buf, dev),), self._put_batch(ln, dev),
                     self._put_batch(exc, dev), (W,), PAD,
                 )
                 ctxs.append((ch, _Result(out_d)))
@@ -892,7 +894,7 @@ class TorchEngine:
         dev = (entry or self._entries[0]).device
         out = self._timed("st0.upload", lambda: dict(
             bufs_d=(self._put_batch(buf, dev),),
-            lens_d=(self._put_batch(ln, dev),),
+            lens_d=self._put_batch(ln, dev),
             exc_d=self._put_batch(exc, dev),
         ))
         out.update(

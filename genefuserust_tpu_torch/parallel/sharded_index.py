@@ -30,7 +30,7 @@ after another. The small per-shard outputs come to the first device
 through `.to()` (NCCL collectives wait for the multi-GPU slice):
 
   each shard   probe (stride 2) -> vote_counts        -> (B, 6) to device 0
-  device 0     merge_top2 over the (S, B, 6) rows     -> gate and top two
+  device 0     merge_top2 over the S shards' rows      -> gate and top two
   each device  probe (stride 1) of its shards, one shard_flags launch
                over them (groups past FLAGS_GROUP_BYTES) -> ORed flag words
   device 0     the other devices' words ORed in; mask_from_flags
@@ -43,7 +43,6 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
 import numpy as np
-import torch
 
 from .. import native
 from ..config import KMER, PASS1_STEP
@@ -252,12 +251,9 @@ def sharded_map_read(codes, lengths, indexes: List[TorchIndex], major_req: int =
     dev0 = indexes[0].table.device
     devs = [ix.table.device for ix in indexes]
     inputs = {d: (codes.to(d), lengths.to(d)) for d in dict.fromkeys(devs)}
-    votes = torch.stack([
-        M.vote_counts(M.probe(*inputs[d], PASS1_STEP, ix), ix, inputs[d][1]).to(dev0)
-        for ix, d in zip(indexes, devs)])
-    v = M.merge_top2(votes, major_req, minor_req)
-    ok = v[:, 0] != 0
-    gp = v[:, 1:5].contiguous()
+    votes = [M.vote_counts(M.probe(*inputs[d], PASS1_STEP, ix), ix, inputs[d][1]).to(dev0)
+             for ix, d in zip(indexes, devs)]
+    ok, gp = M.merge_top2(votes, major_req, minor_req)
     B, L = codes.shape
     NK = L - KMER + 1
     words = {}

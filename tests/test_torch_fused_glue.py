@@ -36,7 +36,7 @@ def _caps(N):
     return (5, 1024, N + 7)
 
 
-def _lanes(N, seed, widths=WIDTHS):
+def _lanes(N, seed, widths=WIDTHS, rows=None):
     """Three lanes of 2-bit rows (widths 192, 150, 161 by default; the
     packed rows one byte wider than needed for widths not a multiple of 4)
     and an exception list in the concatenated row space: random entries,
@@ -44,7 +44,7 @@ def _lanes(N, seed, widths=WIDTHS):
     edges."""
     rng = np.random.default_rng(seed)
     bufs, exc, off = [], [], 0
-    for P, W in zip(LANE_ROWS[N], widths):
+    for P, W in zip(rows or LANE_ROWS[N], widths):
         bufs.append(rng.integers(0, 256, (P, (W + 3) // 4 + (W % 4 > 0)), dtype=np.uint8))
         for r in (off, off + P - 1, off + P // 2):
             exc += [(r, c) for c in (0, W - 1, W, -1, -W, -W - 1, -2 * W, 2**31 - 1, -2**31)]
@@ -112,7 +112,7 @@ def _kernel_lanes_unpack(bufs, widths, exc, off=0):
     return outs
 
 
-def _kernel_compact(v, lens, cap, tile=COMPACT_TILE):
+def _kernel_compact(v, lens, cap, tile=COMPACT_TILE, lanes=None, Wmax=0):
     """compact_count_kernel then compact_place_kernel over tiles of `tile`
     rows, a block of COMPACT_WARPS warps a tile, each warp tile / 256
     words of 32 rows. Count: the ballots (the bitmap's words) and each
@@ -120,7 +120,9 @@ def _kernel_compact(v, lens, cap, tile=COMPACT_TILE):
     tile's earlier warps' counts + the warp's earlier words + the bits
     below the lane; a survivor takes slot pre(i), any other row S + i -
     pre(i); rows with a slot below c = min(cap, N) are written. The outputs
-    start as garbage (torch.empty): the zeros are written too."""
+    start as garbage (torch.empty): the zeros are written too. Given the
+    code `lanes` (numpy), the placed rows' codes too (`_place_rows`), as a
+    sixth output."""
     N = v.shape[0]
     c = min(cap, N)
     nw, nt = (N + 31) // 32, -(-N // tile)
@@ -157,7 +159,103 @@ def _kernel_compact(v, lens, cap, tile=COMPACT_TILE):
     slens[slots] = np.where(ok[rows], lens[rows], 0)
     gp = np.full((c, 4), -7, np.int32)
     gp[slots] = v[rows, 1:5]
-    return out, slens, gp, words[:nw].view(np.int32), tile_cnt.astype(np.int32)
+    res = (out, slens, gp, words[:nw].view(np.int32), tile_cnt.astype(np.int32))
+    if lanes is None:
+        return res
+    return (*res, _place_rows(lanes, rows, slots, c, Wmax, res[3], res[4], tile))
+
+
+def _spread_rows(okw, tile_cnt, c, N, tile):
+    """The place launch's slot -> row, as a block finds it: block b of
+    the ntiles takes slots [b * per, (b + 1) * per), per = ceil(c /
+    ntiles); the tile counts' exclusive sums cs give tile t the survivor
+    slots [cs, cs + n) and the other slots [cn, cn + rows - n), cn = S +
+    t * tile - cs; a slot's rank there is found among the tile's words
+    (their complement for another row, bits past N masked) -> the row of
+    each slot [0, c)."""
+    nt = len(tile_cnt)
+    per = -(-c // max(nt, 1))
+    blocks = [(b * per, min(c, (b + 1) * per)) for b in range(max(nt, 1)) if b * per < c]
+    assert sum(hi - lo for lo, hi in blocks) == c  # each slot in one block
+    n = tile_cnt.astype(np.int64)
+    S = int(n.sum())
+    cs = np.cumsum(n) - n
+    t_all = np.arange(nt)
+    nrows = np.minimum(tile, N - t_all * tile)
+    cn = S + t_all * tile - cs
+    s = np.arange(c)
+    surv = s < S
+    t = np.where(surv, np.searchsorted(cs + n, s, side="right"),
+                 np.searchsorted(cn + nrows - n, s, side="right"))
+    rank = np.where(surv, s - cs[t], s - cn[t])
+    wpt = tile // 32
+    words = np.zeros(nt * wpt, np.uint32)
+    words[: len(okw)] = okw.view(np.uint32)
+    m = words.reshape(nt, wpt)[t]
+    m = np.where(surv[:, None], m, ~m)
+    wi = t[:, None] * wpt + np.arange(wpt)[None, :]
+    keep = np.clip(N - 32 * wi, 0, 32)  # rows of the word below N
+    low = ((np.uint64(1) << keep.astype(np.uint64)) - 1).astype(np.uint32)
+    m = np.where(keep >= 32, m, m & low)
+    inc = np.cumsum(_popc(m), 1)
+    w = np.argmax(inc > rank[:, None], 1)
+    before = np.take_along_axis(inc, w[:, None], 1)[:, 0] - _popc(m[s, w])
+    bits = (m[s, w][:, None] >> np.arange(32, dtype=np.uint32)) & 1
+    bit = np.argmax(np.cumsum(bits, 1) > (rank - before)[:, None], 1)
+    return 32 * (t * wpt + w) + bit
+
+
+def _place_rows(lanes, rows, slots, c, Wmax, okw, tile_cnt, tile):
+    """The code rows of compact_place_kernel's placed rows (row rows[k] to
+    slot slots[k]), then survivor_rows_kernel's for the lanes past the
+    first MAX_LANES. The place launch copies a row that one of its first
+    MAX_LANES lanes holds: 16-byte chunks of the row, 255 past its lane's
+    width, the last one cut at Wmax. The slots spread over the blocks,
+    each slot's row found from the tile counts and the bitmap
+    (`_spread_rows`, which must give the placed row); a half-warp a slot,
+    lane t its chunks t, t + 16, ... Every byte of a copied row is
+    written exactly once; the rows of later lanes are left to the
+    survivor_rows launches, one for each further MAX_LANES lanes -> (c,
+    Wmax) uint8."""
+    out = np.full((c, Wmax), 77, np.uint8)
+    writes = np.zeros((c, Wmax), np.int64)
+    offs = np.cumsum([0] + [t.shape[0] for t in lanes])
+    cw = -(-Wmax // 16)
+    src = np.full((offs[-1], 16 * cw), 255, np.uint8)  # each row padded with 255
+    for q, t in enumerate(lanes):
+        src[offs[q] : offs[q + 1], : t.shape[1]] = t
+    held = offs[min(len(lanes), MAX_LANES)]
+    found = _spread_rows(okw, tile_cnt, c, offs[-1], tile)
+    placed = np.full(c, -1, np.int64)
+    placed[slots] = rows
+    assert np.array_equal(found, placed)
+    r_slots = np.arange(c)[found < held]
+    r_rows = found[found < held]
+    for jc in range(cw):
+        # lane jc % 16 of the slot's half-warp copies chunk jc
+        j = 16 * jc
+        n = min(16, Wmax - j)
+        out[r_slots, j : j + n] = src[r_rows, j : j + n]
+        writes[r_slots, j : j + n] += 1
+    assert (writes[r_slots] == 1).all() and not writes[np.setdiff1d(np.arange(c), r_slots)].any()
+    sidx = np.full(c, -1, np.int64)
+    sidx[slots] = rows
+    for g in range(MAX_LANES, len(lanes) if c else 0, MAX_LANES):
+        # survivor_rows_kernel over the group's lanes: thread t of the grid
+        # stride loop takes chunk (r, j) = divmod(t, cw), row sidx[r] if the
+        # group holds it
+        lo, hi = offs[g], offs[min(len(lanes), g + MAX_LANES)]
+        total = c * cw
+        threads = min(ROWS_MAX_BLOCKS, -(-total // ROWS_THREADS)) * ROWS_THREADS
+        for t0 in range(0, total, threads):
+            t = np.arange(t0, min(total, t0 + threads))
+            r, j = t // cw, 16 * (t % cw)
+            mine = (sidx[r] >= lo) & (sidx[r] < hi)
+            for k in range(16):
+                jj = j[mine] + k
+                inside = jj < Wmax
+                out[r[mine][inside], jj[inside]] = src[sidx[r[mine][inside]], jj[inside]]
+    return out
 
 
 def _kernel_survivor_rows(lanes, sidx, Wmax):
@@ -355,6 +453,75 @@ def test_compact_mirror_survivors_past_the_first_tile(cap):
         assert np.array_equal(out[count : count + COMPACT_TILE, 0], np.arange(COMPACT_TILE))
 
 
+def _code_lanes(N, widths, seed):
+    """Code lanes of N rows in all at `widths`, a lane a width -> numpy.
+    Three widths: lanes_codes of `_lanes`' 2-bit rows with their
+    exceptions set, LANE_ROWS' rows or (N // 2, 3, the rest); more: N cut
+    at random into that many lanes, one of them empty."""
+    if len(widths) == 3:
+        rows = LANE_ROWS.get(N, (N // 2, 3, N - N // 2 - 3))
+        bufs, exc = _lanes(N, seed, widths=widths, rows=rows)
+        codes = tf.lanes_codes([torch.from_numpy(b) for b in bufs], list(widths),
+                               torch.from_numpy(exc))
+        return [t.numpy() for t in codes]
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.integers(0, N + 1, len(widths) - 1))
+    cuts[len(cuts) // 2] = cuts[len(cuts) // 2 - 1]  # an empty lane
+    rows = np.diff(np.concatenate([[0], cuts, [N]]))
+    return [rng.choice(np.array([0, 1, 2, 3, 255], np.uint8), (P, W)) for P, W in zip(rows, widths)]
+
+
+def _check_compact_rows(v, lens, cap, lanes):
+    """compact with the code lanes: the mirror against
+    compact's plain version, survivor_rows_plain and JAX's take of the
+    padded lanes, every placed row (non-survivors too)."""
+    N = v.shape[0]
+    c = min(cap, N)
+    Wmax = max(t.shape[1] for t in lanes)
+    got = _kernel_compact(v, lens, cap, lanes=lanes, Wmax=Wmax)
+    plain = [t.numpy() for t in tf.compact(torch.from_numpy(v), torch.from_numpy(lens), cap,
+                                           [torch.from_numpy(t) for t in lanes], Wmax)]
+    assert len(plain) == 5
+    for a, b in zip(got[:4] + got[5:], plain):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    sidx = plain[0][:c, 0]
+    assert plain[4].shape == (c, Wmax)
+    assert np.array_equal(plain[4], tf.survivor_rows_plain(
+        [torch.from_numpy(t) for t in lanes], torch.from_numpy(sidx), Wmax).numpy())
+    assert np.array_equal(plain[4], _jax_survivor_rows(lanes, sidx, Wmax))
+    return plain
+
+
+@pytest.mark.parametrize("cap_at", range(4))
+@pytest.mark.parametrize("N", [123, 1023, 1025, COMPACT_TILE - 1, COMPACT_TILE + 1, 65568])
+def test_compact_rows_mirror_matches_plain_and_jax(N, cap_at):
+    """The place launch's row copy at the fused glue's sizes and the
+    tile's edges, caps 0 (no row placed), below, at and past the
+    survivors; lanes of widths 192, 150 and 161 (the latter two not
+    multiples of 16: misaligned rows and a cut last chunk)."""
+    cap = (0, *_caps(N))[cap_at]
+    widths = WIDTHS if N in LANE_ROWS else (150, 100, 161)
+    lanes = _code_lanes(N, widths, seed=N + cap_at)
+    v, lens = _votes(N, 0.3, seed=N + cap)
+    out = _check_compact_rows(v, lens, cap, lanes)[0]
+    assert 0 < out[cap, 0] < N
+
+
+@pytest.mark.parametrize("nlanes", [11, 12])
+def test_compact_rows_past_the_place_launchs_lanes(nlanes):
+    """More lanes than the place launch's table: the rows of lanes 8 on
+    come from survivor_rows launches; widths on and off multiples of 16,
+    an empty lane, every row placed (cap past N) and cap 100."""
+    widths = [192, 150, 256, 100, 160, 16, 33, 161, 64, 150, 7, 48][:nlanes]
+    lanes = _code_lanes(900, widths, seed=nlanes)
+    assert any(t.shape[0] == 0 for t in lanes)
+    for cap in (100, 907):
+        v, lens = _votes(900, 0.3, seed=cap + nlanes)
+        rows = _check_compact_rows(v, lens, cap, lanes)[4]
+        offs = np.cumsum([0] + [t.shape[0] for t in lanes])
+        assert (rows == 255).any() and offs[8] < 900
+
+
 @pytest.mark.parametrize("cap_at", range(3))
 @pytest.mark.parametrize("N", SIZES)
 def test_survivor_rows_mirror_matches_plain_and_jax(N, cap_at):
@@ -517,3 +684,32 @@ def test_compact_kernels_at_tile_edges(cuda_device):
                                  torch.from_numpy(lens).to(cuda_device), cap)
                 for g, e in zip(got, exp):
                     assert torch.equal(g.cpu(), e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [123, 1025, 65568])
+def test_compact_rows_kernels_match_plain(N, cuda_device):
+    """The place launch with the code lanes, bit-equal to plain at caps 0
+    (no row placed: an empty rows tensor), below, at and past the
+    survivors; 3 lanes of widths on and off multiples of 16 (count +
+    place, no survivor_rows launch) and 12 lanes (one survivor_rows launch
+    more where a row is placed)."""
+    from genefuserust_tpu_torch.ops import cuda
+
+    widths_12 = [192, 150, 256, 100, 160, 16, 33, 161, 64, 150, 7, 48]
+    for widths in (MAIN_WIDTHS, (150, 100, 161), widths_12):
+        lanes = [torch.from_numpy(t) for t in _code_lanes(N, widths, seed=N)]
+        lanes_d = [t.to(cuda_device) for t in lanes]
+        Wmax = max(widths)
+        for cap in (0, *_caps(N)):
+            v, lens = _votes(N, 0.3, seed=N + cap)
+            exp = tf.compact(torch.from_numpy(v), torch.from_numpy(lens), cap, lanes, Wmax)
+            vd, ld = torch.from_numpy(v).to(cuda_device), torch.from_numpy(lens).to(cuda_device)
+            n0 = _launches(cuda)
+            got = tf.compact(vd, ld, cap, lanes_d, Wmax)
+            more = -(-len(lanes) // MAX_LANES) - 1 if cap else 0
+            assert _launches(cuda, n0) == {"compact_count": 1, "compact_place": 1,
+                                           **({"survivor_rows": more} if more else {})}
+            for g, e in zip(got, exp):
+                assert torch.equal(g.cpu(), e)
+

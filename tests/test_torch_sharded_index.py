@@ -236,65 +236,158 @@ def _merge_cases(S, seed):
     return torch.from_numpy(((v + 2**31) % 2**32 - 2**31).astype(np.int32))
 
 
+MAX_SHARDS = 8  # shard counts merge_top2_kernel is built for (csrc/vote.cu)
+MERGE_ROWS = 64  # its rows a block
+
+
+def _merge_before(a, b):
+    (ca, ha, la), (cb, hb, lb) = a, b
+    if (ca > 0) != (cb > 0):
+        return ca > 0
+    if ca <= 0:
+        return False
+    if ca != cb:
+        return ca > cb
+    if ha != hb:
+        return ha < hb
+    return (la & 0xFFFFFFFF) < (lb & 0xFFFFFFFF)
+
+
+def _top2(x, lo, n):
+    """merge_top2_kernel's tournament over x[lo, lo + n): the halves' top
+    twos; the left's first unless the right's first precedes it; the
+    second the better of the two that can be second (the earlier one on a
+    tie) -> (first, second or None)."""
+    if n == 1:
+        return x[lo], None
+    h = n // 2
+    a1, a2 = _top2(x, lo, h)
+    b1, b2 = _top2(x, lo + h, n - h)
+    if _merge_before(b1, a1):
+        return b1, (a1 if b2 is None or not _merge_before(b2, a1) else b2)
+    return a1, (b1 if a2 is None or _merge_before(b1, a2) else a2)
+
+
 def _kernel_merge_top2(votes, major_req=40, minor_req=20, step=2):
-    """merge_top2_kernel step for step: per row, the first candidate that
-    no earlier one precedes, then the same among the rest."""
-    S, B, _ = votes.shape
-    v = votes.numpy().astype(np.int64)
-
-    def before(a, b):
-        (ca, ha, la), (cb, hb, lb) = a, b
-        if (ca > 0) != (cb > 0):
-            return ca > 0
-        if ca <= 0:
-            return False
-        if ca != cb:
-            return ca > cb
-        if ha != hb:
-            return ha < hb
-        return (la & 0xFFFFFFFF) < (lb & 0xFFFFFFFF)
-
-    out = np.zeros((B, 5), np.int64)
-    for b in range(B):
-        cand = [tuple(v[k % S, b, 0:3] if k < S else v[k % S, b, 3:6]) for k in range(2 * S)]
-        i1 = 0
-        for k in range(1, 2 * S):
-            if before(cand[k], cand[i1]):
-                i1 = k
-        i2 = 1 if i1 == 0 else 0
-        for k in range(2 * S):
-            if k != i1 and before(cand[k], cand[i2]):
-                i2 = k
-        c1, c2 = max(cand[i1][0], 0), max(cand[i2][0], 0)
-        out[b] = [int(c1 * step >= major_req and c2 * step >= minor_req),
-                  cand[i1][1], cand[i1][2], cand[i2][1], cand[i2][2]]
-    return out
+    """merge_top2_kernel step for step on the shards' (B, 6) rows (a list,
+    read where they lie): blocks of MERGE_ROWS rows, a thread a row; the
+    kernel built for S shards holds the 2S candidates, shard s's first
+    entry x[s] and its second x[S + s], and finds the top two by the
+    tournament `_top2` -> (ok, gp)."""
+    S, B = len(votes), votes[0].shape[0]
+    assert 1 <= S <= MAX_SHARDS
+    v = [t.numpy().astype(np.int64) for t in votes]
+    ok = np.zeros(B, bool)
+    gp = np.zeros((B, 4), np.int64)
+    for blk in range(-(-B // MERGE_ROWS)):
+        for b in range(blk * MERGE_ROWS, min(B, (blk + 1) * MERGE_ROWS)):
+            x = [tuple(v[s][b, 0:3]) for s in range(S)] + [tuple(v[s][b, 3:6])
+                                                           for s in range(S)]
+            g1, g2 = _top2(x, 0, 2 * S)
+            c1, c2 = max(g1[0], 0), max(g2[0], 0)
+            ok[b] = c1 * step >= major_req and c2 * step >= minor_req
+            gp[b] = [g1[1], g1[2], g2[1], g2[2]]
+    return ok, gp.astype(np.int32)
 
 
-@pytest.mark.parametrize("S", [1, 2, 3, 4, 8])
-def test_merge_top2_matches_jax(S):
-    """merge_top2_plain and the kernel's mirror against JAX's _merge_top2
-    and gate: counts and the gate everywhere, a (hi, lo) wherever its
-    count is positive (JAX's sort leaves the order of the rest open)."""
+def _jax_merge(votes, major_req=40, minor_req=20):
+    """JAX's _merge_top2 and the gate of build_sharded_map_read on the
+    shards' (B, 6) rows -> (ok, (g1c, g2c), gp)."""
     import jax.numpy as jnp
 
     from genefuserust_tpu.parallel.sharded_index import _merge_top2
 
-    votes = _merge_cases(S, seed=S)
-    v = votes.numpy()
+    v = np.stack([t.numpy() for t in votes])
     cand = [np.concatenate([v[:, :, j], v[:, :, j + 3]], 0).T for j in range(3)]
     g1h, g1l, g1c, g2h, g2l, g2c = (np.asarray(x) for x in _merge_top2(
         *(jnp.asarray(c) for c in cand)))
-    ok = (g1c * 2 >= 40) & (g2c * 2 >= 20)
-    plain = tm.merge_top2_plain(votes, 40, 20).numpy()
-    mirror = _kernel_merge_top2(votes)
-    for got in (plain, mirror):
-        assert np.array_equal(got[:, 0], ok)
-        for cnt, cols, want in ((g1c, [1, 2], (g1h, g1l)), (g2c, [3, 4], (g2h, g2l))):
-            pos = cnt > 0
-            assert np.array_equal(got[pos][:, cols], np.stack(want, 1)[pos])
-    assert np.array_equal(plain, mirror)
+    ok = (g1c * 2 >= major_req) & (g2c * 2 >= minor_req)
+    return ok, (g1c, g2c), np.stack([g1h, g1l, g2h, g2l], 1)
+
+
+def _check_merge(votes, major_req=40, minor_req=20):
+    """merge_top2 (plain here) and the kernel's mirror against each other
+    and against JAX: the gate everywhere, a (hi, lo) wherever its count is
+    positive (JAX's sort leaves the order of the rest open) -> JAX's
+    (ok, counts)."""
+    ok, gp = (t.numpy() for t in tm.merge_top2(votes, major_req, minor_req))
+    p_ok, p_gp = (t.numpy() for t in tm.merge_top2_plain(votes, major_req, minor_req))
+    m_ok, m_gp = _kernel_merge_top2(votes, major_req, minor_req)
+    B = votes[0].shape[0]
+    assert ok.dtype == bool and ok.shape == (B,) and gp.dtype == np.int32 and gp.shape == (B, 4)
+    assert np.array_equal(ok, p_ok) and np.array_equal(gp, p_gp)
+    assert np.array_equal(ok, m_ok) and np.array_equal(gp, m_gp)
+    j_ok, (g1c, g2c), j_gp = _jax_merge(votes, major_req, minor_req)
+    assert np.array_equal(ok, j_ok)
+    for cnt, cols in ((g1c, [0, 1]), (g2c, [2, 3])):
+        pos = cnt > 0
+        assert np.array_equal(gp[pos][:, cols], j_gp[pos][:, cols])
+    return j_ok, (g1c, g2c)
+
+
+@pytest.mark.parametrize("S", range(1, MAX_SHARDS + 1))
+def test_merge_top2_matches_jax(S):
+    """merge_top2_plain and the kernel's mirror against JAX's _merge_top2
+    and gate on S shards' rows with count and hi ties."""
+    ok, (_, g2c) = _check_merge(list(_merge_cases(S, seed=S)))
     assert ok.any() and (~ok).any() and (g2c == 0).any()
+
+
+def _merge_edges(S, B, seed):
+    """S shards' (B, 6) rows built to test the order's and the gate's
+    edges, row b by b % 6: counts tied and broken by hi; tied on hi and
+    broken by lo, one lo at or past 2^31 (negative as int32); one entry
+    with a count <= 0; both of a shard's entries <= 0; a first count that
+    meets the gate exactly (c * 2 == 40) with a second that meets its own
+    (c * 2 == 20); the same one short of each."""
+    rng = np.random.default_rng(seed)
+    v = np.zeros((S, B, 6), np.int64)
+    for b in range(B):
+        kind = b % 6
+        cnt = rng.choice([4, 7, 20, 31], size=(S, 2))
+        hi = rng.integers(0, 2**20, (S, 2))
+        lo = rng.integers(0, 2**32, (S, 2))
+        if kind == 0:  # ties on the count, broken by hi
+            cnt[:] = 25
+        elif kind == 1:  # ties on count and hi, broken by lo (unsigned)
+            cnt[:], hi[:] = 25, 7
+            lo[0, 0] = 2**31 + 5
+            lo.flat[-1] = 2**31 - 5
+        elif kind == 2:  # counts <= 0 in one entry of each shard
+            cnt[:, 1] = rng.choice([0, -1, -(2**20)], S)
+        elif kind == 3:  # both of a shard's entries <= 0
+            cnt[rng.integers(0, S)] = [0, -3]
+        elif kind == 4:  # the gate exactly
+            cnt[:] = 1
+            cnt[0, 0], cnt[-1, 1] = 20, 10
+        else:  # one short of it
+            cnt[:] = 1
+            cnt[0, 0], cnt[-1, 1] = 19, 9
+        v[:, b, [0, 3]], v[:, b, [1, 4]], v[:, b, [2, 5]] = cnt, hi, lo
+    # a key holds a positive count on one shard at most
+    keys = v[:, :, [1, 2, 4, 5]].reshape(S, B, 2, 2)
+    for b in range(B):
+        seen = set()
+        for s in range(S):
+            for e in range(2):
+                while v[s, b, 3 * e] > 0 and tuple(keys[s, b, e]) in seen:
+                    keys[s, b, e, 1] += 1
+                seen.add(tuple(keys[s, b, e]))
+    v[:, :, [1, 2, 4, 5]] = keys.reshape(S, B, 4)
+    t = torch.from_numpy(((v + 2**31) % 2**32 - 2**31).astype(np.int32))
+    return [x.contiguous() for x in t]
+
+
+@pytest.mark.parametrize("B", [0, 1, 63, 64, 65])
+@pytest.mark.parametrize("S", [1, 2, 5, 8])
+def test_merge_top2_mirror_edges(S, B):
+    """The mirror, plain and JAX at row counts around the kernel's block
+    of 64 rows, on rows that break ties by hi and by lo past 2^31, hold
+    counts <= 0 in one or both entries, and meet the gate exactly or miss
+    it by one."""
+    ok, _ = _check_merge(_merge_edges(S, B, seed=S * 100 + B))
+    if B > 5:
+        assert ok[4::6].all() and not ok[5::6].any()
 
 
 @pytest.mark.parametrize("layout", ["kv2", "split"])
@@ -644,9 +737,8 @@ def test_shard_flags_mirror_on_edge_rows(panels, monkeypatch):
     codes, lens = (torch.from_numpy(a) for a in _batch(reads, L))
     _, packs = tsi.pack_index_sharded(ix, 4)
     indexes = tsi.shard_indexes(packs, [CPU] * 4)
-    v = tm.merge_top2(torch.stack([tm.vote_counts(tm.probe(codes, lens, 2, x), x, lens)
-                                   for x in indexes]), 40, 20)
-    gp = v[:, 1:5].contiguous()
+    _, gp = tm.merge_top2([tm.vote_counts(tm.probe(codes, lens, 2, x), x, lens)
+                           for x in indexes], 40, 20)
     prs = [tm.probe(codes, lens, 1, x) for x in indexes]
     NK = L - 15
     assert tm.flag_words(NK) > 32  # the long row spans two warps
@@ -767,8 +859,8 @@ def test_sharded_pass2_kernels_on_edge_rows(panels, cuda_device, monkeypatch):
     cpu = tsi.shard_indexes(packs, [CPU] * 4)
     card = tsi.shard_indexes(packs, [cuda_device] * 4)
     cd, ld = codes.to(cuda_device), lens.to(cuda_device)
-    gp = tm.merge_top2(torch.stack([tm.vote_counts(tm.probe(codes, lens, 2, x), x, lens)
-                                    for x in cpu]), 40, 20)[:, 1:5].contiguous()
+    _, gp = tm.merge_top2([tm.vote_counts(tm.probe(codes, lens, 2, x), x, lens)
+                           for x in cpu], 40, 20)
     prs = [tm.probe(cd, ld, 1, x) for x in card]
     for pr, x in zip(prs, cpu):
         assert torch.equal(pr.cpu(), tm.probe(codes, lens, 1, x))
@@ -797,3 +889,23 @@ def test_mask_from_flags_kernel_at_word_counts(nw, cuda_device):
     got = tm.mask_from_flags(words.to(cuda_device), lengths.to(cuda_device), gp.to(cuda_device),
                              NK, 10)
     assert torch.equal(got.cpu(), tm.mask_from_flags_plain(words, lengths, gp, NK, 10))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", range(1, MAX_SHARDS + 1))
+def test_merge_top2_kernel_matches_plain(S, cuda_device):
+    """The merge kernel on the shards' own rows (one launch, no stack) at
+    _merge_cases' rows and at the edge rows of 0, 1, 63, 64 and 65 rows,
+    bit-equal to plain, ok and gp."""
+    from genefuserust_tpu_torch.ops import cuda
+
+    cases = [list(_merge_cases(S, seed=S))] + [_merge_edges(S, B, seed=S * 100 + B)
+                                               for B in (0, 1, 63, 64, 65)]
+    for votes in cases:
+        exp = tm.merge_top2_plain(votes, 40, 20)
+        n0 = cuda.LAUNCHES["merge_top2"]
+        got = tm.merge_top2([v.to(cuda_device) for v in votes], 40, 20)
+        assert cuda.LAUNCHES["merge_top2"] == n0 + (1 if votes[0].shape[0] else 0)
+        assert got[0].dtype == torch.bool and got[1].dtype == torch.int32
+        for g, e in zip(got, exp):
+            assert torch.equal(g.cpu(), e)
