@@ -109,6 +109,19 @@ Phases, one result line each; any failure raises and exits non-zero:
              and 1, timed with its bound and its own row count, then those
              reads with their mates through TorchEngine, reports equal to
              the CPU engine's.
+ 15 layouts  the single-probe table layouts on the panel of phases 3 and
+             5: (a) phase 5's CLI job with GENEFUSE_TABLE_LAYOUT=kvs and
+             =kv16 (unset after): HTML, JSON and stdout equal to the kv2
+             job's (times masked), the variant launched and the kv probe
+             not; the job's pack by the port's builder (a pack that falls
+             through to another layout fails), its seconds, the share of
+             the single-hash placement and of the spill walk, buckets,
+             bytes, flagged buckets and spilled keys; (b) phase 3's first
+             batch probed on the job's table at strides 2 and 1 through
+             the probe's single-probe variant, bit-equal to plain and to
+             the kv2 table's results, its own count of rows loaded equal
+             to valid + need2 (a kvs row one 32-byte sector, a kv16 row
+             two), timed beside kv2's probe; the variant's registers.
 
 The last three lines are the kernels' JSON record, nvidia-smi's
 name/power line and the contract line {"ok": true, "device": {...}}.
@@ -132,9 +145,8 @@ its probe.cu, vote.cu and mask_segments.cu and times their kernels on the
 same inputs, each held bit-equal to plain: phase 3's probe, vote and
 mask+segments (between two timings of this checkout's, and the machine
 code of probe_kernel, vote_kernel and mask_segments_kernel against the
-parent's, cuobjdump -sass), phase 13's merge (the parent's stack, merge
-launch, compare and slice), shard flags and mask from flags at the
-scan's largest call, each wide
+parent's, cuobjdump -sass), phase 13's merge, shard flags and mask
+from flags at the scan's largest call, each wide
 kernel at phase 13's calls and at its 4,096-row lane, and the parent's
 sharded_map_read's peak device memory beside this checkout's at the wide
 calls.
@@ -177,13 +189,14 @@ SHARD_PAIRS = BATCH
 MESH_ENTRIES = 4  # phase 14: TorchEngine entries, all on the one card
 LONG_READ = 250_000  # phase 14 (e): past what staging a tile's rows whole allowed
 LONG_BATCH = 64
-# kernels the build compiles: probe 4 (kv2, kv4, kv8, split), vote 10 (the
+# kernels the build compiles: probe 6 (kv2, kv4, kv8, split; the
+# single-probe variant for kvs and kv16), vote 10 (the
 # vote, its wide path, the shards' merge for 1 to 8 shards), mask_segments
 # 10 (kv and split, each narrow and wide; the shards' flags, kv and split;
 # from flags, narrow on segments of 8, 16 and 32 lanes, and wide),
 # gather_sum 3 (vector widths), edit_distance 1, fused_glue 5 (unpack,
 # exceptions, count, place with the code rows, survivor rows)
-N_COMPILED = 33
+N_COMPILED = 35
 # the probe's launch-shape sweep (--probe-sweep): queries a thread, table-row
 # cache policy (PROBE_POLICY in csrc/probe.cu), threads a block
 PROBE_SWEEP_Q = (1, 2, 4, 8)
@@ -304,6 +317,11 @@ def quiet(data: dict):
 def strip_json(text: str) -> str:
     return "\n".join(l for l in _TS.sub("<ts>", text).splitlines()
                      if not l.startswith('\t"time"'))
+
+
+def strip_stdout(text: str) -> str:
+    """The CLI's stdout with its timestamps and time-used seconds masked."""
+    return re.sub(r"time used: \S+ seconds", "time used: <s> seconds", _TS.sub("<ts>", text))
 
 
 @contextlib.contextmanager
@@ -594,6 +612,7 @@ def phase_kernels(data: dict) -> dict:
                               f"{PASS1_STEP}", rows_needed=rows["rows"], rows_loaded=loaded,
                         h1_hit_share=round(rows["hits_at_h1"] / max(1, rows["hits"]), 6))
     data["probe_batch"] = dict(rows=rows, index=index, ms=ms)
+    data["probe_codes"] = (codes, lens)
     base = wide_base(data)
     if base:
         # the parent's probe between two timings of this checkout's
@@ -1172,9 +1191,9 @@ def sweep_glue(data: dict, reps: int = 40) -> dict:
 
 
 def probe_row_loads(codes, lens, index, exp, stride=None) -> int:
-    """One launch of the kv2 probe of a batch (default stride: pass 1's)
-    with the kernel's row counter on, held bit-equal to `exp` -> the table
-    rows it loaded."""
+    """One launch of the probe of a batch on `index`'s table (default
+    stride: pass 1's) with the kernel's row counter on, held bit-equal to
+    `exp` -> the table rows it loaded."""
     import torch
 
     from genefuserust_tpu_torch.config import PASS1_STEP
@@ -1357,13 +1376,16 @@ def phase_cli(data: dict, smi_line: str) -> dict:
     os.environ["GENEFUSE_STAGE_TIMERS"] = "1"
     cuda.reset_launches()
     t0 = time.perf_counter()
-    with quiet(data), captured_flushes() as flushes:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), captured_flushes() as flushes:
         engine = cli.run(["-1", r1, "-2", r2, "-f", data["csv"], "-r", data["fa"],
                           "-h", html, "-j", js])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    data["log"].write(out.getvalue())
     launches = dict(cuda.LAUNCHES)
     data["cli_reports"] = (_TS.sub("<ts>", open(html).read()), strip_json(open(js).read()))
+    data["cli_stdout"] = strip_stdout(out.getvalue())
     data["cli_wall_s"], data["cli_launches"] = wall, launches
     n_fusions = len(json.load(open(js))["fusions"])
     for k in SCAN_KERNELS:
@@ -1918,23 +1940,16 @@ class WideBaseline:
     """Another checkout's csrc/probe.cu, csrc/vote.cu and
     csrc/mask_segments.cu (the parent's), built from that csrc/ and run on
     the same inputs as this checkout's kernels. Their entry points take
-    this checkout's arguments but gf_merge_top2, which there takes the
-    shards' rows stacked (S, B, 6) and writes (B, 5) [ok, h1, l1, h2, l2]:
-    the parent's probe, vote, mask+segments, shard flags and mask from
-    flags run through this checkout's wrappers with the parent's library
-    in the port's place (`active`), its merge after a stack and before the
-    compare and the slice, as its sharded_map_read ran them."""
+    this checkout's arguments (gf_merge_top2 too: the shards' rows by
+    value), so the parent's kernels run through this checkout's wrappers
+    with the parent's library in the port's place (`active`)."""
 
     def __init__(self, csrc: str):
-        import ctypes
-
         from genefuserust_tpu_torch.ops import cuda
 
         self.path = cuda.build(("probe.cu", "vote.cu", "mask_segments.cu"),
                                csrc=os.path.abspath(csrc))
         self.lib = cuda.load(self.path)
-        P_, I_ = ctypes.c_void_p, ctypes.c_int
-        self.lib.gf_merge_top2.argtypes = [P_, I_, I_, I_, I_, I_, P_, P_]
         self.csrc = csrc
 
     @contextlib.contextmanager
@@ -1956,20 +1971,11 @@ class WideBaseline:
             return tm.probe(codes, lengths, stride, index)
 
     def merge_step(self, votes):
-        """The parent's step from the shards' (B, 6) rows to what pass 2
-        takes: a stack, its merge launch, then the gate column compared and
-        the keys sliced contiguous -> (ok, gp)."""
-        import torch
+        """The parent's merge launch on the shards' (B, 6) rows -> (ok, gp)."""
+        from genefuserust_tpu_torch.ops import map_read as tm
 
-        from genefuserust_tpu_torch.config import PASS1_STEP
-
-        stacked = torch.stack(votes)
-        S, B, _ = stacked.shape
-        v = torch.empty((B, 5), dtype=torch.int32, device=stacked.device)
-        check(self.lib.gf_merge_top2(stacked.data_ptr(), S, B, PASS1_STEP, 40, 20, v.data_ptr(),
-                                     torch.cuda.current_stream(v.device).cuda_stream) == 0,
-              "the parent's merge failed to launch")
-        return v[:, 0] != 0, v[:, 1:5].contiguous()
+        with self.active():
+            return tm.merge_top2(votes, 40, 20)
 
     def vote(self, pr, index, major_req, minor_req, counts=False, lengths=None):
         from genefuserust_tpu_torch.ops import map_read as tm
@@ -1998,21 +2004,14 @@ class WideBaseline:
 
     def sharded_map_read(self, codes, lens, indexes):
         """The parent's sharded_map_read on one device, for its peak memory:
-        pass 1 as this checkout's, the parent's merge step, then its shard
-        flags (each group of shards probed and flagged by a launch) and
-        mask from flags -> the (B, 10) rows."""
+        this checkout's with the parent's kernels -> the (B, 10) rows."""
         import torch
 
-        from genefuserust_tpu_torch.config import PASS1_STEP
-        from genefuserust_tpu_torch.ops import map_read as tm
         from genefuserust_tpu_torch.parallel import sharded_index as tsi
 
-        ok, gp = self.merge_step([tm.vote_counts(tm.probe(codes, lens, PASS1_STEP, ix), ix, lens)
-                                  for ix in indexes])
         with self.active():
-            words = tsi.device_flags(codes, lens, gp, indexes)
-        r = self.mask_from_flags(words, lens, gp, codes.shape[1] - 15, 10)
-        return torch.cat([r[:, :2] & ok[:, None].int(), r[:, 2:]], 1)
+            r = tsi.sharded_map_read(codes, lens, indexes)
+        return torch.cat([r.seg_valid.int(), r.seg_start, r.seg_end, r.seg_contig, r.seg_pos], 1)
 
     def sass(self, name: str) -> dict:
         """{function: its instructions} of the kernels whose mangled name
@@ -2203,8 +2202,7 @@ def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3, base=None):
     rec["vote_counts"]["shape"] = (f"{S} shards x {B}x{NS} samples, D {indexes[0].D}, "
                                    f"most valid keys a row {max(int(c.max()) for c in cands)}")
     # the merge: the whole step from the shards' rows, where the vote wrote
-    # them, to what pass 2 takes (ok, gp); the parent's step (a stack, its
-    # merge, the compare and the slice) beside it
+    # them, to what pass 2 takes (ok, gp); the parent's merge beside it
     vl = list(votes)
     (ok, gp), err, ms, pms = _timed_pair(
         f"merge_top2 ({B} rows)", lambda: tm.merge_top2(vl, 40, 20),
@@ -2214,7 +2212,7 @@ def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3, base=None):
     rec["merge_top2"]["shape"] = f"{S} shards' ({B}, 6) counts rows -> ok ({B},), gp ({B}, 4)"
     if base:
         rec["merge_top2"]["parent_ms"] = parent_ms(
-            f"merge_top2 ({B} rows, the parent's step)", lambda: base.merge_step(vl), (ok, gp),
+            f"merge_top2 ({B} rows, the parent's)", lambda: base.merge_step(vl), (ok, gp),
             reps)
     pr1s = [tm.probe(codes, lens, 1, ix) for ix in indexes]
 
@@ -2962,6 +2960,219 @@ def phase_multi_device(data: dict, smi_line: str) -> dict:
     return dict(rec=rec, launches=long_launches["probe"])
 
 
+# ---------------- phase 15: the single-probe layouts ----------------
+
+
+@contextlib.contextmanager
+def pack_timers():
+    """Inside the block, time the port's table builder as the engine calls
+    it, its single-hash placement (the vectorised h1 pass, the rescue loop
+    and the walk) and the walk alone -> {"pack_s", "place_s", "walk_s",
+    "walks"}, filled as they run."""
+    from genefuserust_tpu_torch.ops import hashtable as th
+    from genefuserust_tpu_torch.ops import index as tindex
+    from genefuserust_tpu_torch.parallel import engine as teng
+
+    spent = dict(pack_s=0.0, place_s=0.0, walk_s=0.0, walks=0)
+    saved = teng.build_packed_index, tindex._place_single_hash, th._spill_walk
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+                spent["walks"] += key == "walk_s"
+        return run
+
+    teng.build_packed_index = timed(saved[0], "pack_s")
+    tindex._place_single_hash = timed(saved[1], "place_s")
+    th._spill_walk = timed(saved[2], "walk_s")
+    try:
+        yield spent
+    finally:
+        teng.build_packed_index, tindex._place_single_hash, th._spill_walk = saved
+
+
+def single_table_stats(index) -> dict:
+    """A single-probe table's flagged rows and spilled keys (keys in a row
+    other than their h1 bucket's), counted on the card."""
+    import torch
+
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.ops.hashtable import OVF_PAYLOAD
+
+    S, nb = index.S, index.table.shape[0]
+    flagged = index.table[:, 2 * S - 1] == OVF_PAYLOAD
+    spilled = 0
+    for r0 in range(0, nb, 1 << 22):
+        rows = index.table[r0 : r0 + (1 << 22)]
+        keys, pay = rows[:, :S], rows[:, S:]
+        live = (pay != 0) & ~((pay == OVF_PAYLOAD) & (torch.arange(S, device=pay.device) == S - 1))
+        b1, _ = tm.buckets(keys.to(torch.int64) & tm.M32, index.shift)
+        home = torch.arange(r0, r0 + rows.shape[0], device=rows.device)[:, None]
+        spilled += int((live & (b1 != home)).sum())
+    return dict(flagged=int(flagged.sum()), flagged_share=float(flagged.double().mean()),
+                spilled_keys=spilled)
+
+
+def single_rows(km, ok, index) -> dict:
+    """The rows a single-probe lookup of the valid k-mers `km[ok]` needs,
+    from the plain version's buckets and the table: one each, and a second
+    (need2) where the h1 row is flagged and no slot matched with a nonzero
+    payload sum."""
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.ops.hashtable import OVF_PAYLOAD
+
+    k = km[ok]
+    b1, _ = tm.buckets(k, index.shift)
+    r1 = index.table[b1]
+    need2 = int(((r1[:, -1] == OVF_PAYLOAD) & (tm._row_payload(r1, tm._i32(k)) == 0)).sum())
+    return dict(valid=int(k.shape[0]), need2=need2, rows=int(k.shape[0]) + need2,
+                sector_bytes_per_row=-(-4 * index.table.shape[1] // SECTOR) * SECTOR)
+
+
+def variant_registers(name: str) -> dict:
+    """{mangled kernel: registers a thread} of the port's build, for the
+    kernels whose name holds `name` (ptxas's report in `<lib>.log`)."""
+    from genefuserust_tpu_torch.ops import cuda
+
+    regs, cur = {}, None
+    for line in open(cuda.build() + ".log"):
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1) if name in m.group(1) else None
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            regs[cur] = int(m.group(1))
+    return regs
+
+
+def phase_layouts(data: dict, smi_line: str) -> dict:
+    """Phase 15: phase 5's CLI job with GENEFUSE_TABLE_LAYOUT pinned to kvs
+    and to kv16, its reports and stdout equal to the kv2 job's and the
+    pack timed; then phase 3's first batch probed on the job's own table
+    (the probe's single-probe variant) at strides 2 and 1, bit-equal to
+    plain and to the kv2 table's results, its rows loaded equal to valid +
+    need2, timed beside kv2's -> the kernels' records and their launches
+    (the CLI jobs', each its main path)."""
+    import torch
+
+    from genefuserust_tpu_torch import cli
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.ops.index import index_to_torch, layout_name
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    # registers a thread, and the 256-thread blocks an SM's 65,536 registers
+    # hold (allocated 8 a thread at a time)
+    for kern, n in sorted(variant_registers("probe_single_kernel").items()):
+        say("15 layouts", kernel=kern, registers=n,
+            blocks_per_sm_by_registers=65536 // (256 * -(-n // 8) * 8))
+    codes, lens = data["probe_codes"]
+    B, W = codes.shape
+    kv2 = index_to_torch(data["packed_kv2"], dev)
+    rec, launches, kv2_out, kv2_ms, kv2_rows = {}, {}, {}, {}, {}
+    km, kok = tm.compute_kmers(codes, lens)
+    for stride in (2, 1):
+        kv2_out[stride] = tm.probe(codes, lens, stride, kv2)
+        kv2_ms[stride] = event_ms(lambda: tm.probe(codes, lens, stride, kv2), 20)
+        kv2_rows[stride] = probe_rows(km[:, ::stride], kok[:, ::stride], kv2)["rows"]
+    del kv2
+    for layout in ("kvs", "kv16"):
+        # (a) phase 5's CLI job with the layout pinned: its reports, its
+        # launches (the main path) and its pack
+        wd = os.path.join(data["workdir"], layout)
+        os.makedirs(wd)
+        html, js = os.path.join(wd, "out.html"), os.path.join(wd, "out.json")
+        os.environ["GENEFUSE_TABLE_LAYOUT"] = layout
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        try:
+            with pack_timers() as spent, contextlib.redirect_stdout(out):
+                engine = cli.run(["-1", data["r1"], "-2", data["r2"], "-f", data["csv"],
+                                  "-r", data["fa"], "-h", html, "-j", js])
+            torch.cuda.synchronize()
+        finally:
+            del os.environ["GENEFUSE_TABLE_LAYOUT"]
+        wall = time.perf_counter() - t0
+        ran = dict(cuda.LAUNCHES)
+        (entry,) = engine._tables.values()
+        packed, (index,) = entry["packed"], entry["indexes"].values()
+        name = cuda.probe_name(index)
+        check(layout_name(packed) == layout,
+              f"layouts: the {layout} job's pack fell through to {layout_name(packed)}")
+        check(index.single_probe and index.S == {"kvs": 4, "kv16": 8}[layout],
+              f"layouts: the {layout} table is not single-probe (S {index.S})")
+        check(ran[name] > 0 and ran["probe"] == 0,
+              f"layouts: the {layout} CLI job launched {name} {ran[name]} times, "
+              f"probe {ran['probe']} times")
+        for k in SCAN_KERNELS[1:]:
+            check(ran[k] > 0, f"layouts: the {layout} CLI job did not launch {k}")
+        check(_TS.sub("<ts>", open(html).read()) == data["cli_reports"][0],
+              f"layouts: the {layout} job's HTML differs from the kv2 job's")
+        check(strip_json(open(js).read()) == data["cli_reports"][1],
+              f"layouts: the {layout} job's JSON differs from the kv2 job's")
+        check(strip_stdout(out.getvalue()) == data["cli_stdout"],
+              f"layouts: the {layout} job's stdout differs from the kv2 job's")
+        launches[name] = ran[name]
+        stats = single_table_stats(index)
+        pack_s = spent["pack_s"]
+        say("15 layouts", layout=layout, cli_pairs=len(data["block"][0]), wall_s=f"{wall:.2f}",
+            index_s=f"{engine.table_seconds:.2f}", reports="equal to the kv2 job's",
+            stdout="equal to the kv2 job's",
+            launches=json.dumps({k: ran[k] for k in (name, *SCAN_KERNELS[1:])},
+                                separators=(",", ":")), card=repr(smi_line))
+        say("15 layouts", layout=layout, pack_s=f"{pack_s:.2f}",
+            place_s=f"{spent['place_s']:.2f}", place_share=f"{spent['place_s'] / pack_s:.3f}",
+            walk_s=f"{spent['walk_s']:.3f}", walk_share=f"{spent['walk_s'] / pack_s:.4f}",
+            walk_ran=spent["walks"] > 0, n_buckets=packed.n_buckets,
+            table=tuple(packed.kv_tbl.shape), bytes=packed.nbytes,
+            flagged_buckets=stats["flagged"], flagged_share=f"{stats['flagged_share']:.6f}",
+            spilled_keys=stats["spilled_keys"])
+        # (b) phase 3's first batch at strides 2 and 1 on the job's table
+        r = dict(err=0)
+        for stride in (2, 1):
+            got, err, ms, pms = _timed_pair(
+                f"{name} stride {stride}", lambda: tm.probe(codes, lens, stride, index),
+                lambda: tm.probe_plain(codes, lens, stride, index))
+            check(torch.equal(got, kv2_out[stride]),
+                  f"{name} stride {stride}: results differ from the kv2 table's")
+            rows = single_rows(km[:, ::stride], kok[:, ::stride], index)
+            loaded = probe_row_loads(codes, lens, index, got, stride)
+            check(loaded == rows["rows"], f"{name} stride {stride}: the kernel loaded {loaded} "
+                                          f"table rows, valid + need2 is {rows['rows']}")
+            # codes and lengths in, each row needed in whole 32-byte sectors
+            # (kvs one, kv16 two), the results out
+            b = bound(B * W + 4 * B + rows["rows"] * rows["sector_bytes_per_row"]
+                      + got.numel() * 4,
+                      OPS["probe_base"] * B * W + OPS["probe_query"] * rows["valid"])
+            r["err"] = max(r["err"], err)
+            if stride == 2:
+                r.update(ms=ms, plain_ms=pms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                         rows_needed=rows["rows"], rows_loaded=loaded, kv2_ms=kv2_ms[2],
+                         kv2_rows_needed=kv2_rows[2],
+                         shape=f"{layout} table {tuple(index.table.shape)}, {B}x{W} codes, "
+                               f"stride 2")
+            else:
+                r.update(stride1_ms=ms, stride1_bound_ms=b["bound_ms"])
+            say("15 layouts", kernel=name, stride=stride, equal_to_plain=True,
+                equal_to_kv2=True, valid_queries=rows["valid"], need2=rows["need2"],
+                rows_needed=rows["rows"], rows_loaded=loaded, kv2_rows_needed=kv2_rows[stride],
+                ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", kv2_ms=f"{kv2_ms[stride]:.4f}",
+                bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
+                bound_share=f"{b['bound_ms'] / ms:.4f}", max_abs_err=err)
+            del got
+        rec[name] = r
+        del engine, entry, packed, index
+        torch.cuda.empty_cache()
+    say("15 layouts", phase_wall_s=f"{time.perf_counter() - t_phase:.1f}")
+    return dict(rec=rec, launches=launches)
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -2979,9 +3190,9 @@ def main(argv=None) -> int:
                          "lane unpack and compaction with its survivor rows")
     ap.add_argument("--wide-baseline", metavar="DIR",
                     help="another checkout's csrc/: phases 3 and 13 also time its probe.cu's, "
-                         "vote.cu's and mask_segments.cu's kernels on the same inputs (the "
-                         "merge after a stack), and compare probe_kernel's, vote_kernel's and "
-                         "mask_segments_kernel's SASS")
+                         "vote.cu's and mask_segments.cu's kernels on the same inputs, and "
+                         "compare probe_kernel's, vote_kernel's and mask_segments_kernel's "
+                         "SASS")
     args = ap.parse_args(argv)
     import torch
 
@@ -3052,6 +3263,7 @@ def main(argv=None) -> int:
         phase_single(data, smi_line)
         sharded = phase_sharded(data, smi_line)
         multi_device = phase_multi_device(data, smi_line)
+        layouts = phase_layouts(data, smi_line)
     finally:
         log.close()
         shutil.rmtree(workdir, ignore_errors=True)
@@ -3078,8 +3290,13 @@ def main(argv=None) -> int:
         "compact_count": "genefuserust_tpu/ops/fused.py:560",
         "compact_place": "genefuserust_tpu/ops/fused.py:509",
         "survivor_rows": "genefuserust_tpu/ops/fused.py:523",
+        "probe_kvs": "genefuserust_tpu/ops/map_read.py:166 (kvs_lookup, via "
+                     "_single_probe_lookup :178)",
+        "probe_kv16": "genefuserust_tpu/ops/map_read.py:155 (kv16_lookup, via "
+                      "_single_probe_lookup :178)",
     }
-    sources = dict(probe_split="probe", probe_long="probe", vote_counts="vote", merge_top2="vote",
+    sources = dict(probe_split="probe", probe_long="probe", probe_kvs="probe",
+                   probe_kv16="probe", vote_counts="vote", merge_top2="vote",
                    vote_wide="vote", vote_counts_wide="vote", shard_flags="mask_segments",
                    mask_from_flags="mask_segments", mask_segments_wide="mask_segments",
                    shard_flags_wide="mask_segments", mask_from_flags_wide="mask_segments",
@@ -3105,10 +3322,13 @@ def main(argv=None) -> int:
     # phase 14 (e): the probe on the 250,000-base row, launches over its scan
     rec["probe_long"] = multi_device["rec"]
     launches["probe_long"] = multi_device["launches"]
+    # phase 15: the single-probe variant, launches over each layout's CLI job
+    rec.update(layouts["rec"])
+    launches.update(layouts["launches"])
     extra = ("shape", "wide", "rows_needed", "rows_loaded", "h1_hit_share", "main_path_flushes",
              "fusion_rich_launches", "hits", "stride1_ms", "stride1_bound_ms", "edge_ms",
              "pair", "library_with_build_ms", "padded_bound_ms", "global_ms", "parent_ms",
-             "again_ms", "device_ms", "rows4096", "peak", "sass")
+             "again_ms", "device_ms", "rows4096", "peak", "sass", "kv2_ms", "kv2_rows_needed")
     kernels = [
         dict(name=k, route="cuda",
              source=f"genefuserust_tpu_torch/csrc/{sources.get(k, k)}.cu",

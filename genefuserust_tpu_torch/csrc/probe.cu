@@ -1,8 +1,10 @@
-// Kernel 1: k-mer build + 2-choice hash-table probe.
+// Kernel 1: k-mer build + hash-table probe.
 //
 // Replaces the TPU kernel genefuserust_tpu/ops/pallas_lookup.py
 // (pallas_lookup / _lookup_kernel) and the XLA probes it stood for,
-// ops/map_read.py compute_kmers + kv_lookup (kv rows) / hash_lookup (split).
+// ops/map_read.py compute_kmers + kv_lookup (kv rows) / hash_lookup (split)
+// in probe_kernel, and kvs_lookup / kv16_lookup (_single_probe_lookup, the
+// single-probe rows of the kvs and kv16 layouts) in probe_single_kernel.
 //
 // What bounds it on the H100: random table rows. A table of up to 2^26
 // rows = 512 MB is ten times the 50 MB L2, so nearly every row load is a
@@ -38,12 +40,23 @@
 //    neighbouring words; it is valid when its window holds no mask bit (the
 //    last 255 lies before the window) and it starts at or before len - 16.
 //    Codes are 0-3, or 255 for a base that is not ACGT.
+//  - Single-probe rows (probe_single_kernel, kvs S=4 and kv16 S=8): every
+//    key lies in its h1 row unless that row overflowed at pack time; such a
+//    row carries the marker payload OVF_PAYLOAD in its last slot. h2 is
+//    loaded only for a query whose h1 row is marked and matched no slot
+//    with a nonzero payload sum (the absent-key sentinel matches the
+//    marker's payload 1, so it loads no h2 row and decodes to EMPTY), so a
+//    lookup is about one row: one 32-byte sector for kvs, two for kv16.
+//    The tile staging and the k-mer build are probe_kernel's (probe_tiles).
 // Invalid queries make no table load at all.
 #include "common.cuh"
 
 namespace gf {
 
 enum { POL_NC = 0, POL_CG = 1, POL_NA = 2 };
+// table kinds of gf_probe's `split` argument
+enum { LAYOUT_KV = 0, LAYOUT_SPLIT = 1, LAYOUT_SINGLE = 2 };
+constexpr int32_t OVF_PAYLOAD = 1;  // ops/hashtable.py: a marked row's last payload
 
 template <int POL>
 __device__ __forceinline__ int2 ld_row2(const int32_t* p) {
@@ -171,6 +184,45 @@ __device__ __forceinline__ void lookup_q(const uint32_t (&k)[Q], const bool (&va
   }
 }
 
+// The single-probe lookup of a thread's Q queries: every h1 load first,
+// then the h2 loads of the queries whose h1 row is marked and matched no
+// slot with a nonzero payload sum.
+template <int S, int Q, int POL>
+__device__ __forceinline__ void lookup_single_q(const uint32_t (&k)[Q], const bool (&valid)[Q],
+                                                const int32_t* __restrict__ tbl, int shift,
+                                                int cbits, int pos_bias, int2 (&res)[Q],
+                                                unsigned& rows) {
+  constexpr int RW = 2 * S;
+  int32_t row[Q][RW];
+  uint32_t pay[Q];
+  bool need2[Q];
+  int slot;
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+    if (valid[i]) load_row<RW, POL>(tbl + (size_t)hash1(k[i], shift) * RW, row[i]);
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    pay[i] = 0;
+    if (valid[i]) match_row<false, S, RW>(row[i], (int32_t)k[i], pay[i], slot);
+    need2[i] = valid[i] && row[i][RW - 1] == OVF_PAYLOAD && pay[i] == 0;
+    rows += (unsigned)valid[i] + (unsigned)need2[i];
+  }
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+    if (need2[i]) load_row<RW, POL>(tbl + (size_t)hash2(k[i], shift) * RW, row[i]);
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    int32_t oc = EMPTY, op = 0;
+    if (need2[i]) {
+      uint32_t p2 = 0;
+      match_row<false, S, RW>(row[i], (int32_t)k[i], p2, slot);
+      pay[i] |= p2;
+    }
+    if (valid[i]) decode(pay[i], cbits, pos_bias, oc, op);
+    res[i] = make_int2(oc, op);
+  }
+}
+
 // 16 code bytes -> (2-bit bases, first base in the top bits; mask of 255
 // codes, first base in bit 15). Bytes at or past `nbytes` read as 255.
 __device__ __forceinline__ uint2 pack_chunk(const uint8_t* __restrict__ codes,
@@ -196,17 +248,18 @@ __device__ __forceinline__ uint2 pack_chunk(const uint8_t* __restrict__ codes,
   return make_uint2(pk, mk);
 }
 
-// Query q of a tile: (row q / NQ, k-mer (q % NQ) * stride) of the (B, W)
-// code rows, or kmers[q] with validity kvalid[q] when codes is NULL. When
-// row_loads is not NULL, the table rows the launch loads are added to it.
-template <bool SPLIT, int S, int Q, int POL, int T>
-__global__ void __launch_bounds__(512)
-probe_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ lengths,
-             const int32_t* __restrict__ kmers, const uint8_t* __restrict__ kvalid,
-             unsigned n, int W, int stride, int NQ, int nch_max,
-             const int32_t* __restrict__ tbl, const int32_t* __restrict__ vals, int shift,
-             int cbits, int pos_bias, int2* __restrict__ out,
-             unsigned long long* __restrict__ row_loads) {
+// The tiles of a probe launch, a LAYOUT table. Query q of a tile: (row q /
+// NQ, k-mer (q % NQ) * stride) of the (B, W) code rows, or kmers[q] with
+// validity kvalid[q] when codes is NULL. When row_loads is not NULL, the
+// table rows the launch loads are added to it. The pointers are the
+// kernels' own __restrict__ parameters, inlined.
+template <int LAYOUT, int S, int Q, int POL, int T>
+__device__ __forceinline__ void probe_tiles(const uint8_t* codes, const int32_t* lengths,
+                                            const int32_t* kmers, const uint8_t* kvalid,
+                                            unsigned n, int W, int stride, int NQ, int nch_max,
+                                            const int32_t* tbl, const int32_t* vals, int shift,
+                                            int cbits, int pos_bias, int2* out,
+                                            unsigned long long* row_loads) {
   extern __shared__ uint2 chunks[];  // [nch_max] staged code words, then row lengths
   int* slen = reinterpret_cast<int*>(chunks + nch_max);
   const unsigned tid = threadIdx.x, per_tile = T * Q;
@@ -255,7 +308,11 @@ probe_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ leng
       }
     }
     int2 res[Q];
-    lookup_q<SPLIT, S, Q, POL>(k, valid, tbl, vals, shift, cbits, pos_bias, res, rows);
+    if constexpr (LAYOUT == LAYOUT_SINGLE)
+      lookup_single_q<S, Q, POL>(k, valid, tbl, shift, cbits, pos_bias, res, rows);
+    else
+      lookup_q<LAYOUT == LAYOUT_SPLIT, S, Q, POL>(k, valid, tbl, vals, shift, cbits, pos_bias,
+                                                  res, rows);
 #pragma unroll
     for (int i = 0; i < Q; ++i) {
       const unsigned q = q0 + i * T + tid;
@@ -266,6 +323,34 @@ probe_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ leng
     rows = __reduce_add_sync(0xFFFFFFFFu, rows);
     if ((tid & 31) == 0 && rows) atomicAdd(row_loads, (unsigned long long)rows);
   }
+}
+
+// kv rows (S = 1, 2, 4) or split key rows (S = 8)
+template <bool SPLIT, int S, int Q, int POL, int T>
+__global__ void __launch_bounds__(512)
+probe_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ lengths,
+             const int32_t* __restrict__ kmers, const uint8_t* __restrict__ kvalid,
+             unsigned n, int W, int stride, int NQ, int nch_max,
+             const int32_t* __restrict__ tbl, const int32_t* __restrict__ vals, int shift,
+             int cbits, int pos_bias, int2* __restrict__ out,
+             unsigned long long* __restrict__ row_loads) {
+  probe_tiles<SPLIT ? LAYOUT_SPLIT : LAYOUT_KV, S, Q, POL, T>(
+      codes, lengths, kmers, kvalid, n, W, stride, NQ, nch_max, tbl, vals, shift, cbits,
+      pos_bias, out, row_loads);
+}
+
+// single-probe rows: kvs (S = 4) or kv16 (S = 8); vals is not read
+template <int S, int Q, int POL, int T>
+__global__ void __launch_bounds__(512)
+probe_single_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ lengths,
+                    const int32_t* __restrict__ kmers, const uint8_t* __restrict__ kvalid,
+                    unsigned n, int W, int stride, int NQ, int nch_max,
+                    const int32_t* __restrict__ tbl, const int32_t* __restrict__ vals,
+                    int shift, int cbits, int pos_bias, int2* __restrict__ out,
+                    unsigned long long* __restrict__ row_loads) {
+  probe_tiles<LAYOUT_SINGLE, S, Q, POL, T>(codes, lengths, kmers, kvalid, n, W, stride, NQ,
+                                          nch_max, tbl, vals, shift, cbits, pos_bias, out,
+                                          row_loads);
 }
 
 }  // namespace gf
@@ -299,10 +384,11 @@ struct ProbeArgs {
   unsigned long long* row_loads;
 };
 
-template <bool SPLIT, int S>
-int probe_launch(const ProbeArgs& a, cudaStream_t st) {
-  constexpr int Q = PROBE_Q, T = PROBE_THREADS;
-  auto kern = gf::probe_kernel<SPLIT, S, Q, PROBE_POLICY, T>;
+constexpr int Q = PROBE_Q, T = PROBE_THREADS;
+
+// kern: an instance of probe_kernel or probe_single_kernel (one parameter list)
+template <class Kernel>
+int probe_launch(Kernel kern, const ProbeArgs& a, cudaStream_t st) {
   int nch_max = 0;
   size_t smem = 0;
   if (a.codes != nullptr) {
@@ -340,10 +426,12 @@ int probe_launch(const ProbeArgs& a, cudaStream_t st) {
 
 // codes != NULL: query q = (row q / NQ, k-mer (q % NQ) * stride) of the
 // (n / NQ, W) code rows, 16-byte aligned. codes == NULL: query q is
-// kmers[q] with validity valid[q]. split: tbl = keys (nb, 8), vals =
-// (nb*8, 2); else tbl = kv rows (nb, 2S). out: (n, 2) int32 [contig, pos].
-// row_loads: NULL, or a device counter the launch adds its table row
-// loads to (h1 rows, h2 rows; not the split layout's vals).
+// kmers[q] with validity valid[q]. split: the table kind, LAYOUT_KV (0):
+// tbl = kv rows (nb, 2S), S 1, 2 or 4; LAYOUT_SPLIT (1): tbl = keys (nb, 8),
+// vals = (nb*8, 2); LAYOUT_SINGLE (2): tbl = single-probe rows (nb, 2S), S 4
+// (kvs) or 8 (kv16). out: (n, 2) int32 [contig, pos]. row_loads: NULL, or
+// a device counter the launch adds its table row loads to (h1 rows, h2
+// rows; not the split layout's vals).
 extern "C" int gf_probe(const void* codes, const void* lengths, const void* kmers,
                         const void* valid, long long n, int W, int stride, int NQ,
                         const void* tbl, const void* vals, int split, int S, int shift,
@@ -354,9 +442,18 @@ extern "C" int gf_probe(const void* codes, const void* lengths, const void* kmer
                     (const int32_t*)tbl, (const int32_t*)vals, shift, cbits, pos_bias,
                     (int2*)out, (unsigned long long*)row_loads};
   cudaStream_t st = (cudaStream_t)stream;
-  if (split && S == 8) return probe_launch<true, 8>(a, st);
-  if (!split && S == 1) return probe_launch<false, 1>(a, st);
-  if (!split && S == 2) return probe_launch<false, 2>(a, st);
-  if (!split && S == 4) return probe_launch<false, 4>(a, st);
+  constexpr int P = PROBE_POLICY;
+  if (split == gf::LAYOUT_SPLIT && S == 8)
+    return probe_launch(gf::probe_kernel<true, 8, Q, P, T>, a, st);
+  if (split == gf::LAYOUT_KV && S == 1)
+    return probe_launch(gf::probe_kernel<false, 1, Q, P, T>, a, st);
+  if (split == gf::LAYOUT_KV && S == 2)
+    return probe_launch(gf::probe_kernel<false, 2, Q, P, T>, a, st);
+  if (split == gf::LAYOUT_KV && S == 4)
+    return probe_launch(gf::probe_kernel<false, 4, Q, P, T>, a, st);
+  if (split == gf::LAYOUT_SINGLE && S == 4)
+    return probe_launch(gf::probe_single_kernel<4, Q, P, T>, a, st);
+  if (split == gf::LAYOUT_SINGLE && S == 8)
+    return probe_launch(gf::probe_single_kernel<8, Q, P, T>, a, st);
   return (int)cudaErrorInvalidValue;
 }

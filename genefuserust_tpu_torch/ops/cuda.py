@@ -9,8 +9,10 @@ the current stream, launches on that stream, allocates nothing and returns
 `LAUNCHES` counts the kernel launches made through the wrappers in
 ops/map_read.py, ops/fused.py, ops/edit_distance.py and
 profiling/gather_floor.py, one
-per launch, so a run can show which kernels it used. The vote kernel
-counts as "vote" in its gated mode and as "vote_counts" in its counts
+per launch, so a run can show which kernels it used. The probe counts as
+"probe" on kv and split tables, and as "probe_kvs" and "probe_kv16" on
+the single-probe tables (its variant, `probe_single_kernel`). The vote
+kernel counts as "vote" in its gated mode and as "vote_counts" in its counts
 mode (the contig-sharded index). The wide-row paths count apart from
 their kernels' main paths: "vote_wide" and "vote_counts_wide" (the two
 modes of the wide vote's second launch; its first is the vote's; rows
@@ -47,7 +49,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-LAUNCHES = {"probe": 0, "vote": 0, "mask_segments": 0, "gather_sum": 0, "edit_distance": 0,
+LAUNCHES = {"probe": 0, "probe_kvs": 0, "probe_kv16": 0, "vote": 0, "mask_segments": 0,
+            "gather_sum": 0, "edit_distance": 0,
             "vote_counts": 0, "vote_wide": 0, "vote_counts_wide": 0, "mask_segments_wide": 0,
             "vote_wide_global": 0, "vote_counts_wide_global": 0,
             "merge_top2": 0, "shard_flags": 0, "shard_flags_wide": 0, "mask_from_flags": 0,
@@ -196,11 +199,20 @@ def _dupe_args(index):
     return (d.shape[1] * d.shape[2] if index.split else d.shape[1]), index.D
 
 
+def probe_name(index) -> str:
+    """The counter of a probe launch on `index`'s table."""
+    if not index.single_probe:
+        return "probe"
+    return "probe_kvs" if index.S == 4 else "probe_kv16"
+
+
 def launch_probe(codes, lengths, kmers, valid, n, W, stride, NQ, index, out,
                  row_loads=None, lib=None) -> None:
     """`row_loads`: None, or a one-element int64 tensor on the card that the
     launch adds its table row loads to. `lib`: a variant build of probe.cu
-    (a launch-shape sweep), else the port's library."""
+    (a launch-shape sweep), else the port's library. gf_probe's `split`
+    argument names the table kind: 0 kv rows, 1 split, 2 single-probe
+    rows."""
     if index.table.data_ptr() % 16 or (codes is not None and codes.data_ptr() % 16):
         raise ValueError("probe: table rows and code rows must be 16-byte aligned")
     if n >= 1 << 31:
@@ -210,10 +222,10 @@ def launch_probe(codes, lengths, kmers, valid, n, W, stride, NQ, index, out,
         err = (lib or library()).gf_probe(
             _ptr(codes), _ptr(lengths), _ptr(kmers), _ptr(valid), n, W, stride, NQ,
             index.table.data_ptr(), index.vals.data_ptr() if index.split else None,
-            int(index.split), index.S, index.shift, index.cbits, index.pos_bias,
-            out.data_ptr(), _ptr(row_loads), _stream(out),
+            2 if index.single_probe else int(index.split), index.S, index.shift,
+            index.cbits, index.pos_bias, out.data_ptr(), _ptr(row_loads), _stream(out),
         )
-    _done("probe", err)
+    _done(probe_name(index), err)
 
 
 def launch_vote(pr, B, NS, index, step, major_req, minor_req, P2, out, counts=False,

@@ -3,8 +3,9 @@
 The part of `genefuserust_tpu/ops/hashtable.py` that the port's table
 builder (`ops/index.py`) uses, copied so that the port stands alone: the
 entry extraction from an indexer, the payload encoding and its bit budget,
-the 2-choice placement, and the two table records. The single-probe A/B
-layouts (kvs, kv16) and the numpy lookups are not ported.
+the 2-choice placement, the single-hash placement with h2 spill of the
+single-probe layouts (kvs, kv16), and the four table records. The numpy
+lookups `lookup_np*` are test oracles of the reference and stay there.
 
 Each k-mer lives in bucket h1 or (on overflow) h2. Slot layout of the
 split build form (int32 x 3): [key, contig, pos]
@@ -101,6 +102,80 @@ class PackedIndexKV:
     pos_bias: int
     max_dupe: int
     empty_key: int
+
+    @property
+    def nbytes(self) -> int:
+        return self.kv_tbl.nbytes + self.dupes.nbytes
+
+
+KV16_SLOTS = 8  # slots per bucket in the single-gather row layout
+OVF_PAYLOAD = 1  # tag 0, val 1 in payload slot 7 marks an overflowed bucket
+
+
+@dataclasses.dataclass
+class PackedIndexKV16:
+    """Single-gather table: one 16xint32 row per bucket holds 8 slots of
+    [key | packed payload] (same payload encoding as PackedIndexKV), and
+    each key lives in its h1 bucket — a lookup is ONE random row gather.
+
+    Buckets whose h1 population exceeds 8 keys keep 7 inline, carry the
+    overflow marker (key slot 7 = the absent-key sentinel with payload
+    OVF_PAYLOAD), and spill the rest into free slots of their h2 buckets;
+    only queries that MISS a marked row take a second row load (the
+    probe's single-probe variant, `csrc/probe.cu`, loads no other). Key
+    equality implies hash equality, so a probe can never produce a false
+    match.
+
+    Falls back to PackedIndexKV when spill placement fails repeatedly or
+    the payload bit budget is exceeded (see `ops/index.py::_pack_kv16`).
+
+    STATUS in the reference: the JAX package measured it slower than its
+    2-gather kv8 table end to end on a TPU v5e, where a row's bytes set
+    the cost of a gather; the port's own measurements on the H100 are in
+    PERF.md. Not the default."""
+
+    kv_tbl: np.ndarray  # (nb, 16) int32: [k0..k7 | p0..p7]
+    dupes: np.ndarray  # (nd, 8) int32 packed payloads
+    n_buckets: int
+    shift: int
+    cbits: int
+    pos_bias: int
+    max_dupe: int
+    empty_key: int
+
+    @property
+    def nbytes(self) -> int:
+        return self.kv_tbl.nbytes + self.dupes.nbytes
+
+
+@dataclasses.dataclass
+class PackedIndexKVS:
+    """Single-probe variant of PackedIndexKV: SAME 8xint32 rows of 4
+    [key | payload] slots (32B), but keys are placed single-hash (h1) so
+    the hot path is ONE random row load. Buckets whose h1 population
+    exceeds 4 keys keep 3 inline, carry the overflow marker (key slot 3 =
+    absent-key sentinel, payload OVF_PAYLOAD), and spill the rest to free
+    slots of their h2 buckets (with one eviction rescue level: an inline
+    key of the flagged bucket may move to ITS h2 to make room). Only
+    queries that MISS a marked row take a second row load. Key equality
+    implies hash equality, so a probe can never produce a false match.
+
+    ~1.004 random row loads a query at target_load 1.0 (flagged-bucket
+    rate P[Poisson(1) > 4] ~ 0.4%). STATUS in the reference: the JAX
+    package measured it behind its 2-gather kv4 table end to end on a
+    TPU v5e; the port's own measurements on the H100 are in PERF.md. Not
+    the default."""
+
+    kv_tbl: np.ndarray  # (nb, 8) int32: [k0..k3 | p0..p3]
+    dupes: np.ndarray  # (nd, 8) int32 packed payloads
+    n_buckets: int
+    shift: int
+    cbits: int
+    pos_bias: int
+    max_dupe: int
+    empty_key: int
+
+    single_probe = True  # the marker `ops/index.py::index_to_torch` reads
 
     @property
     def nbytes(self) -> int:
@@ -368,3 +443,142 @@ def _alt_bucket(key: int, bucket: int, shift: int) -> int:
     b2 = int(h2_np(k, shift))
     return b2 if bucket == b1 else b1
 
+
+def _place_single_hash(keys: np.ndarray, nb: int, shift: int, slots: int):
+    """Single-hash placement with h2 spill: -> (bucket, slot, ovf_mask) or
+    None when placement fails (caller doubles nb). Buckets with more than
+    `slots` keys keep slots-1 inline (the last slot carries the overflow
+    marker) and spill the rest to free slots of their h2 buckets; a spill
+    whose h2 bucket is full gets one eviction rescue — an inline key of
+    the (already-flagged) h1 bucket moves to ITS h2 bucket, freeing an
+    inline slot. Inline order within a bucket follows the deterministic
+    key order from _entries_from_indexer; spills are handled in that same
+    order."""
+    n = len(keys)
+    b1_all = h1_np(keys, shift)
+    counts = np.bincount(b1_all, minlength=nb)
+    ovf = counts > slots
+    cap = np.where(ovf, slots - 1, slots).astype(np.int64)
+    order = np.argsort(b1_all, kind="stable")
+    ob = b1_all[order]
+    first = np.concatenate([[True], ob[1:] != ob[:-1]]) if n else np.zeros(0, bool)
+    idx = np.arange(n)
+    run_start = np.maximum.accumulate(np.where(first, idx, -1)) if n else idx
+    rank = idx - run_start
+    inline = rank < cap[ob]
+    out_b = np.full(n, -1, np.int64)
+    out_s = np.full(n, -1, np.int64)
+    out_b[order[inline]] = ob[inline]
+    out_s[order[inline]] = rank[inline]
+    used = np.minimum(counts.astype(np.int64), cap)
+    spill = np.sort(order[~inline])  # deterministic: original entry order
+    if not len(spill):
+        return out_b, out_s, ovf
+    h2_all = h2_np(keys, shift)
+    # inline occupants of flagged buckets (eviction candidates)
+    occ = {}
+    infl = np.nonzero((out_b >= 0) & ovf[np.clip(out_b, 0, nb - 1)])[0]
+    for j in infl.tolist():
+        occ.setdefault(int(out_b[j]), []).append(j)
+    retry = []
+    for i in spill.tolist():
+        b = int(h2_all[i])
+        if used[b] < cap[b]:
+            out_b[i] = b
+            out_s[i] = used[b]
+            used[b] += 1
+            continue
+        bh1 = int(b1_all[i])
+        for j in occ.get(bh1, []):
+            c = int(h2_all[j])
+            if c != bh1 and used[c] < cap[c]:
+                # move the victim to its h2 (its h1 bucket is flagged, so
+                # queries for it will second-probe); the spill key takes
+                # the freed inline slot
+                out_b[i], out_s[i] = out_b[j], out_s[j]
+                out_b[j], out_s[j] = c, used[c]
+                used[c] += 1
+                occ[bh1].remove(j)
+                occ[bh1].append(i)
+                break
+        else:
+            retry.append(i)
+    if retry and not _spill_walk(
+        keys, retry, b1_all, h2_all, ovf, cap, used, out_b, out_s
+    ):
+        return None
+    return out_b, out_s, ovf
+
+
+def _spill_walk(keys, retry, b1_all, h2_all, ovf, cap, used, out_b, out_s,
+                max_kicks: int = 500):
+    """Constrained cuckoo random walk for spills the one-level rescue
+    could not place. Legal positions for a key k: its h1 bucket (always),
+    or its h2 bucket IFF its h1 bucket carries the overflow flag — the
+    query kernel only second-probes flagged rows, so the flag set (fixed
+    at bucket-count time) bounds where keys may live. The walk evicts an
+    occupant of a legal full bucket and re-places it under the same rules;
+    rng is seeded per key for determinism."""
+    nb = len(cap)
+    occupant = np.full((nb, int(cap.max())), -1, np.int32)
+    placed = out_b >= 0
+    occupant[out_b[placed], out_s[placed]] = np.nonzero(placed)[0]
+
+    def movable(o, b):
+        # occupant o of bucket b can walk elsewhere: to h2(o) if its h1
+        # bucket is flagged (and differs from b), or home to h1(o) if it
+        # was spilled into b
+        if int(b1_all[o]) == b:
+            return ovf[b] and int(h2_all[o]) != b
+        return True
+
+    for start in retry:
+        rng = np.random.default_rng(np.uint32(keys[start]))
+        cur = int(start)
+        ok = False
+        for _ in range(max_kicks):
+            b1c = int(b1_all[cur])
+            targets = [b1c]
+            if ovf[b1c]:
+                b2c = int(h2_all[cur])
+                if b2c != b1c:
+                    targets.append(b2c)
+            done = False
+            for b in targets:
+                if used[b] < cap[b]:
+                    s = int(used[b])
+                    occupant[b, s] = cur
+                    out_b[cur], out_s[cur] = b, s
+                    used[b] += 1
+                    done = True
+                    break
+            if done:
+                ok = True
+                break
+            b = targets[int(rng.integers(len(targets)))]
+            cands = [
+                s for s in range(int(cap[b]))
+                if movable(int(occupant[b, s]), b)
+            ]
+            if not cands:
+                for b in reversed(targets):
+                    cands = [
+                        s for s in range(int(cap[b]))
+                        if movable(int(occupant[b, s]), b)
+                    ]
+                    if cands:
+                        break
+            if not cands:
+                # every occupant of every legal bucket is pinned (its only
+                # legal home is this bucket): evicting one can only thrash
+                # until max_kicks, so fail fast and let the caller double
+                # nb / fall back to another layout
+                return False
+            s = cands[int(rng.integers(len(cands)))]
+            victim = int(occupant[b, s])
+            occupant[b, s] = cur
+            out_b[cur], out_s[cur] = b, s
+            cur = victim
+        if not ok:
+            return False
+    return True

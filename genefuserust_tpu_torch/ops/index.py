@@ -3,16 +3,20 @@
 The tables are built on the host with numpy (`build_packed_index`, on the
 placement code of `ops/hashtable.py`); this module carries those arrays to
 the device unchanged and records the static parameters the probe needs.
-Two layouts reach the scan:
+Three kinds of table reach the scan:
 
   - kv rows (`PackedIndexKV`): `kv_tbl (nb, 2S) int32`, S [key | payload]
-    slots per bucket — kv2 (S=1, the product layout), kv4 (S=2), kv8
-    (S=4). Dupe rows are 8 packed payloads.
+    slots per bucket, each key in one of its two buckets — kv2 (S=1, the
+    product layout), kv4 (S=2), kv8 (S=4). Dupe rows are 8 packed payloads.
+  - single-probe rows (`PackedIndexKVS`, S=4; `PackedIndexKV16`, S=8): the
+    same [key | payload] slots and dupe rows, each key in its h1 bucket
+    unless that bucket overflowed; an overflowed row carries the marker
+    payload OVF_PAYLOAD in its last slot, and only a query that misses
+    such a row reads its h2 bucket. Selected by GENEFUSE_TABLE_LAYOUT=kvs
+    or kv16, never by default.
   - split (`PackedIndex`): `keys_tbl (nb, 8)` + `vals_tbl (nb*8, 2)`,
     used when a panel exceeds the packed-payload bit budget. Dupe rows are
     `(D, 2)` [contig, pos] pairs.
-
-The single-probe A/B layouts (kvs, kv16) are not ported.
 
 `build_packed_index` mirrors the JAX package's dispatch and packers
 (`genefuserust_tpu/ops/hashtable.py`) with the same numpy placement, so
@@ -35,21 +39,23 @@ import torch
 from .. import native
 from .hashtable import (
     EMPTY,
+    KV16_SLOTS,
     KV_SLOTS,
+    OVF_PAYLOAD,
     SLOTS,
     PackedIndex,
     PackedIndexKV,
+    PackedIndexKV16,
+    PackedIndexKVS,
     _build,
     _encode_payload,
     _entries_from_indexer,
     _kv_budget,
     _place_2choice,
+    _place_single_hash,
 )
 
 log = logging.getLogger("genefuse")
-
-SINGLE_PROBE_REFUSAL = ("the kvs and kv16 single-probe table layouts are not ported; "
-                        "use kv2, kv4, kv8 or split")
 
 
 def absent_key(present: np.ndarray) -> int:
@@ -84,7 +90,6 @@ def _pack_kv(indexer, target_load: float = 0.9, slots: int = KV_SLOTS,
     if budget is None:
         return None
     cbits, pbits, pos_bias = budget
-    n_dup = dupes.shape[0]
     nb = 16
     while nb * slots * target_load < max(len(keys), 1):
         nb *= 2
@@ -116,13 +121,65 @@ def _pack_kv(indexer, target_load: float = 0.9, slots: int = KV_SLOTS,
         table[:, :, 1].ravel(), table[:, :, 2].ravel(), pbits, pos_bias
     ).reshape(nb, slots)
     kv_tbl = np.concatenate([tkeys, payload], axis=1).astype(np.int32)
+    return PackedIndexKV(kv_tbl, _packed_dupes(dupes, pbits, pos_bias), nb, shift, cbits,
+                         pos_bias, max_dupe, sentinel)
+
+
+def _packed_dupes(dupes, pbits: int, pos_bias: int) -> np.ndarray:
+    """(nd, D, 2) dupe lists -> the kv layouts' (max(1, n_dup), 8) rows of
+    packed payloads."""
+    n_dup = dupes.shape[0]
     dupes_packed = np.zeros((max(1, n_dup), 8), np.int32)
     if n_dup:
         D = dupes.shape[1]
         dupes_packed[:, :D] = _encode_payload(
             dupes[:, :, 0].ravel(), dupes[:, :, 1].ravel(), pbits, pos_bias
         ).reshape(n_dup, D)
-    return PackedIndexKV(kv_tbl, dupes_packed, nb, shift, cbits, pos_bias, max_dupe, sentinel)
+    return dupes_packed
+
+
+def _pack_single(indexer, slots: int, target_load: float, max_buckets: int):
+    """The reference's `pack_index_kvs` (slots KV_SLOTS) and
+    `pack_index_kv16` (KV16_SLOTS) with `absent_key`: the single-probe rows,
+    or None when the panel exceeds the payload bit budget or placement
+    cannot fit under `max_buckets` rows."""
+    keys, contigs, poss, dupes, max_dupe = _entries_from_indexer(indexer)
+    budget = _kv_budget(contigs, poss, dupes, max_dupe)
+    if budget is None:
+        return None
+    cbits, pbits, pos_bias = budget
+    nb = 16
+    while nb * target_load < max(len(keys), 1):
+        nb *= 2
+    placed = None
+    while nb <= max_buckets:
+        shift = 32 - int(round(np.log2(nb)))
+        placed = _place_single_hash(keys, nb, shift, slots)
+        if placed is not None:
+            break
+        nb *= 2
+    if placed is None:
+        return None
+    out_b, out_s, ovf = placed
+    sentinel = absent_key(keys)
+    s32 = np.int32(sentinel - (1 << 32) if sentinel >= 1 << 31 else sentinel)
+    tkeys = np.full((nb, slots), s32, np.int32)
+    payload = np.zeros((nb, slots), np.int32)
+    payload[ovf, slots - 1] = OVF_PAYLOAD
+    tkeys[out_b, out_s] = keys.astype(np.int32)
+    payload[out_b, out_s] = _encode_payload(contigs, poss, pbits, pos_bias)
+    kv_tbl = np.concatenate([tkeys, payload], axis=1).astype(np.int32)
+    cls = PackedIndexKV16 if slots == KV16_SLOTS else PackedIndexKVS
+    return cls(kv_tbl, _packed_dupes(dupes, pbits, pos_bias), nb, shift, cbits, pos_bias,
+               max_dupe, sentinel)
+
+
+def _pack_kvs(indexer, target_load: float = 1.0, max_buckets: int = 1 << 27):
+    return _pack_single(indexer, KV_SLOTS, target_load, max_buckets)
+
+
+def _pack_kv16(indexer, target_load: float = 4.0, max_buckets: int = 1 << 26):
+    return _pack_single(indexer, KV16_SLOTS, target_load, max_buckets)
 
 
 def _pack_split(indexer) -> PackedIndex:
@@ -146,14 +203,25 @@ def _pack_split(indexer) -> PackedIndex:
                        empty_key=sentinel)
 
 
-def build_packed_index(indexer, layout: str = None):
-    """The device table in the preferred layout, with the fallbacks of the
-    reference's `build_packed_index`: kv2 -> kv4 -> kv8 -> split. `layout`
-    or GENEFUSE_TABLE_LAYOUT ('kv2' | 'kv4' | 'kv8' | 'split') pins one;
-    the reference's single-probe layouts 'kvs' and 'kv16' raise."""
-    layout = layout or os.environ.get("GENEFUSE_TABLE_LAYOUT", "auto")
-    if layout in ("kvs", "kv16"):
-        raise NotImplementedError(SINGLE_PROBE_REFUSAL)
+def layout_name(packed) -> str:
+    """'kv2', 'kv4', 'kv8', 'kvs', 'kv16' or 'split': the layout of a packed
+    table (a 16-wide row is kv16, the `single_probe` marker kvs)."""
+    if not hasattr(packed, "kv_tbl"):
+        return "split"
+    if getattr(packed, "single_probe", False):
+        return "kvs"
+    return f"kv{packed.kv_tbl.shape[1]}"
+
+
+def _pick_layout(indexer, layout: str):
+    if layout == "kv16":
+        p = _pack_kv16(indexer)
+        if p is not None:
+            return p
+    if layout == "kvs":
+        p = _pack_kvs(indexer)
+        if p is not None:
+            return p
     if layout in ("auto", "kv2"):
         p = _pack_kv(indexer, target_load=0.5, slots=1)
         if p is not None:
@@ -162,11 +230,25 @@ def build_packed_index(indexer, layout: str = None):
         p = _pack_kv(indexer, target_load=0.6, slots=2)
         if p is not None:
             return p
-    if layout in ("auto", "kv4", "kv2", "kv8"):
+    if layout in ("auto", "kv4", "kv2", "kv16", "kvs", "kv8"):
         p = _pack_kv(indexer)
         if p is not None:
             return p
     return _pack_split(indexer)
+
+
+def build_packed_index(indexer, layout: str = None):
+    """The device table in the preferred layout, with the fallbacks of the
+    reference's `build_packed_index`: kv2 -> kv4 -> kv8 -> split. `layout`
+    or GENEFUSE_TABLE_LAYOUT ('kv2' | 'kv4' | 'kv8' | 'kvs' | 'kv16' |
+    'split') pins one; a pinned layout that cannot be packed falls through
+    as there (kvs and kv16 to kv8, then split). The layout built is
+    logged."""
+    layout = layout or os.environ.get("GENEFUSE_TABLE_LAYOUT", "auto")
+    p = _pick_layout(indexer, layout)
+    log.info("table layout %s built (asked: %s), %d buckets, %.1f MB", layout_name(p),
+             layout, p.n_buckets, p.nbytes / 1e6)
+    return p
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,18 +269,20 @@ class TorchIndex:
     pos_bias: int
     S: int  # slots per table row
     D: int
+    single_probe: bool  # kvs (S=4) or kv16 (S=8) rows: h2 only past a marked h1 row
 
 
 def index_to_torch(packed, device) -> TorchIndex:
-    """`PackedIndex` / `PackedIndexKV` -> `TorchIndex` on `device`."""
+    """A packed table (`PackedIndex`, `PackedIndexKV`, `PackedIndexKVS`,
+    `PackedIndexKV16`, this package's or the reference's) -> `TorchIndex` on
+    `device`. Rows 16 wide are kv16 and the `single_probe` marker names
+    kvs, as the reference's engine reads them."""
     device = torch.device(device)
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
     if hasattr(packed, "kv_tbl"):
-        if getattr(packed, "single_probe", False) or packed.kv_tbl.shape[1] == 16:
-            raise NotImplementedError(SINGLE_PROBE_REFUSAL)
         S = packed.kv_tbl.shape[1] // 2
         nd = packed.dupes.shape[0]
         D = 1 if packed.max_dupe <= 1 or nd == 0 else packed.max_dupe
@@ -208,11 +292,12 @@ def index_to_torch(packed, device) -> TorchIndex:
             dupes=put(packed.dupes), shift=packed.shift,
             max_dupe=packed.max_dupe, cbits=packed.cbits,
             pos_bias=packed.pos_bias, S=S, D=D,
+            single_probe=layout_name(packed) in ("kvs", "kv16"),
         )
     nd = packed.dupes.shape[0]
     D = 1 if packed.max_dupe <= 1 or nd == 0 else packed.dupes.shape[1]
     return TorchIndex(
         split=True, table=put(packed.keys_tbl), vals=put(packed.vals_tbl),
         dupes=put(packed.dupes), shift=packed.shift, max_dupe=packed.max_dupe,
-        cbits=0, pos_bias=0, S=packed.keys_tbl.shape[1], D=D,
+        cbits=0, pos_bias=0, S=packed.keys_tbl.shape[1], D=D, single_probe=False,
     )

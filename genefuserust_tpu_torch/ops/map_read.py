@@ -5,7 +5,8 @@ keep the JAX names; three of them have a hand-written CUDA kernel beside
 them (csrc/), reached through a wrapper that launches the kernel for CUDA
 tensors and runs the plain version for CPU tensors:
 
-  probe          compute_kmers + kv_lookup / hash_lookup  (csrc/probe.cu)
+  probe          compute_kmers + kv_lookup / single_probe_lookup / hash_lookup
+                                                          (csrc/probe.cu)
   vote           expand + gplong + top2_votes + gate     (csrc/vote.cu)
   mask_segments  expand + flags + mask + extract_segments (csrc/mask_segments.cu)
 
@@ -44,7 +45,7 @@ import torch
 
 from ..config import ALLOWED_GAP, KMER, PASS1_STEP, THRESHOLD_LEN
 from . import cuda
-from .hashtable import DUPE, EMPTY, HIGH
+from .hashtable import DUPE, EMPTY, HIGH, OVF_PAYLOAD
 from .index import TorchIndex
 
 INT32_MAX = 0x7FFFFFFF
@@ -181,28 +182,50 @@ def _decode(pay: torch.Tensor, cbits: int, pos_bias: int):
     return contig, pos.to(torch.int32)
 
 
+def _row_payload(rows, ki):
+    """(..., 2S) [key | payload] rows and int32 keys (...) -> the uint32 sum
+    (int64) of the payloads of the slots that hold the key."""
+    S = rows.shape[-1] // 2
+    pay = torch.where(rows[..., :S] == ki[..., None], rows[..., S:], 0)
+    return pay.to(torch.int64).sum(-1) & M32
+
+
 def kv_lookup(kv_tbl, shift: int, cbits: int, pos_bias: int, kmers, valid):
     """kv rows (S [key | payload] slots per row, S = width // 2): two row
     loads per query. Returns (contig, pos) like hash_lookup; an invalid
     query gives (EMPTY, 0)."""
-    S = kv_tbl.shape[1] // 2
+    ki = _i32(kmers)
+    b1, b2 = buckets(kmers, shift)
+    # keys are unique, so at most one slot of each row matches with a
+    # nonzero payload (empty slots hold an absent key and payload 0)
+    pay = (_row_payload(kv_tbl[torch.where(valid, b1, 0)], ki)
+           | _row_payload(kv_tbl[torch.where(valid, b2, 0)], ki))
+    contig, pos = _decode(pay, cbits, pos_bias)
+    return torch.where(valid, contig, EMPTY), torch.where(valid, pos, 0)
+
+
+def single_probe_lookup(kv_tbl, shift: int, cbits: int, pos_bias: int, kmers, valid):
+    """Single-probe rows (kvs, S=4; kv16, S=8; S = width // 2): the h1 row of
+    every valid query, and its h2 row only where the h1 row carries the
+    overflow marker (slot 2S-1 == OVF_PAYLOAD) and no slot matched with a
+    nonzero payload sum. Returns (contig, pos) like kv_lookup; an invalid
+    query gives (EMPTY, 0). The absent-key sentinel matches a marked row's
+    marker (payload 1), so it loads no h2 row and decodes to EMPTY."""
     ki = _i32(kmers)
     b1, b2 = buckets(kmers, shift)
     r1 = kv_tbl[torch.where(valid, b1, 0)]
-    r2 = kv_tbl[torch.where(valid, b2, 0)]
-    # keys are unique, so at most one slot of each row matches with a
-    # nonzero payload (empty slots hold an absent key and payload 0)
-    p1 = torch.where(r1[..., :S] == ki[..., None], r1[..., S:], 0).to(torch.int64)
-    p2 = torch.where(r2[..., :S] == ki[..., None], r2[..., S:], 0).to(torch.int64)
-    pay = (p1.sum(-1) & M32) | (p2.sum(-1) & M32)
-    contig, pos = _decode(pay, cbits, pos_bias)
+    pay = _row_payload(r1, ki)
+    need2 = valid & (r1[..., -1] == OVF_PAYLOAD) & (pay == 0)
+    pay2 = _row_payload(kv_tbl[torch.where(need2, b2, 0)], ki)
+    contig, pos = _decode(pay | torch.where(need2, pay2, 0), cbits, pos_bias)
     return torch.where(valid, contig, EMPTY), torch.where(valid, pos, 0)
 
 
 def lookup(index: TorchIndex, kmers, valid):
     if index.split:
         return hash_lookup(index.table, index.vals, index.shift, kmers, valid)
-    return kv_lookup(index.table, index.shift, index.cbits, index.pos_bias, kmers, valid)
+    fn = single_probe_lookup if index.single_probe else kv_lookup
+    return fn(index.table, index.shift, index.cbits, index.pos_bias, kmers, valid)
 
 
 def expand_candidates_kv(contig, pos, dupes_packed, max_dupe: int, cbits: int,
@@ -456,16 +479,20 @@ def _check_index(index: TorchIndex, device) -> None:
     cuda.check_tensor(index.dupes, "index.dupes", torch.int32, 3 if index.split else 2, device)
     if index.split and index.S != 8:
         raise ValueError(f"split keys rows must be 8 slots wide, got {index.S}")
-    if not index.split and index.S not in (1, 2, 4):
+    if index.single_probe and index.S not in (4, 8):
+        raise ValueError(f"single-probe rows must hold 4 or 8 slots, got {index.S}")
+    if not index.split and not index.single_probe and index.S not in (1, 2, 4):
         raise ValueError(f"kv rows must hold 1, 2 or 4 slots, got {index.S}")
 
 
 def probe(codes, lengths, stride: int, index: TorchIndex):
     """Kernel 1: build every `stride`-th 16-mer of each (B, W) code row and
     probe the table -> (B, NQ, 2) int32 [contig, pos]. Codes are 0-3, or
-    255 for a base that is not ACGT. The kernel loads a k-mer's h2 row only
-    when its key is not in its h1 row (keys are unique across both rows,
-    `tests/test_torch_index.py`), which equals the plain version's lookup.
+    255 for a base that is not ACGT. On kv and split tables the kernel
+    loads a k-mer's h2 row only when its key is not in its h1 row (keys
+    are unique across both rows, `tests/test_torch_index.py`), which equals
+    the plain version's lookup; on single-probe tables (kvs, kv16) its
+    variant loads h2 only past a marked h1 row, as single_probe_lookup.
     On the card the kernel reads `codes` in 16-byte chunks, so `codes` must
     start on a 16-byte boundary: a fresh tensor does, a row-offset view
     (`codes[1:]`) may not and is refused."""

@@ -201,12 +201,27 @@ def test_port_scan_never_imports_jax(tmp_path):
 
 
 @pytest.mark.parametrize("layout", ["kvs", "kv16"])
-def test_single_probe_layouts_raise_in_engine(tmp_path, monkeypatch, layout):
+def test_single_probe_layouts_scan_like_jax_and_kv2(tmp_path, monkeypatch, layout):
+    """A full scan with GENEFUSE_TABLE_LAYOUT pinned to a single-probe
+    layout: TorchEngine's fusions and JSON equal JAX TpuEngine's under the
+    same variable (tests/test_kvs.py:272) and the port's own kv2 scan."""
+    from genefuserust_tpu.parallel.engine import TpuEngine
+    from genefuserust_tpu_torch.ops.index import layout_name
+
     panel = make_panel()
+    pairs = _full_scan_pairs(panel)
+    m_kv2, j_kv2 = _scan(panel, pairs, tmp_path,
+                         TorchEngine(PortSettings(), batch_size=64, device="cpu"), "kv2.json")
     monkeypatch.setenv("GENEFUSE_TABLE_LAYOUT", layout)
-    with pytest.raises(NotImplementedError, match="kvs and kv16"):
-        _scan(panel, plant_fusion_pairs(panel, n_support=2, n_background=2), tmp_path,
-              TorchEngine(PortSettings(), batch_size=32, device="cpu"), "x.json")
+    eng = TorchEngine(PortSettings(), batch_size=64, device="cpu")
+    m_t, j_t = _scan(panel, pairs, tmp_path, eng, "torch.json")
+    m_j, j_j = _scan(panel, pairs, tmp_path, TpuEngine(Settings(), batch_size=64), "jax.json")
+    assert [layout_name(e["packed"]) for e in eng._tables.values()] == [layout]
+    assert j_t == j_j == j_kv2
+    assert len(m_t.fusion_results) == len(m_j.fusion_results) == len(m_kv2.fusion_results) > 0
+    for a, b, c in zip(m_t.fusion_results, m_j.fusion_results, m_kv2.fusion_results):
+        assert a.title == b.title == c.title
+        assert a.unique == b.unique == c.unique
 
 
 def test_unported_modes_raise(capsys):

@@ -13,10 +13,17 @@ from genefuserust_tpu.config import Settings
 from genefuserust_tpu.core.indexer import Indexer
 from genefuserust_tpu.core.sequence import BASE_CODE_LUT
 from genefuserust_tpu.models.fusion import Fusion
-from genefuserust_tpu.ops.hashtable import pack_index, pack_index_kv
+from genefuserust_tpu.ops.hashtable import (
+    pack_index,
+    pack_index_kv,
+    pack_index_kv16,
+    pack_index_kvs,
+)
 from genefuserust_tpu.utils.synthetic import make_panel, write_panel_files
 from genefuserust_tpu_torch.ops.fused import fused_scan_lanes
 from genefuserust_tpu_torch.ops.index import index_to_torch
+
+from test_torch_map_read import jax_kv
 
 
 @pytest.fixture(scope="module")
@@ -108,7 +115,7 @@ def _run_both(ix, packed, bufs, lens, exc, widths, cap):
                 mismatch_thr=st.mismatch_threshold)
     if hasattr(packed, "kv_tbl"):
         tabs = (jnp.asarray(packed.kv_tbl), jnp.zeros((1, 2), jnp.int32))
-        kw = dict(kv=True, cbits=packed.cbits, pos_bias=packed.pos_bias)
+        kw = dict(kv=jax_kv(packed), cbits=packed.cbits, pos_bias=packed.pos_bias)
     else:
         tabs = (jnp.asarray(packed.keys_tbl), jnp.asarray(packed.vals_tbl))
         kw = {}
@@ -142,13 +149,20 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("layout", ["kv2", "split"])
+PACKERS = {
+    "kv2": lambda ix: pack_index_kv(ix, target_load=0.5, slots=1),
+    "kvs": pack_index_kvs,
+    "kv16": pack_index_kv16,
+    "split": pack_index,
+}
+
+
+@pytest.mark.parametrize("layout", sorted(PACKERS))
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_fused_scan_lanes_matches_jax(panel_ix, case, layout):
     panel, ix = panel_ix
     spec, cap = CASES[case]
-    packed = (pack_index(ix) if layout == "split"
-              else pack_index_kv(ix, target_load=0.5, slots=1))
+    packed = PACKERS[layout](ix)
     bufs, lens, exc = _lanes(panel, spec, seed=len(case), negative=case == "negative_exc_cols")
     widths = tuple(w for _, _, w, *_ in spec)
     (out_j, okw_j), (out_t, okw_t) = _run_both(ix, packed, bufs, lens, exc, widths, cap)
@@ -218,7 +232,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["kv2", "split"])
+@pytest.mark.parametrize("layout", sorted(PACKERS))
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_fused_scan_lanes_card_matches_cpu(panel_ix, case, layout, cuda_device):
     # the whole call on the card (the glue kernels, the probe, the vote and
@@ -227,8 +241,7 @@ def test_fused_scan_lanes_card_matches_cpu(panel_ix, case, layout, cuda_device):
 
     panel, ix = panel_ix
     spec, cap = CASES[case]
-    packed = (pack_index(ix) if layout == "split"
-              else pack_index_kv(ix, target_load=0.5, slots=1))
+    packed = PACKERS[layout](ix)
     bufs, lens, exc = _lanes(panel, spec, seed=len(case), negative=case == "negative_exc_cols")
     widths = tuple(w for _, _, w, *_ in spec)
 
@@ -247,3 +260,6 @@ def test_fused_scan_lanes_card_matches_cpu(panel_ix, case, layout, cuda_device):
     # one launch of each a batch; the place launch copies the survivors'
     # code rows (at most 8 lanes: no survivor_rows launch)
     assert ran == {**dict.fromkeys(glue[:4], 1), "survivor_rows": 0}
+    # the single-probe tables go through the probe's variant
+    probe = {"kvs": "probe_kvs", "kv16": "probe_kv16"}.get(layout, "probe")
+    assert cuda.LAUNCHES[probe] > before[probe]

@@ -9,7 +9,12 @@ from genefuserust_tpu.config import Settings
 from genefuserust_tpu.core.indexer import Indexer
 from genefuserust_tpu.core.sequence import encode_bases, reverse_complement
 from genefuserust_tpu.models.fusion import Fusion
-from genefuserust_tpu.ops.hashtable import pack_index, pack_index_kv
+from genefuserust_tpu.ops.hashtable import (
+    pack_index,
+    pack_index_kv,
+    pack_index_kv16,
+    pack_index_kvs,
+)
 from genefuserust_tpu.utils.synthetic import make_panel, write_panel_files
 from genefuserust_tpu_torch.ops import map_read as tm
 from genefuserust_tpu_torch.ops.hashtable import DUPE, EMPTY, HIGH
@@ -20,6 +25,8 @@ LAYOUTS = {
     "kv2": dict(target_load=0.5, slots=1),
     "kv4": dict(target_load=0.6, slots=2),
     "kv8": dict(),
+    "kvs": None,  # the single-probe layouts, at their packers' defaults
+    "kv16": None,
 }
 MOTIF = "ACGTTGCAACGGTTACGATCCAGTTACG"
 
@@ -767,9 +774,20 @@ def _batch(reads, L=160):
 def _packed(ix, layout):
     if layout == "split":
         return pack_index(ix)
-    p = pack_index_kv(ix, **LAYOUTS[layout])
+    if layout in ("kvs", "kv16"):
+        p = (pack_index_kvs if layout == "kvs" else pack_index_kv16)(ix)
+    else:
+        p = pack_index_kv(ix, **LAYOUTS[layout])
     assert p is not None
     return p
+
+
+def jax_kv(packed):
+    """The JAX engine's `kv` static of a kv table: 2 for kv16 (16-wide
+    rows), 3 for kvs (the `single_probe` marker), else True."""
+    if packed.kv_tbl.shape[1] == 16:
+        return 2
+    return 3 if getattr(packed, "single_probe", False) else True
 
 
 def _jax_tables(packed):
@@ -778,7 +796,7 @@ def _jax_tables(packed):
     if hasattr(packed, "kv_tbl"):
         return (jnp.asarray(packed.kv_tbl), jnp.zeros((1, 2), jnp.int32),
                 jnp.asarray(packed.dupes),
-                dict(kv=True, cbits=packed.cbits, pos_bias=packed.pos_bias))
+                dict(kv=jax_kv(packed), cbits=packed.cbits, pos_bias=packed.pos_bias))
     return (jnp.asarray(packed.keys_tbl), jnp.asarray(packed.vals_tbl),
             jnp.asarray(packed.dupes), {})
 

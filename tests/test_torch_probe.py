@@ -1,8 +1,11 @@
 """The port's table probe (kernel 1's plain version) against the JAX
-package: `pallas_lookup` in interpret mode for the split layout, and
-`kv_lookup` / `hash_lookup` for the kv2, kv4, kv8 and split tables. A
-Python mirror of the kernel's steps (code rows staged as 2-bit words and a
-255 mask, k-mers read across two words, h1 first, Q queries a thread) is
+package: `pallas_lookup` in interpret mode for the split layout,
+`kv_lookup` / `hash_lookup` for the kv2, kv4, kv8 and split tables, and
+`kvs_lookup` / `kv16_lookup` (with the numpy oracles `lookup_np_kvs` /
+`lookup_np_kv16`) for the single-probe tables. A Python mirror of the
+kernel's steps (code rows staged as 2-bit words and a 255 mask, k-mers
+read across two words, h1 first, h2 only where the kv rule or, on
+single-probe rows, the overflow flag asks for it, Q queries a thread) is
 held to the same references on edge rows and edge queries. All outputs are
 integers, so equal means bit-equal."""
 
@@ -17,8 +20,11 @@ from genefuserust_tpu.core.indexer import Indexer
 from genefuserust_tpu.models.fusion import Fusion
 from genefuserust_tpu.ops.hashtable import (
     EMPTY,
+    OVF_PAYLOAD,
     h1_np,
     h2_np,
+    lookup_np_kv16,
+    lookup_np_kvs,
     pack_index,
     pack_index_kv,
     pack_index_kv16,
@@ -37,6 +43,9 @@ KV_LAYOUTS = {
     "kv4": dict(target_load=0.6, slots=2),
     "kv8": dict(),
 }
+SINGLE_LAYOUTS = ("kvs", "kv16")
+# every table layout the probe takes
+LAYOUTS = ("split", *sorted(KV_LAYOUTS), *SINGLE_LAYOUTS)
 
 
 def dupe_panel():
@@ -161,12 +170,60 @@ def test_probe_matches_kv_lookup(indexer, layout):
     assert (c >= 0).any() and (c == -1).any() and (c == -2).any()
 
 
-@pytest.mark.parametrize("packer", [pack_index_kvs, pack_index_kv16])
-def test_single_probe_layouts_are_refused(indexer, packer):
-    packed = packer(indexer)
-    assert packed is not None
-    with pytest.raises(NotImplementedError, match="kvs and kv16"):
-        index_to_torch(packed, "cpu")
+def _need2_jax(packed, k, valid):
+    """JAX `_single_probe_lookup`'s need2, in numpy: a valid query whose h1
+    row is flagged and whose matching slots' payloads sum to 0."""
+    S = packed.kv_tbl.shape[1] // 2
+    r1 = packed.kv_tbl[np.where(valid, h1_np(k, packed.shift), 0)]
+    pay = np.where(r1[:, :S] == k.astype(np.uint32).view(np.int32)[:, None],
+                   r1[:, S:], 0).sum(1, dtype=np.int32)
+    return valid & (r1[:, 2 * S - 1] == OVF_PAYLOAD) & (pay == 0)
+
+
+@pytest.mark.parametrize("layout", SINGLE_LAYOUTS)
+def test_single_probe_lookup_matches_jax(indexer, layout):
+    """lookup, probe_kmers and the kernel mirror on the single-probe tables
+    against JAX kvs_lookup / kv16_lookup and the numpy oracles, on keys in
+    unflagged and flagged h1 rows, keys spilled to h2, misses on flagged
+    and unflagged rows, the sentinel (in an unflagged row, then in a
+    flagged one) and invalid queries; the mirror loads valid + JAX need2
+    rows."""
+    table = _packed(indexer, layout)
+    packed, q, names = _single_queries(indexer, table)
+    oracle = lookup_np_kvs if layout == "kvs" else lookup_np_kv16
+    sentinel = np.array([table.empty_key] * 3, np.uint64)
+    ones = np.ones(3, bool)
+    for p, qq, vv, nn in ((table, sentinel, ones, np.array(["sentinel"] * 3)),
+                          (packed, q, names != "invalid", names)):
+        index = index_to_torch(p, "cpu")
+        assert index.single_probe and index.S == {"kvs": 4, "kv16": 8}[layout]
+        assert tcuda.probe_name(index) == f"probe_{layout}"
+        got, rows = _mirror_lookup(index, qq, vv)
+        c, pos = _jax_lookup(p, layout, qq.astype(np.uint32), vv)
+        _assert_like_jax(got, c, pos)
+        args = (torch.from_numpy(qq.astype(np.int64)), torch.from_numpy(vv))
+        assert np.array_equal(torch.stack(tm.lookup(index, *args), 1).numpy(), got)
+        flat = tm.probe_kmers(torch.from_numpy(qq.astype(np.uint32).view(np.int32)),
+                              torch.from_numpy(vv), index)
+        assert np.array_equal(flat.numpy(), got)
+        oc, op = oracle(p, qq[vv].astype(np.uint32))
+        assert (got[vv, 0] == oc).all()
+        assert (got[vv, 1][oc != EMPTY] == op[oc != EMPTY]).all()
+        need2 = _need2_jax(p, qq, vv)
+        assert rows == vv.sum() + need2.sum()
+    # the table's own sentinel row holds no flag at this load: one row each
+    sb = int(_h1(np.uint64(table.empty_key), table.shift))
+    assert table.kv_tbl[sb, -1] != OVF_PAYLOAD
+    by = {n: got[names == n] for n in np.unique(names)}
+    for n in ("h1_unflagged", "h1_flagged", "spilled"):
+        assert (by[n][:, 0] != EMPTY).all(), n
+    for n in ("miss_flagged", "miss_unflagged", "sentinel", "invalid"):
+        assert (by[n][:, 0] == EMPTY).all(), n
+    assert (by["invalid"][:, 1] == 0).all()
+    # spilled keys and misses on flagged rows load their h2 row; the
+    # sentinel in a flagged row matches the marker's payload 1 and does not
+    assert need2[names == "spilled"].all() and need2[names == "miss_flagged"].all()
+    assert not need2[np.isin(names, ["sentinel", "h1_flagged", "h1_unflagged"])].any()
 
 
 def test_probe_wrapper_checks_inputs(indexer):
@@ -193,14 +250,23 @@ def _h2(k, shift):
 
 def _mirror_lookup(index, k, valid):
     """The kernel's lookup of uint64 k-mers: the h1 row of every valid
-    query, the h2 row only of the valid queries whose key is not in h1,
-    then (split) the vals of the slot -> ((n, 2) int32, rows loaded)."""
+    query, the h2 row only of the valid queries whose key is not in h1
+    (kv, split) or, on single-probe rows, whose h1 row carries the
+    overflow flag and matched no nonzero payload, then (split) the vals of
+    the slot -> ((n, 2) int32, rows loaded)."""
     tbl, S = index.table.numpy(), index.S
     ki = k.astype(np.uint32).view(np.int32)[:, None]
     b1, b2 = (h(k, index.shift).astype(np.int64) for h in (_h1, _h2))
     r1 = tbl[np.where(valid, b1, 0)]
     m1 = r1[:, :S] == ki
-    need2 = valid & ~m1.any(1)
+
+    def pay(m, r):  # the matching slots' payload sum (kv rows)
+        return np.where(m, r[:, S:].astype(np.int64) & M32, 0).sum(1) & M32
+
+    if index.single_probe:
+        need2 = valid & (r1[:, 2 * S - 1] == OVF_PAYLOAD) & (pay(m1, r1) == 0)
+    else:
+        need2 = valid & ~m1.any(1)
     r2 = tbl[np.where(need2, b2, 0)]
     m2 = r2[:, :S] == ki
     rows = int(valid.sum() + need2.sum())
@@ -213,10 +279,9 @@ def _mirror_lookup(index, k, valid):
         c = np.where(found, v[:, 0], EMPTY)
         pos = np.where(found, v[:, 1], 0)
         return np.stack([c, pos], 1).astype(np.int32), rows
-    pay1 = np.where(m1, r1[:, S:].astype(np.int64) & M32, 0).sum(1) & M32
-    pay2 = np.where(m2, r2[:, S:].astype(np.int64) & M32, 0).sum(1) & M32
-    pay = torch.from_numpy(np.where(need2, pay2, pay1))
-    c, pos = tm._decode(pay, index.cbits, index.pos_bias)
+    # need2 leaves h1's sum 0 (kv: no slot matched; single-probe: the rule)
+    p = torch.from_numpy(np.where(need2, pay(m2, r2), pay(m1, r1)))
+    c, pos = tm._decode(p, index.cbits, index.pos_bias)
     v = torch.from_numpy(valid)
     out = torch.stack([torch.where(v, c, EMPTY), torch.where(v, pos, 0)], 1)
     return out.numpy(), rows
@@ -280,12 +345,18 @@ def _kernel_probe(codes, lengths, stride, index, T=64, Q=4):
 
 def _rows_needed(index, codes, lengths, stride):
     """Rows a lookup needs, from the plain version: one per valid k-mer
-    whose key lies in its h1 row, two for any other."""
+    whose key lies in its h1 row, two for any other; on single-probe rows
+    one per valid k-mer and a second where its h1 row is flagged and no
+    slot matched with a nonzero payload."""
     km, ok = tm.compute_kmers(torch.from_numpy(codes), torch.from_numpy(lengths))
     k = km[:, ::stride][ok[:, ::stride]]
     b1, _ = tm.buckets(k, index.shift)
-    in_h1 = (index.table[b1][:, : index.S] == tm._i32(k)[:, None]).any(1)
-    return int(2 * k.shape[0] - in_h1.sum())
+    r1, S = index.table[b1], index.S
+    match = r1[:, :S] == tm._i32(k)[:, None]
+    if index.single_probe:
+        pay = torch.where(match, r1[:, S:], 0).to(torch.int64).sum(1) & M32
+        return int(k.shape[0] + ((r1[:, 2 * S - 1] == OVF_PAYLOAD) & (pay == 0)).sum())
+    return int(2 * k.shape[0] - match.any(1).sum())
 
 
 def _edge_codes(ix, W=45, seed=8):
@@ -363,21 +434,68 @@ def _edge_queries(ix, packed, seed=9):
 
 
 def _packed(ix, layout):
-    return pack_index(ix) if layout == "split" else pack_index_kv(ix, **KV_LAYOUTS[layout])
+    if layout == "split":
+        return pack_index(ix)
+    if layout in SINGLE_LAYOUTS:
+        p = (pack_index_kvs if layout == "kvs" else pack_index_kv16)(ix)
+        assert p is not None and p.kv_tbl.shape[1] == {"kvs": 8, "kv16": 16}[layout]
+        return p
+    return pack_index_kv(ix, **KV_LAYOUTS[layout])
 
 
 def _jax_lookup(packed, layout, k, valid):
     import jax.numpy as jnp
 
-    from genefuserust_tpu.ops.map_read import hash_lookup, kv_lookup
+    from genefuserust_tpu.ops.map_read import hash_lookup, kv16_lookup, kv_lookup, kvs_lookup
 
     if layout == "split":
         c, p = hash_lookup((jnp.asarray(packed.keys_tbl), jnp.asarray(packed.vals_tbl)),
                            packed.shift, jnp.asarray(k), jnp.asarray(valid))
     else:
-        c, p = kv_lookup(jnp.asarray(packed.kv_tbl), packed.shift, packed.cbits,
-                         packed.pos_bias, jnp.asarray(k), jnp.asarray(valid))
+        fn = {"kvs": kvs_lookup, "kv16": kv16_lookup}.get(layout, kv_lookup)
+        c, p = fn(jnp.asarray(packed.kv_tbl), packed.shift, packed.cbits, packed.pos_bias,
+                  jnp.asarray(k), jnp.asarray(valid))
     return np.asarray(c), np.asarray(p)
+
+
+def _single_queries(ix, packed, seed=12):
+    """Flat uint64 queries on a single-probe table: keys in unflagged and
+    in flagged h1 rows, keys spilled to h2, misses whose h1 row is flagged
+    or not, the sentinel, and copies of spilled and flagged keys to be
+    marked invalid -> (packed, queries, names). The returned table is a
+    copy whose sentinel's h1 row carries the flag (its last slot the
+    sentinel with OVF_PAYLOAD), so the sentinel meets a flagged row."""
+    rng = np.random.default_rng(seed)
+    S = packed.kv_tbl.shape[1] // 2
+    tbl = packed.kv_tbl.copy()
+    sentinel = np.uint64(packed.empty_key)
+    sb = int(_h1(sentinel, packed.shift))
+    tbl[sb, S - 1] = np.int64(sentinel).astype(np.uint32).view(np.int32)
+    tbl[sb, 2 * S - 1] = OVF_PAYLOAD
+    packed = dataclasses.replace(packed, kv_tbl=tbl)
+    keys = np.asarray(ix.uniq_keys).astype(np.uint64)
+    ki = keys.astype(np.uint32).view(np.int32)[:, None]
+    b1, b2 = _h1(keys, packed.shift), _h2(keys, packed.shift)
+    flagged = tbl[:, 2 * S - 1] == OVF_PAYLOAD
+    in_h1 = (tbl[b1][:, :S] == ki).any(1)
+    in_h2 = (tbl[b2][:, :S] == ki).any(1) & ~in_h1
+    rnd = np.setdiff1d(rng.integers(0, 2**32, 400_000, dtype=np.uint64), keys)
+    rnd = rnd[rnd != sentinel]
+    rf = flagged[_h1(rnd, packed.shift)]
+    groups = {
+        "sentinel": np.array([sentinel] * 3, np.uint64),
+        "h1_unflagged": rng.choice(keys[in_h1 & ~flagged[b1]], 400),
+        "h1_flagged": keys[in_h1 & flagged[b1]][:200],
+        "spilled": keys[in_h2],
+        "miss_flagged": rnd[rf][:200],
+        "miss_unflagged": rnd[~rf][:400],
+    }
+    groups["invalid"] = np.concatenate([groups["spilled"][:20], groups["h1_flagged"][:20],
+                                        groups["miss_flagged"][:20]])
+    for name, v in groups.items():
+        assert len(v), name
+    names = np.concatenate([[k] * len(v) for k, v in groups.items()])
+    return packed, np.concatenate(list(groups.values())).astype(np.uint64), names
 
 
 def _assert_like_jax(got, c, p):
@@ -389,7 +507,7 @@ def _assert_like_jax(got, c, p):
 
 
 @pytest.mark.parametrize("stride", [1, 2])
-@pytest.mark.parametrize("layout", ["split", *sorted(KV_LAYOUTS)])
+@pytest.mark.parametrize("layout", LAYOUTS)
 def test_kernel_mirror_matches_jax_on_edge_rows(indexer, layout, stride):
     import jax.numpy as jnp
 
@@ -402,7 +520,8 @@ def test_kernel_mirror_matches_jax_on_edge_rows(indexer, layout, stride):
         got, loaded = _kernel_probe(codes, lengths, stride, index, T, Q)
         plain = tm.probe_plain(torch.from_numpy(codes), torch.from_numpy(lengths), stride, index)
         assert np.array_equal(got, plain.numpy())
-        # h2 rows only for the valid k-mers whose key is not in h1
+        # h2 rows only for the valid k-mers whose key is not in h1 (on
+        # single-probe rows: past a flagged h1 row)
         assert loaded == _rows_needed(index, codes, lengths, stride)
     km, ok = compute_kmers(jnp.asarray(codes), jnp.asarray(lengths))
     c, p = _jax_lookup(packed, layout, km[:, ::stride], ok[:, ::stride])
@@ -455,8 +574,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _layout_queries(ix, packed, layout):
+    """The edge queries of a layout -> (packed, queries, validity)."""
+    if layout in SINGLE_LAYOUTS:
+        packed, q, names = _single_queries(ix, packed)
+        return packed, q, names != "invalid"
+    packed, q, _ = _edge_queries(ix, packed)
+    return packed, q, np.ones(len(q), bool)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["split", *sorted(KV_LAYOUTS)])
+@pytest.mark.parametrize("layout", LAYOUTS)
 def test_probe_kernel_matches_plain(indexer, layout, cuda_device):
     packed = _packed(indexer, layout)
     rng = np.random.default_rng(6)
@@ -467,14 +595,14 @@ def test_probe_kernel_matches_plain(indexer, layout, cuda_device):
     valid = rng.random(q.shape) < 0.9
     cpu, dev = index_to_torch(packed, "cpu"), index_to_torch(packed, cuda_device)
     ecodes, elens = _edge_codes(indexer)
-    epacked, eq, _ = _edge_queries(indexer, packed)
+    epacked, eq, ev = _layout_queries(indexer, packed, layout)
     for c, ln in ((codes, lengths), (ecodes, elens)):
         for stride in (1, 2):
             exp = tm.probe(torch.from_numpy(c), torch.from_numpy(ln), stride, cpu)
             got = tm.probe(torch.from_numpy(c).to(cuda_device),
                            torch.from_numpy(ln).to(cuda_device), stride, dev)
             assert torch.equal(got.cpu(), exp)
-    for p, qq, vv in ((packed, q, valid), (epacked, eq, np.ones(len(eq), bool))):
+    for p, qq, vv in ((packed, q, valid), (epacked, eq, ev)):
         args = (torch.from_numpy(_as_i32(qq)), torch.from_numpy(vv))
         exp = tm.probe_kmers(*args, index_to_torch(p, "cpu"))
         got = tm.probe_kmers(*(a.to(cuda_device) for a in args), index_to_torch(p, cuda_device))
@@ -482,9 +610,10 @@ def test_probe_kernel_matches_plain(indexer, layout, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["split", *sorted(KV_LAYOUTS)])
+@pytest.mark.parametrize("layout", LAYOUTS)
 def test_probe_kernel_loads_the_rows_needed(indexer, layout, cuda_device):
-    # the kernel's own count of its table row loads: h2 only for keys not in h1
+    # the kernel's own count of its table row loads: h2 only for keys not in
+    # h1 (on single-probe rows: past a flagged h1 row)
     packed = _packed(indexer, layout)
     cpu, dev = index_to_torch(packed, "cpu"), index_to_torch(packed, cuda_device)
     codes, lengths = _edge_codes(indexer)
@@ -498,6 +627,22 @@ def test_probe_kernel_loads_the_rows_needed(indexer, layout, cuda_device):
         tcuda.launch_probe(c_d, l_d, None, None, B * NQ, W, stride, NQ, dev, out, row_loads=loads)
         assert torch.equal(out.cpu(), exp)
         assert int(loads) == _rows_needed(cpu, codes, lengths, stride)
+    # the edge queries, flat: valid + JAX need2 rows on single-probe tables
+    epacked, eq, ev = _layout_queries(indexer, packed, layout)
+    edev = index_to_torch(epacked, cuda_device)
+    exp, rows = _mirror_lookup(index_to_torch(epacked, "cpu"), eq, ev)
+    if layout in SINGLE_LAYOUTS:
+        assert rows == ev.sum() + _need2_jax(epacked, eq, ev).sum()
+    out = torch.empty((len(eq), 2), dtype=torch.int32, device=cuda_device)
+    loads = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    name = tcuda.probe_name(edev)
+    n0 = tcuda.LAUNCHES[name]
+    tcuda.launch_probe(None, None, torch.from_numpy(_as_i32(eq)).to(cuda_device),
+                       torch.from_numpy(ev).to(cuda_device), len(eq), 0, 1, 1, edev, out,
+                       row_loads=loads)
+    assert np.array_equal(out.cpu().numpy(), exp) and int(loads) == rows
+    assert tcuda.LAUNCHES[name] == n0 + 1
+    assert name == {"kvs": "probe_kvs", "kv16": "probe_kv16"}.get(layout, "probe")
     # a row-offset view of the codes is refused on the card
     wide = torch.zeros((4, 45), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError, match="16-byte"):
