@@ -122,6 +122,26 @@ Phases, one result line each; any failure raises and exits non-zero:
              the kv2 table's results, its own count of rows loaded equal
              to valid + need2 (a kvs row one 32-byte sector, a kv16 row
              two), timed beside kv2's probe; the variant's registers.
+ 16 device merge
+             the JAX package's device-side pair merge, off the main path
+             (TorchEngine merges on the host): phase 3's 65,536 pairs
+             packed by native.pack_pe_batch (4-bit codes, quality classes)
+             and uploaded, then through profiling/device_merge.run on the
+             kv2 table, its launches counted: fused_pass1_chunked (kernel
+             merge_codes, then the three lanes' probe and vote),
+             fused_merge_chunked, pass1_rows_merged, pass1_rows_packed and
+             fused_pass2_combined (kernel merge_rows) on the work lists of
+             the summary, merge_batch (kernel merge_bytes). (a) each
+             bit-equal to its plain version; (b) merged, m_len and the
+             merged codes equal native.merge_pack_pe_batch's on the pairs
+             that are not exotic; (c) merge_batch's bytes, qualities and
+             diff equal the scalar fast_merge on the first 4,096 pairs; (d)
+             the row passes bit-equal to plain, each pass-1 row equal to
+             the summary's lane and to the vote of TorchEngine's own lane
+             for that pair; (e) the three kernels timed with their bounds,
+             the three pass-1 lanes, the host's pack_pe_batch and
+             merge_pack_pe_batch seconds on the same pairs, and the upload
+             of the 4-bit buffer beside that of TorchEngine's 2-bit lanes.
 
 The last three lines are the kernels' JSON record, nvidia-smi's
 name/power line and the contract line {"ok": true, "device": {...}}.
@@ -195,8 +215,9 @@ LONG_BATCH = 64
 # 10 (kv and split, each narrow and wide; the shards' flags, kv and split;
 # from flags, narrow on segments of 8, 16 and 32 lanes, and wide),
 # gather_sum 3 (vector widths), edit_distance 1, fused_glue 5 (unpack,
-# exceptions, count, place with the code rows, survivor rows)
-N_COMPILED = 35
+# exceptions, count, place with the code rows, survivor rows), merge 3
+# (bytes, codes, rows)
+N_COMPILED = 38
 # the probe's launch-shape sweep (--probe-sweep): queries a thread, table-row
 # cache policy (PROBE_POLICY in csrc/probe.cu), threads a block
 PROBE_SWEEP_Q = (1, 2, 4, 8)
@@ -233,12 +254,6 @@ WIDE_KERNELS = ("vote_wide", "vote_counts_wide", "mask_segments_wide", "shard_fl
 VOTE_CAP, MASK_CAP = 8 << 10, 16 << 10
 WIDE_LANE_ROWS = 4096  # phase 13 (viii): a wide lane of one long read
 SWEEP_MAX_JOBS = 4096
-# The card's peaks for the kernels' bounds (NVIDIA's data sheet for the
-# H100 SXM at 700 W): HBM bytes/s, and the 32-bit rate outside the tensor
-# cores, 67 T/s, taken for the kernels' int32 operations (the card's int32
-# rate is no higher, so the bound stays a lower bound).
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12
 # bytes a random read moves from DRAM at least (one sector)
 SECTOR = 32
 # int32 operations counted per unit of work, read off the plain versions:
@@ -269,12 +284,11 @@ def max_abs_err(got, exp) -> int:
 
 
 def bound(nbytes: float, ops: float) -> dict:
-    """The least time the card could take: bytes over HBM's rate or
-    operations over the int32 rate, whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return dict(bytes=int(nbytes), ops=int(ops), bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    """The least time the card could take (profiling/bounds.py's rule and
+    peaks); imported here, as the port is, only once the card is found."""
+    from genefuserust_tpu_torch.profiling.bounds import bound as card_bound
+
+    return card_bound(nbytes, ops)
 
 
 def dupe_row_bytes(pr, index) -> int:
@@ -3173,6 +3187,58 @@ def phase_layouts(data: dict, smi_line: str) -> dict:
     say("15 layouts", phase_wall_s=f"{time.perf_counter() - t_phase:.1f}")
     return dict(rec=rec, launches=launches)
 
+MERGE_KERNELS = ("merge_bytes", "merge_codes", "merge_rows")
+
+
+def phase_device_merge(data: dict, smi_line: str) -> dict:
+    """Phase 16: profiling/device_merge.run on phase 3's first 65,536 pairs
+    and the kv2 table, which drives the device merge's path once with the
+    launch counts set to 0 first and checks (a)-(d) (it raises on any
+    difference) -> the three kernels' records and their launches on that
+    path."""
+    import torch
+
+    from genefuserust_tpu_torch.ops.index import index_to_torch
+    from genefuserust_tpu_torch.profiling import device_merge
+
+    t_phase = time.perf_counter()
+    index = index_to_torch(data["packed_kv2"], torch.device("cuda"))
+    r = device_merge.run([a[:BATCH] for a in data["block"]], index)
+    ran = r["launches"]
+    for k in MERGE_KERNELS:
+        check(ran[k] > 0, f"device merge: its path did not launch {k}")
+    say("16 device merge", pairs=r["pairs"], L=r["L"], equal="(a) (b) (c) (d)",
+        merged_lane_vote_width=r["merged_lane_vote_width"],
+        launches=json.dumps(ran, separators=(",", ":")),
+        checks=json.dumps(r["checks"], separators=(",", ":")))
+    for k in MERGE_KERNELS:
+        v = r["kernels"][k]
+        say("16 device merge", kernel=k, shape=repr(v["shape"]), ms=f"{v['ms']:.4f}",
+            plain_ms=f"{v['plain_ms']:.4f}", bound_ms=f"{v['bound_ms']:.5f}",
+            bound_by=v["bound_by"], bound_share=f"{v['bound_ms'] / v['ms']:.4f}",
+            bytes=v["bytes"], ops=v["ops"], max_abs_err=0, card=repr(smi_line),
+            **{x: (f"{v[x]:.4f}" if isinstance(v[x], float) else v[x]) for x in v
+               if x not in ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "ops", "shape",
+                            "err", "rows", "width")})
+    say("16 device merge", pass1_lanes=json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v) for k, v in r["pass1_lanes"].items()},
+        separators=(",", ":")), card=repr(smi_line))
+    h = r["host"]
+    say("16 device merge", host_pack_pe_batch_s=f"{h['pack_pe_batch_s']:.4f}",
+        host_merge_pack_pe_batch_s=f"{h['merge_pack_pe_batch_s']:.4f}",
+        pack_all_s=",".join(f"{x:.4f}" for x in h["pack_pe_batch_all_s"]),
+        merge_pack_all_s=",".join(f"{x:.4f}" for x in h["merge_pack_pe_batch_all_s"]),
+        device_merge_ms=f"{r['kernels']['merge_codes']['no_lanes_ms']:.4f}",
+        device_fused_pass1_ms=f"{r['pass1_lanes']['fused_pass1_chunked_ms']:.4f}",
+        h2d=json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                        for k, v in r.get("h2d", {}).items()}, separators=(",", ":")),
+        card=repr(smi_line))
+    say("16 device merge", phase_wall_s=f"{time.perf_counter() - t_phase:.1f}")
+    del index
+    torch.cuda.empty_cache()
+    return dict(rec=r["kernels"], launches={k: ran[k] for k in MERGE_KERNELS})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -3264,6 +3330,7 @@ def main(argv=None) -> int:
         sharded = phase_sharded(data, smi_line)
         multi_device = phase_multi_device(data, smi_line)
         layouts = phase_layouts(data, smi_line)
+        device_merge = phase_device_merge(data, smi_line)
     finally:
         log.close()
         shutil.rmtree(workdir, ignore_errors=True)
@@ -3294,13 +3361,19 @@ def main(argv=None) -> int:
                      "_single_probe_lookup :178)",
         "probe_kv16": "genefuserust_tpu/ops/map_read.py:155 (kv16_lookup, via "
                       "_single_probe_lookup :178)",
+        "merge_bytes": "genefuserust_tpu/ops/merge.py:42 (merge_batch)",
+        "merge_codes": "genefuserust_tpu/ops/fused.py:51 (_merge_codes, with the front of "
+                       "fused_pass1 :133 and fused_merge_chunked :262)",
+        "merge_rows": "genefuserust_tpu/ops/fused.py:305,337,369 (the rows of "
+                      "pass1_rows_merged, pass1_rows_packed, fused_pass2_combined)",
     }
     sources = dict(probe_split="probe", probe_long="probe", probe_kvs="probe",
                    probe_kv16="probe", vote_counts="vote", merge_top2="vote",
                    vote_wide="vote", vote_counts_wide="vote", shard_flags="mask_segments",
                    mask_from_flags="mask_segments", mask_segments_wide="mask_segments",
                    shard_flags_wide="mask_segments", mask_from_flags_wide="mask_segments",
-                   **{k: "fused_glue" for k in GLUE_KERNELS})
+                   **{k: "fused_glue" for k in GLUE_KERNELS},
+                   **{k: "merge" for k in MERGE_KERNELS})
     # launches: each kernel's count over phase 5's CLI scan, the main path;
     # gather_sum is off it, so its count is that of its own entry point
     # (phase 8), and survivor_rows, which the main path leaves to the
@@ -3325,10 +3398,14 @@ def main(argv=None) -> int:
     # phase 15: the single-probe variant, launches over each layout's CLI job
     rec.update(layouts["rec"])
     launches.update(layouts["launches"])
+    # phase 16: the device merge, launches over its path's one run
+    rec.update(device_merge["rec"])
+    launches.update(device_merge["launches"])
     extra = ("shape", "wide", "rows_needed", "rows_loaded", "h1_hit_share", "main_path_flushes",
              "fusion_rich_launches", "hits", "stride1_ms", "stride1_bound_ms", "edge_ms",
              "pair", "library_with_build_ms", "padded_bound_ms", "global_ms", "parent_ms",
-             "again_ms", "device_ms", "rows4096", "peak", "sass", "kv2_ms", "kv2_rows_needed")
+             "again_ms", "device_ms", "rows4096", "peak", "sass", "kv2_ms", "kv2_rows_needed",
+             "no_lanes_ms", "no_lanes_bound_ms", "packed_ms", "pass2_ms")
     kernels = [
         dict(name=k, route="cuda",
              source=f"genefuserust_tpu_torch/csrc/{sources.get(k, k)}.cu",

@@ -26,6 +26,11 @@ MAX_LANES lanes), "compact_count" and "compact_place" (one of each a
 compaction; no count launch for zero rows; the place launch also copies
 the code rows of up to MAX_LANES lanes) and "survivor_rows" (the code
 rows of each further MAX_LANES lanes).
+The device-side pair merge (ops/merge.py, ops/fused.py; off the main
+path) counts its kernels as "merge_bytes" (merge_batch), "merge_codes"
+(the merge of the upload rows, with or without the three map-code lanes)
+and "merge_rows" (the rows of the vote and pass-2 passes over merged codes
+and upload rows), one a launch.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("probe.cu", "vote.cu", "mask_segments.cu", "gather_sum.cu", "edit_distance.cu",
-           "fused_glue.cu")
+           "fused_glue.cu", "merge.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -56,7 +61,7 @@ LAUNCHES = {"probe": 0, "probe_kvs": 0, "probe_kv16": 0, "vote": 0, "mask_segmen
             "merge_top2": 0, "shard_flags": 0, "shard_flags_wide": 0, "mask_from_flags": 0,
             "mask_from_flags_wide": 0,
             "lane_unpack": 0, "lane_exceptions": 0, "compact_count": 0, "compact_place": 0,
-            "survivor_rows": 0}
+            "survivor_rows": 0, "merge_bytes": 0, "merge_codes": 0, "merge_rows": 0}
 # lanes one unpack, exception, place or survivor_rows launch takes
 # (MAX_LANES in csrc/fused_glue.cu)
 MAX_LANES = 8
@@ -147,6 +152,9 @@ _ARGTYPES = {
     "gf_compact_place": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _LLP, _LLP, _IP, _IP, _I, _P,
                          _P],
     "gf_survivor_rows": [_I, _LLP, _LLP, _IP, _IP, _P, _I, _I, _I, _P, _P],
+    "gf_merge_bytes": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "gf_merge_codes": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "gf_merge_rows": [_P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -419,3 +427,38 @@ def launch_survivor_rows(lanes, offs, sidx, out) -> None:
             ii(*(t.shape[1] for t in lanes)), sidx.data_ptr(), sidx.stride(0), out.shape[0],
             out.shape[1], out.data_ptr(), _stream(out))
     _done("survivor_rows", err)
+
+
+def launch_merge_bytes(b1, q1, l1, b2, q2, l2, merged, ints, out) -> None:
+    """`ints` (3, B) int32 [olen, diff, out_len]; `out` (2, B, 2L) uint8
+    [merged bytes, qualities]."""
+    B, L = b1.shape
+    with torch.cuda.device(out.device):
+        err = library().gf_merge_bytes(b1.data_ptr(), q1.data_ptr(), l1.data_ptr(),
+                                       b2.data_ptr(), q2.data_ptr(), l2.data_ptr(), B, L,
+                                       merged.data_ptr(), ints.data_ptr(), out.data_ptr(),
+                                       _stream(out))
+    _done("merge_bytes", err)
+
+
+def launch_merge_codes(buf, lens2, L: int, msum, m_codes, maps=None, lens3=None) -> None:
+    """`maps`: None, or the (m, R1, R2) map-code lanes, written with their
+    (3, B) lengths `lens3`."""
+    m_map, r1_map, r2_map = maps if maps is not None else (None, None, None)
+    with torch.cuda.device(msum.device):
+        err = library().gf_merge_codes(buf.data_ptr(), lens2.data_ptr(), buf.shape[0], L,
+                                       msum.data_ptr(), m_codes.data_ptr(), _ptr(m_map),
+                                       _ptr(r1_map), _ptr(r2_map), _ptr(lens3), _stream(msum))
+    _done("merge_codes", err)
+
+
+def launch_merge_rows(m_codes, buf, L: int, idx, lane, out) -> None:
+    """`idx` and `lane` (or None) int32 views with any stride; rows of
+    `m_codes` and `buf` (either may be None) at `idx`."""
+    nrows = (m_codes if m_codes is not None else buf).shape[0]
+    with torch.cuda.device(out.device):
+        err = library().gf_merge_rows(
+            _ptr(m_codes), 0 if m_codes is None else m_codes.shape[1], _ptr(buf), L, nrows,
+            idx.data_ptr(), idx.stride(0), _ptr(lane), 1 if lane is None else lane.stride(0),
+            out.shape[0], out.shape[1], out.data_ptr(), _stream(out))
+    _done("merge_rows", err)
