@@ -121,7 +121,10 @@ Phases, one result line each; any failure raises and exits non-zero:
              the probe's single-probe variant, bit-equal to plain and to
              the kv2 table's results, its own count of rows loaded equal
              to valid + need2 (a kvs row one 32-byte sector, a kv16 row
-             two), timed beside kv2's probe; the variant's registers.
+             two) and its count of the 32-byte sectors it requested
+             beside those rows' whole sectors, timed beside kv2's probe
+             and the gather floor (profiling/gather_floor.py) over the
+             same rows in query order; the variant's registers.
  16 device merge
              the JAX package's device-side pair merge, off the main path
              (TorchEngine merges on the host): phase 3's 65,536 pairs
@@ -149,7 +152,9 @@ name/power line and the contract line {"ok": true, "device": {...}}.
 --probe-sweep runs phases 1-3, then the probe's launch-shape sweep on
 phase 3's batch (queries a thread x table-row cache policy x block size,
 each shape a build of csrc/probe.cu with -D overrides, each held
-bit-equal to plain), prints it and stops: no contract line.
+bit-equal to plain), then the single-probe variant's on the same batch
+on the panel's kvs and kv16 tables (queries a thread x block size, with
+each build's registers), prints them and stops: no contract line.
 --profile-only runs phase 1, packs the kv2 table and runs phase 7, then
 stops (no contract line): a copy of this script beside another checkout's
 genefuserust_tpu_torch profiles that checkout's warm scan.
@@ -161,8 +166,11 @@ it and stops: no contract line. --glue-baseline DIR (another checkout's
 csrc/, e.g. the parent's from `git archive`) adds that build's lane unpack
 and compaction, timed on phase 3's batch, to phase 3's glue lines.
 --wide-baseline DIR (another checkout's csrc/, e.g. the parent's) builds
-its probe.cu, vote.cu and mask_segments.cu and times their kernels on the
-same inputs, each held bit-equal to plain: phase 3's probe, vote and
+its probe.cu, vote.cu, mask_segments.cu and merge.cu and times their
+kernels on the same inputs, each held bit-equal to plain: phase 15's
+single-probe variant at both strides (between two timings of this
+checkout's), phase 16's row gather on its three row passes, phase 3's
+probe, vote and
 mask+segments (between two timings of this checkout's, and the machine
 code of probe_kernel, vote_kernel and mask_segments_kernel against the
 parent's, cuobjdump -sass), phase 13's merge, shard flags and mask
@@ -215,7 +223,7 @@ LONG_BATCH = 64
 # 10 (kv and split, each narrow and wide; the shards' flags, kv and split;
 # from flags, narrow on segments of 8, 16 and 32 lanes, and wide),
 # gather_sum 3 (vector widths), edit_distance 1, fused_glue 5 (unpack,
-# exceptions, count, place with the code rows, survivor rows), merge 3
+# exceptions, count, place with the code rows, survivor rows), merge 5
 # (bytes, codes, rows)
 N_COMPILED = 38
 # the probe's launch-shape sweep (--probe-sweep): queries a thread, table-row
@@ -223,6 +231,12 @@ N_COMPILED = 38
 PROBE_SWEEP_Q = (1, 2, 4, 8)
 PROBE_POLICIES = ("nc", "cg", "nc_l1_no_allocate")
 PROBE_SWEEP_THREADS = (128, 256, 512)
+# the single-probe variant's threads a block (PROBE_SINGLE_THREADS in
+# csrc/probe.cu), and its sweep (--probe-sweep): queries a thread
+# (PROBE_SINGLE_Q) x threads a block
+SINGLE_THREADS = 128
+SINGLE_SWEEP_Q = (1, 2, 4)
+SINGLE_SWEEP_THREADS = (64, 128, 256, 512)
 # the gather's launch-shape sweep (--gather-sweep): blocks a tile x row
 # loads a thread, for the narrow rows' shape at (a2) and for the wide rows'
 # at the TPU ring tool's row widths (whole 128 int32; 128 is (b)), each on
@@ -1204,10 +1218,11 @@ def sweep_glue(data: dict, reps: int = 40) -> dict:
     return res
 
 
-def probe_row_loads(codes, lens, index, exp, stride=None) -> int:
+def probe_row_loads(codes, lens, index, exp, stride=None, sectors=False):
     """One launch of the probe of a batch on `index`'s table (default
     stride: pass 1's) with the kernel's row counter on, held bit-equal to
-    `exp` -> the table rows it loaded."""
+    `exp` -> the table rows it loaded; with `sectors` (single-probe
+    tables) -> (rows, the 32-byte sectors it requested)."""
     import torch
 
     from genefuserust_tpu_torch.config import PASS1_STEP
@@ -1216,11 +1231,12 @@ def probe_row_loads(codes, lens, index, exp, stride=None) -> int:
     B, W = codes.shape
     NQ = exp.shape[1]
     out = torch.empty_like(exp)
-    loads = torch.zeros(1, dtype=torch.int64, device=exp.device)
+    loads = torch.zeros(2, dtype=torch.int64, device=exp.device)
     cuda.launch_probe(codes, lens, None, None, B * NQ, W, stride or PASS1_STEP, NQ, index, out,
-                      row_loads=loads)
+                      row_loads=loads[:1], sector_loads=loads[1:] if sectors else None)
     check(torch.equal(out, exp), "probe with its row counter differs from plain")
-    return int(loads)
+    rows, secs = loads.tolist()
+    return (rows, secs) if sectors else rows
 
 
 def sweep_probe(codes, lens, index, exp, reps=40) -> dict:
@@ -1265,6 +1281,64 @@ def sweep_probe(codes, lens, index, exp, reps=40) -> dict:
         torch.cuda.synchronize()
         check(torch.equal(out, exp), f"probe at shape {(q, pol, t)} differs from plain")
         res[f"{q},{PROBE_POLICIES[pol]},{t}"] = event_ms(run, reps)
+    return res
+
+
+def sweep_probe_single(data: dict, reps=20) -> dict:
+    """The single-probe variant on phase 3's batch (stride 2) on the
+    panel's kvs and kv16 tables at every launch shape of SINGLE_SWEEP_Q x
+    SINGLE_SWEEP_THREADS, each a build of csrc/probe.cu with -D overrides,
+    all built at once, each held bit-equal to plain -> {layout: {"q,threads":
+    [mean ms, registers]}}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from genefuserust_tpu_torch.config import PASS1_STEP
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.ops.index import build_packed_index, index_to_torch, layout_name
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
+
+    shapes = [(q, t) for q in SINGLE_SWEEP_Q for t in SINGLE_SWEEP_THREADS]
+
+    def build(shape):
+        q, t = shape
+        return cuda.build(("probe.cu",), (f"PROBE_SINGLE_Q={q}", f"PROBE_SINGLE_THREADS={t}"))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 4) as ex:
+        paths = list(ex.map(build, shapes))
+    say("15 layouts", kernel="probe_single", sweep_builds=len(paths),
+        build_s=f"{time.perf_counter() - t0:.1f}")
+    codes, lens = data["probe_codes"]
+    B, W = codes.shape
+    res = {}
+    for layout, S in (("kvs", 4), ("kv16", 8)):
+        packed = build_packed_index(data["mapper"].indexer, layout)
+        check(layout_name(packed) == layout, f"sweep: the {layout} pack fell through")
+        index = index_to_torch(packed, torch.device("cuda"))
+        del packed
+        exp = tm.probe_plain(codes, lens, PASS1_STEP, index)
+        NQ = exp.shape[1]
+        out = torch.empty_like(exp)
+        res[layout] = {}
+        for (q, t), path in zip(shapes, paths):
+            lib = cuda.load(path)
+
+            def run():
+                cuda.launch_probe(codes, lens, None, None, B * NQ, W, PASS1_STEP, NQ, index,
+                                  out, lib=lib)
+
+            out.fill_(0)
+            run()
+            torch.cuda.synchronize()
+            check(torch.equal(out, exp), f"probe_{layout} at shape {(q, t)} differs from plain")
+            regs = [n for k, n in variant_registers("probe_single_kernel", path).items()
+                    if k.startswith(f"_ZN2gf19probe_single_kernelILi{S}E")]
+            res[layout][f"{q},{t}"] = [round(event_ms(run, reps), 4), regs[0] if regs else None]
+        del index, exp, out
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1951,17 +2025,18 @@ def largest_wide_launches():
 
 
 class WideBaseline:
-    """Another checkout's csrc/probe.cu, csrc/vote.cu and
-    csrc/mask_segments.cu (the parent's), built from that csrc/ and run on
-    the same inputs as this checkout's kernels. Their entry points take
-    this checkout's arguments (gf_merge_top2 too: the shards' rows by
-    value), so the parent's kernels run through this checkout's wrappers
-    with the parent's library in the port's place (`active`)."""
+    """Another checkout's csrc/probe.cu, csrc/vote.cu, csrc/mask_segments.cu
+    and csrc/merge.cu (the parent's), built from that csrc/ and run on the
+    same inputs as this checkout's kernels. Their entry points take this
+    checkout's arguments (gf_merge_top2 too: the shards' rows by value),
+    so the parent's kernels run through this checkout's wrappers with the
+    parent's library in the port's place (`active`); the parent's
+    single-probe variant, which gf_probe launched, through `probe_single`."""
 
     def __init__(self, csrc: str):
         from genefuserust_tpu_torch.ops import cuda
 
-        self.path = cuda.build(("probe.cu", "vote.cu", "mask_segments.cu"),
+        self.path = cuda.build(("probe.cu", "vote.cu", "mask_segments.cu", "merge.cu"),
                                csrc=os.path.abspath(csrc))
         self.lib = cuda.load(self.path)
         self.csrc = csrc
@@ -1983,6 +2058,24 @@ class WideBaseline:
 
         with self.active():
             return tm.probe(codes, lengths, stride, index)
+
+    def probe_single(self, codes, lengths, stride, index):
+        """The parent's probe_single_kernel, launched by its gf_probe with
+        the table kind 2 (single-probe rows) -> (B, NQ, 2) int32."""
+        import torch
+
+        from genefuserust_tpu_torch.config import KMER
+
+        B, W = codes.shape
+        NQ = (W - KMER + stride) // stride
+        out = torch.empty((B, NQ, 2), dtype=torch.int32, device=codes.device)
+        with torch.cuda.device(codes.device):
+            err = self.lib.gf_probe(
+                codes.data_ptr(), lengths.data_ptr(), None, None, B * NQ, W, stride, NQ,
+                index.table.data_ptr(), None, 2, index.S, index.shift, index.cbits,
+                index.pos_bias, out.data_ptr(), None, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the parent's single-probe launch failed: CUDA error {err}")
+        return out
 
     def merge_step(self, votes):
         """The parent's merge launch on the shards' (B, 6) rows -> (ok, gp)."""
@@ -3035,25 +3128,36 @@ def single_rows(km, ok, index) -> dict:
     """The rows a single-probe lookup of the valid k-mers `km[ok]` needs,
     from the plain version's buckets and the table: one each, and a second
     (need2) where the h1 row is flagged and no slot matched with a nonzero
-    payload sum."""
+    payload sum; each row's whole 32-byte sectors (kvs one, kv16 two); and
+    those rows in query order (h1, then h2 where needed) as gather rows,
+    the last tile topped up with the first rows."""
+    import torch
+
     from genefuserust_tpu_torch.ops import map_read as tm
     from genefuserust_tpu_torch.ops.hashtable import OVF_PAYLOAD
+    from genefuserust_tpu_torch.profiling import gather_floor as gf
 
     k = km[ok]
-    b1, _ = tm.buckets(k, index.shift)
+    b1, b2 = tm.buckets(k, index.shift)
     r1 = index.table[b1]
-    need2 = int(((r1[:, -1] == OVF_PAYLOAD) & (tm._row_payload(r1, tm._i32(k)) == 0)).sum())
-    return dict(valid=int(k.shape[0]), need2=need2, rows=int(k.shape[0]) + need2,
-                sector_bytes_per_row=-(-4 * index.table.shape[1] // SECTOR) * SECTOR)
+    need2 = (r1[:, -1] == OVF_PAYLOAD) & (tm._row_payload(r1, tm._i32(k)) == 0)
+    rows = torch.stack([b1, torch.where(need2, b2, -1)], 1).reshape(-1)
+    rows = rows[rows >= 0].to(torch.int32)
+    n = int(k.shape[0]) + int(need2.sum())
+    check(rows.shape[0] == n, "single_rows: gather rows differ from valid + need2")
+    return dict(valid=int(k.shape[0]), need2=n - int(k.shape[0]), rows=n,
+                sector_bytes_per_row=-(-4 * index.table.shape[1] // SECTOR) * SECTOR,
+                gather=torch.cat([rows, rows[: (-n) % gf.TILE]]).contiguous())
 
 
-def variant_registers(name: str) -> dict:
-    """{mangled kernel: registers a thread} of the port's build, for the
-    kernels whose name holds `name` (ptxas's report in `<lib>.log`)."""
+def variant_registers(name: str, lib: str = None) -> dict:
+    """{mangled kernel: registers a thread} of the port's build (or of the
+    library `lib`), for the kernels whose name holds `name` (ptxas's
+    report in `<lib>.log`)."""
     from genefuserust_tpu_torch.ops import cuda
 
     regs, cur = {}, None
-    for line in open(cuda.build() + ".log"):
+    for line in open((lib or cuda.build()) + ".log"):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = m.group(1) if name in m.group(1) else None
@@ -3069,23 +3173,29 @@ def phase_layouts(data: dict, smi_line: str) -> dict:
     pack timed; then phase 3's first batch probed on the job's own table
     (the probe's single-probe variant) at strides 2 and 1, bit-equal to
     plain and to the kv2 table's results, its rows loaded equal to valid +
-    need2, timed beside kv2's -> the kernels' records and their launches
-    (the CLI jobs', each its main path)."""
+    need2 and the sectors it requested beside those rows' whole sectors,
+    timed beside kv2's, the gather floor over the same rows and (with
+    --wide-baseline) the parent's kernel -> the kernels' records and their
+    launches (the CLI jobs', each its main path)."""
     import torch
 
     from genefuserust_tpu_torch import cli
     from genefuserust_tpu_torch.ops import cuda
     from genefuserust_tpu_torch.ops import map_read as tm
     from genefuserust_tpu_torch.ops.index import index_to_torch, layout_name
+    from genefuserust_tpu_torch.profiling import gather_floor as gf
     from genefuserust_tpu_torch.profiling.gather_floor import event_ms
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
-    # registers a thread, and the 256-thread blocks an SM's 65,536 registers
+    # registers a thread, and the variant's blocks an SM's 65,536 registers
     # hold (allocated 8 a thread at a time)
+    regs = {4 if kern.startswith("_ZN2gf19probe_single_kernelILi4E") else 8: n
+            for kern, n in variant_registers("probe_single_kernel").items()}
     for kern, n in sorted(variant_registers("probe_single_kernel").items()):
-        say("15 layouts", kernel=kern, registers=n,
-            blocks_per_sm_by_registers=65536 // (256 * -(-n // 8) * 8))
+        say("15 layouts", kernel=kern, registers=n, threads=SINGLE_THREADS,
+            blocks_per_sm_by_registers=65536 // (SINGLE_THREADS * (-(-n // 8) * 8)))
+    base = wide_base(data)
     codes, lens = data["probe_codes"]
     B, W = codes.shape
     kv2 = index_to_torch(data["packed_kv2"], dev)
@@ -3149,7 +3259,7 @@ def phase_layouts(data: dict, smi_line: str) -> dict:
             flagged_buckets=stats["flagged"], flagged_share=f"{stats['flagged_share']:.6f}",
             spilled_keys=stats["spilled_keys"])
         # (b) phase 3's first batch at strides 2 and 1 on the job's table
-        r = dict(err=0)
+        r = dict(err=0, registers=regs[index.S])
         for stride in (2, 1):
             got, err, ms, pms = _timed_pair(
                 f"{name} stride {stride}", lambda: tm.probe(codes, lens, stride, index),
@@ -3157,29 +3267,50 @@ def phase_layouts(data: dict, smi_line: str) -> dict:
             check(torch.equal(got, kv2_out[stride]),
                   f"{name} stride {stride}: results differ from the kv2 table's")
             rows = single_rows(km[:, ::stride], kok[:, ::stride], index)
-            loaded = probe_row_loads(codes, lens, index, got, stride)
+            loaded, sectors = probe_row_loads(codes, lens, index, got, stride, sectors=True)
             check(loaded == rows["rows"], f"{name} stride {stride}: the kernel loaded {loaded} "
                                           f"table rows, valid + need2 is {rows['rows']}")
+            # the sectors of the rows needed, whole (kvs one a row, kv16 two)
+            need_sectors = rows["rows"] * rows["sector_bytes_per_row"] // SECTOR
             # codes and lengths in, each row needed in whole 32-byte sectors
             # (kvs one, kv16 two), the results out
             b = bound(B * W + 4 * B + rows["rows"] * rows["sector_bytes_per_row"]
                       + got.numel() * 4,
                       OPS["probe_base"] * B * W + OPS["probe_query"] * rows["valid"])
+            # the gather floor over the same rows in query order, whole rows
+            floor = gf.measure(rows["gather"], index.table)
+            # the parent's kernel on the same inputs, between two timings of
+            # this checkout's
+            parent = again = None
+            if base:
+                parent = parent_ms(f"{name} stride {stride}",
+                                   lambda: base.probe_single(codes, lens, stride, index), got, 20)
+                again = event_ms(lambda: tm.probe(codes, lens, stride, index), 20)
             r["err"] = max(r["err"], err)
             if stride == 2:
                 r.update(ms=ms, plain_ms=pms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
                          rows_needed=rows["rows"], rows_loaded=loaded, kv2_ms=kv2_ms[2],
-                         kv2_rows_needed=kv2_rows[2],
+                         kv2_rows_needed=kv2_rows[2], sectors_requested=sectors,
+                         sectors_needed=need_sectors, gather_floor_ms=floor["ms"],
                          shape=f"{layout} table {tuple(index.table.shape)}, {B}x{W} codes, "
                                f"stride 2")
+                if base:
+                    r.update(parent_ms=parent, again_ms=again)
             else:
                 r.update(stride1_ms=ms, stride1_bound_ms=b["bound_ms"])
             say("15 layouts", kernel=name, stride=stride, equal_to_plain=True,
                 equal_to_kv2=True, valid_queries=rows["valid"], need2=rows["need2"],
                 rows_needed=rows["rows"], rows_loaded=loaded, kv2_rows_needed=kv2_rows[stride],
+                sectors_requested=sectors, sectors_needed=need_sectors,
+                sectors_share=f"{sectors / need_sectors:.4f}",
                 ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", kv2_ms=f"{kv2_ms[stride]:.4f}",
                 bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
-                bound_share=f"{b['bound_ms'] / ms:.4f}", max_abs_err=err)
+                bound_share=f"{b['bound_ms'] / ms:.4f}",
+                gather_floor_ms=f"{floor['ms']:.4f}",
+                floor_over_probe=f"{floor['ms'] / ms:.4f}",
+                **({} if not base else dict(parent_ms=f"{parent:.4f}", again_ms=f"{again:.4f}",
+                                            baseline=base.csrc)),
+                max_abs_err=err, card=repr(smi_line))
             del got
         rec[name] = r
         del engine, entry, packed, index
@@ -3194,8 +3325,9 @@ def phase_device_merge(data: dict, smi_line: str) -> dict:
     """Phase 16: profiling/device_merge.run on phase 3's first 65,536 pairs
     and the kv2 table, which drives the device merge's path once with the
     launch counts set to 0 first and checks (a)-(d) (it raises on any
-    difference) -> the three kernels' records and their launches on that
-    path."""
+    difference; with --wide-baseline it also times the parent's row gather
+    on the three row passes) -> the three kernels' records and their
+    launches on that path."""
     import torch
 
     from genefuserust_tpu_torch.ops.index import index_to_torch
@@ -3203,7 +3335,9 @@ def phase_device_merge(data: dict, smi_line: str) -> dict:
 
     t_phase = time.perf_counter()
     index = index_to_torch(data["packed_kv2"], torch.device("cuda"))
-    r = device_merge.run([a[:BATCH] for a in data["block"]], index)
+    base = wide_base(data)
+    r = device_merge.run([a[:BATCH] for a in data["block"]], index,
+                         others=dict(parent=base.active) if base else None)
     ran = r["launches"]
     for k in MERGE_KERNELS:
         check(ran[k] > 0, f"device merge: its path did not launch {k}")
@@ -3255,10 +3389,10 @@ def main(argv=None) -> int:
                     help="another checkout's csrc/: phase 3 also times its fused_glue.cu's "
                          "lane unpack and compaction with its survivor rows")
     ap.add_argument("--wide-baseline", metavar="DIR",
-                    help="another checkout's csrc/: phases 3 and 13 also time its probe.cu's, "
-                         "vote.cu's and mask_segments.cu's kernels on the same inputs, and "
-                         "compare probe_kernel's, vote_kernel's and mask_segments_kernel's "
-                         "SASS")
+                    help="another checkout's csrc/: phases 3, 13, 15 and 16 also time its "
+                         "probe.cu's, vote.cu's, mask_segments.cu's and merge.cu's kernels "
+                         "on the same inputs, and compare probe_kernel's, vote_kernel's and "
+                         "mask_segments_kernel's SASS")
     args = ap.parse_args(argv)
     import torch
 
@@ -3315,6 +3449,13 @@ def main(argv=None) -> int:
                     sweep_ms=json.dumps({k: round(v, 5) for k, v in res.items()},
                                         separators=(",", ":")),
                     best=best, best_ms=f"{res[best]:.5f}", equal=True)
+        if args.probe_sweep:
+            for layout, res in sweep_probe_single(data).items():
+                best = min(res, key=lambda k: res[k][0])
+                say("15 layouts", kernel=f"probe_{layout}",
+                    sweep="queries a thread, threads a block: [ms, registers]",
+                    sweep_ms=json.dumps(res, separators=(",", ":")), best=repr(best),
+                    best_ms=f"{res[best][0]:.4f}", equal=True, card=repr(smi_line))
         if args.probe_sweep or args.gather_sweep or args.glue_sweep:
             print(smi_line)
             return 0
@@ -3401,7 +3542,9 @@ def main(argv=None) -> int:
     # phase 16: the device merge, launches over its path's one run
     rec.update(device_merge["rec"])
     launches.update(device_merge["launches"])
-    extra = ("shape", "wide", "rows_needed", "rows_loaded", "h1_hit_share", "main_path_flushes",
+    extra = ("shape", "wide", "rows_needed", "rows_loaded", "sectors_requested", "sectors_needed",
+             "gather_floor_ms", "registers", "packed_parent_ms", "pass2_parent_ms",
+             "h1_hit_share", "main_path_flushes",
              "fusion_rich_launches", "hits", "stride1_ms", "stride1_bound_ms", "edge_ms",
              "pair", "library_with_build_ms", "padded_bound_ms", "global_ms", "parent_ms",
              "again_ms", "device_ms", "rows4096", "peak", "sass", "kv2_ms", "kv2_rows_needed",

@@ -45,8 +45,27 @@
 //    row carries the marker payload OVF_PAYLOAD in its last slot. h2 is
 //    loaded only for a query whose h1 row is marked and matched no slot
 //    with a nonzero payload sum (the absent-key sentinel matches the
-//    marker's payload 1, so it loads no h2 row and decodes to EMPTY), so a
-//    lookup is about one row: one 32-byte sector for kvs, two for kv16.
+//    marker's payload 1, so it loads no h2 row and decodes to EMPTY).
+//    A lane pair looks its two lanes' queries up together, a 16-byte piece
+//    of a row a lane, so one warp load instruction asks for 16 whole
+//    32-byte sectors, each once, and a thread holds 4 int32 a query: kvs,
+//    a row [4 keys | 4 payloads] is one sector, keys to the even lane and
+//    payloads to the odd one, which sums the matched payloads and reads
+//    the marker; kv16, the 8 keys are one sector, 0-3 to the even lane and
+//    4-7 to the odd one, and the payload sector is read only where a key
+//    matched (by the lane whose half matched) or where the key half leaves
+//    a flag possible (the odd lane, for the marker in slot 7). A miss in an
+//    unflagged row is then one sector, not two. The flag is possible only
+//    where slots 0-6 hold keys other than the sentinel and slot 7 holds
+//    the sentinel, because of the packer's invariant: a flagged row keeps
+//    S-1 real keys inline and the sentinel with OVF_PAYLOAD in its last
+//    slot (ops/hashtable.py::_place_single_hash keeps slots-1 keys inline
+//    in a flagged bucket, and its rescue and walk only swap keys of filled
+//    slots; ops/index.py::_pack_single writes the marker). On a table
+//    without it the results still equal the plain version's, as such a
+//    row's h2 row cannot hold the key, but fewer h2 rows may be counted.
+//    Where several slots match (only the sentinel can), every matched
+//    slot's payload is read and summed, as the plain version does.
 //    The tile staging and the k-mer build are probe_kernel's (probe_tiles).
 // Invalid queries make no table load at all.
 #include "common.cuh"
@@ -54,7 +73,7 @@
 namespace gf {
 
 enum { POL_NC = 0, POL_CG = 1, POL_NA = 2 };
-// table kinds of gf_probe's `split` argument
+// table kinds: gf_probe's `split` argument (kv, split), gf_probe_single's
 enum { LAYOUT_KV = 0, LAYOUT_SPLIT = 1, LAYOUT_SINGLE = 2 };
 constexpr int32_t OVF_PAYLOAD = 1;  // ops/hashtable.py: a marked row's last payload
 
@@ -184,41 +203,150 @@ __device__ __forceinline__ void lookup_q(const uint32_t (&k)[Q], const bool (&va
   }
 }
 
-// The single-probe lookup of a thread's Q queries: every h1 load first,
-// then the h2 loads of the queries whose h1 row is marked and matched no
-// slot with a nonzero payload sum.
+// ---- single-probe rows (probe_single_kernel) ----
+
+constexpr unsigned ALL = 0xffffffffu;
+
+// bit s: slot s of the 4 in v holds key k
+__device__ __forceinline__ unsigned match4(const int4 v, int32_t k) {
+  return (unsigned)(v.x == k) | (unsigned)(v.y == k) << 1 | (unsigned)(v.z == k) << 2 |
+         (unsigned)(v.w == k) << 3;
+}
+
+// the uint32 sum of the payloads of v that the bits of m select
+__device__ __forceinline__ uint32_t sum4(const int4 v, unsigned m) {
+  return (m & 1 ? (uint32_t)v.x : 0u) + (m & 2 ? (uint32_t)v.y : 0u) +
+         (m & 4 ? (uint32_t)v.z : 0u) + (m & 8 ? (uint32_t)v.w : 0u);
+}
+
+// The single-probe lookup of a lane pair's 2Q queries (query 2i + o is
+// query i of the pair's lane o), a 16-byte piece of each row a lane: every
+// h1 piece first, then (kv16) the payload pieces that are needed, then the
+// rows of the queries that need h2. `rows` and `sectors` (the even lane
+// counts them): the table rows and 32-byte sectors the pair loaded.
 template <int S, int Q, int POL>
-__device__ __forceinline__ void lookup_single_q(const uint32_t (&k)[Q], const bool (&valid)[Q],
-                                                const int32_t* __restrict__ tbl, int shift,
-                                                int cbits, int pos_bias, int2 (&res)[Q],
-                                                unsigned& rows) {
-  constexpr int RW = 2 * S;
-  int32_t row[Q][RW];
-  uint32_t pay[Q];
-  bool need2[Q];
-  int slot;
-#pragma unroll
-  for (int i = 0; i < Q; ++i)
-    if (valid[i]) load_row<RW, POL>(tbl + (size_t)hash1(k[i], shift) * RW, row[i]);
+__device__ __forceinline__ void lookup_single(const uint32_t (&k)[Q], const bool (&valid)[Q],
+                                              const int32_t* __restrict__ tbl, int shift,
+                                              int cbits, int pos_bias, int32_t sentinel,
+                                              int2 (&res)[Q], unsigned& rows,
+                                              unsigned& sectors) {
+  static_assert(S == 4 || S == 8, "kvs or kv16 rows");
+  constexpr int J = 2 * Q, RW = 2 * S;
+  const int h = threadIdx.x & 1;           // the piece of a row this lane reads
+  const int odd = (threadIdx.x & 31) | 1;  // the pair's odd lane
+  uint32_t kj[J];
+  unsigned vm = 0;
 #pragma unroll
   for (int i = 0; i < Q; ++i) {
-    pay[i] = 0;
-    if (valid[i]) match_row<false, S, RW>(row[i], (int32_t)k[i], pay[i], slot);
-    need2[i] = valid[i] && row[i][RW - 1] == OVF_PAYLOAD && pay[i] == 0;
-    rows += (unsigned)valid[i] + (unsigned)need2[i];
+    const uint32_t other = __shfl_xor_sync(ALL, k[i], 1);
+    kj[2 * i] = h ? other : k[i];
+    kj[2 * i + 1] = h ? k[i] : other;
+    vm |= (unsigned)valid[i] << i;
   }
+  const unsigned vo = __shfl_xor_sync(ALL, vm, 1);
+  unsigned v = 0;  // bit j: query j is valid
 #pragma unroll
   for (int i = 0; i < Q; ++i)
-    if (need2[i]) load_row<RW, POL>(tbl + (size_t)hash2(k[i], shift) * RW, row[i]);
+    v |= ((h ? vo : vm) >> i & 1u) << (2 * i) | ((h ? vm : vo) >> i & 1u) << (2 * i + 1);
+  int4 pc[J];
+  uint32_t pay[J];
+  unsigned need = 0;  // bit j: query j loads its h2 row
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    pc[j] = make_int4(0, 0, 0, 0);
+    if (v >> j & 1) pc[j] = ld_row4<POL>(tbl + (size_t)hash1(kj[j], shift) * RW + 4 * h);
+  }
+  if constexpr (S == 4) {
+    // the keys' lane hands its match to the payloads' lane, which sums the
+    // matched payloads and reads the marker
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const unsigned m = __shfl_xor_sync(ALL, match4(pc[j], (int32_t)kj[j]), 1);
+      pay[j] = sum4(pc[j], m);
+      if ((v >> j & 1) && pc[j].w == OVF_PAYLOAD && pay[j] == 0) need |= 1u << j;
+    }
+    need = __shfl_sync(ALL, need, odd);
+    if (!h) {
+      rows += __popc(v) + __popc(need);
+      sectors += __popc(v) + __popc(need);
+    }
+    if (__any_sync(ALL, need != 0)) {
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (need >> j & 1) pc[j] = ld_row4<POL>(tbl + (size_t)hash2(kj[j], shift) * RW + 4 * h);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const bool n2 = need >> j & 1;
+        const unsigned m = __shfl_xor_sync(ALL, n2 ? match4(pc[j], (int32_t)kj[j]) : 0u, 1);
+        if (n2) pay[j] |= sum4(pc[j], m);
+      }
+    }
+  } else {
+    // both lanes learn the row's match (8 bits) and whether its keys leave
+    // a flag possible (slots 0-6 real, slot 7 the sentinel)
+    unsigned m[J], flaggable = 0, paid = 0;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int4 c = pc[j];
+      const bool real3 = c.x != sentinel && c.y != sentinel && c.z != sentinel;
+      const bool part = real3 && (h ? c.w == sentinel : c.w != sentinel);
+      unsigned x = match4(c, (int32_t)kj[j]) << (4 * h) | (unsigned)part << (8 + h);
+      x |= __shfl_xor_sync(ALL, x, 1);
+      if (!(v >> j & 1)) x = 0;
+      m[j] = x & 0xFFu;
+      flaggable |= (unsigned)((x >> 8) == 3u) << j;
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      pc[j] = make_int4(0, 0, 0, 0);
+      if ((m[j] >> (4 * h) & 15u) || (h && (flaggable >> j & 1)))
+        pc[j] = ld_row4<POL>(tbl + (size_t)hash1(kj[j], shift) * RW + S + 4 * h);
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const uint32_t part = sum4(pc[j], m[j] >> (4 * h) & 15u);
+      pay[j] = part + __shfl_xor_sync(ALL, part, 1);
+      const bool marked = __shfl_sync(ALL, pc[j].w == OVF_PAYLOAD, odd);
+      if ((flaggable >> j & 1) && marked && pay[j] == 0) need |= 1u << j;
+    }
+    if (!h) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) paid |= (unsigned)(m[j] != 0) << j;
+      rows += __popc(v) + __popc(need);
+      sectors += __popc(v) + __popc(paid | flaggable);
+    }
+    if (__any_sync(ALL, need != 0)) {
+      unsigned paid2 = 0;
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (need >> j & 1) pc[j] = ld_row4<POL>(tbl + (size_t)hash2(kj[j], shift) * RW + 4 * h);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        unsigned x = (need >> j & 1) ? match4(pc[j], (int32_t)kj[j]) << (4 * h) : 0u;
+        m[j] = x | __shfl_xor_sync(ALL, x, 1);
+        paid2 |= (unsigned)(m[j] != 0) << j;
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        pc[j] = make_int4(0, 0, 0, 0);
+        if (m[j] >> (4 * h) & 15u)
+          pc[j] = ld_row4<POL>(tbl + (size_t)hash2(kj[j], shift) * RW + S + 4 * h);
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const uint32_t part = sum4(pc[j], m[j] >> (4 * h) & 15u);
+        pay[j] |= part + __shfl_xor_sync(ALL, part, 1);
+      }
+      if (!h) sectors += __popc(need) + __popc(paid2);
+    }
+  }
+  // the odd lane holds every query's sum (kvs: only it): each lane decodes
+  // its own queries
 #pragma unroll
   for (int i = 0; i < Q; ++i) {
+    const uint32_t theirs = __shfl_xor_sync(ALL, pay[2 * i], 1);
     int32_t oc = EMPTY, op = 0;
-    if (need2[i]) {
-      uint32_t p2 = 0;
-      match_row<false, S, RW>(row[i], (int32_t)k[i], p2, slot);
-      pay[i] |= p2;
-    }
-    if (valid[i]) decode(pay[i], cbits, pos_bias, oc, op);
+    if (valid[i]) decode(h ? pay[2 * i + 1] : theirs, cbits, pos_bias, oc, op);
     res[i] = make_int2(oc, op);
   }
 }
@@ -251,19 +379,21 @@ __device__ __forceinline__ uint2 pack_chunk(const uint8_t* __restrict__ codes,
 // The tiles of a probe launch, a LAYOUT table. Query q of a tile: (row q /
 // NQ, k-mer (q % NQ) * stride) of the (B, W) code rows, or kmers[q] with
 // validity kvalid[q] when codes is NULL. When row_loads is not NULL, the
-// table rows the launch loads are added to it. The pointers are the
-// kernels' own __restrict__ parameters, inlined.
+// table rows the launch loads are added to it; on single-probe rows also
+// the 32-byte sectors it requests to sector_loads, when that is not NULL.
+// The pointers are the kernels' own __restrict__ parameters, inlined.
 template <int LAYOUT, int S, int Q, int POL, int T>
 __device__ __forceinline__ void probe_tiles(const uint8_t* codes, const int32_t* lengths,
                                             const int32_t* kmers, const uint8_t* kvalid,
                                             unsigned n, int W, int stride, int NQ, int nch_max,
                                             const int32_t* tbl, const int32_t* vals, int shift,
                                             int cbits, int pos_bias, int2* out,
-                                            unsigned long long* row_loads) {
+                                            unsigned long long* row_loads, int32_t sentinel,
+                                            unsigned long long* sector_loads) {
   extern __shared__ uint2 chunks[];  // [nch_max] staged code words, then row lengths
   int* slen = reinterpret_cast<int*>(chunks + nch_max);
   const unsigned tid = threadIdx.x, per_tile = T * Q;
-  unsigned rows = 0;
+  unsigned rows = 0, sectors = 0;
   const unsigned ntiles = (n + per_tile - 1) / per_tile;
   const long long nbytes = codes != nullptr ? (long long)(n / NQ) * W : 0;
   for (unsigned tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
@@ -309,7 +439,8 @@ __device__ __forceinline__ void probe_tiles(const uint8_t* codes, const int32_t*
     }
     int2 res[Q];
     if constexpr (LAYOUT == LAYOUT_SINGLE)
-      lookup_single_q<S, Q, POL>(k, valid, tbl, shift, cbits, pos_bias, res, rows);
+      lookup_single<S, Q, POL>(k, valid, tbl, shift, cbits, pos_bias, sentinel, res, rows,
+                               sectors);
     else
       lookup_q<LAYOUT == LAYOUT_SPLIT, S, Q, POL>(k, valid, tbl, vals, shift, cbits, pos_bias,
                                                   res, rows);
@@ -322,6 +453,12 @@ __device__ __forceinline__ void probe_tiles(const uint8_t* codes, const int32_t*
   if (row_loads != nullptr) {  // every thread of the block gets here
     rows = __reduce_add_sync(0xFFFFFFFFu, rows);
     if ((tid & 31) == 0 && rows) atomicAdd(row_loads, (unsigned long long)rows);
+  }
+  if constexpr (LAYOUT == LAYOUT_SINGLE) {
+    if (sector_loads != nullptr) {
+      sectors = __reduce_add_sync(0xFFFFFFFFu, sectors);
+      if ((tid & 31) == 0 && sectors) atomicAdd(sector_loads, (unsigned long long)sectors);
+    }
   }
 }
 
@@ -336,21 +473,23 @@ probe_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ leng
              unsigned long long* __restrict__ row_loads) {
   probe_tiles<SPLIT ? LAYOUT_SPLIT : LAYOUT_KV, S, Q, POL, T>(
       codes, lengths, kmers, kvalid, n, W, stride, NQ, nch_max, tbl, vals, shift, cbits,
-      pos_bias, out, row_loads);
+      pos_bias, out, row_loads, 0, nullptr);
 }
 
-// single-probe rows: kvs (S = 4) or kv16 (S = 8); vals is not read
+// single-probe rows: kvs (S = 4) or kv16 (S = 8); sentinel: the table's
+// absent key (its empty slots' key and a flagged row's last)
 template <int S, int Q, int POL, int T>
-__global__ void __launch_bounds__(512)
+__global__ void __launch_bounds__(T)
 probe_single_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ lengths,
                     const int32_t* __restrict__ kmers, const uint8_t* __restrict__ kvalid,
                     unsigned n, int W, int stride, int NQ, int nch_max,
-                    const int32_t* __restrict__ tbl, const int32_t* __restrict__ vals,
-                    int shift, int cbits, int pos_bias, int2* __restrict__ out,
-                    unsigned long long* __restrict__ row_loads) {
+                    const int32_t* __restrict__ tbl, int shift, int cbits, int pos_bias,
+                    int32_t sentinel, int2* __restrict__ out,
+                    unsigned long long* __restrict__ row_loads,
+                    unsigned long long* __restrict__ sector_loads) {
   probe_tiles<LAYOUT_SINGLE, S, Q, POL, T>(codes, lengths, kmers, kvalid, n, W, stride, NQ,
-                                          nch_max, tbl, vals, shift, cbits, pos_bias, out,
-                                          row_loads);
+                                          nch_max, tbl, nullptr, shift, cbits, pos_bias, out,
+                                          row_loads, sentinel, sector_loads);
 }
 
 }  // namespace gf
@@ -364,9 +503,22 @@ probe_single_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict
 #ifndef PROBE_THREADS
 #define PROBE_THREADS 256  // threads a block
 #endif
+// the single-probe variant's queries a thread (a lane pair looks up twice
+// as many together) and threads a block: one query a thread in blocks of
+// 128, as `chip_smoke.py --probe-sweep` chose on the card (more warps,
+// and fewer of them held at a tile's barriers by the slowest row load)
+#ifndef PROBE_SINGLE_Q
+#define PROBE_SINGLE_Q 1
+#endif
+#ifndef PROBE_SINGLE_THREADS
+#define PROBE_SINGLE_THREADS 128
+#endif
 static_assert(PROBE_Q >= 1 && PROBE_THREADS % 32 == 0 && PROBE_THREADS <= 512 &&
                   PROBE_POLICY >= 0 && PROBE_POLICY <= 2,
               "a probe launch shape the kernel does not take");
+static_assert(PROBE_SINGLE_Q >= 1 && PROBE_SINGLE_Q <= 16 && PROBE_SINGLE_THREADS % 32 == 0 &&
+                  PROBE_SINGLE_THREADS <= 1024,
+              "a single-probe launch shape the kernel does not take");
 
 namespace {
 
@@ -384,13 +536,13 @@ struct ProbeArgs {
   unsigned long long* row_loads;
 };
 
-constexpr int Q = PROBE_Q, T = PROBE_THREADS;
-
-// kern: an instance of probe_kernel or probe_single_kernel (one parameter list)
-template <class Kernel>
-int probe_launch(Kernel kern, const ProbeArgs& a, cudaStream_t st) {
-  int nch_max = 0;
-  size_t smem = 0;
+// The launch shape of kern at Q queries a thread and T threads a block:
+// the tile's staged chunks, its shared memory and a grid of the blocks the
+// card holds at once (persistent blocks walk the tiles) -> a CUDA error.
+template <int Q, int T, class Kernel>
+int probe_shape(Kernel kern, const ProbeArgs& a, int& nch_max, size_t& smem, unsigned& grid) {
+  nch_max = 0;
+  smem = 0;
   if (a.codes != nullptr) {
     // rows a tile of T*Q queries can touch, and the 16-byte chunks of its
     // span: T*Q - 1 steps of `stride` bases, plus the W - NQ*stride bases
@@ -415,10 +567,38 @@ int probe_launch(Kernel kern, const ProbeArgs& a, cudaStream_t st) {
     return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const unsigned tiles = (a.n + (unsigned)(T * Q) - 1) / (unsigned)(T * Q);
-  const unsigned grid = tiles < (unsigned)(per_sm * sms) ? tiles : (unsigned)(per_sm * sms);
+  grid = tiles < (unsigned)(per_sm * sms) ? tiles : (unsigned)(per_sm * sms);
+  return 0;
+}
+
+constexpr int Q = PROBE_Q, T = PROBE_THREADS;
+
+// kern: an instance of probe_kernel
+template <class Kernel>
+int probe_launch(Kernel kern, const ProbeArgs& a, cudaStream_t st) {
+  int nch_max;
+  size_t smem;
+  unsigned grid;
+  if (const int e = probe_shape<Q, T>(kern, a, nch_max, smem, grid)) return e;
   kern<<<grid, T, smem, st>>>(a.codes, a.lengths, a.kmers, a.kvalid, a.n, a.W, a.stride, a.NQ,
                               nch_max, a.tbl, a.vals, a.shift, a.cbits, a.pos_bias, a.out,
                               a.row_loads);
+  return (int)cudaGetLastError();
+}
+
+constexpr int SQ = PROBE_SINGLE_Q, ST = PROBE_SINGLE_THREADS;
+
+// kern: an instance of probe_single_kernel
+template <class Kernel>
+int probe_single_launch(Kernel kern, const ProbeArgs& a, int32_t sentinel,
+                        unsigned long long* sector_loads, cudaStream_t st) {
+  int nch_max;
+  size_t smem;
+  unsigned grid;
+  if (const int e = probe_shape<SQ, ST>(kern, a, nch_max, smem, grid)) return e;
+  kern<<<grid, ST, smem, st>>>(a.codes, a.lengths, a.kmers, a.kvalid, a.n, a.W, a.stride, a.NQ,
+                               nch_max, a.tbl, a.shift, a.cbits, a.pos_bias, sentinel, a.out,
+                               a.row_loads, sector_loads);
   return (int)cudaGetLastError();
 }
 
@@ -428,10 +608,10 @@ int probe_launch(Kernel kern, const ProbeArgs& a, cudaStream_t st) {
 // (n / NQ, W) code rows, 16-byte aligned. codes == NULL: query q is
 // kmers[q] with validity valid[q]. split: the table kind, LAYOUT_KV (0):
 // tbl = kv rows (nb, 2S), S 1, 2 or 4; LAYOUT_SPLIT (1): tbl = keys (nb, 8),
-// vals = (nb*8, 2); LAYOUT_SINGLE (2): tbl = single-probe rows (nb, 2S), S 4
-// (kvs) or 8 (kv16). out: (n, 2) int32 [contig, pos]. row_loads: NULL, or
-// a device counter the launch adds its table row loads to (h1 rows, h2
-// rows; not the split layout's vals).
+// vals = (nb*8, 2); single-probe rows take gf_probe_single. out: (n, 2)
+// int32 [contig, pos]. row_loads: NULL, or a device counter the launch
+// adds its table row loads to (h1 rows, h2 rows; not the split layout's
+// vals).
 extern "C" int gf_probe(const void* codes, const void* lengths, const void* kmers,
                         const void* valid, long long n, int W, int stride, int NQ,
                         const void* tbl, const void* vals, int split, int S, int shift,
@@ -451,9 +631,30 @@ extern "C" int gf_probe(const void* codes, const void* lengths, const void* kmer
     return probe_launch(gf::probe_kernel<false, 2, Q, P, T>, a, st);
   if (split == gf::LAYOUT_KV && S == 4)
     return probe_launch(gf::probe_kernel<false, 4, Q, P, T>, a, st);
-  if (split == gf::LAYOUT_SINGLE && S == 4)
-    return probe_launch(gf::probe_single_kernel<4, Q, P, T>, a, st);
-  if (split == gf::LAYOUT_SINGLE && S == 8)
-    return probe_launch(gf::probe_single_kernel<8, Q, P, T>, a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The single-probe rows: tbl (nb, 2S) int32, S 4 (kvs) or 8 (kv16), on a
+// 32-byte boundary (a kvs row, and each half of a kv16 row, one sector);
+// sentinel: the table's absent key. codes, kmers, out as gf_probe's.
+// row_loads, sector_loads: NULL, or device counters the launch adds its
+// table rows (h1 rows, h2 rows) and the 32-byte sectors it requests to.
+extern "C" int gf_probe_single(const void* codes, const void* lengths, const void* kmers,
+                               const void* valid, long long n, int W, int stride, int NQ,
+                               const void* tbl, int S, int shift, int cbits, int pos_bias,
+                               int sentinel, void* out, void* row_loads, void* sector_loads,
+                               void* stream) {
+  if (n < 0 || n >= (1LL << 31) || NQ < 1) return (int)cudaErrorInvalidValue;
+  const ProbeArgs a{(const uint8_t*)codes, (const int32_t*)lengths, (const int32_t*)kmers,
+                    (const uint8_t*)valid, (unsigned)n, W, stride, NQ,
+                    (const int32_t*)tbl, nullptr, shift, cbits, pos_bias,
+                    (int2*)out, (unsigned long long*)row_loads};
+  cudaStream_t st = (cudaStream_t)stream;
+  auto* sectors = (unsigned long long*)sector_loads;
+  constexpr int P = PROBE_POLICY;
+  if (S == 4)
+    return probe_single_launch(gf::probe_single_kernel<4, SQ, P, ST>, a, sentinel, sectors, st);
+  if (S == 8)
+    return probe_single_launch(gf::probe_single_kernel<8, SQ, P, ST>, a, sentinel, sectors, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -136,6 +136,8 @@ _LLP, _IP = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
 _ARGTYPES = {
     "gf_probe": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                  _P, _P, _P],
+    "gf_probe_single": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P],
     "gf_vote": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "gf_vote_wide": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I,
                      _P, _P],
@@ -215,24 +217,38 @@ def probe_name(index) -> str:
 
 
 def launch_probe(codes, lengths, kmers, valid, n, W, stride, NQ, index, out,
-                 row_loads=None, lib=None) -> None:
+                 row_loads=None, lib=None, sector_loads=None) -> None:
     """`row_loads`: None, or a one-element int64 tensor on the card that the
-    launch adds its table row loads to. `lib`: a variant build of probe.cu
-    (a launch-shape sweep), else the port's library. gf_probe's `split`
-    argument names the table kind: 0 kv rows, 1 split, 2 single-probe
-    rows."""
+    launch adds its table row loads to; `sector_loads` (single-probe tables
+    only) likewise for the 32-byte sectors it requests. `lib`: a variant
+    build of probe.cu (a launch-shape sweep), else the port's library. Kv
+    and split tables take gf_probe (its `split` argument: 0 kv rows, 1
+    split), single-probe tables gf_probe_single."""
     if index.table.data_ptr() % 16 or (codes is not None and codes.data_ptr() % 16):
         raise ValueError("probe: table rows and code rows must be 16-byte aligned")
+    if index.single_probe and index.table.data_ptr() % 32:
+        raise ValueError("probe: single-probe rows must start on a 32-byte sector")
+    if sector_loads is not None and not index.single_probe:
+        raise ValueError("probe: only the single-probe variant counts its sectors")
     if n >= 1 << 31:
         raise ValueError(f"probe: {n} queries exceed the kernel's 2^31")
     dev = out.device
+    lib = lib or library()
     with torch.cuda.device(dev):
-        err = (lib or library()).gf_probe(
-            _ptr(codes), _ptr(lengths), _ptr(kmers), _ptr(valid), n, W, stride, NQ,
-            index.table.data_ptr(), index.vals.data_ptr() if index.split else None,
-            2 if index.single_probe else int(index.split), index.S, index.shift,
-            index.cbits, index.pos_bias, out.data_ptr(), _ptr(row_loads), _stream(out),
-        )
+        if index.single_probe:
+            err = lib.gf_probe_single(
+                _ptr(codes), _ptr(lengths), _ptr(kmers), _ptr(valid), n, W, stride, NQ,
+                index.table.data_ptr(), index.S, index.shift, index.cbits, index.pos_bias,
+                index.empty_key, out.data_ptr(), _ptr(row_loads), _ptr(sector_loads),
+                _stream(out),
+            )
+        else:
+            err = lib.gf_probe(
+                _ptr(codes), _ptr(lengths), _ptr(kmers), _ptr(valid), n, W, stride, NQ,
+                index.table.data_ptr(), index.vals.data_ptr() if index.split else None,
+                int(index.split), index.S, index.shift, index.cbits, index.pos_bias,
+                out.data_ptr(), _ptr(row_loads), _stream(out),
+            )
     _done(probe_name(index), err)
 
 

@@ -270,6 +270,7 @@ class TorchIndex:
     S: int  # slots per table row
     D: int
     single_probe: bool  # kvs (S=4) or kv16 (S=8) rows: h2 only past a marked h1 row
+    empty_key: int = 0  # single-probe rows: the absent-key sentinel as an int32 bit pattern
 
 
 def index_to_torch(packed, device) -> TorchIndex:
@@ -293,6 +294,7 @@ def index_to_torch(packed, device) -> TorchIndex:
             max_dupe=packed.max_dupe, cbits=packed.cbits,
             pos_bias=packed.pos_bias, S=S, D=D,
             single_probe=layout_name(packed) in ("kvs", "kv16"),
+            empty_key=int(np.uint32(int(packed.empty_key) & 0xFFFFFFFF).view(np.int32)),
         )
     nd = packed.dupes.shape[0]
     D = 1 if packed.max_dupe <= 1 or nd == 0 else packed.dupes.shape[1]

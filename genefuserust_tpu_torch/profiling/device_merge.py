@@ -171,10 +171,14 @@ def _host_seconds(fn, reps: int) -> list:
 
 
 def run(block, index, reps: int = 20, plain_reps: int = 3, host_reps: int = 3,
-        oracle_pairs: int = ORACLE_PAIRS) -> dict:
+        oracle_pairs: int = ORACLE_PAIRS, others=None) -> dict:
     """The device merge of the pairs `block` (b1, q1, l1, b2, q2, l2 numpy,
     R2 as sequenced) against `index` (a TorchIndex on the device to run
-    on) -> checks, launches of the path, the kernels' records, times."""
+    on) -> checks, launches of the path, the kernels' records, times.
+    `others`: None, or {label: a context manager factory inside which the
+    port's wrappers launch another build's kernels}; merge_rows is then
+    also held bit-equal and timed under each on its three uses
+    (`{label}_ms`)."""
     dev = index.table.device
     b1, q1, l1, b2, q2, l2 = block
     B, L = b1.shape
@@ -311,17 +315,25 @@ def run(block, index, reps: int = 20, plain_reps: int = 3, host_reps: int = 3,
         _, ms, pms = timed(f"merge_rows ({use})", lambda: tf.merge_rows(mc, bf, ix, ln, Wu, L),
                            lambda: tf.merge_rows_plain(mc, bf, ix, ln, Wu, L), dev, reps,
                            plain_reps)
+        other_ms = {}
+        for label, swapped in (others or {}).items():
+            with swapped():
+                _equal(f"merge_rows ({use}, {label})", tf.merge_rows(mc, bf, ix, ln, Wu, L),
+                       tf.merge_rows_plain(mc, bf, ix, ln, Wu, L))
+                ms_o = _ms(lambda: tf.merge_rows(mc, bf, ix, ln, Wu, L), reps, dev)
+            if ms_o is not None:
+                other_ms[f"{label}_ms"] = ms_o
         lanes_u = np.zeros(ix.shape[0], np.int64) if ln is None else ln.cpu().numpy()
         from_m = int((lanes_u == 0).sum()) if mc is not None else 0
         read = from_m * Wu + (ix.shape[0] - from_m) * ((L + 1) // 2)
         rec[use] = dict(rows=int(ix.shape[0]), width=Wu, ms=ms, plain_ms=pms, **bound(
             read + 8 * ix.shape[0] + ix.shape[0] * Wu, OPS["row_code"] * ix.shape[0] * Wu))
+        rec[use].update(other_ms)
     k["merge_rows"] = dict(rec["merged"], shape=f"{idx.shape[0]} merged rows of pass 1 at width "
                                                 f"{tf.merged_width(2 * L)}")
     for use in ("packed", "pass2"):
-        k["merge_rows"].update({f"{use}_rows": rec[use]["rows"], f"{use}_ms": rec[use]["ms"],
-                                f"{use}_plain_ms": rec[use]["plain_ms"],
-                                f"{use}_bound_ms": rec[use]["bound_ms"]})
+        k["merge_rows"].update({f"{use}_{x}": v for x, v in rec[use].items()
+                                if x in ("rows", "ms", "plain_ms", "bound_ms") or x in other_ms})
     for v in k.values():
         v["err"] = 0
     res["kernels"] = k

@@ -704,27 +704,53 @@ def test_fused_pass2_combined_matches_jax(panel_case):
     assert exp[:, 0].sum() >= 10 and {0, 1, 2} <= set(w7[:, 1].tolist())
 
 
+def _rows_edge_cases(rng, Lr, nrows=40, PB=301):
+    """Random upload rows of reads of Lr bases and merged code rows of 2Lr
+    (codes 0-15), and gathers of them: widths off multiples of 16 (and
+    below 16), PB off a block's 8 rows, entries outside [0, nrows), lanes
+    0/1/2 mixed -> (m_codes, buf, cases)."""
+    w2, w4 = (Lr + 1) // 2, (Lr + 3) // 4
+    buf = rng.integers(0, 256, (nrows, 2 * w2 + 2 * w4), dtype=np.uint8)
+    m_codes = rng.integers(0, 16, (nrows, 2 * Lr), dtype=np.uint8)
+    idx = rng.integers(-3, nrows + 3, PB).astype(np.int32)
+    lane = rng.integers(0, 3, PB).astype(np.int32)
+    cases = [(m_codes, None, idx, None, W) for W in (2 * Lr - MIN_OVERLAP, 37, 16, 5, 1)]
+    cases += [(None, buf, idx, lane, W) for W in (Lr, Lr + 7, 9)]
+    cases += [(m_codes, buf, idx, lane, W) for W in (2 * Lr - MIN_OVERLAP, 2 * Lr, 21)]
+    cases.append((m_codes, buf, idx[:1], lane[:1], 3))
+    return m_codes, buf, cases
+
+
 def test_merge_rows_mirror_matches_plain(panel_case):
     """merge_rows_kernel's mirror against merge_rows_plain in its three
-    uses, with rows outside the batch (255)."""
+    uses, with rows outside the batch (255); then on random rows at read
+    lengths whose upload rows are 2-byte aligned (L 75, 150) or not
+    aligned at all, widths off multiples of 16 and below 16, PB off a
+    block's 8 rows, entries outside the rows and lanes 0/1/2 mixed."""
     c = panel_case
     idx, _, work, w7 = _work_lists(c)
     m_codes, buf = c["m_codes"], c["buf"]
     odd = np.array([-1, B, 3], np.int32)
-    cases = [(m_codes, None, np.concatenate([idx, odd]), None, 2 * L - MIN_OVERLAP),
-             (m_codes, None, idx, None, 80),
-             (None, buf, work[:, 0], work[:, 1], L),
-             (m_codes, buf, w7[:, 0], w7[:, 1], 2 * L - MIN_OVERLAP),
-             (None, buf, odd, np.array([1, 2, 0], np.int32), L + 7)]
-    for mc, bf, ix, ln, W in cases:
-        exp = _kernel_merge_rows(mc, bf, ix, ln, W, L)
+    cases = [(m_codes, None, np.concatenate([idx, odd]), None, 2 * L - MIN_OVERLAP, L),
+             (m_codes, None, idx, None, 80, L),
+             (None, buf, work[:, 0], work[:, 1], L, L),
+             (m_codes, buf, w7[:, 0], w7[:, 1], 2 * L - MIN_OVERLAP, L),
+             (None, buf, odd, np.array([1, 2, 0], np.int32), L + 7, L)]
+    rng = np.random.default_rng(3)
+    for Lr in (75, 150, 33):
+        mc, bf, more = _rows_edge_cases(rng, Lr)
+        cases += [x + (Lr,) for x in more]
+    for mc, bf, ix, ln, W, Lr in cases:
+        exp = _kernel_merge_rows(mc, bf, ix, ln, W, Lr)
         got = tf.merge_rows_plain(None if mc is None else _t(mc), None if bf is None else _t(bf),
-                                  _t(ix), None if ln is None else _t(ln), W, L)
-        assert (got.numpy() == exp).all()
+                                  _t(ix), None if ln is None else _t(ln), W, Lr)
+        assert (got.numpy() == exp).all(), (W, Lr)
         # the wrapper takes strided columns of a work list
         wrapped = tf.merge_rows(None if mc is None else _t(mc), None if bf is None else _t(bf),
-                                _t(ix), None if ln is None else _t(ln), W, L)
+                                _t(ix), None if ln is None else _t(ln), W, Lr)
         assert torch.equal(wrapped, got)
+    # every kind of entry and lane is exercised
+    assert any(ln is not None and {0, 1, 2} <= set(ln.tolist()) for *_, ln, _, _ in cases)
 
 
 def test_fused_scan_codes_matches_jax(panel_case):
@@ -819,6 +845,15 @@ def test_merge_codes_kernel_matches_plain(panel_data, lanes, cuda_device):
         assert torch.equal(got[3], exp[3])
 
 
+def _at_offset(x, off, device):
+    """x as a contiguous tensor on `device` that starts `off` bytes into
+    its allocation."""
+    flat = torch.empty(x.size + off, dtype=torch.uint8, device=device)
+    t = flat[off:].view(x.shape)
+    t.copy_(_t(x))
+    return t
+
+
 @pytest.mark.cuda
 def test_merge_rows_kernel_matches_plain(panel_data, cuda_device):
     c = _port_case(panel_data)
@@ -827,12 +862,22 @@ def test_merge_rows_kernel_matches_plain(panel_data, cuda_device):
     m_codes, buf = dev(c["m_codes"]), dev(c["buf"])
     w7d, workd = dev(w7), dev(work)
     odd = dev(np.array([-1, B, 3], np.int32))
-    for mc, bf, ix, ln, W in [(m_codes, None, dev(idx), None, 2 * L - MIN_OVERLAP),
-                              (None, buf, workd[:, 0], workd[:, 1], L),
-                              (m_codes, buf, w7d[:, 0], w7d[:, 1], 2 * L - MIN_OVERLAP),
-                              (m_codes, None, odd, None, 50)]:
-        got = tf.merge_rows(mc, bf, ix, ln, W, L)
-        assert torch.equal(got, tf.merge_rows_plain(mc, bf, ix, ln, W, L))
+    cases = [(m_codes, None, dev(idx), None, 2 * L - MIN_OVERLAP, L),
+             (None, buf, workd[:, 0], workd[:, 1], L, L),
+             (m_codes, buf, w7d[:, 0], w7d[:, 1], 2 * L - MIN_OVERLAP, L),
+             (m_codes, None, odd, None, 50, L)]
+    # the edge shapes of the mirror's test, the sources 0-3 bytes past an
+    # allocation's start
+    rng = np.random.default_rng(3)
+    for Lr in (75, 150, 33):
+        mc, bf, more = _rows_edge_cases(rng, Lr)
+        for k, (m, b, ix, ln, W) in enumerate(more):
+            cases.append((None if m is None else _at_offset(m, k % 4, cuda_device),
+                          None if b is None else _at_offset(b, (3 * k) % 4, cuda_device),
+                          dev(ix), dev(ln), W, Lr))
+    for mc, bf, ix, ln, W, Lr in cases:
+        got = tf.merge_rows(mc, bf, ix, ln, W, Lr)
+        assert torch.equal(got, tf.merge_rows_plain(mc, bf, ix, ln, W, Lr))
 
 
 @pytest.mark.cuda

@@ -213,7 +213,7 @@ def test_probe_mirror_matches_plain_on_rows_past_the_old_staging_limit(panel_rea
     panel = panel_reads[0]
     codes, lens = _very_long_batch(panel, [150, 240_000, 300_000], seed=17)
     index = index_to_torch(build_packed_index(panel_ix, "kv2"), CPU)
-    got, loaded = _kernel_probe(codes, lens, stride, index, PROBE_T, PROBE_Q)
+    got, loaded, _ = _kernel_probe(codes, lens, stride, index, PROBE_T, PROBE_Q)
     plain = tm.probe(torch.from_numpy(codes), torch.from_numpy(lens), stride, index)
     assert np.array_equal(got, plain.numpy())
     assert loaded == _rows_needed(index, codes, lens, stride)

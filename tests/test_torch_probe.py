@@ -5,9 +5,14 @@ package: `pallas_lookup` in interpret mode for the split layout,
 `lookup_np_kv16`) for the single-probe tables. A Python mirror of the
 kernel's steps (code rows staged as 2-bit words and a 255 mask, k-mers
 read across two words, h1 first, h2 only where the kv rule or, on
-single-probe rows, the overflow flag asks for it, Q queries a thread) is
-held to the same references on edge rows and edge queries. All outputs are
-integers, so equal means bit-equal."""
+single-probe rows, the overflow flag asks for it, Q queries a thread; on
+single-probe rows a lane pair a query, a 16-byte piece of a row a lane,
+kv16's key half first and its payload half only where the keys ask for
+it) is held to the same references on edge rows and edge queries, with
+the table rows and 32-byte sectors it loads. The packer invariant that
+kv16's key-half rule relies on (a flagged row keeps S-1 real keys inline
+and the sentinel with the marker in its last slot) is held on both
+packers. All outputs are integers, so equal means bit-equal."""
 
 import dataclasses
 
@@ -35,7 +40,7 @@ from genefuserust_tpu_torch.config import KMER
 from genefuserust_tpu_torch.core.sequence import encode_bases
 from genefuserust_tpu_torch.ops import cuda as tcuda
 from genefuserust_tpu_torch.ops import map_read as tm
-from genefuserust_tpu_torch.ops.index import index_to_torch
+from genefuserust_tpu_torch.ops.index import _pack_kv16, _pack_kvs, index_to_torch
 
 # layout -> pack_index_kv arguments (kv8 is the packer's default)
 KV_LAYOUTS = {
@@ -185,22 +190,27 @@ def test_single_probe_lookup_matches_jax(indexer, layout):
     """lookup, probe_kmers and the kernel mirror on the single-probe tables
     against JAX kvs_lookup / kv16_lookup and the numpy oracles, on keys in
     unflagged and flagged h1 rows, keys spilled to h2, misses on flagged
-    and unflagged rows, the sentinel (in an unflagged row, then in a
+    and unflagged rows, keys and misses on unflagged rows with S-1 keys
+    and an empty last slot, the sentinel (in an unflagged row, then in a
     flagged one) and invalid queries; the mirror loads valid + JAX need2
-    rows."""
+    rows on the packed table, and on the copy whose sentinel row is
+    flagged without its S-1 keys fewer where the key half rules a flag
+    out (the h2 row cannot hold the key; the results are JAX's)."""
     table = _packed(indexer, layout)
     packed, q, names = _single_queries(indexer, table)
     oracle = lookup_np_kvs if layout == "kvs" else lookup_np_kv16
     sentinel = np.array([table.empty_key] * 3, np.uint64)
     ones = np.ones(3, bool)
     for p, qq, vv, nn in ((table, sentinel, ones, np.array(["sentinel"] * 3)),
+                          (table, q, names != "invalid", names),
                           (packed, q, names != "invalid", names)):
         index = index_to_torch(p, "cpu")
         assert index.single_probe and index.S == {"kvs": 4, "kv16": 8}[layout]
         assert tcuda.probe_name(index) == f"probe_{layout}"
-        got, rows = _mirror_lookup(index, qq, vv)
+        got, rows, sectors = _mirror_single(index, qq, vv)
         c, pos = _jax_lookup(p, layout, qq.astype(np.uint32), vv)
         _assert_like_jax(got, c, pos)
+        assert np.array_equal(_mirror_lookup(index, qq, vv)[0], got)
         args = (torch.from_numpy(qq.astype(np.int64)), torch.from_numpy(vv))
         assert np.array_equal(torch.stack(tm.lookup(index, *args), 1).numpy(), got)
         flat = tm.probe_kmers(torch.from_numpy(qq.astype(np.uint32).view(np.int32)),
@@ -210,20 +220,67 @@ def test_single_probe_lookup_matches_jax(indexer, layout):
         assert (got[vv, 0] == oc).all()
         assert (got[vv, 1][oc != EMPTY] == op[oc != EMPTY]).all()
         need2 = _need2_jax(p, qq, vv)
-        assert rows == vv.sum() + need2.sum()
+        if p is table or layout == "kvs":
+            assert rows == vv.sum() + need2.sum()
+    if layout == "kv16":
+        assert rows < vv.sum() + need2.sum()
     # the table's own sentinel row holds no flag at this load: one row each
     sb = int(_h1(np.uint64(table.empty_key), table.shift))
     assert table.kv_tbl[sb, -1] != OVF_PAYLOAD
     by = {n: got[names == n] for n in np.unique(names)}
-    for n in ("h1_unflagged", "h1_flagged", "spilled"):
+    for n in ("h1_unflagged", "h1_flagged", "spilled", "h1_flaggable"):
         assert (by[n][:, 0] != EMPTY).all(), n
-    for n in ("miss_flagged", "miss_unflagged", "sentinel", "invalid"):
+    for n in ("miss_flagged", "miss_unflagged", "miss_flaggable", "miss_sentinel_row",
+              "sentinel", "invalid"):
         assert (by[n][:, 0] == EMPTY).all(), n
     assert (by["invalid"][:, 1] == 0).all()
     # spilled keys and misses on flagged rows load their h2 row; the
     # sentinel in a flagged row matches the marker's payload 1 and does not
     assert need2[names == "spilled"].all() and need2[names == "miss_flagged"].all()
-    assert not need2[np.isin(names, ["sentinel", "h1_flagged", "h1_unflagged"])].any()
+    assert not need2[np.isin(names, ["sentinel", "h1_flagged", "h1_unflagged",
+                                     "h1_flaggable", "miss_flaggable"])].any()
+    # JAX reads the flagged sentinel row's h2 for its misses, the kernel not
+    assert need2[names == "miss_sentinel_row"].all()
+    # sectors a query: kvs one a row; kv16 the key half, the payload half
+    # for a hit or where a flag is possible, the same again past a flag
+    per = {n: set(sectors[names == n].tolist()) for n in np.unique(names)}
+    if layout == "kvs":
+        want = dict(h1_unflagged={1}, h1_flagged={1}, h1_flaggable={1}, spilled={2},
+                    miss_unflagged={1}, miss_flaggable={1}, miss_flagged={2},
+                    miss_sentinel_row={2}, invalid={0})
+    else:
+        want = dict(h1_unflagged={2}, h1_flagged={2}, h1_flaggable={2}, spilled={4},
+                    miss_unflagged={1}, miss_flaggable={2}, miss_flagged={3},
+                    miss_sentinel_row={1}, invalid={0})
+    for n, v in want.items():
+        assert per[n] == v, (n, per[n])
+
+
+@pytest.mark.parametrize("packer", ["port", "jax"])
+@pytest.mark.parametrize("layout", SINGLE_LAYOUTS)
+def test_flagged_rows_keep_their_keys_inline(indexer, layout, packer):
+    """The packer invariant the kv16 key-half rule relies on, on both
+    packers: every flagged row holds keys other than the sentinel in
+    slots 0..S-2 and the sentinel with OVF_PAYLOAD in slot S-1, and no
+    unflagged row ends in the marker; also at four times the load (more
+    flagged rows)."""
+    fns = {"port": {"kvs": _pack_kvs, "kv16": _pack_kv16},
+           "jax": {"kvs": pack_index_kvs, "kv16": pack_index_kv16}}[packer][layout]
+    base = {"kvs": 1.0, "kv16": 4.0}[layout]
+    for load in (base, 4 * base):
+        p = fns(indexer, target_load=load)
+        assert p is not None
+        S = p.kv_tbl.shape[1] // 2
+        keys, pay = p.kv_tbl[:, :S], p.kv_tbl[:, S:]
+        sent = np.int64(p.empty_key).astype(np.uint32).view(np.int32)
+        flagged = pay[:, S - 1] == OVF_PAYLOAD
+        assert flagged.sum() >= 10, load
+        assert (keys[flagged, : S - 1] != sent).all()
+        assert (keys[flagged, S - 1] == sent).all()
+        # a marker payload sits only in the last slot of a flagged row (a
+        # real payload is never OVF_PAYLOAD: its tag is at least 1)
+        assert not (pay[~flagged, S - 1] == OVF_PAYLOAD).any()
+        assert not (pay[:, : S - 1] == OVF_PAYLOAD).any()
 
 
 def test_probe_wrapper_checks_inputs(indexer):
@@ -252,21 +309,18 @@ def _mirror_lookup(index, k, valid):
     """The kernel's lookup of uint64 k-mers: the h1 row of every valid
     query, the h2 row only of the valid queries whose key is not in h1
     (kv, split) or, on single-probe rows, whose h1 row carries the
-    overflow flag and matched no nonzero payload, then (split) the vals of
-    the slot -> ((n, 2) int32, rows loaded)."""
+    overflow flag and matched no nonzero payload (`_mirror_single`), then
+    (split) the vals of the slot -> ((n, 2) int32, rows loaded, 32-byte
+    sectors requested: None on kv and split rows)."""
+    if index.single_probe:
+        out, rows, sectors = _mirror_single(index, k, valid)
+        return out, rows, int(sectors.sum())
     tbl, S = index.table.numpy(), index.S
     ki = k.astype(np.uint32).view(np.int32)[:, None]
     b1, b2 = (h(k, index.shift).astype(np.int64) for h in (_h1, _h2))
     r1 = tbl[np.where(valid, b1, 0)]
     m1 = r1[:, :S] == ki
-
-    def pay(m, r):  # the matching slots' payload sum (kv rows)
-        return np.where(m, r[:, S:].astype(np.int64) & M32, 0).sum(1) & M32
-
-    if index.single_probe:
-        need2 = valid & (r1[:, 2 * S - 1] == OVF_PAYLOAD) & (pay(m1, r1) == 0)
-    else:
-        need2 = valid & ~m1.any(1)
+    need2 = valid & ~m1.any(1)
     r2 = tbl[np.where(need2, b2, 0)]
     m2 = r2[:, :S] == ki
     rows = int(valid.sum() + need2.sum())
@@ -278,13 +332,70 @@ def _mirror_lookup(index, k, valid):
         v = index.vals.numpy()[np.where(found, flat, 0)]
         c = np.where(found, v[:, 0], EMPTY)
         pos = np.where(found, v[:, 1], 0)
-        return np.stack([c, pos], 1).astype(np.int32), rows
-    # need2 leaves h1's sum 0 (kv: no slot matched; single-probe: the rule)
-    p = torch.from_numpy(np.where(need2, pay(m2, r2), pay(m1, r1)))
-    c, pos = tm._decode(p, index.cbits, index.pos_bias)
+        return np.stack([c, pos], 1).astype(np.int32), rows, None
+    # need2 leaves h1's sum 0 (no slot matched)
+    p = np.where(need2, _pay(m2, r2[:, S:]), _pay(m1, r1[:, S:]))
+    return _decoded(index, p, valid), rows, None
+
+
+def _pay(m, payloads):
+    """The uint32 sum (int64) of the payloads that the bool mask m selects
+    (matching trailing shapes, summed over them)."""
+    sel = np.where(m, payloads.astype(np.int64) & M32, 0)
+    return sel.reshape(len(sel), -1).sum(1) & M32
+
+
+def _decoded(index, p, valid):
+    c, pos = tm._decode(torch.from_numpy(p), index.cbits, index.pos_bias)
     v = torch.from_numpy(valid)
-    out = torch.stack([torch.where(v, c, EMPTY), torch.where(v, pos, 0)], 1)
-    return out.numpy(), rows
+    return torch.stack([torch.where(v, c, EMPTY), torch.where(v, pos, 0)], 1).numpy()
+
+
+def _pieces(tbl, rows, off):
+    """(n, 2, 4): lane h's 16-byte piece of each row, its int32 at off + 4h."""
+    return np.stack([tbl[rows, off + 4 * h : off + 4 * h + 4] for h in (0, 1)], 1)
+
+
+def _mirror_single(index, k, valid):
+    """lookup_single of csrc/probe.cu: a lane pair a query, lane h reading
+    16-byte piece h of a row. kvs: the keys (h 0) and the payloads (h 1),
+    the row's one sector, the key lane's match handed to the payload lane,
+    which sums the matched payloads and reads the marker (slot 3). kv16:
+    the key half first (slots 4h..4h+3, one sector); a lane reads its
+    payload piece only where its half of the keys matched, and the odd
+    lane the marker's piece (slot 7) where the key half leaves a flag
+    possible (slots 0-6 real keys, slot 7 the sentinel); the payload half
+    is one sector. h2 past a marked row whose matched payloads sum to 0,
+    read the same way -> ((n, 2) int32, rows loaded, (n,) sectors a
+    query)."""
+    tbl, S = index.table.numpy(), index.S
+    ki = k.astype(np.uint32).view(np.int32)[:, None, None]
+    b1, b2 = (h(k, index.shift).astype(np.int64) for h in (_h1, _h2))
+    kp = _pieces(tbl, np.where(valid, b1, 0), 0)
+    if S == 4:
+        m = (kp[:, 0] == ki[:, 0]) & valid[:, None]
+        pay = _pay(m, kp[:, 1])
+        need2 = valid & (kp[:, 1, 3] == OVF_PAYLOAD) & (pay == 0)
+        kp2 = _pieces(tbl, np.where(need2, b2, 0), 0)
+        pay |= _pay((kp2[:, 0] == ki[:, 0]) & need2[:, None], kp2[:, 1])
+        sectors = valid.astype(np.int64) + need2
+    else:
+        sent = np.int32(index.empty_key)
+        m = (kp == ki) & valid[:, None, None]
+        real = kp != sent
+        flaggable = valid & real[:, 0].all(1) & real[:, 1, :3].all(1) & ~real[:, 1, 3]
+        want = m.any(2)
+        want[:, 1] |= flaggable
+        pp = np.where(want[:, :, None], _pieces(tbl, np.where(valid, b1, 0), S), 0)
+        pay = _pay(m, pp)
+        need2 = flaggable & (pp[:, 1, 3] == OVF_PAYLOAD) & (pay == 0)
+        kp2 = _pieces(tbl, np.where(need2, b2, 0), 0)
+        m2 = (kp2 == ki) & need2[:, None, None]
+        want2 = m2.any(2)
+        pp2 = np.where(want2[:, :, None], _pieces(tbl, np.where(need2, b2, 0), S), 0)
+        pay |= _pay(m2, pp2)
+        sectors = valid.astype(np.int64) + want.any(1) + need2 + want2.any(1)
+    return _decoded(index, pay, valid), int(valid.sum() + need2.sum()), sectors
 
 
 def _stage(flat, c0, nch):
@@ -315,11 +426,12 @@ def _kernel_probe(codes, lengths, stride, index, T=64, Q=4):
     query's k-mer to its last one's, staged once as 2-bit words (within the
     launch's shared memory for any W), each k-mer the 32 bits at its offset
     across two words and valid when its window holds no 255 bit and
-    j <= len - 16 -> ((B, NQ, 2) int32, rows loaded)."""
+    j <= len - 16 -> ((B, NQ, 2) int32, rows loaded, sectors requested on
+    single-probe rows, else None)."""
     B, W = codes.shape
     NQ = (W - KMER + stride) // stride
     n, flat = B * NQ, codes.reshape(-1)
-    out, loaded = np.zeros((n, 2), np.int32), 0
+    out, loaded, sectors = np.zeros((n, 2), np.int32), 0, 0
     nch_max = staged_chunks_max(W, NQ, stride, T, Q)
     for q0 in range(0, n, T * Q):
         ql = min(n, q0 + T * Q) - 1
@@ -338,9 +450,10 @@ def _kernel_probe(codes, lengths, stride, index, T=64, Q=4):
         k = (((pk[c] << np.uint64(32)) | pk[c + 1]) >> (np.uint64(32) - 2 * o)) & M32
         bad = ((((mk[c] << np.uint64(16)) | mk[c + 1]) << o) & M32) >> np.uint64(16)
         valid = (bad == 0) & (j <= lengths[row].astype(np.int64) - KMER)
-        out[q], rows = _mirror_lookup(index, k, valid)
+        out[q], rows, sec = _mirror_lookup(index, k, valid)
         loaded += rows
-    return out.reshape(B, NQ, 2), loaded
+        sectors += sec or 0
+    return out.reshape(B, NQ, 2), loaded, sectors if index.single_probe else None
 
 
 def _rows_needed(index, codes, lengths, stride):
@@ -461,34 +574,51 @@ def _jax_lookup(packed, layout, k, valid):
 def _single_queries(ix, packed, seed=12):
     """Flat uint64 queries on a single-probe table: keys in unflagged and
     in flagged h1 rows, keys spilled to h2, misses whose h1 row is flagged
-    or not, the sentinel, and copies of spilled and flagged keys to be
-    marked invalid -> (packed, queries, names). The returned table is a
-    copy whose sentinel's h1 row carries the flag (its last slot the
-    sentinel with OVF_PAYLOAD), so the sentinel meets a flagged row."""
+    or not, keys and misses on unflagged rows with S-1 keys and an empty
+    last slot (flaggable: the key half alone cannot rule a flag out), the
+    sentinel, misses on the sentinel's h1 row, and copies of spilled and
+    flagged keys to be marked invalid -> (packed, queries, names). The
+    returned table is a copy whose sentinel's h1 row carries the flag (its
+    last slot the sentinel with OVF_PAYLOAD) without S-1 keys inline, so
+    the sentinel meets a flagged row and the packer invariant does not
+    hold there."""
     rng = np.random.default_rng(seed)
     S = packed.kv_tbl.shape[1] // 2
     tbl = packed.kv_tbl.copy()
     sentinel = np.uint64(packed.empty_key)
+    s32 = np.int64(sentinel).astype(np.uint32).view(np.int32)
     sb = int(_h1(sentinel, packed.shift))
-    tbl[sb, S - 1] = np.int64(sentinel).astype(np.uint32).view(np.int32)
+    assert (tbl[sb, : S - 1] == s32).any()  # not filled: no S-1 keys inline
+    flaggable = (packed.kv_tbl[:, : S - 1] != s32).all(1) & (packed.kv_tbl[:, S - 1] == s32)
+    tbl[sb, S - 1] = s32
     tbl[sb, 2 * S - 1] = OVF_PAYLOAD
     packed = dataclasses.replace(packed, kv_tbl=tbl)
     keys = np.asarray(ix.uniq_keys).astype(np.uint64)
     ki = keys.astype(np.uint32).view(np.int32)[:, None]
     b1, b2 = _h1(keys, packed.shift), _h2(keys, packed.shift)
     flagged = tbl[:, 2 * S - 1] == OVF_PAYLOAD
+    flaggable &= ~flagged
     in_h1 = (tbl[b1][:, :S] == ki).any(1)
     in_h2 = (tbl[b2][:, :S] == ki).any(1) & ~in_h1
     rnd = np.setdiff1d(rng.integers(0, 2**32, 400_000, dtype=np.uint64), keys)
     rnd = rnd[rnd != sentinel]
-    rf = flagged[_h1(rnd, packed.shift)]
+    rb = _h1(rnd, packed.shift)
+    # misses whose h1 row is the sentinel's: h1 inverted, the low bits random
+    inv = pow(0x9E3779B1, -1, 1 << 32)
+    low = rng.integers(0, 1 << packed.shift, 50, dtype=np.uint64)
+    at_sb = np.setdiff1d(((np.uint64(sb) << np.uint64(packed.shift)) | low) * np.uint64(inv)
+                         & np.uint64(M32), keys)
+    assert (_h1(at_sb, packed.shift) == sb).all()
     groups = {
         "sentinel": np.array([sentinel] * 3, np.uint64),
         "h1_unflagged": rng.choice(keys[in_h1 & ~flagged[b1]], 400),
         "h1_flagged": keys[in_h1 & flagged[b1]][:200],
+        "h1_flaggable": keys[in_h1 & flaggable[b1]][:200],
         "spilled": keys[in_h2],
-        "miss_flagged": rnd[rf][:200],
-        "miss_unflagged": rnd[~rf][:400],
+        "miss_flagged": rnd[flagged[rb] & (rb != sb)][:200],
+        "miss_unflagged": rnd[~flagged[rb] & ~flaggable[rb]][:400],
+        "miss_flaggable": rnd[flaggable[rb]][:200],
+        "miss_sentinel_row": at_sb[at_sb != sentinel],
     }
     groups["invalid"] = np.concatenate([groups["spilled"][:20], groups["h1_flagged"][:20],
                                         groups["miss_flagged"][:20]])
@@ -517,12 +647,18 @@ def test_kernel_mirror_matches_jax_on_edge_rows(indexer, layout, stride):
     index = index_to_torch(packed, "cpu")
     codes, lengths = _edge_codes(indexer)
     for T, Q in ((32, 1), (64, 4), (32, 8)):
-        got, loaded = _kernel_probe(codes, lengths, stride, index, T, Q)
+        got, loaded, sectors = _kernel_probe(codes, lengths, stride, index, T, Q)
         plain = tm.probe_plain(torch.from_numpy(codes), torch.from_numpy(lengths), stride, index)
         assert np.array_equal(got, plain.numpy())
         # h2 rows only for the valid k-mers whose key is not in h1 (on
         # single-probe rows: past a flagged h1 row)
         assert loaded == _rows_needed(index, codes, lengths, stride)
+        # kvs: a sector a row; kv16: a key half a row, and payload halves
+        # for the hits and where a flag is possible, fewer than two a row
+        if layout == "kvs":
+            assert sectors == loaded
+        elif layout == "kv16":
+            assert loaded < sectors < 2 * loaded
     km, ok = compute_kmers(jnp.asarray(codes), jnp.asarray(lengths))
     c, p = _jax_lookup(packed, layout, km[:, ::stride], ok[:, ::stride])
     _assert_like_jax(got, c, p)
@@ -536,7 +672,8 @@ def test_kernel_mirror_matches_jax_on_edge_queries(indexer, layout):
     index = index_to_torch(packed, "cpu")
     valid = np.random.default_rng(10).random(q.shape) < 0.9
     valid[names != "random"] = True
-    got, loaded = _mirror_lookup(index, q, valid)
+    got, loaded, sectors = _mirror_lookup(index, q, valid)
+    assert sectors is None and loaded >= valid.sum()
     c, p = _jax_lookup(packed, layout, q.astype(np.uint32), valid)
     _assert_like_jax(got, c, p)
     flat = tm.probe_kmers(torch.from_numpy(q.astype(np.uint32).view(np.int32)),
@@ -574,11 +711,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _layout_queries(ix, packed, layout):
-    """The edge queries of a layout -> (packed, queries, validity)."""
+def _layout_queries(ix, packed, layout, artificial=True):
+    """The edge queries of a layout -> (packed, queries, validity). On
+    single-probe tables: `_single_queries`' table, whose sentinel row is
+    flagged without its keys, or with `artificial=False` the packed table
+    itself (where the packer invariant holds)."""
     if layout in SINGLE_LAYOUTS:
-        packed, q, names = _single_queries(ix, packed)
-        return packed, q, names != "invalid"
+        epacked, q, names = _single_queries(ix, packed)
+        return (epacked if artificial else packed), q, names != "invalid"
     packed, q, _ = _edge_queries(ix, packed)
     return packed, q, np.ones(len(q), bool)
 
@@ -596,12 +736,17 @@ def test_probe_kernel_matches_plain(indexer, layout, cuda_device):
     cpu, dev = index_to_torch(packed, "cpu"), index_to_torch(packed, cuda_device)
     ecodes, elens = _edge_codes(indexer)
     epacked, eq, ev = _layout_queries(indexer, packed, layout)
-    for c, ln in ((codes, lengths), (ecodes, elens)):
-        for stride in (1, 2):
-            exp = tm.probe(torch.from_numpy(c), torch.from_numpy(ln), stride, cpu)
-            got = tm.probe(torch.from_numpy(c).to(cuda_device),
-                           torch.from_numpy(ln).to(cuda_device), stride, dev)
-            assert torch.equal(got.cpu(), exp)
+    # single-probe rows: also the copy whose sentinel row is flagged
+    # without its keys (results only: the kernel may load fewer rows there)
+    tables = [(cpu, dev)] + [(index_to_torch(epacked, "cpu"), index_to_torch(epacked, cuda_device))
+                             for _ in range(layout in SINGLE_LAYOUTS)]
+    for tc, td in tables:
+        for c, ln in ((codes, lengths), (ecodes, elens)):
+            for stride in (1, 2):
+                exp = tm.probe(torch.from_numpy(c), torch.from_numpy(ln), stride, tc)
+                got = tm.probe(torch.from_numpy(c).to(cuda_device),
+                               torch.from_numpy(ln).to(cuda_device), stride, td)
+                assert torch.equal(got.cpu(), exp)
     for p, qq, vv in ((packed, q, valid), (epacked, eq, ev)):
         args = (torch.from_numpy(_as_i32(qq)), torch.from_numpy(vv))
         exp = tm.probe_kmers(*args, index_to_torch(p, "cpu"))
@@ -628,9 +773,10 @@ def test_probe_kernel_loads_the_rows_needed(indexer, layout, cuda_device):
         assert torch.equal(out.cpu(), exp)
         assert int(loads) == _rows_needed(cpu, codes, lengths, stride)
     # the edge queries, flat: valid + JAX need2 rows on single-probe tables
-    epacked, eq, ev = _layout_queries(indexer, packed, layout)
+    # (the packed table, where the packer invariant holds)
+    epacked, eq, ev = _layout_queries(indexer, packed, layout, artificial=False)
     edev = index_to_torch(epacked, cuda_device)
-    exp, rows = _mirror_lookup(index_to_torch(epacked, "cpu"), eq, ev)
+    exp, rows, _ = _mirror_lookup(index_to_torch(epacked, "cpu"), eq, ev)
     if layout in SINGLE_LAYOUTS:
         assert rows == ev.sum() + _need2_jax(epacked, eq, ev).sum()
     out = torch.empty((len(eq), 2), dtype=torch.int32, device=cuda_device)
@@ -647,3 +793,36 @@ def test_probe_kernel_loads_the_rows_needed(indexer, layout, cuda_device):
     wide = torch.zeros((4, 45), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError, match="16-byte"):
         tm.probe(wide[1:], torch.zeros(3, dtype=torch.int32, device=cuda_device), 1, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", SINGLE_LAYOUTS)
+def test_probe_kernel_counts_the_sectors_requested(indexer, layout, cuda_device):
+    """The single-probe variant's own count of the 32-byte sectors it
+    requests equals the mirror's, on the edge rows at strides 1 and 2 and
+    on the edge queries, on the packed table and on the copy whose
+    sentinel row is flagged without its keys."""
+    packed = _packed(indexer, layout)
+    epacked, eq, ev = _layout_queries(indexer, packed, layout)
+    codes, lengths = _edge_codes(indexer)
+    c_d, l_d = torch.from_numpy(codes).to(cuda_device), torch.from_numpy(lengths).to(cuda_device)
+    for p in (packed, epacked):
+        cpu, dev = index_to_torch(p, "cpu"), index_to_torch(p, cuda_device)
+        for stride in (1, 2):
+            exp, rows, sectors = _kernel_probe(codes, lengths, stride, cpu)
+            B, W = codes.shape
+            NQ = exp.shape[1]
+            out = torch.empty((B, NQ, 2), dtype=torch.int32, device=cuda_device)
+            loads = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+            tcuda.launch_probe(c_d, l_d, None, None, B * NQ, W, stride, NQ, dev, out,
+                               row_loads=loads[:1], sector_loads=loads[1:])
+            assert np.array_equal(out.cpu().numpy(), exp)
+            assert loads.tolist() == [rows, sectors]
+        exp, rows, sectors = _mirror_lookup(cpu, eq, ev)
+        out = torch.empty((len(eq), 2), dtype=torch.int32, device=cuda_device)
+        loads = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+        tcuda.launch_probe(None, None, torch.from_numpy(_as_i32(eq)).to(cuda_device),
+                           torch.from_numpy(ev).to(cuda_device), len(eq), 0, 1, 1, dev, out,
+                           row_loads=loads[:1], sector_loads=loads[1:])
+        assert np.array_equal(out.cpu().numpy(), exp)
+        assert loads.tolist() == [rows, sectors]
