@@ -145,6 +145,19 @@ Phases, one result line each; any failure raises and exits non-zero:
              the three pass-1 lanes, the host's pack_pe_batch and
              merge_pack_pe_batch seconds on the same pairs, and the upload
              of the 4-bit buffer beside that of TorchEngine's 2-bit lanes.
+ 17 large tables
+             tables past the 2^31- and 2^32-byte marks, made on the card
+             from the kv2 table's entries (profiling/large_tables.py): kv2
+             at 2^30 rows (8 GiB) and split at 2^28 buckets (24 GiB with
+             its vals), its dupe rows from row 2^25 on (past 2^31 bytes).
+             Phase 3's batch probed on each at strides 2 and 1, bit-equal
+             to plain, with rows read past both marks (and vals rows past
+             2^32 bytes), the probe's own count of rows loaded equal to the
+             rows needed; on the split table the vote, mask+segments and
+             the shard flags bit-equal to plain, with dupe rows named past
+             2^31 bytes; the probe on the 8 GiB table timed beside phase
+             3's table. Table bytes and the highest offsets read are
+             printed.
 
 The last three lines are the kernels' JSON record, nvidia-smi's
 name/power line and the contract line {"ok": true, "device": {...}}.
@@ -164,7 +177,8 @@ code rows on phase 3's first batch and its tile edges (each held
 bit-equal to plain), prints
 it and stops: no contract line. --glue-baseline DIR (another checkout's
 csrc/, e.g. the parent's from `git archive`) adds that build's lane unpack
-and compaction, timed on phase 3's batch, to phase 3's glue lines.
+and compaction with its code rows (copied by its place launch), timed on
+phase 3's batch, to phase 3's glue lines.
 --wide-baseline DIR (another checkout's csrc/, e.g. the parent's) builds
 its probe.cu, vote.cu, mask_segments.cu and merge.cu and times their
 kernels on the same inputs, each held bit-equal to plain: phase 15's
@@ -1109,26 +1123,23 @@ def glue_kernels(sh, index, data) -> dict:
 
 def glue_baseline(csrc: str, real: dict) -> dict:
     """Another checkout's glue (the parent's), built from its csrc/, on the
-    inputs of phase 3's batch: its unpack and exceptions (the same entry
-    points as this checkout's), and its compaction with the survivor rows
-    as it ran them, count, place (`gf_compact_place` without the lanes)
-    and a survivor_rows launch; each bit-equal to plain, timed ->
-    {"lane_unpack": ms, "compact": ms} for the batch."""
-    import ctypes
-
+    inputs of phase 3's batch: its unpack and exceptions, and its
+    compaction with the survivors' code rows, count then place (the place
+    launch copying the rows of the first cuda.MAX_LANES lanes:
+    `gf_compact_place`'s 17 arguments), through this checkout's wrappers
+    with that build; each bit-equal to plain, timed -> {"lane_unpack": ms,
+    "compact": ms} for the batch."""
     import torch
 
     from genefuserust_tpu_torch.ops import cuda
     from genefuserust_tpu_torch.ops import fused as tf
 
     lib = cuda.load(cuda.build(("fused_glue.cu",), csrc=os.path.abspath(csrc)))
-    P_, I_ = ctypes.c_void_p, ctypes.c_int
-    lib.gf_compact_place.argtypes = [P_, P_, I_, I_, P_, P_, P_, P_, P_, P_]
     bufs, widths, exc, codes = real["bufs"], real["widths"], real["exc"], real["codes"]
     v, L, cap, N, c = real["v"], real["L"], real["cap"], real["N"], real["c"]
+    check(len(codes) <= cuda.MAX_LANES, f"the baseline places at most {cuda.MAX_LANES} lanes")
     Wmax = max(widths)
     dev = v.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
     offs = [sum(b.shape[0] for b in bufs[:i]) for i in range(len(bufs))]
 
     def unpack():
@@ -1144,19 +1155,10 @@ def glue_baseline(csrc: str, real: dict) -> dict:
         gp = torch.empty((c, 4), dtype=torch.int32, device=dev)
         okw = torch.empty((N + 31) // 32, dtype=torch.int32, device=dev)
         tcnt = torch.empty(-(-N // cuda.compact_tile(lib)), dtype=torch.int32, device=dev)
-        cuda.launch_compact_count(v, okw, tcnt, lib=lib)
-        check(lib.gf_compact_place(v.data_ptr(), L.data_ptr(), N, cap, okw.data_ptr(),
-                                   tcnt.data_ptr(), out.data_ptr(), slens.data_ptr(),
-                                   gp.data_ptr(), stream) == 0,
-              "the baseline's place launch failed")
         rows = torch.empty((c, Wmax), dtype=torch.uint8, device=dev)
-        n = len(codes)
-        ll, ii = ctypes.c_longlong * n, ctypes.c_int * n
-        check(lib.gf_survivor_rows(n, ll(*(t.data_ptr() for t in codes)), ll(*offs),
-                                   ii(*(t.shape[0] for t in codes)),
-                                   ii(*(t.shape[1] for t in codes)), out.data_ptr(), 13, c,
-                                   Wmax, rows.data_ptr(), stream) == 0,
-              "the baseline's survivor_rows launch failed")
+        cuda.launch_compact_count(v, okw, tcnt, lib=lib)
+        cuda.launch_compact_place(v, L, cap, okw, tcnt, out, slens, gp, codes, offs, rows,
+                                  lib=lib)
         return out, slens, gp, okw, rows
 
     exp = tuple(real[k] for k in ("out", "slens", "gp", "okw", "rows"))
@@ -2030,8 +2032,8 @@ class WideBaseline:
     same inputs as this checkout's kernels. Their entry points take this
     checkout's arguments (gf_merge_top2 too: the shards' rows by value),
     so the parent's kernels run through this checkout's wrappers with the
-    parent's library in the port's place (`active`); the parent's
-    single-probe variant, which gf_probe launched, through `probe_single`."""
+    parent's library in the port's place (`active`), the single-probe
+    variant too (its gf_probe_single)."""
 
     def __init__(self, csrc: str):
         from genefuserust_tpu_torch.ops import cuda
@@ -2058,24 +2060,6 @@ class WideBaseline:
 
         with self.active():
             return tm.probe(codes, lengths, stride, index)
-
-    def probe_single(self, codes, lengths, stride, index):
-        """The parent's probe_single_kernel, launched by its gf_probe with
-        the table kind 2 (single-probe rows) -> (B, NQ, 2) int32."""
-        import torch
-
-        from genefuserust_tpu_torch.config import KMER
-
-        B, W = codes.shape
-        NQ = (W - KMER + stride) // stride
-        out = torch.empty((B, NQ, 2), dtype=torch.int32, device=codes.device)
-        with torch.cuda.device(codes.device):
-            err = self.lib.gf_probe(
-                codes.data_ptr(), lengths.data_ptr(), None, None, B * NQ, W, stride, NQ,
-                index.table.data_ptr(), None, 2, index.S, index.shift, index.cbits,
-                index.pos_bias, out.data_ptr(), None, torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"the parent's single-probe launch failed: CUDA error {err}")
-        return out
 
     def merge_step(self, votes):
         """The parent's merge launch on the shards' (B, 6) rows -> (ok, gp)."""
@@ -3284,7 +3268,7 @@ def phase_layouts(data: dict, smi_line: str) -> dict:
             parent = again = None
             if base:
                 parent = parent_ms(f"{name} stride {stride}",
-                                   lambda: base.probe_single(codes, lens, stride, index), got, 20)
+                                   lambda: base.probe(codes, lens, stride, index), got, 20)
                 again = event_ms(lambda: tm.probe(codes, lens, stride, index), 20)
             r["err"] = max(r["err"], err)
             if stride == 2:
@@ -3371,6 +3355,115 @@ def phase_device_merge(data: dict, smi_line: str) -> dict:
     del index
     torch.cuda.empty_cache()
     return dict(rec=r["kernels"], launches={k: ran[k] for k in MERGE_KERNELS})
+
+
+# phase 17: tables past the 2^31- and 2^32-byte marks, made on the card
+# from the panel's kv2 table (profiling/large_tables.py): kv2 at 2^30 rows
+# of 8 bytes (8 GiB), split at 2^28 buckets (8 GiB of keys, 16 GiB of
+# vals) with its dupe rows from row 2^25 on (64-byte rows: 2 GiB in)
+LARGE_KV_LOG2 = 30
+LARGE_SPLIT_LOG2 = 28
+LARGE_DUPE_BASE = 1 << 25
+
+
+def phase_large_tables(data: dict, smi_line: str) -> dict:
+    """Phase 17: phase 3's batch probed (strides 2 and 1) on a kv2 and a
+    split table past 4 GiB, each launch bit-equal to plain, the rows it
+    reads past the 2^31- and 2^32-byte marks counted from the plain
+    version's buckets and its own count of rows loaded equal to them; on
+    the split table the vote, mask+segments and the shard flags, whose
+    dupe rows lie past 2^31 bytes, bit-equal to plain; the probe timed on
+    the 8 GiB kv2 table beside phase 3's 512 MiB one -> the phase's
+    record."""
+    import torch
+
+    from genefuserust_tpu_torch.config import PASS1_STEP
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.ops.index import index_to_torch
+    from genefuserust_tpu_torch.profiling import large_tables as lt
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
+
+    t_phase = time.perf_counter()
+    codes, lens = data["probe_codes"]
+    index = index_to_torch(data["packed_kv2"], codes.device)
+    out = {}
+
+    def probed(table, name, stride):
+        got, exp = tm.probe(codes, lens, stride, table), tm.probe_plain(codes, lens, stride, table)
+        check(torch.equal(got, exp), f"large tables: the probe on {name} differs from plain "
+                                     f"at stride {stride} (max_abs_err {max_abs_err(got, exp)})")
+        rows = lt.rows_probed(table, codes, lens, stride)
+        check(rows["past_2_31"] > 0 and rows["past_2_32"] > 0,
+              f"large tables: no row of {name} read past 2^32 bytes: {rows}")
+        loaded = probe_row_loads(codes, lens, table, got, stride=stride)
+        check(loaded == rows["rows"],
+              f"large tables: the probe loaded {loaded} rows of {name}, the lookup needs "
+              f"{rows['rows']}")
+        tb = sum(t.numel() * 4 for t in (table.table, table.vals, table.dupes))
+        say("17 large tables", table=name, stride=stride, table_bytes=tb,
+            shape=tuple(table.table.shape), equal=True, rows_loaded=loaded, **rows)
+        return got, rows, tb
+
+    t0 = time.perf_counter()
+    kv, left_out = lt.widen_kv(index, LARGE_KV_LOG2)
+    torch.cuda.synchronize()
+    say("17 large tables", table="kv2", build_s=f"{time.perf_counter() - t0:.2f}",
+        entries=int((index.table[:, 1] != 0).sum()), left_out=left_out)
+    for stride in (PASS1_STEP, 1):
+        _, rows, tb = probed(kv, "kv2", stride)
+        out[f"kv2_stride{stride}"] = dict(rows, table_bytes=tb)
+    ms = event_ms(lambda: tm.probe(codes, lens, PASS1_STEP, kv), 20)
+    base_ms = event_ms(lambda: tm.probe(codes, lens, PASS1_STEP, index), 20)
+    base_rows = lt.rows_probed(index, codes, lens, PASS1_STEP)["rows"]
+    kv_rows = out[f"kv2_stride{PASS1_STEP}"]["rows"]
+    out["kv2_probe"] = dict(ms=ms, rows=kv_rows, ps_per_row=ms * 1e9 / kv_rows,
+                            panel_table_ms=base_ms, panel_table_rows=base_rows,
+                            panel_table_ps_per_row=base_ms * 1e9 / base_rows)
+    say("17 large tables", kernel="probe", table="kv2", table_bytes=tb, stride=PASS1_STEP,
+        ms=f"{ms:.4f}", rows=kv_rows, ps_per_row=f"{ms * 1e9 / kv_rows:.2f}",
+        panel_table_bytes=index.table.numel() * 4, panel_table_ms=f"{base_ms:.4f}",
+        panel_table_rows=base_rows, panel_table_ps_per_row=f"{base_ms * 1e9 / base_rows:.2f}",
+        card=repr(smi_line))
+    del kv
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    sp, left_out = lt.widen_split(index, LARGE_SPLIT_LOG2, LARGE_DUPE_BASE)
+    torch.cuda.synchronize()
+    say("17 large tables", table="split", build_s=f"{time.perf_counter() - t0:.2f}",
+        left_out=left_out, dupe_rows=sp.dupes.shape[0], dupe_base=LARGE_DUPE_BASE)
+    pr2, rows, tb = probed(sp, "split", PASS1_STEP)
+    check(rows["vals_past_2_32"] > 0, f"large tables: no vals row read past 2^32 bytes: {rows}")
+    out["split_stride2"] = dict(rows, table_bytes=tb)
+    pr1, rows, _ = probed(sp, "split", 1)
+    out["split_stride1"] = dict(rows, table_bytes=tb)
+    # the dupe-row readers, their rows past 2^31 bytes
+    named = {s: lt.dupe_rows_named(sp, pr) for s, pr in ((PASS1_STEP, pr2), (1, pr1))}
+    for s, n in named.items():
+        check(n["dupe_past_2_31"] > 0,
+              f"large tables: no dupe row past 2^31 bytes at stride {s}: {n}")
+    v = tm.vote(pr2, sp, 40, 20)
+    check(torch.equal(v, tm.vote_plain(pr2, sp, 40, 20)),
+          "large tables: the vote on the split table differs from plain")
+    check(bool((v[:, 0] != 0).any()), "large tables: no row passed the vote's gate")
+    gp = v[:, 1:5].contiguous()
+    seg = tm.mask_segments(pr1, lens, gp, sp, 10)
+    check(torch.equal(seg, tm.mask_segments_plain(pr1, lens, gp, sp, 10)),
+          "large tables: mask_segments on the split table differs from plain")
+    words = tm.shard_flags([pr1], lens, gp, [sp])
+    check(torch.equal(words, tm.shard_flags_plain(pr1, gp, sp)),
+          "large tables: shard_flags on the split table differs from plain")
+    out["dupes"] = dict(dupes_bytes=sp.dupes.numel() * 4, **{f"stride{s}": n
+                                                             for s, n in named.items()})
+    say("17 large tables", table="split", readers="vote, mask_segments, shard_flags",
+        equal=True, survivors=int((v[:, 0] != 0).sum()),
+        two_segment_rows=int((seg[:, 0] & seg[:, 1]).sum()), dupes_bytes=sp.dupes.numel() * 4,
+        **{f"{k}_stride{s}": x for s, n in named.items() for k, x in n.items()})
+    del sp, pr1, pr2, words, index
+    torch.cuda.empty_cache()
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    say("17 large tables", phase_wall_s=f"{out['phase_wall_s']:.1f}")
+    return out
 
 
 def main(argv=None) -> int:
@@ -3472,6 +3565,7 @@ def main(argv=None) -> int:
         multi_device = phase_multi_device(data, smi_line)
         layouts = phase_layouts(data, smi_line)
         device_merge = phase_device_merge(data, smi_line)
+        phase_large_tables(data, smi_line)
     finally:
         log.close()
         shutil.rmtree(workdir, ignore_errors=True)

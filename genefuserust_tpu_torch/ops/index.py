@@ -32,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import time
 
 import numpy as np
 import torch
@@ -197,6 +198,8 @@ def _pack_split(indexer) -> PackedIndex:
         if table is not None:
             break
         nb *= 2
+    # the entries are in the table now; a genome-scale panel's take GBs
+    del keys, contigs, poss
     keys_tbl, sentinel = _sentinel_keys(table)
     return PackedIndex(table, dupes, nb, shift, max_dupe, keys_tbl=keys_tbl,
                        vals_tbl=table[:, :, 1:].reshape(-1, 2).copy(),
@@ -213,39 +216,45 @@ def layout_name(packed) -> str:
     return f"kv{packed.kv_tbl.shape[1]}"
 
 
-def _pick_layout(indexer, layout: str):
+def _layout_chain(layout: str):
+    """The packers `layout` tries, in order -> [(name, pack(indexer))]."""
+    chain = []
     if layout == "kv16":
-        p = _pack_kv16(indexer)
-        if p is not None:
-            return p
+        chain.append(("kv16", _pack_kv16))
     if layout == "kvs":
-        p = _pack_kvs(indexer)
-        if p is not None:
-            return p
+        chain.append(("kvs", _pack_kvs))
     if layout in ("auto", "kv2"):
-        p = _pack_kv(indexer, target_load=0.5, slots=1)
-        if p is not None:
-            return p
+        chain.append(("kv2", lambda ix: _pack_kv(ix, target_load=0.5, slots=1)))
     if layout in ("auto", "kv4", "kv2"):
-        p = _pack_kv(indexer, target_load=0.6, slots=2)
-        if p is not None:
-            return p
+        chain.append(("kv4", lambda ix: _pack_kv(ix, target_load=0.6, slots=2)))
     if layout in ("auto", "kv4", "kv2", "kv16", "kvs", "kv8"):
-        p = _pack_kv(indexer)
+        chain.append(("kv8", _pack_kv))
+    chain.append(("split", _pack_split))
+    return chain
+
+
+def _pick_layout(indexer, layout: str, attempts=None):
+    for name, pack in _layout_chain(layout):
+        t0 = time.perf_counter()
+        p = pack(indexer)
+        if attempts is not None:
+            attempts.append(dict(layout=name, seconds=time.perf_counter() - t0,
+                                 packed=p is not None))
         if p is not None:
             return p
-    return _pack_split(indexer)
+    raise AssertionError("the split layout always packs")
 
 
-def build_packed_index(indexer, layout: str = None):
+def build_packed_index(indexer, layout: str = None, attempts: list = None):
     """The device table in the preferred layout, with the fallbacks of the
     reference's `build_packed_index`: kv2 -> kv4 -> kv8 -> split. `layout`
     or GENEFUSE_TABLE_LAYOUT ('kv2' | 'kv4' | 'kv8' | 'kvs' | 'kv16' |
     'split') pins one; a pinned layout that cannot be packed falls through
     as there (kvs and kv16 to kv8, then split). The layout built is
-    logged."""
+    logged. `attempts`: a list that each layout tried is appended to, as
+    {layout, seconds, packed}."""
     layout = layout or os.environ.get("GENEFUSE_TABLE_LAYOUT", "auto")
-    p = _pick_layout(indexer, layout)
+    p = _pick_layout(indexer, layout, attempts)
     log.info("table layout %s built (asked: %s), %d buckets, %.1f MB", layout_name(p),
              layout, p.n_buckets, p.nbytes / 1e6)
     return p

@@ -77,7 +77,7 @@ class ShardedIndexEngine:
         if self._installed or self._prepared_for is mapper:
             return
         t0 = time.perf_counter()
-        _, packs = pack_index_sharded(mapper.indexer, self.n_shards)
+        _, packs = pack_index_sharded(mapper.indexer, self.n_shards, build_form=False)
         self._indexes = shard_indexes(packs, self.devices)
         self.table_seconds += time.perf_counter() - t0
         self.table_bytes = table_bytes(self._indexes)

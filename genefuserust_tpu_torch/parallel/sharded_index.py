@@ -64,11 +64,13 @@ def shard_contigs(indexer, n_shards: int) -> np.ndarray:
     return owner
 
 
-def pack_index_sharded(indexer, n_shards: int):
+def pack_index_sharded(indexer, n_shards: int, build_form: bool = True):
     """-> (owner, [PackedIndex per shard] with a COMMON bucket count).
 
     Global classification first (thr from settings), then entries routed by
-    contig owner; high kmers dropped entirely."""
+    contig owner; high kmers dropped entirely. `build_form=False` drops each
+    pack's (nb, SLOTS, 3) build table (`table` None) once its device form
+    is made: half a pack's bytes, which the engine does not read."""
     thr = indexer.settings.skip_key_dup_threshold
     counts = indexer.group_count
     owner = shard_contigs(indexer, n_shards)
@@ -102,25 +104,29 @@ def pack_index_sharded(indexer, n_shards: int):
         else:
             nk = 1
         max_keys = max(max_keys, nk)
+    # the routed copies of the panel's entries are not needed past here;
+    # at genome scale they take ~3x the bytes of the shards' own entries
+    del grp_of_row, rows, r_kmer, r_contig, r_pos, r_shard, sel
     nb = 16
     while nb * 2 < max_keys:
         nb *= 2
     while True:
         # shard packs are independent; gf_pack_table releases the GIL
         with ThreadPoolExecutor(max_workers=min(4, max(1, n_shards))) as ex:
-            packs = list(ex.map(lambda a: _pack_entries(*a, nb, thr), per_shard))
+            packs = list(ex.map(lambda a: _pack_entries(*a, nb, thr, build_form), per_shard))
         if all(p is not None for p in packs):
             return owner, packs
         nb *= 2  # a shard overflowed: retry all at the common doubled size
 
 
-def _packed(table, dupes, nb, shift, max_dupe) -> PackedIndex:
+def _packed(table, dupes, nb, shift, max_dupe, build_form: bool = True) -> PackedIndex:
     keys_tbl, sentinel = _sentinel_keys(table)
-    return PackedIndex(table, dupes, nb, shift, max_dupe, keys_tbl=keys_tbl,
+    return PackedIndex(table if build_form else None, dupes, nb, shift, max_dupe,
+                       keys_tbl=keys_tbl,
                        vals_tbl=table[:, :, 1:].reshape(-1, 2).copy(), empty_key=sentinel)
 
 
-def _pack_entries(sk, sc, sp, nb, thr):
+def _pack_entries(sk, sc, sp, nb, thr, build_form: bool = True):
     """Pack grouped (sorted) entry arrays into a PackedIndex at exactly
     `nb` buckets; None on overflow (local dupe lists <= thr entries by
     construction of the global classification)."""
@@ -128,7 +134,7 @@ def _pack_entries(sk, sc, sp, nb, thr):
     if len(sk) == 0:
         table = np.zeros((nb, SLOTS, 3), np.int32)
         table[:, :, 1] = EMPTY
-        return _packed(table, np.full((1, 1, 2), EMPTY, np.int32), nb, shift, 1)
+        return _packed(table, np.full((1, 1, 2), EMPTY, np.int32), nb, shift, 1, build_form)
     gstart = native.group_starts(sk)
     if gstart is None:
         first = np.concatenate([[True], sk[1:] != sk[:-1]])
@@ -160,7 +166,7 @@ def _pack_entries(sk, sc, sp, nb, thr):
         table = _build(keys, contigs, poss, nb, shift)
     if table is None:
         return None
-    return _packed(table, dupes, nb, shift, max_dupe)
+    return _packed(table, dupes, nb, shift, max_dupe, build_form)
 
 
 def _common_dupes(packs: List[PackedIndex]):

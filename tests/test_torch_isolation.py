@@ -1,5 +1,6 @@
 """The port stands alone: no module of genefuserust_tpu_torch, and not
-chip_smoke.py, imports jax, the JAX package or bench.py; and the port's
+chip_smoke.py, imports jax, the JAX package, bench.py or the JAX package's
+tools/ (the port keeps its own copies of what it needs from them); and the port's
 copy of the read generator gives bench.gen_block's pairs."""
 
 import ast
@@ -23,7 +24,7 @@ def _port_files():
 
 def _forbidden(name: str) -> bool:
     root = name.split(".")[0]
-    return root in ("jax", "bench", "genefuserust_tpu")
+    return root in ("jax", "bench", "genefuserust_tpu", "tools")
 
 
 def forbidden_imports(source: str, relpath: str):
@@ -69,7 +70,8 @@ def test_scan_covers_every_module_of_the_port():
     files = set(_port_files())
     for rel in ("parallel/mesh.py", "parallel/sharded_index.py", "parallel/sharded_engine.py",
                 "parallel/engine.py", "parallel/distributed.py", "ops/map_read.py", "ops/cuda.py",
-                "entry.py", "driver.py"):
+                "entry.py", "driver.py", "profiling/scale_proof.py",
+                "profiling/large_tables.py"):
         assert os.path.join(PORT, rel) in files, rel
 
 
@@ -83,6 +85,8 @@ PLANTED = {
     "from_bench": ("from bench import gen_block\n", "chip_smoke.py"),
     "relative_out_of_the_port": ("from ..genefuserust_tpu import config\n", f"{PORT}/x.py"),
     "import_module": ("import importlib\nimportlib.import_module('jax')\n", f"{PORT}/x.py"),
+    "jax_tools": ("from tools.scale_proof import gen_genome\n",
+                  f"{PORT}/profiling/x.py"),
 }
 
 
