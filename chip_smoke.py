@@ -12,7 +12,12 @@ Phases, one result line each; any failure raises and exits non-zero:
              batch against a 15.2 Mbp panel's kv2 table (2^26 rows), with
              the table rows its lookup needs (32-byte sectors: one for a
              key in its h1 row, two for any other) and the rows the kernel
-             counts itself loading; the vote on the same batch, mask+segments on the
+             counts itself loading; the same batch on the panel packed
+             split (the split kernel, strides 2 and 1): key rows and vals
+             elements needed and the kernel's own counts of both, the
+             bound, the gather floor over the same key rows and vals rows,
+             registers, kv2's time beside it; the vote on the same batch,
+             mask+segments on the
              1,024 rows the scan hands it; the probe on a small panel
              packed kv4, kv8 and split. The glue of fused_scan_lanes
              (csrc/fused_glue.cu): the lanes' unpack and its exceptions
@@ -73,7 +78,8 @@ Phases, one result line each; any failure raises and exits non-zero:
              equal to TorchEngine's single-table scan of the same reads,
              and on the first 4,096 pairs/reads to the host oracle's; one
              shard flags launch a call (the 4 shards in one launch). The
-             split probe, the vote's counts mode, the merge (the whole
+             split probe (also its four launches alone, each shard into
+             its own output), the vote's counts mode, the merge (the whole
              step from the shards' rows to the gate and keys, and its
              other read design), the flags and mask+segments from flags
              bit-equal to plain at the scan's largest batch, timed. Then
@@ -156,7 +162,9 @@ Phases, one result line each; any failure raises and exits non-zero:
              rows needed; on the split table the vote, mask+segments and
              the shard flags bit-equal to plain, with dupe rows named past
              2^31 bytes; the probe on the 8 GiB table timed beside phase
-             3's table. Table bytes and the highest offsets read are
+             3's table, the split kernel on the 24 GiB table at stride 2
+             timed as in phase 3 (ps a key row and a row, the gather
+             floor). Table bytes and the highest offsets read are
              printed.
 
 The last three lines are the kernels' JSON record, nvidia-smi's
@@ -165,9 +173,14 @@ name/power line and the contract line {"ok": true, "device": {...}}.
 --probe-sweep runs phases 1-3, then the probe's launch-shape sweep on
 phase 3's batch (queries a thread x table-row cache policy x block size,
 each shape a build of csrc/probe.cu with -D overrides, each held
-bit-equal to plain), then the single-probe variant's on the same batch
-on the panel's kvs and kv16 tables (queries a thread x block size, with
-each build's registers), prints them and stops: no contract line.
+bit-equal to plain), the split kernel's on the same batch on the panel's
+split table (queries a thread x policy x block size, strides 2 and 1,
+each with its registers and its counts equal to the rows needed) and on
+phase 17's 24 GiB split table (stride 2), with --wide-baseline the
+parent's kernel beside them on both, then the single-probe variant's on
+the same batch on the panel's kvs and kv16 tables (queries a thread x
+block size, with each build's registers), prints them and stops: no
+contract line.
 --profile-only runs phase 1, packs the kv2 table and runs phase 7, then
 stops (no contract line): a copy of this script beside another checkout's
 genefuserust_tpu_torch profiles that checkout's warm scan.
@@ -184,11 +197,12 @@ its probe.cu, vote.cu, mask_segments.cu and merge.cu and times their
 kernels on the same inputs, each held bit-equal to plain: phase 15's
 single-probe variant at both strides (between two timings of this
 checkout's), phase 16's row gather on its three row passes, phase 3's
-probe, vote and
+probe, split probe (both strides, with the parent's registers), vote and
 mask+segments (between two timings of this checkout's, and the machine
-code of probe_kernel, vote_kernel and mask_segments_kernel against the
-parent's, cuobjdump -sass), phase 13's merge, shard flags and mask
-from flags at the scan's largest call, each wide
+code of probe_kernel, probe_single_kernel, vote_kernel and
+mask_segments_kernel against the parent's, cuobjdump -sass), phase 13's
+split probe launches, merge, shard flags and mask
+from flags at the scan's largest call, phase 17's split probe, each wide
 kernel at phase 13's calls and at its 4,096-row lane, and the parent's
 sharded_map_read's peak device memory beside this checkout's at the wide
 calls.
@@ -249,6 +263,10 @@ PROBE_SWEEP_THREADS = (128, 256, 512)
 # csrc/probe.cu), and its sweep (--probe-sweep): queries a thread
 # (PROBE_SINGLE_Q) x threads a block
 SINGLE_THREADS = 128
+# the split kernel's launch-shape sweep (--probe-sweep): queries a thread
+# (PROBE_SPLIT_Q in csrc/probe.cu), row cache policy, threads a block
+SPLIT_SWEEP_Q = (1, 2, 4)
+SPLIT_SWEEP_THREADS = (128, 256, 512)
 SINGLE_SWEEP_Q = (1, 2, 4)
 SINGLE_SWEEP_THREADS = (64, 128, 256, 512)
 # the gather's launch-shape sweep (--gather-sweep): blocks a tile x row
@@ -680,6 +698,47 @@ def phase_kernels(data: dict) -> dict:
         plain_ms=f"{pms:.4f}", bound_ms=f"{rec['probe']['bound_ms']:.4f}",
         bound_by=rec["probe"]["bound_by"], bound_share=f"{rec['probe']['bound_ms'] / ms:.4f}",
         max_abs_err=err)
+    # probe split (full size): the same batch on the panel packed split,
+    # at strides 2 and 1 (the sharded path's two passes), beside kv2's
+    t0 = time.perf_counter()
+    data["packed_split"] = build_packed_index(data["mapper"].indexer, layout="split")
+    check(getattr(data["packed_split"], "keys_tbl", None) is not None,
+          "the panel did not pack as split")
+    split_pack_s = time.perf_counter() - t0
+    six = index_to_torch(data["packed_split"], dev)
+    data["split_full"] = {}
+    for stride in (PASS1_STEP, 1):
+        r = split_probe("3 kernels", "panel", codes, lens, six, stride, data["smi_line"],
+                        base=base)
+        r.update(kv2_ms=ms if stride == PASS1_STEP else
+                 event_ms(lambda: tm.probe(codes, lens, 1, index), 20),
+                 pack_s=split_pack_s)
+        data["split_full"][f"stride{stride}"] = r
+    say("3 kernels", kernel="probe_split", table="panel", pack_s=f"{split_pack_s:.1f}",
+        kv2_ms_stride2=f"{ms:.4f}", kv2_ms_stride1=f"{data['split_full']['stride1']['kv2_ms']:.4f}",
+        split_ms_stride2=f"{data['split_full'][f'stride{PASS1_STEP}']['ms']:.4f}",
+        split_ms_stride1=f"{data['split_full']['stride1']['ms']:.4f}",
+        kvs="phase 15 times kvs on the same batch in this run")
+    if data["probe_sweep"]:
+        # the split kernel's sweep on the panel's table (strides 2 and 1),
+        # then on phase 17's 24 GiB table (stride 2), the parent beside it
+        from genefuserust_tpu_torch.profiling import large_tables as lt
+
+        builds = build_split_sweep()
+        for label, strides in (("panel", (2, 1)), ("24 GiB", (2,))):
+            if label != "panel":
+                del six
+                torch.cuda.empty_cache()
+                six, _ = lt.widen_split(index, LARGE_SPLIT_LOG2, LARGE_DUPE_BASE)
+            sweep = sweep_probe_split(codes, lens, six, builds, strides, base)
+            best = min((k for k in sweep if k != "parent"), key=lambda k: sweep[k][0])
+            say("3 kernels", kernel="probe_split", table=label,
+                sweep="queries a thread, row cache policy, threads a block: "
+                      f"[ms at strides {strides}, registers]",
+                sweep_ms=json.dumps(sweep, separators=(",", ":")), best=repr(best),
+                best_ms=f"{sweep[best][0]:.4f}", equal=True, card=repr(data["smi_line"]))
+    del six
+    torch.cuda.empty_cache()
     v, err, ms, pms = _timed_pair(
         "vote", lambda: tm.vote(pr, index, 40, 20),
         lambda: tm.vote_plain(pr, index, 40, 20))
@@ -747,15 +806,18 @@ def phase_kernels(data: dict) -> dict:
             parent_ms=f"{rec['mask_segments']['parent_ms']:.4f}",
             again_ms=f"{rec['mask_segments']['again_ms']:.4f}", equal=True)
         # the three kernels' machine code against the parent's, instruction
-        # for instruction (the sources of two of them were edited elsewhere)
-        for k in ("probe", "vote", "mask_segments"):
+        # for instruction (the sources of two of them were edited elsewhere),
+        # and the single-probe variant's (kept on the probe's record)
+        for k, key in (("probe", "sass"), ("vote", "sass"), ("mask_segments", "sass"),
+                       ("probe_single", "sass_single")):
             sass = base.sass(f"{k}_kernel")
-            rec[k]["sass"] = dict(
+            r = rec["probe" if k == "probe_single" else k]
+            r[key] = dict(
                 equal=sass["this"] == sass["parent"] and bool(sass["this"]),
                 instructions=[len(v) for v in sass["this"].values()],
                 parent_instructions=[len(v) for v in sass["parent"].values()])
-            say("3 kernels", kernel=k, baseline=base.csrc,
-                sass=json.dumps(rec[k]["sass"], separators=(",", ":")))
+            say("3 kernels", kernel=f"{k}_kernel", baseline=base.csrc,
+                sass=json.dumps(r[key], separators=(",", ":")))
     say("3 kernels", kernel="mask_segments", rows=seg.shape[0], width=scodes.shape[1],
         two_segment_rows=int((seg[:, 0] & seg[:, 1]).sum()), ms=f"{ms:.4f}",
         plain_ms=f"{pms:.4f}", bound_ms=f"{rec['mask_segments']['bound_ms']:.5f}",
@@ -1220,11 +1282,12 @@ def sweep_glue(data: dict, reps: int = 40) -> dict:
     return res
 
 
-def probe_row_loads(codes, lens, index, exp, stride=None, sectors=False):
+def probe_row_loads(codes, lens, index, exp, stride=None, sectors=False, vals=False):
     """One launch of the probe of a batch on `index`'s table (default
     stride: pass 1's) with the kernel's row counter on, held bit-equal to
     `exp` -> the table rows it loaded; with `sectors` (single-probe
-    tables) -> (rows, the 32-byte sectors it requested)."""
+    tables) -> (rows, the 32-byte sectors it requested); with `vals`
+    (split tables) -> (key rows, the vals elements it read)."""
     import torch
 
     from genefuserust_tpu_torch.config import PASS1_STEP
@@ -1235,10 +1298,166 @@ def probe_row_loads(codes, lens, index, exp, stride=None, sectors=False):
     out = torch.empty_like(exp)
     loads = torch.zeros(2, dtype=torch.int64, device=exp.device)
     cuda.launch_probe(codes, lens, None, None, B * NQ, W, stride or PASS1_STEP, NQ, index, out,
-                      row_loads=loads[:1], sector_loads=loads[1:] if sectors else None)
+                      row_loads=loads[:1], sector_loads=loads[1:] if sectors else None,
+                      vals_loads=loads[1:] if vals else None)
     check(torch.equal(out, exp), "probe with its row counter differs from plain")
-    rows, secs = loads.tolist()
-    return (rows, secs) if sectors else rows
+    rows, more = loads.tolist()
+    return (rows, more) if sectors or vals else rows
+
+
+def split_registers(lib: str = None) -> int:
+    """Registers a thread of the split route's kernel in the port's build
+    (or in the library `lib`): probe_split_kernel, or in a checkout before
+    it the split instance of probe_kernel (template argument SPLIT true)."""
+    regs = (variant_registers("probe_split_kernel", lib)
+            or variant_registers("probe_kernelILb1E", lib))
+    check(len(regs) == 1, f"split probe: expected one split kernel in the build: {regs}")
+    return next(iter(regs.values()))
+
+
+def split_threads(lib: str = None) -> int:
+    """The split kernel's threads a block in the port's build (or in the
+    library `lib`), as the library reports its launch shape."""
+    from genefuserust_tpu_torch.ops import cuda
+
+    return cuda.probe_split_shape(cuda.load(lib) if lib else None)[1]
+
+
+def split_sweep_shapes() -> list:
+    """The split kernel's launch shapes of the sweep -> [("q,policy,threads",
+    -D defines)]."""
+    return [(f"{q},{PROBE_POLICIES[pol]},{t}",
+             (f"PROBE_SPLIT_Q={q}", f"PROBE_SPLIT_POLICY={pol}", f"PROBE_SPLIT_THREADS={t}"))
+            for q in SPLIT_SWEEP_Q for pol in range(len(PROBE_POLICIES))
+            for t in SPLIT_SWEEP_THREADS]
+
+
+def build_split_sweep() -> list:
+    """Every launch shape of `split_sweep_shapes`, each a build of
+    csrc/probe.cu with -D overrides, all built at once -> [(label, library
+    path)]."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from genefuserust_tpu_torch.ops import cuda
+
+    shapes = split_sweep_shapes()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 4) as ex:
+        paths = list(ex.map(lambda d: cuda.build(("probe.cu",), d), [d for _, d in shapes]))
+    say("3 kernels", kernel="probe_split", sweep_builds=len(paths),
+        build_s=f"{time.perf_counter() - t0:.1f}")
+    return [(label, path) for (label, _), path in zip(shapes, paths)]
+
+
+def sweep_probe_split(codes, lens, index, builds, strides=(2, 1), base=None, reps=20) -> dict:
+    """The split kernel on phase 3's batch on a split table at `strides`,
+    at each of `builds` (`build_split_sweep`), each held bit-equal to plain
+    with its key-row and vals counts equal to the rows needed; with `base`
+    (a WideBaseline) the parent's kernel too, as "parent" -> {"q,policy,
+    threads": [ms a stride..., registers]}."""
+    import torch
+
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.profiling import large_tables as lt
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
+
+    B, W = codes.shape
+    want = {}
+    for stride in strides:
+        exp = tm.probe_plain(codes, lens, stride, index)
+        need = lt.rows_probed(index, codes, lens, stride)
+        want[stride] = (exp, [need["rows"], need["vals_rows"]])
+    res = {}
+    for label, path in builds:
+        lib = cuda.load(path)
+        res[label] = []
+        for stride, (exp, rows) in want.items():
+            NQ = exp.shape[1]
+            out = torch.zeros_like(exp)
+            loads = torch.zeros(2, dtype=torch.int64, device=exp.device)
+            cuda.launch_probe(codes, lens, None, None, B * NQ, W, stride, NQ, index, out,
+                              row_loads=loads[:1], vals_loads=loads[1:], lib=lib)
+            check(torch.equal(out, exp) and loads.tolist() == rows,
+                  f"probe split at shape {label}, stride {stride}: differs from plain or "
+                  f"counted {loads.tolist()} rows, {rows} needed")
+            res[label].append(round(event_ms(
+                lambda: cuda.launch_probe(codes, lens, None, None, B * NQ, W, stride, NQ, index,
+                                          out, lib=lib), reps), 4))
+        res[label].append(split_registers(path))
+    if base:
+        res["parent"] = [round(parent_ms(f"probe split (the parent's, stride {stride})",
+                                         lambda: base.probe(codes, lens, stride, index), exp,
+                                         reps), 4)
+                         for stride, (exp, _) in want.items()] + [split_registers(base.path)]
+    return res
+
+
+def split_probe(phase: str, label: str, codes, lens, index, stride: int, smi_line: str,
+                base=None, reps: int = 20) -> dict:
+    """The split route of the probe on a batch at `stride`: bit-equal to
+    plain, timed; the key rows and vals rows a lookup needs
+    (profiling/large_tables.rows_probed: h1, h2 where the key is not in
+    h1, a vals row a hit) and the kernel's own count of the key rows; the
+    bound (one 32-byte sector a key row and one a vals row, codes, lengths,
+    results); the gather floor over the same key rows and vals rows in
+    query order; registers and blocks an SM by registers; with `base` (a
+    WideBaseline) the parent's kernel between two timings of this
+    checkout's -> the record, printed on the phase's line."""
+    import torch
+
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.profiling import gather_floor as gf
+    from genefuserust_tpu_torch.profiling import large_tables as lt
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
+
+    got, err, ms, pms = _timed_pair(
+        f"probe split ({label}, stride {stride})", lambda: tm.probe(codes, lens, stride, index),
+        lambda: tm.probe_plain(codes, lens, stride, index), reps=reps)
+    B, W = codes.shape
+    need = lt.rows_probed(index, codes, lens, stride, indices=True)
+    loaded, vals = probe_row_loads(codes, lens, index, got, stride, vals=True)
+    check((loaded, vals) == (need["rows"], need["vals_rows"]),
+          f"probe split ({label}, stride {stride}): the kernel read {loaded} key rows and "
+          f"{vals} vals elements, the lookup needs {need['rows']} and {need['vals_rows']}")
+    b = bound(B * W + 4 * B + (need["rows"] + need["vals_rows"]) * SECTOR + got.numel() * 4,
+              OPS["probe_base"] * B * W + OPS["probe_query"] * need["valid"])
+    floor = {}
+    for name, rows, tbl in (("keys", need["row_index"], index.table),
+                            ("vals", need["vals_index"], index.vals)):
+        rows = rows.to(torch.int32)
+        idx = torch.cat([rows, rows[: (-rows.shape[0]) % gf.TILE]]).contiguous()
+        floor[name] = gf.measure(idx, tbl)["ms"]
+    floor_ms = floor["keys"] + floor["vals"]
+    regs, threads = split_registers(), split_threads()
+    r = dict(err=err, ms=ms, plain_ms=pms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+             stride=stride, valid=need["valid"], hits=need["hits"], key_rows=need["rows"],
+             key_rows_loaded=loaded, vals_rows=need["vals_rows"], vals_rows_loaded=vals,
+             gather_floor_ms=floor_ms, gather_floor_keys_ms=floor["keys"],
+             gather_floor_vals_ms=floor["vals"], registers=regs,
+             ps_per_key_row=ms * 1e9 / need["rows"],
+             ps_per_row=ms * 1e9 / (need["rows"] + need["vals_rows"]),
+             shape=f"split {tuple(index.table.shape)} keys, {B}x{W} codes, stride {stride}")
+    if base:
+        r["parent_ms"] = parent_ms(f"probe split ({label}, stride {stride})",
+                                   lambda: base.probe(codes, lens, stride, index), got, reps)
+        r["again_ms"] = event_ms(lambda: tm.probe(codes, lens, stride, index), reps)
+        r["parent_registers"] = split_registers(base.path)
+    say(phase, kernel="probe_split", table=label, shape=repr(r["shape"]), equal_to_plain=True,
+        valid_queries=r["valid"], hits=r["hits"], key_rows_needed=r["key_rows"],
+        key_rows_loaded=loaded, vals_rows_needed=r["vals_rows"], vals_rows_loaded=vals,
+        ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
+        bound_by=r["bound_by"], bound_share=f"{r['bound_ms'] / ms:.4f}",
+        ps_per_key_row=f"{r['ps_per_key_row']:.2f}", ps_per_row=f"{r['ps_per_row']:.2f}",
+        gather_floor_ms=f"{floor_ms:.4f}", gather_floor_keys_ms=f"{floor['keys']:.4f}",
+        gather_floor_vals_ms=f"{floor['vals']:.4f}", floor_over_probe=f"{floor_ms / ms:.4f}",
+        registers=regs, threads=threads,
+        blocks_per_sm_by_registers=65536 // (threads * (-(-regs // 8) * 8)),
+        **({} if not base else dict(parent_ms=f"{r['parent_ms']:.4f}",
+                                    again_ms=f"{r['again_ms']:.4f}",
+                                    parent_registers=r["parent_registers"], baseline=base.csrc)),
+        max_abs_err=err, card=repr(smi_line))
+    return r
 
 
 def sweep_probe(codes, lens, index, exp, reps=40) -> dict:
@@ -1517,7 +1736,6 @@ def phase_oracle(data: dict) -> None:
     from genefuserust_tpu_torch.config import Settings
     from genefuserust_tpu_torch.core.read import SequenceRead, SequenceReadPair
     from genefuserust_tpu_torch.core.scanner import HostEngine, Scanner
-    from genefuserust_tpu_torch.ops.index import build_packed_index
     from genefuserust_tpu_torch.parallel.engine import TorchEngine
 
     b1, q1, _, b2, q2, _ = (a[:ORACLE_PAIRS] for a in data["block"])
@@ -1543,8 +1761,7 @@ def phase_oracle(data: dict) -> None:
     data["oracle_host_json"] = host
     for layout in ("kv2", "split"):
         eng = TorchEngine(Settings(), device="cuda")
-        eng.use_packed(data["packed_kv2"] if layout == "kv2" else
-                       build_packed_index(data["mapper"].indexer, layout="split"))
+        eng.use_packed(data["packed_kv2"] if layout == "kv2" else data["packed_split"])
         got, m = scan(eng, f"{layout}.json")
         check(got == host, f"TorchEngine ({layout}) JSON differs from the host oracle's")
         kind = "kv" if hasattr(eng._tables[id(m)]["packed"], "kv_tbl") else "split"
@@ -2026,6 +2243,24 @@ def largest_wide_launches():
         cuda.launch_vote, cuda.launch_mask_segments = vote, mask
 
 
+class _SplitThroughProbe:
+    """A library of probe.cu from before gf_probe_split (the parent's): its
+    split route launched through gf_probe (`split` 1), the other entry
+    points as they are."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def gf_probe_split(self, codes, lengths, kmers, valid, n, W, stride, NQ, keys, vals, shift,
+                       out, row_loads, vals_loads, stream):
+        check(vals_loads is None, "the parent's split route does not count vals elements")
+        return self._lib.gf_probe(codes, lengths, kmers, valid, n, W, stride, NQ, keys, vals, 1,
+                                  8, shift, 0, 0, out, row_loads, stream)
+
+
 class WideBaseline:
     """Another checkout's csrc/probe.cu, csrc/vote.cu, csrc/mask_segments.cu
     and csrc/merge.cu (the parent's), built from that csrc/ and run on the
@@ -2033,14 +2268,16 @@ class WideBaseline:
     checkout's arguments (gf_merge_top2 too: the shards' rows by value),
     so the parent's kernels run through this checkout's wrappers with the
     parent's library in the port's place (`active`), the single-probe
-    variant too (its gf_probe_single)."""
+    variant too (its gf_probe_single); in a library from before
+    gf_probe_split, the split route through gf_probe (`_SplitThroughProbe`)."""
 
     def __init__(self, csrc: str):
         from genefuserust_tpu_torch.ops import cuda
 
         self.path = cuda.build(("probe.cu", "vote.cu", "mask_segments.cu", "merge.cu"),
                                csrc=os.path.abspath(csrc))
-        self.lib = cuda.load(self.path)
+        lib = cuda.load(self.path)
+        self.lib = lib if hasattr(lib, "gf_probe_split") else _SplitThroughProbe(lib)
         self.csrc = csrc
 
     @contextlib.contextmanager
@@ -2110,7 +2347,13 @@ class WideBaseline:
         (cuobjdump -sass; addresses and encodings dropped)."""
         from genefuserust_tpu_torch.ops import cuda
 
-        return dict(this=sass_of(cuda.build(), name), parent=sass_of(self.path, name))
+        parent = sass_of(self.path, name)
+        if name == "probe_kernel":
+            # a parent before probe_split_kernel: its kv instances carried a
+            # SPLIT template argument (false), its split instance goes
+            parent = {f.replace("probe_kernelILb0E", "probe_kernelI"): v
+                      for f, v in parent.items() if "probe_kernelILb1E" not in f}
+        return dict(this=sass_of(cuda.build(), name), parent=parent)
 
 
 def sass_of(lib: str, name: str) -> dict:
@@ -2256,6 +2499,7 @@ def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3, base=None):
 
     from genefuserust_tpu_torch.config import PASS1_STEP
     from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
 
     S = len(indexes)
     B, W = codes.shape
@@ -2280,6 +2524,22 @@ def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3, base=None):
     rec["probe_split"].update(
         shape=f"{S} split shards of {tuple(indexes[0].table.shape)} keys, {B}x{W} codes, "
               f"stride {PASS1_STEP}", rows_needed=rows, hits=hits)
+    # the S probe launches alone, each shard into its own output (the
+    # caching allocator hands back the same blocks: no device work besides
+    # the launches; `ms` above also stacks the S results, as row 7's
+    # history has it); the parent's launches beside them
+    def launches_alone():
+        return tuple(tm.probe(codes, lens, PASS1_STEP, ix) for ix in indexes)
+
+    _, _, rec["probe_split"]["launches_ms"], _ = _timed_pair(
+        f"probe split ({S} shards, launches alone)", launches_alone, lambda: tuple(prs),
+        reps=reps, plain_reps=1)
+    if base:
+        rec["probe_split"]["parent_launches_ms"] = parent_ms(
+            f"probe split ({S} shards, the parent's launches)",
+            lambda: tuple(base.probe(codes, lens, PASS1_STEP, ix) for ix in indexes), tuple(prs),
+            reps)
+        rec["probe_split"]["again_launches_ms"] = event_ms(launches_alone, reps)
     votes, err, ms, pms = _timed_pair(
         f"vote_counts ({B}x{NS})",
         lambda: torch.stack([tm.vote_counts(pr, ix, lens) for pr, ix in zip(prs, indexes)]),
@@ -2343,8 +2603,11 @@ def say_kernel(rec: dict, k: str) -> None:
     say("13 sharded", kernel=k, shape=repr(r["shape"]), ms=f"{r['ms']:.4f}",
         plain_ms=f"{r['plain_ms']:.4f}", bound_ms=f"{r['bound_ms']:.5f}",
         bound_by=r["bound_by"], bound_share=f"{r['bound_ms'] / r['ms']:.4f}",
-        max_abs_err=r["err"], **{x: f"{r[x]:.4f}" for x in ("global_ms", "device_ms", "parent_ms")
-                                 if x in r},
+        max_abs_err=r["err"], **{x: f"{r[x]:.4f}" for x in ("global_ms", "device_ms", "parent_ms",
+                                                            "launches_ms", "parent_launches_ms",
+                                                            "again_launches_ms") if x in r},
+        **({} if "launches_ms" not in r else
+           dict(launches_bound_share=f"{r['bound_ms'] / r['launches_ms']:.4f}")),
         **{x: f"{r[x]:.5f}" for x in ("padded_bound_ms",) if x in r})
 
 
@@ -3288,6 +3551,7 @@ def phase_layouts(data: dict, smi_line: str) -> dict:
                 sectors_requested=sectors, sectors_needed=need_sectors,
                 sectors_share=f"{sectors / need_sectors:.4f}",
                 ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}", kv2_ms=f"{kv2_ms[stride]:.4f}",
+                split_ms=f"{data['split_full'][f'stride{stride}']['ms']:.4f}",
                 bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
                 bound_share=f"{b['bound_ms'] / ms:.4f}",
                 gather_floor_ms=f"{floor['ms']:.4f}",
@@ -3437,6 +3701,10 @@ def phase_large_tables(data: dict, smi_line: str) -> dict:
     out["split_stride2"] = dict(rows, table_bytes=tb)
     pr1, rows, _ = probed(sp, "split", 1)
     out["split_stride1"] = dict(rows, table_bytes=tb)
+    # the split route timed at stride 2 on the 24 GiB table, with the
+    # gather floor over its key rows and vals rows
+    out["split_probe"] = split_probe("17 large tables", f"split {tb} bytes", codes, lens, sp,
+                                     PASS1_STEP, smi_line, base=wide_base(data))
     # the dupe-row readers, their rows past 2^31 bytes
     named = {s: lt.dupe_rows_named(sp, pr) for s, pr in ((PASS1_STEP, pr2), (1, pr1))}
     for s, n in named.items():
@@ -3482,10 +3750,11 @@ def main(argv=None) -> int:
                     help="another checkout's csrc/: phase 3 also times its fused_glue.cu's "
                          "lane unpack and compaction with its survivor rows")
     ap.add_argument("--wide-baseline", metavar="DIR",
-                    help="another checkout's csrc/: phases 3, 13, 15 and 16 also time its "
-                         "probe.cu's, vote.cu's, mask_segments.cu's and merge.cu's kernels "
-                         "on the same inputs, and compare probe_kernel's, vote_kernel's and "
-                         "mask_segments_kernel's SASS")
+                    help="another checkout's csrc/: phases 3, 13, 15, 16 and 17 also time "
+                         "its probe.cu's, vote.cu's, mask_segments.cu's and merge.cu's "
+                         "kernels on the same inputs, and compare probe_kernel's, "
+                         "probe_single_kernel's, vote_kernel's and mask_segments_kernel's "
+                         "SASS")
     args = ap.parse_args(argv)
     import torch
 
@@ -3521,7 +3790,7 @@ def main(argv=None) -> int:
         data = dict(seed=args.seed, workdir=workdir, fa=fa, csv=csv, exons=exons,
                     mapper=mapper, blk=blk, block=block, log=log,
                     probe_sweep=args.probe_sweep, glue_baseline=args.glue_baseline,
-                    wide_baseline=args.wide_baseline)
+                    wide_baseline=args.wide_baseline, smi_line=smi_line)
         if args.profile_only:
             pack_kv2(data)
             phase_profile(data)
@@ -3565,18 +3834,19 @@ def main(argv=None) -> int:
         multi_device = phase_multi_device(data, smi_line)
         layouts = phase_layouts(data, smi_line)
         device_merge = phase_device_merge(data, smi_line)
-        phase_large_tables(data, smi_line)
+        large = phase_large_tables(data, smi_line)
     finally:
         log.close()
         shutil.rmtree(workdir, ignore_errors=True)
     replaces = {
-        "probe": "genefuserust_tpu/ops/pallas_lookup.py:102",
+        "probe": "genefuserust_tpu/ops/map_read.py:109 (kv_lookup, the kv2 table)",
         "vote": "genefuserust_tpu/ops/map_read.py:396",
         "mask_segments": "genefuserust_tpu/ops/map_read.py:439",
         "gather_sum": "tools/profiling/profile_dma_ring.py:35, "
                       "tools/profiling/profile_pallas_gather.py:46",
         "edit_distance": "genefuserust_tpu/ops/edit_distance.py:43",
-        "probe_split": "genefuserust_tpu/ops/pallas_lookup.py:102",
+        "probe_split": "genefuserust_tpu/ops/pallas_lookup.py:102 (pallas_call :114; its XLA "
+                       "twin hash_lookup, map_read.py:74)",
         "vote_counts": "genefuserust_tpu/parallel/sharded_index.py:209",
         "merge_top2": "genefuserust_tpu/parallel/sharded_index.py:273",
         "shard_flags": "genefuserust_tpu/parallel/sharded_index.py:230",
@@ -3586,7 +3856,7 @@ def main(argv=None) -> int:
         "mask_segments_wide": "genefuserust_tpu/ops/map_read.py:439",
         "shard_flags_wide": "genefuserust_tpu/parallel/sharded_index.py:230",
         "mask_from_flags_wide": "genefuserust_tpu/parallel/sharded_index.py:242",
-        "probe_long": "genefuserust_tpu/ops/pallas_lookup.py:102",
+        "probe_long": "genefuserust_tpu/ops/map_read.py:109 (kv_lookup, the kv2 table)",
         "lane_unpack": "genefuserust_tpu/ops/fused.py:488",
         "lane_exceptions": "genefuserust_tpu/ops/fused.py:493",
         "compact_count": "genefuserust_tpu/ops/fused.py:560",
@@ -3627,6 +3897,9 @@ def main(argv=None) -> int:
     # and the sharded stages) and over its wide-read scans (the wide paths)
     rec.update(sharded["rec"])
     launches.update({k: sharded["launches"][k] for k in sharded["rec"]})
+    # the split route at full size: phase 3's batch on the panel's split
+    # table (strides 2 and 1) and phase 17's 24 GiB table (stride 2)
+    rec["probe_split"].update(full_size=data["split_full"], large_table=large["split_probe"])
     # phase 14 (e): the probe on the 250,000-base row, launches over its scan
     rec["probe_long"] = multi_device["rec"]
     launches["probe_long"] = multi_device["launches"]
@@ -3642,7 +3915,9 @@ def main(argv=None) -> int:
              "fusion_rich_launches", "hits", "stride1_ms", "stride1_bound_ms", "edge_ms",
              "pair", "library_with_build_ms", "padded_bound_ms", "global_ms", "parent_ms",
              "again_ms", "device_ms", "rows4096", "peak", "sass", "kv2_ms", "kv2_rows_needed",
-             "no_lanes_ms", "no_lanes_bound_ms", "packed_ms", "pass2_ms")
+             "no_lanes_ms", "no_lanes_bound_ms", "packed_ms", "pass2_ms", "launches_ms",
+             "parent_launches_ms", "again_launches_ms", "full_size", "large_table",
+             "sass_single")
     kernels = [
         dict(name=k, route="cuda",
              source=f"genefuserust_tpu_torch/csrc/{sources.get(k, k)}.cu",

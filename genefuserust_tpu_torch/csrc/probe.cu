@@ -1,9 +1,10 @@
 // Kernel 1: k-mer build + hash-table probe.
 //
 // Replaces the TPU kernel genefuserust_tpu/ops/pallas_lookup.py
-// (pallas_lookup / _lookup_kernel) and the XLA probes it stood for,
-// ops/map_read.py compute_kmers + kv_lookup (kv rows) / hash_lookup (split)
-// in probe_kernel, and kvs_lookup / kv16_lookup (_single_probe_lookup, the
+// (pallas_lookup / _lookup_kernel, split rows) and its XLA twin
+// ops/map_read.py hash_lookup in probe_split_kernel, the XLA probes of the
+// other layouts, ops/map_read.py compute_kmers + kv_lookup (kv rows), in
+// probe_kernel, and kvs_lookup / kv16_lookup (_single_probe_lookup, the
 // single-probe rows of the kvs and kv16 layouts) in probe_single_kernel.
 //
 // What bounds it on the H100: random table rows. A table of up to 2^26
@@ -20,13 +21,24 @@
 //    payload 0, so a query equal to the sentinel still decodes to a miss).
 //  - Q queries a thread. Each thread takes Q queries of a tile of T*Q and
 //    issues all their h1 loads before it compares any, then all their h2
-//    loads; the split layout's vals fetch stays one dependent load after
-//    the slot is known. Table rows are read with a cache policy POL
-//    (ld.global.nc, ld.global.cg, or ld.global.nc with L1::no_allocate).
+//    loads. Table rows are read with a cache policy POL (ld.global.nc,
+//    ld.global.cg, or ld.global.nc with L1::no_allocate).
 //    Blocks are persistent: the grid is sized to the card (resident
 //    blocks per SM x SMs) and walks the tiles. Q, POL and T are fixed at
-//    build time (PROBE_Q, PROBE_POLICY, PROBE_THREADS below); a launch-shape
-//    sweep rebuilds this file with -D overrides.
+//    build time (PROBE_Q, PROBE_POLICY, PROBE_THREADS below; the split and
+//    single-probe kernels' own PROBE_SPLIT_* and PROBE_SINGLE_*); a
+//    launch-shape sweep rebuilds this file with -D overrides.
+//  - Split rows (probe_split_kernel): a key row is 8 int32, one sector. A
+//    lane pair looks its two lanes' queries up together, keys 0-3 to the
+//    even lane and 4-7 to the odd one, so one warp load instruction asks
+//    for 16 whole sectors, each once; the lanes swap their 4-bit matches
+//    (the lowest matching slot wins, so the even lane's half first) and h2
+//    pieces are loaded only for queries whose key is not in h1. Each lane
+//    then reads the 8-byte vals element of its own queries' slots (both
+//    lanes know the slot, so no result crosses lanes); a miss or an
+//    invalid query reads none. A tile's vals loads are issued with the
+//    next tile's h1 pieces (a two-stage pipeline over the tiles a block
+//    walks), so the dependent round trip overlaps the next lookup.
 //  - Code bytes are read about once. A tile's queries are consecutive
 //    (row, k-mer) pairs, so the bytes they touch are one span of the (B, W)
 //    rows: from the first query's k-mer to the last one's end. Only that
@@ -131,41 +143,29 @@ __device__ __forceinline__ uint32_t hash2(uint32_t k, int shift) {
   return ((k ^ (k >> 15)) * 0x85EBCA6Bu + 0xC2B2AE35u) >> shift;
 }
 
-// Row bucket*RW matched against key ki: kv rows -> the payload sum of the
-// matching slots (at most one real one) and whether any slot matched;
-// split key rows -> the first matching slot.
-template <bool SPLIT, int S, int RW>
-__device__ __forceinline__ bool match_row(const int32_t (&r)[RW], int32_t ki, uint32_t& pay,
-                                          int& slot) {
+// Kv row r matched against key ki -> the payload sum of the matching
+// slots (at most one real one) and whether any slot matched.
+template <int S, int RW>
+__device__ __forceinline__ bool match_row(const int32_t (&r)[RW], int32_t ki, uint32_t& pay) {
   bool found = false;
-  if constexpr (SPLIT) {
-    slot = -1;
+  uint32_t p = 0;
 #pragma unroll
-    for (int s = S - 1; s >= 0; --s)
-      if (r[s] == ki) slot = s;
-    found = slot >= 0;
-  } else {
-    uint32_t p = 0;
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      if (r[s] == ki) { p += (uint32_t)r[S + s]; found = true; }
-    pay = p;
-  }
+  for (int s = 0; s < S; ++s)
+    if (r[s] == ki) { p += (uint32_t)r[S + s]; found = true; }
+  pay = p;
   return found;
 }
 
-// The lookup of a thread's Q queries: every h1 load first, then the h2
-// loads of the queries whose key is not in h1, then (split) the vals.
-template <bool SPLIT, int S, int Q, int POL>
+// The kv lookup of a thread's Q queries: every h1 load first, then the h2
+// loads of the queries whose key is not in h1.
+template <int S, int Q, int POL>
 __device__ __forceinline__ void lookup_q(const uint32_t (&k)[Q], const bool (&valid)[Q],
-                                         const int32_t* __restrict__ tbl,
-                                         const int32_t* __restrict__ vals, int shift,
+                                         const int32_t* __restrict__ tbl, int shift,
                                          int cbits, int pos_bias, int2 (&res)[Q],
                                          unsigned& rows) {
-  constexpr int RW = SPLIT ? S : 2 * S;
+  constexpr int RW = 2 * S;
   int32_t row[Q][RW];
   uint32_t pay[Q], bucket[Q];
-  int slot[Q];
   bool need2[Q];
 #pragma unroll
   for (int i = 0; i < Q; ++i) {
@@ -174,8 +174,8 @@ __device__ __forceinline__ void lookup_q(const uint32_t (&k)[Q], const bool (&va
   }
 #pragma unroll
   for (int i = 0; i < Q; ++i) {
-    pay[i] = 0; slot[i] = -1;
-    need2[i] = valid[i] && !match_row<SPLIT, S, RW>(row[i], (int32_t)k[i], pay[i], slot[i]);
+    pay[i] = 0;
+    need2[i] = valid[i] && !match_row<S, RW>(row[i], (int32_t)k[i], pay[i]);
     rows += (unsigned)valid[i] + (unsigned)need2[i];
   }
 #pragma unroll
@@ -187,23 +187,16 @@ __device__ __forceinline__ void lookup_q(const uint32_t (&k)[Q], const bool (&va
   }
 #pragma unroll
   for (int i = 0; i < Q; ++i)
-    if (need2[i]) match_row<SPLIT, S, RW>(row[i], (int32_t)k[i], pay[i], slot[i]);
+    if (need2[i]) match_row<S, RW>(row[i], (int32_t)k[i], pay[i]);
 #pragma unroll
   for (int i = 0; i < Q; ++i) {
     int32_t oc = EMPTY, op = 0;
-    if constexpr (SPLIT) {
-      if (valid[i] && slot[i] >= 0) {
-        const int2 v = ld_row2<POL>(vals + ((size_t)bucket[i] * S + slot[i]) * 2);
-        oc = v.x; op = v.y;
-      }
-    } else {
-      if (valid[i]) decode(pay[i], cbits, pos_bias, oc, op);
-    }
+    if (valid[i]) decode(pay[i], cbits, pos_bias, oc, op);
     res[i] = make_int2(oc, op);
   }
 }
 
-// ---- single-probe rows (probe_single_kernel) ----
+// ---- lane pairs (probe_single_kernel, probe_split_kernel) ----
 
 constexpr unsigned ALL = 0xffffffffu;
 
@@ -218,6 +211,53 @@ __device__ __forceinline__ uint32_t sum4(const int4 v, unsigned m) {
   return (m & 1 ? (uint32_t)v.x : 0u) + (m & 2 ? (uint32_t)v.y : 0u) +
          (m & 4 ? (uint32_t)v.z : 0u) + (m & 8 ? (uint32_t)v.w : 0u);
 }
+
+// A lane pair's 2Q queries: query 2i + o is query i of the pair's lane o.
+// -> kj: each query's k-mer, on both lanes; returns bit j: query j is valid
+template <int Q>
+__device__ __forceinline__ unsigned pair_queries(const uint32_t (&k)[Q], const bool (&valid)[Q],
+                                                 uint32_t (&kj)[2 * Q]) {
+  const int h = threadIdx.x & 1;
+  unsigned vm = 0;
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    const uint32_t other = __shfl_xor_sync(ALL, k[i], 1);
+    kj[2 * i] = h ? other : k[i];
+    kj[2 * i + 1] = h ? k[i] : other;
+    vm |= (unsigned)valid[i] << i;
+  }
+  const unsigned vo = __shfl_xor_sync(ALL, vm, 1);
+  unsigned v = 0;
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+    v |= ((h ? vo : vm) >> i & 1u) << (2 * i) | ((h ? vm : vo) >> i & 1u) << (2 * i + 1);
+  return v;
+}
+
+// This lane's 16-byte piece of the row of rows RW int32 wide at query j's
+// h1 bucket (H2: its h2 bucket), for each query j whose bit is set in
+// `mask`; the other queries' pieces are left as they are.
+template <bool H2, int RW, int POL, int J>
+__device__ __forceinline__ void load_pieces(const uint32_t (&kj)[J], unsigned mask,
+                                            const int32_t* __restrict__ tbl, int shift,
+                                            int4 (&pc)[J]) {
+  const int h = threadIdx.x & 1;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (mask >> j & 1) {
+      const uint32_t b = H2 ? hash2(kj[j], shift) : hash1(kj[j], shift);
+      pc[j] = ld_row4<POL>(tbl + (size_t)b * RW + 4 * h);
+    }
+}
+
+// The slots of a row holding key k, from the pieces c the pair's lanes
+// hold, where `on` (else 0) -> bit s: slot s holds k, on both lanes.
+__device__ __forceinline__ unsigned pair_match(bool on, const int4 c, int32_t k) {
+  const unsigned x = on ? match4(c, k) << (4 * (threadIdx.x & 1)) : 0u;
+  return x | __shfl_xor_sync(ALL, x, 1);
+}
+
+// ---- single-probe rows (probe_single_kernel) ----
 
 // The single-probe lookup of a lane pair's 2Q queries (query 2i + o is
 // query i of the pair's lane o), a 16-byte piece of each row a lane: every
@@ -235,27 +275,13 @@ __device__ __forceinline__ void lookup_single(const uint32_t (&k)[Q], const bool
   const int h = threadIdx.x & 1;           // the piece of a row this lane reads
   const int odd = (threadIdx.x & 31) | 1;  // the pair's odd lane
   uint32_t kj[J];
-  unsigned vm = 0;
-#pragma unroll
-  for (int i = 0; i < Q; ++i) {
-    const uint32_t other = __shfl_xor_sync(ALL, k[i], 1);
-    kj[2 * i] = h ? other : k[i];
-    kj[2 * i + 1] = h ? k[i] : other;
-    vm |= (unsigned)valid[i] << i;
-  }
-  const unsigned vo = __shfl_xor_sync(ALL, vm, 1);
-  unsigned v = 0;  // bit j: query j is valid
-#pragma unroll
-  for (int i = 0; i < Q; ++i)
-    v |= ((h ? vo : vm) >> i & 1u) << (2 * i) | ((h ? vm : vo) >> i & 1u) << (2 * i + 1);
+  const unsigned v = pair_queries<Q>(k, valid, kj);  // bit j: query j is valid
   int4 pc[J];
   uint32_t pay[J];
   unsigned need = 0;  // bit j: query j loads its h2 row
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
-    pc[j] = make_int4(0, 0, 0, 0);
-    if (v >> j & 1) pc[j] = ld_row4<POL>(tbl + (size_t)hash1(kj[j], shift) * RW + 4 * h);
-  }
+  for (int j = 0; j < J; ++j) pc[j] = make_int4(0, 0, 0, 0);
+  load_pieces<false, RW, POL>(kj, v, tbl, shift, pc);
   if constexpr (S == 4) {
     // the keys' lane hands its match to the payloads' lane, which sums the
     // matched payloads and reads the marker
@@ -271,9 +297,7 @@ __device__ __forceinline__ void lookup_single(const uint32_t (&k)[Q], const bool
       sectors += __popc(v) + __popc(need);
     }
     if (__any_sync(ALL, need != 0)) {
-#pragma unroll
-      for (int j = 0; j < J; ++j)
-        if (need >> j & 1) pc[j] = ld_row4<POL>(tbl + (size_t)hash2(kj[j], shift) * RW + 4 * h);
+      load_pieces<true, RW, POL>(kj, need, tbl, shift, pc);
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const bool n2 = need >> j & 1;
@@ -317,13 +341,10 @@ __device__ __forceinline__ void lookup_single(const uint32_t (&k)[Q], const bool
     }
     if (__any_sync(ALL, need != 0)) {
       unsigned paid2 = 0;
-#pragma unroll
-      for (int j = 0; j < J; ++j)
-        if (need >> j & 1) pc[j] = ld_row4<POL>(tbl + (size_t)hash2(kj[j], shift) * RW + 4 * h);
+      load_pieces<true, RW, POL>(kj, need, tbl, shift, pc);
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        unsigned x = (need >> j & 1) ? match4(pc[j], (int32_t)kj[j]) << (4 * h) : 0u;
-        m[j] = x | __shfl_xor_sync(ALL, x, 1);
+        m[j] = pair_match(need >> j & 1, pc[j], (int32_t)kj[j]);
         paid2 |= (unsigned)(m[j] != 0) << j;
       }
 #pragma unroll
@@ -348,6 +369,54 @@ __device__ __forceinline__ void lookup_single(const uint32_t (&k)[Q], const bool
     int32_t oc = EMPTY, op = 0;
     if (valid[i]) decode(h ? pay[2 * i + 1] : theirs, cbits, pos_bias, oc, op);
     res[i] = make_int2(oc, op);
+  }
+}
+
+// ---- split rows (probe_split_kernel) ----
+
+// The split lookup of a lane pair's 2Q queries (query 2i + o is query i of
+// the pair's lane o), a 16-byte piece of each key row a lane: every h1
+// piece first, then the h2 pieces of the queries whose key is not in h1.
+// The lanes swap their 4-bit matches, so both hold each query's 8-bit
+// match (bit s: slot s) and its first matching slot is the lowest bit. ->
+// `at`: for each of this lane's own queries the int32 offset of its vals
+// element in `vals`, or -1 (a miss or an invalid query); `rows` and
+// `hits`: the key rows and vals elements of the lane's own queries.
+template <int Q, int POL>
+__device__ __forceinline__ void lookup_split(const uint32_t (&k)[Q], const bool (&valid)[Q],
+                                             const int32_t* __restrict__ keys, int shift,
+                                             long long (&at)[Q], unsigned& rows,
+                                             unsigned& hits) {
+  constexpr int J = 2 * Q, S = 8;
+  const int h = threadIdx.x & 1;  // the piece of a row this lane reads
+  uint32_t kj[J];
+  const unsigned v = pair_queries<Q>(k, valid, kj);  // bit j: query j is valid
+  int4 pc[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) pc[j] = make_int4(0, 0, 0, 0);
+  load_pieces<false, S, POL>(kj, v, keys, shift, pc);
+  unsigned m[J], need = 0;  // need bit j: query j loads its h2 row
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    m[j] = pair_match(v >> j & 1, pc[j], (int32_t)kj[j]);
+    if ((v >> j & 1) && m[j] == 0) need |= 1u << j;
+  }
+  if (__any_sync(ALL, need != 0)) {
+    load_pieces<true, S, POL>(kj, need, keys, shift, pc);
+#pragma unroll
+    for (int j = 0; j < J; ++j) m[j] |= pair_match(need >> j & 1, pc[j], (int32_t)kj[j]);
+  }
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    const int j = 2 * i + h;
+    const bool n2 = need >> j & 1;
+    at[i] = -1;
+    if (m[j]) {
+      const uint32_t bucket = n2 ? hash2(k[i], shift) : hash1(k[i], shift);
+      at[i] = ((long long)bucket * S + (__ffs(m[j]) - 1)) * 2;
+    }
+    rows += (unsigned)valid[i] + (unsigned)n2;
+    hits += m[j] != 0;
   }
 }
 
@@ -379,9 +448,12 @@ __device__ __forceinline__ uint2 pack_chunk(const uint8_t* __restrict__ codes,
 // The tiles of a probe launch, a LAYOUT table. Query q of a tile: (row q /
 // NQ, k-mer (q % NQ) * stride) of the (B, W) code rows, or kmers[q] with
 // validity kvalid[q] when codes is NULL. When row_loads is not NULL, the
-// table rows the launch loads are added to it; on single-probe rows also
-// the 32-byte sectors it requests to sector_loads, when that is not NULL.
-// The pointers are the kernels' own __restrict__ parameters, inlined.
+// table rows the launch loads are added to it (split: key rows); when
+// sector_loads is not NULL, on single-probe rows the 32-byte sectors it
+// requests and on split rows the vals elements it reads are added to it.
+// Split rows: a tile's vals loads are issued with the next tile's h1
+// pieces, and the last tile's after the walk. The pointers are the
+// kernels' own __restrict__ parameters, inlined.
 template <int LAYOUT, int S, int Q, int POL, int T>
 __device__ __forceinline__ void probe_tiles(const uint8_t* codes, const int32_t* lengths,
                                             const int32_t* kmers, const uint8_t* kvalid,
@@ -396,6 +468,12 @@ __device__ __forceinline__ void probe_tiles(const uint8_t* codes, const int32_t*
   unsigned rows = 0, sectors = 0;
   const unsigned ntiles = (n + per_tile - 1) / per_tile;
   const long long nbytes = codes != nullptr ? (long long)(n / NQ) * W : 0;
+  // split rows: the previous tile's first query and its vals offsets (-1:
+  // none)
+  unsigned pq0 = n;
+  long long pend[Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) pend[i] = -1;
   for (unsigned tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const unsigned q0 = tile * per_tile;
     uint32_t k[Q];
@@ -438,23 +516,45 @@ __device__ __forceinline__ void probe_tiles(const uint8_t* codes, const int32_t*
       }
     }
     int2 res[Q];
-    if constexpr (LAYOUT == LAYOUT_SINGLE)
+    if constexpr (LAYOUT == LAYOUT_SINGLE) {
       lookup_single<S, Q, POL>(k, valid, tbl, shift, cbits, pos_bias, sentinel, res, rows,
                                sectors);
-    else
-      lookup_q<LAYOUT == LAYOUT_SPLIT, S, Q, POL>(k, valid, tbl, vals, shift, cbits, pos_bias,
-                                                  res, rows);
+    } else if constexpr (LAYOUT == LAYOUT_SPLIT) {
+      // the previous tile's vals, in flight with this tile's h1 pieces
+      long long at[Q];
+#pragma unroll
+      for (int i = 0; i < Q; ++i)
+        res[i] = pend[i] >= 0 ? ld_row2<POL>(vals + pend[i]) : make_int2(EMPTY, 0);
+      lookup_split<Q, POL>(k, valid, tbl, shift, at, rows, sectors);
+#pragma unroll
+      for (int i = 0; i < Q; ++i) {
+        const unsigned q = pq0 + i * T + tid;
+        if (q < n) out[q] = res[i];
+        pend[i] = at[i];
+      }
+      pq0 = q0;
+      continue;
+    } else {
+      lookup_q<S, Q, POL>(k, valid, tbl, shift, cbits, pos_bias, res, rows);
+    }
 #pragma unroll
     for (int i = 0; i < Q; ++i) {
       const unsigned q = q0 + i * T + tid;
       if (q < n) out[q] = res[i];
     }
   }
+  if constexpr (LAYOUT == LAYOUT_SPLIT) {
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      const unsigned q = pq0 + i * T + tid;
+      if (q < n) out[q] = pend[i] >= 0 ? ld_row2<POL>(vals + pend[i]) : make_int2(EMPTY, 0);
+    }
+  }
   if (row_loads != nullptr) {  // every thread of the block gets here
     rows = __reduce_add_sync(0xFFFFFFFFu, rows);
     if ((tid & 31) == 0 && rows) atomicAdd(row_loads, (unsigned long long)rows);
   }
-  if constexpr (LAYOUT == LAYOUT_SINGLE) {
+  if constexpr (LAYOUT != LAYOUT_KV) {
     if (sector_loads != nullptr) {
       sectors = __reduce_add_sync(0xFFFFFFFFu, sectors);
       if ((tid & 31) == 0 && sectors) atomicAdd(sector_loads, (unsigned long long)sectors);
@@ -462,8 +562,8 @@ __device__ __forceinline__ void probe_tiles(const uint8_t* codes, const int32_t*
   }
 }
 
-// kv rows (S = 1, 2, 4) or split key rows (S = 8)
-template <bool SPLIT, int S, int Q, int POL, int T>
+// kv rows (S = 1, 2, 4)
+template <int S, int Q, int POL, int T>
 __global__ void __launch_bounds__(512)
 probe_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ lengths,
              const int32_t* __restrict__ kmers, const uint8_t* __restrict__ kvalid,
@@ -471,9 +571,24 @@ probe_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ leng
              const int32_t* __restrict__ tbl, const int32_t* __restrict__ vals, int shift,
              int cbits, int pos_bias, int2* __restrict__ out,
              unsigned long long* __restrict__ row_loads) {
-  probe_tiles<SPLIT ? LAYOUT_SPLIT : LAYOUT_KV, S, Q, POL, T>(
+  probe_tiles<LAYOUT_KV, S, Q, POL, T>(
       codes, lengths, kmers, kvalid, n, W, stride, NQ, nch_max, tbl, vals, shift, cbits,
       pos_bias, out, row_loads, 0, nullptr);
+}
+
+// split rows: keys (nb, 8), vals (nb*8, 2) [contig, pos]; vals_loads: the
+// vals elements read (a hit's one each)
+template <int Q, int POL, int T>
+__global__ void __launch_bounds__(T)
+probe_split_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ lengths,
+                   const int32_t* __restrict__ kmers, const uint8_t* __restrict__ kvalid,
+                   unsigned n, int W, int stride, int NQ, int nch_max,
+                   const int32_t* __restrict__ keys, const int32_t* __restrict__ vals, int shift,
+                   int2* __restrict__ out, unsigned long long* __restrict__ row_loads,
+                   unsigned long long* __restrict__ vals_loads) {
+  probe_tiles<LAYOUT_SPLIT, 8, Q, POL, T>(codes, lengths, kmers, kvalid, n, W, stride, NQ,
+                                          nch_max, keys, vals, shift, 0, 0, out, row_loads, 0,
+                                          vals_loads);
 }
 
 // single-probe rows: kvs (S = 4) or kv16 (S = 8); sentinel: the table's
@@ -513,12 +628,31 @@ probe_single_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict
 #ifndef PROBE_SINGLE_THREADS
 #define PROBE_SINGLE_THREADS 128
 #endif
+// the split kernel's queries a thread (a lane pair looks up twice as many
+// together), table-row cache policy and threads a block: one query a
+// thread, ld.global.cg, blocks of 512, as `chip_smoke.py --probe-sweep`
+// chose on the card (one query a thread was 7.5% faster than the old
+// kernel on a 24 GiB table and even with it on the panel's, two or four
+// slower on both)
+#ifndef PROBE_SPLIT_Q
+#define PROBE_SPLIT_Q 1
+#endif
+#ifndef PROBE_SPLIT_POLICY
+#define PROBE_SPLIT_POLICY 1
+#endif
+#ifndef PROBE_SPLIT_THREADS
+#define PROBE_SPLIT_THREADS 512
+#endif
 static_assert(PROBE_Q >= 1 && PROBE_THREADS % 32 == 0 && PROBE_THREADS <= 512 &&
                   PROBE_POLICY >= 0 && PROBE_POLICY <= 2,
               "a probe launch shape the kernel does not take");
 static_assert(PROBE_SINGLE_Q >= 1 && PROBE_SINGLE_Q <= 16 && PROBE_SINGLE_THREADS % 32 == 0 &&
                   PROBE_SINGLE_THREADS <= 1024,
               "a single-probe launch shape the kernel does not take");
+static_assert(PROBE_SPLIT_Q >= 1 && PROBE_SPLIT_Q <= 16 && PROBE_SPLIT_THREADS % 32 == 0 &&
+                  PROBE_SPLIT_THREADS <= 1024 && PROBE_SPLIT_POLICY >= 0 &&
+                  PROBE_SPLIT_POLICY <= 2,
+              "a split launch shape the kernel does not take");
 
 namespace {
 
@@ -602,16 +736,28 @@ int probe_single_launch(Kernel kern, const ProbeArgs& a, int32_t sentinel,
   return (int)cudaGetLastError();
 }
 
+constexpr int PQ = PROBE_SPLIT_Q, PT = PROBE_SPLIT_THREADS;
+
+int probe_split_launch(const ProbeArgs& a, unsigned long long* vals_loads, cudaStream_t st) {
+  const auto kern = gf::probe_split_kernel<PQ, PROBE_SPLIT_POLICY, PT>;
+  int nch_max;
+  size_t smem;
+  unsigned grid;
+  if (const int e = probe_shape<PQ, PT>(kern, a, nch_max, smem, grid)) return e;
+  kern<<<grid, PT, smem, st>>>(a.codes, a.lengths, a.kmers, a.kvalid, a.n, a.W, a.stride, a.NQ,
+                               nch_max, a.tbl, a.vals, a.shift, a.out, a.row_loads, vals_loads);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // codes != NULL: query q = (row q / NQ, k-mer (q % NQ) * stride) of the
 // (n / NQ, W) code rows, 16-byte aligned. codes == NULL: query q is
-// kmers[q] with validity valid[q]. split: the table kind, LAYOUT_KV (0):
-// tbl = kv rows (nb, 2S), S 1, 2 or 4; LAYOUT_SPLIT (1): tbl = keys (nb, 8),
-// vals = (nb*8, 2); single-probe rows take gf_probe_single. out: (n, 2)
-// int32 [contig, pos]. row_loads: NULL, or a device counter the launch
-// adds its table row loads to (h1 rows, h2 rows; not the split layout's
-// vals).
+// kmers[q] with validity valid[q]. split: the table kind, LAYOUT_KV (0)
+// only: tbl = kv rows (nb, 2S), S 1, 2 or 4 (vals unused); split rows take
+// gf_probe_split, single-probe rows gf_probe_single. out: (n, 2) int32
+// [contig, pos]. row_loads: NULL, or a device counter the launch adds its
+// table row loads to (h1 rows, h2 rows).
 extern "C" int gf_probe(const void* codes, const void* lengths, const void* kmers,
                         const void* valid, long long n, int W, int stride, int NQ,
                         const void* tbl, const void* vals, int split, int S, int shift,
@@ -623,15 +769,34 @@ extern "C" int gf_probe(const void* codes, const void* lengths, const void* kmer
                     (int2*)out, (unsigned long long*)row_loads};
   cudaStream_t st = (cudaStream_t)stream;
   constexpr int P = PROBE_POLICY;
-  if (split == gf::LAYOUT_SPLIT && S == 8)
-    return probe_launch(gf::probe_kernel<true, 8, Q, P, T>, a, st);
-  if (split == gf::LAYOUT_KV && S == 1)
-    return probe_launch(gf::probe_kernel<false, 1, Q, P, T>, a, st);
-  if (split == gf::LAYOUT_KV && S == 2)
-    return probe_launch(gf::probe_kernel<false, 2, Q, P, T>, a, st);
-  if (split == gf::LAYOUT_KV && S == 4)
-    return probe_launch(gf::probe_kernel<false, 4, Q, P, T>, a, st);
+  if (split == gf::LAYOUT_KV && S == 1) return probe_launch(gf::probe_kernel<1, Q, P, T>, a, st);
+  if (split == gf::LAYOUT_KV && S == 2) return probe_launch(gf::probe_kernel<2, Q, P, T>, a, st);
+  if (split == gf::LAYOUT_KV && S == 4) return probe_launch(gf::probe_kernel<4, Q, P, T>, a, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The split rows: keys (nb, 8) int32 on a 32-byte boundary (a row one
+// sector), vals (nb*8, 2) int32 [contig, pos] on an 8-byte one. codes,
+// kmers, out as gf_probe's. row_loads, vals_loads: NULL, or device
+// counters the launch adds its key rows (h1 rows, h2 rows) and its vals
+// elements (a hit's one each) to.
+extern "C" int gf_probe_split(const void* codes, const void* lengths, const void* kmers,
+                              const void* valid, long long n, int W, int stride, int NQ,
+                              const void* keys, const void* vals, int shift, void* out,
+                              void* row_loads, void* vals_loads, void* stream) {
+  if (n < 0 || n >= (1LL << 31) || NQ < 1) return (int)cudaErrorInvalidValue;
+  const ProbeArgs a{(const uint8_t*)codes, (const int32_t*)lengths, (const int32_t*)kmers,
+                    (const uint8_t*)valid, (unsigned)n, W, stride, NQ,
+                    (const int32_t*)keys, (const int32_t*)vals, shift, 0, 0,
+                    (int2*)out, (unsigned long long*)row_loads};
+  return probe_split_launch(a, (unsigned long long*)vals_loads, (cudaStream_t)stream);
+}
+
+// The split kernel's launch shape in this build: queries a thread, threads
+// a block.
+extern "C" void gf_probe_split_shape(int* q, int* threads) {
+  *q = PQ;
+  *threads = PT;
 }
 
 // The single-probe rows: tbl (nb, 2S) int32, S 4 (kvs) or 8 (kv16), on a

@@ -10,7 +10,8 @@ the current stream, launches on that stream, allocates nothing and returns
 ops/map_read.py, ops/fused.py, ops/edit_distance.py and
 profiling/gather_floor.py, one
 per launch, so a run can show which kernels it used. The probe counts as
-"probe" on kv and split tables, and as "probe_kvs" and "probe_kv16" on
+"probe" on kv tables (`probe_kernel`) and on split tables (its split
+kernel, `probe_split_kernel`), and as "probe_kvs" and "probe_kv16" on
 the single-probe tables (its variant, `probe_single_kernel`). The vote
 kernel counts as "vote" in its gated mode and as "vote_counts" in its counts
 mode (the contig-sharded index). The wide-row paths count apart from
@@ -138,6 +139,8 @@ _ARGTYPES = {
                  _P, _P, _P],
     "gf_probe_single": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _I, _I, _I, _I, _I,
                         _P, _P, _P, _P],
+    "gf_probe_split": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P, _I, _P, _P, _P,
+                       _P],
     "gf_vote": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "gf_vote_wide": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I,
                      _P, _P],
@@ -217,25 +220,37 @@ def probe_name(index) -> str:
 
 
 def launch_probe(codes, lengths, kmers, valid, n, W, stride, NQ, index, out,
-                 row_loads=None, lib=None, sector_loads=None) -> None:
+                 row_loads=None, lib=None, sector_loads=None, vals_loads=None) -> None:
     """`row_loads`: None, or a one-element int64 tensor on the card that the
-    launch adds its table row loads to; `sector_loads` (single-probe tables
-    only) likewise for the 32-byte sectors it requests. `lib`: a variant
-    build of probe.cu (a launch-shape sweep), else the port's library. Kv
-    and split tables take gf_probe (its `split` argument: 0 kv rows, 1
-    split), single-probe tables gf_probe_single."""
+    launch adds its table row loads to (split tables: key rows);
+    `sector_loads` (single-probe tables only) likewise for the 32-byte
+    sectors it requests, `vals_loads` (split tables only) for the vals
+    elements it reads. `lib`: a variant build of probe.cu (a launch-shape
+    sweep), else the port's library. Kv tables take gf_probe, split tables
+    gf_probe_split, single-probe tables gf_probe_single."""
     if index.table.data_ptr() % 16 or (codes is not None and codes.data_ptr() % 16):
         raise ValueError("probe: table rows and code rows must be 16-byte aligned")
-    if index.single_probe and index.table.data_ptr() % 32:
-        raise ValueError("probe: single-probe rows must start on a 32-byte sector")
+    if (index.single_probe or index.split) and index.table.data_ptr() % 32:
+        raise ValueError("probe: single-probe rows and split key rows must start on a "
+                         "32-byte sector")
+    if index.split and index.vals.data_ptr() % 8:
+        raise ValueError("probe: split vals must be 8-byte aligned")
     if sector_loads is not None and not index.single_probe:
         raise ValueError("probe: only the single-probe variant counts its sectors")
+    if vals_loads is not None and not index.split:
+        raise ValueError("probe: only the split kernel counts its vals elements")
     if n >= 1 << 31:
         raise ValueError(f"probe: {n} queries exceed the kernel's 2^31")
     dev = out.device
     lib = lib or library()
     with torch.cuda.device(dev):
-        if index.single_probe:
+        if index.split:
+            err = lib.gf_probe_split(
+                _ptr(codes), _ptr(lengths), _ptr(kmers), _ptr(valid), n, W, stride, NQ,
+                index.table.data_ptr(), index.vals.data_ptr(), index.shift, out.data_ptr(),
+                _ptr(row_loads), _ptr(vals_loads), _stream(out),
+            )
+        elif index.single_probe:
             err = lib.gf_probe_single(
                 _ptr(codes), _ptr(lengths), _ptr(kmers), _ptr(valid), n, W, stride, NQ,
                 index.table.data_ptr(), index.S, index.shift, index.cbits, index.pos_bias,
@@ -245,11 +260,18 @@ def launch_probe(codes, lengths, kmers, valid, n, W, stride, NQ, index, out,
         else:
             err = lib.gf_probe(
                 _ptr(codes), _ptr(lengths), _ptr(kmers), _ptr(valid), n, W, stride, NQ,
-                index.table.data_ptr(), index.vals.data_ptr() if index.split else None,
-                int(index.split), index.S, index.shift, index.cbits, index.pos_bias,
-                out.data_ptr(), _ptr(row_loads), _stream(out),
+                index.table.data_ptr(), None, 0, index.S, index.shift, index.cbits,
+                index.pos_bias, out.data_ptr(), _ptr(row_loads), _stream(out),
             )
     _done(probe_name(index), err)
+
+
+def probe_split_shape(lib=None) -> tuple:
+    """(queries a thread, threads a block) of the split kernel in `lib` (a
+    variant build of probe.cu), else in the port's library."""
+    q, t = ctypes.c_int(), ctypes.c_int()
+    (lib or library()).gf_probe_split_shape(ctypes.byref(q), ctypes.byref(t))
+    return q.value, t.value
 
 
 def launch_vote(pr, B, NS, index, step, major_req, minor_req, P2, out, counts=False,

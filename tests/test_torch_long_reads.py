@@ -36,7 +36,7 @@ from test_torch_map_read import (
     _kernel_mask_segments,
     _kernel_vote,
 )
-from test_torch_probe import _kernel_probe, staged_chunks_max
+from test_torch_probe import _kernel_probe, split_default_shape, staged_chunks_max
 
 _TS = re.compile(r"\d{4}-\d{2}-\d{2} \d{2}:\d{2}:\d{2}\.\d+ \+00:00")
 CPU = torch.device("cpu")
@@ -201,19 +201,22 @@ def _very_long_batch(panel, lengths, seed):
     return codes, np.array([len(s) for s in seqs], np.int32)
 
 
+@pytest.mark.parametrize("layout", ["kv2", "split"])
 @pytest.mark.parametrize("stride", [2, 1])
 def test_probe_mirror_matches_plain_on_rows_past_the_old_staging_limit(panel_reads, panel_ix,
-                                                                        stride):
-    """The kernel's mirror at its launch shape on rows of 150, 240,000 and
-    300,000 bases: bit-equal to plain, table rows loaded as needed, and
-    each tile's staged span inside the launch's shared memory, which fits
-    a block, where staging the rows a tile crosses whole would not."""
+                                                                        stride, layout):
+    """The kernel's mirror at its launch shape (kv2: probe_kernel's; split:
+    probe_split_kernel's) on rows of 150, 240,000 and 300,000 bases:
+    bit-equal to plain, table rows loaded as needed, and each tile's staged
+    span inside the launch's shared memory, which fits a block, where
+    staging the rows a tile crosses whole would not."""
     from test_torch_probe import _rows_needed
 
     panel = panel_reads[0]
     codes, lens = _very_long_batch(panel, [150, 240_000, 300_000], seed=17)
-    index = index_to_torch(build_packed_index(panel_ix, "kv2"), CPU)
-    got, loaded, _ = _kernel_probe(codes, lens, stride, index, PROBE_T, PROBE_Q)
+    index = index_to_torch(build_packed_index(panel_ix, layout), CPU)
+    T, Q = (PROBE_T, PROBE_Q) if layout == "kv2" else split_default_shape()[::-1]
+    got, loaded, _ = _kernel_probe(codes, lens, stride, index, T, Q)
     plain = tm.probe(torch.from_numpy(codes), torch.from_numpy(lens), stride, index)
     assert np.array_equal(got, plain.numpy())
     assert loaded == _rows_needed(index, codes, lens, stride)
@@ -221,8 +224,8 @@ def test_probe_mirror_matches_plain_on_rows_past_the_old_staging_limit(panel_rea
     assert hits[1].any() and hits[2].any() and (plain[2, :, 0] == tm.EMPTY).any()
     W = codes.shape[1]
     NQ = (W - 16 + stride) // stride
-    rows_max = (PROBE_T * PROBE_Q - 1) // NQ + 2
-    assert staged_chunks_max(W, NQ, stride, PROBE_T, PROBE_Q) * 8 + rows_max * 4 <= BLOCK_SMEM
+    rows_max = (T * Q - 1) // NQ + 2
+    assert staged_chunks_max(W, NQ, stride, T, Q) * 8 + rows_max * 4 <= BLOCK_SMEM
     assert rows_max * W > BLOCK_SMEM
 
 

@@ -15,6 +15,7 @@ and the sentinel with the marker in its last slot) is held on both
 packers. All outputs are integers, so equal means bit-equal."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -41,6 +42,7 @@ from genefuserust_tpu_torch.core.sequence import encode_bases
 from genefuserust_tpu_torch.ops import cuda as tcuda
 from genefuserust_tpu_torch.ops import map_read as tm
 from genefuserust_tpu_torch.ops.index import _pack_kv16, _pack_kvs, index_to_torch
+from genefuserust_tpu_torch.profiling.large_tables import rows_probed
 
 # layout -> pack_index_kv arguments (kv8 is the packer's default)
 KV_LAYOUTS = {
@@ -308,13 +310,17 @@ def _h2(k, shift):
 def _mirror_lookup(index, k, valid):
     """The kernel's lookup of uint64 k-mers: the h1 row of every valid
     query, the h2 row only of the valid queries whose key is not in h1
-    (kv, split) or, on single-probe rows, whose h1 row carries the
-    overflow flag and matched no nonzero payload (`_mirror_single`), then
-    (split) the vals of the slot -> ((n, 2) int32, rows loaded, 32-byte
-    sectors requested: None on kv and split rows)."""
+    (kv, split: `_mirror_split`) or, on single-probe rows, whose h1 row
+    carries the overflow flag and matched no nonzero payload
+    (`_mirror_single`) -> ((n, 2) int32, rows loaded (split: key rows),
+    the 32-byte sectors requested on single-probe rows, the vals elements
+    read on split rows, else None)."""
     if index.single_probe:
         out, rows, sectors = _mirror_single(index, k, valid)
         return out, rows, int(sectors.sum())
+    if index.split:
+        out, rows, vals = _mirror_split(index, k, valid)
+        return out, int(rows.sum()), int(vals.sum())
     tbl, S = index.table.numpy(), index.S
     ki = k.astype(np.uint32).view(np.int32)[:, None]
     b1, b2 = (h(k, index.shift).astype(np.int64) for h in (_h1, _h2))
@@ -324,15 +330,6 @@ def _mirror_lookup(index, k, valid):
     r2 = tbl[np.where(need2, b2, 0)]
     m2 = r2[:, :S] == ki
     rows = int(valid.sum() + need2.sum())
-    if index.split:
-        # first matching slot, h1's row unless the key was not there
-        m = np.where(need2[:, None], m2, m1)
-        found = valid & m.any(1)
-        flat = np.where(need2, b2, b1) * S + m.argmax(1)
-        v = index.vals.numpy()[np.where(found, flat, 0)]
-        c = np.where(found, v[:, 0], EMPTY)
-        pos = np.where(found, v[:, 1], 0)
-        return np.stack([c, pos], 1).astype(np.int32), rows, None
     # need2 leaves h1's sum 0 (no slot matched)
     p = np.where(need2, _pay(m2, r2[:, S:]), _pay(m1, r1[:, S:]))
     return _decoded(index, p, valid), rows, None
@@ -398,6 +395,38 @@ def _mirror_single(index, k, valid):
     return _decoded(index, pay, valid), int(valid.sum() + need2.sum()), sectors
 
 
+def _mirror_split(index, k, valid):
+    """lookup_split of csrc/probe.cu: a lane pair a query, lane h reading
+    16-byte piece h of a key row (slots 4h..4h+3, the row's one sector);
+    each lane's 4-bit match handed to the other, so both hold the 8-bit
+    match and take its lowest bit, the even lane's half first; h2 pieces
+    only where no slot of h1 matched; then the query's own lane reads the
+    8-byte vals element of the slot, none for a miss or an invalid query
+    -> ((n, 2) int32, (n,) key rows a query, (n,) vals elements a query)."""
+    tbl, S = index.table.numpy(), index.S
+    assert S == 8
+    ki = k.astype(np.uint32).view(np.int32)[:, None, None]
+    b1, b2 = (h(k, index.shift).astype(np.int64) for h in (_h1, _h2))
+    bits = np.uint32(1) << np.arange(8, dtype=np.uint32).reshape(2, 4)
+
+    def match(rows, live):
+        # each lane's 4 bits at 4h, or-ed across the pair
+        hit = (_pieces(tbl, np.where(live, rows, 0), 0) == ki) & live[:, None, None]
+        return np.where(hit, bits, np.uint32(0)).reshape(len(rows), 8).sum(1, dtype=np.uint32)
+
+    m = match(b1, valid)
+    need2 = valid & (m == 0)
+    m = np.where(need2, match(b2, need2), m)
+    found = m != 0
+    slot = np.where(found, np.log2(np.where(found, m & -m, 1)).astype(np.int64), 0)
+    at = (np.where(need2, b2, b1) * S + slot) * 2
+    v = index.vals.numpy().reshape(-1)
+    c = np.where(found, v[np.where(found, at, 0)], EMPTY)
+    pos = np.where(found, v[np.where(found, at + 1, 0)], 0)
+    return (np.stack([c, pos], 1).astype(np.int32), valid.astype(np.int64) + need2,
+            found.astype(np.int64))
+
+
 def _stage(flat, c0, nch):
     """Chunks c0 .. c0+nch-1 of 16 code bytes -> (2-bit bases, first base
     highest; 255 mask, first base in bit 15), as uint64. Bytes past the
@@ -409,6 +438,18 @@ def _stage(flat, c0, nch):
     pk = (code << (2 * (15 - np.arange(16, dtype=np.uint64)))).sum(1)
     mk = (bad.astype(np.uint64) << (15 - np.arange(16, dtype=np.uint64))).sum(1)
     return pk, mk
+
+
+def split_default_shape():
+    """(queries a thread, threads a block) of the split kernel in a build of
+    csrc/probe.cu without -D overrides: its PROBE_SPLIT_Q and
+    PROBE_SPLIT_THREADS, which the library reports as
+    `cuda.probe_split_shape()`."""
+    import re
+
+    src = open(os.path.join(tcuda.CSRC, "probe.cu")).read()
+    return tuple(int(re.search(rf"#define {name} (\d+)", src).group(1))
+                 for name in ("PROBE_SPLIT_Q", "PROBE_SPLIT_THREADS"))
 
 
 def staged_chunks_max(W, NQ, stride, T, Q):
@@ -427,7 +468,7 @@ def _kernel_probe(codes, lengths, stride, index, T=64, Q=4):
     launch's shared memory for any W), each k-mer the 32 bits at its offset
     across two words and valid when its window holds no 255 bit and
     j <= len - 16 -> ((B, NQ, 2) int32, rows loaded, sectors requested on
-    single-probe rows, else None)."""
+    single-probe rows, vals elements read on split rows, else None)."""
     B, W = codes.shape
     NQ = (W - KMER + stride) // stride
     n, flat = B * NQ, codes.reshape(-1)
@@ -453,7 +494,8 @@ def _kernel_probe(codes, lengths, stride, index, T=64, Q=4):
         out[q], rows, sec = _mirror_lookup(index, k, valid)
         loaded += rows
         sectors += sec or 0
-    return out.reshape(B, NQ, 2), loaded, sectors if index.single_probe else None
+    counted = index.single_probe or index.split
+    return out.reshape(B, NQ, 2), loaded, sectors if counted else None
 
 
 def _rows_needed(index, codes, lengths, stride):
@@ -504,12 +546,18 @@ def _edge_codes(ix, W=45, seed=8):
 
 
 def _edge_queries(ix, packed, seed=9):
-    """Flat uint32 queries: real keys, random ones (half >= 2^31), the
-    absent-key sentinel, keys placed in h2 while their h1 row is full,
-    and keys with h1 == h2 (in the table or not) -> (packed, queries,
-    names). Where no key in h2 has a full h1 row (the split layout's
-    8-slot rows at this load), the empty slots of 50 such h1 rows are
-    filled with keys absent from the panel, in a copy of the table."""
+    """Flat uint32 queries: real keys, random ones (half >= 2^31), real
+    keys >= 2^31, the absent-key sentinel, keys placed in h2 while their h1
+    row is full, keys with h1 == h2 (in the table or not) and copies of
+    real keys marked invalid -> (packed, queries, names); the invalid
+    group is named "invalid". Where no key in h2 has a full h1 row (the
+    split layout's 8-slot rows at this load), the empty slots of 50 such
+    h1 rows are filled with keys absent from the panel, in a copy of the
+    table. On the split layout also keys in each slot 0-7 of their h1 row
+    ("slot_s": real ones where the slot holds any, and keys absent from
+    the panel written into the copy, each with vals of its own) and in
+    slots 4-7 of their h2 row (the odd lane's half), the sentinel's h1 row
+    filled in slots 0-3 so that it first matches in the odd lane's half."""
     rng = np.random.default_rng(seed)
     index = index_to_torch(packed, "cpu")
     tbl, S = index.table.numpy(), index.S
@@ -520,28 +568,73 @@ def _edge_queries(ix, packed, seed=9):
     in_h1 = (tbl[b1][:, :S] == ki).any(1)
     empty = np.int64(sentinel).astype(np.uint32).view(np.int32)
     h1_full = (tbl[b1][:, :S] != empty).all(1)
-    if not (~in_h1 & h1_full).any():
-        assert packed.keys_tbl is not None  # the split layout
-        kt = packed.keys_tbl.copy()
-        fresh = np.setdiff1d(rng.integers(0, 2**32, 4096, dtype=np.uint64), keys)
-        fresh = fresh[fresh != sentinel].astype(np.uint32).view(np.int32)
-        rows = np.unique(b1[~in_h1])[:50]
-        slots = kt[rows] == empty
-        kt[rows[np.nonzero(slots)[0]], np.nonzero(slots)[1]] = fresh[: slots.sum()]
-        packed = dataclasses.replace(packed, keys_tbl=kt)
+    split = getattr(packed, "keys_tbl", None) is not None
+    # the added groups draw from a generator of their own, so the others
+    # keep their keys
+    frng = np.random.default_rng(seed + 1000)
+    fresh = np.setdiff1d(frng.integers(0, 2**32, 400_000, dtype=np.uint64), keys)
+    fresh = frng.permutation(fresh[fresh != sentinel])
+    groups = {}
+    if split:
+        kt, vt = packed.keys_tbl.copy(), packed.vals_tbl.copy()
+        if not (~in_h1 & h1_full).any():
+            old = np.setdiff1d(rng.integers(0, 2**32, 4096, dtype=np.uint64), keys)
+            old = old[old != sentinel]
+            rows = np.unique(b1[~in_h1])[:50]
+            slots = kt[rows] == empty
+            n = int(slots.sum())
+            kt[rows[np.nonzero(slots)[0]], np.nonzero(slots)[1]] = (
+                old[:n].astype(np.uint32).view(np.int32))
+            fresh = fresh[~np.isin(fresh, old[:n])]
+        # fresh keys in slot s of their own h1 row (or, "h2_slot", of their
+        # h2 row), where that slot is empty and the key is in no other row
+        # of the copy; each with vals (s, 1000 * s + i)
+        def plant(hash_fn, slot, name, count=16):
+            placed = []
+            for k in fresh:
+                r = int(hash_fn(k, index.shift))
+                if len(placed) == count:
+                    break
+                if kt[r, slot] != empty:
+                    continue
+                if name == "h2_slot" and int(_h1(k, index.shift)) == r:
+                    continue
+                kt[r, slot] = np.int64(k).astype(np.uint32).view(np.int32)
+                vt[r * S + slot] = (slot, 1000 * slot + len(placed))
+                placed.append(k)
+            assert len(placed) == count, (name, slot)
+            return np.asarray(placed, np.uint64)
+
+        sb = int(_h1(sentinel, index.shift))
+        for s in range(4):  # the sentinel matches first in the odd lane's half
+            if kt[sb, s] == empty:
+                kt[sb, s] = np.int64(fresh[0]).astype(np.uint32).view(np.int32)
+                fresh = fresh[1:]
+        for s in range(S):
+            real = keys[tbl[b1, s] == ki[:, 0]][:16]
+            groups[f"slot_{s}"] = np.concatenate([real, plant(_h1, s, "slot")])
+            fresh = fresh[~np.isin(fresh, groups[f"slot_{s}"])]
+        h2s = []
+        for s in range(4, 8):
+            h2s.append(plant(_h2, s, "h2_slot", 8))
+            fresh = fresh[~np.isin(fresh, h2s[-1])]
+        groups["h2_slot_4_7"] = np.concatenate(h2s)
+        packed = dataclasses.replace(packed, keys_tbl=kt, vals_tbl=vt)
         tbl = kt
         h1_full = (tbl[b1][:, :S] != empty).all(1)
     rnd = rng.integers(0, 2**32, 200000, dtype=np.uint64)
     same = rnd[_h1(rnd, index.shift) == _h2(rnd, index.shift)]
-    groups = {
+    groups.update({
         "real": rng.choice(keys, 500),
         "random": rnd[:500],
+        "real_high": keys[keys >= 2**31][:100],
         "sentinel": np.array([sentinel] * 3, np.uint64),
         "h2_with_h1_full": keys[~in_h1 & h1_full][:200],
         "h1_equals_h2": np.concatenate([keys[b1 == b2], same[:50]]),
-    }
-    for name in ("h2_with_h1_full", "h1_equals_h2"):
-        assert len(groups[name]), name
+        "invalid": frng.choice(keys, 60),
+    })
+    for name, v in groups.items():
+        assert len(v), name
     names = np.concatenate([[k] * len(v) for k, v in groups.items()])
     return packed, np.concatenate(list(groups.values())).astype(np.uint64), names
 
@@ -654,11 +747,15 @@ def test_kernel_mirror_matches_jax_on_edge_rows(indexer, layout, stride):
         # single-probe rows: past a flagged h1 row)
         assert loaded == _rows_needed(index, codes, lengths, stride)
         # kvs: a sector a row; kv16: a key half a row, and payload halves
-        # for the hits and where a flag is possible, fewer than two a row
+        # for the hits and where a flag is possible, fewer than two a row;
+        # split: a vals element a hit
         if layout == "kvs":
             assert sectors == loaded
         elif layout == "kv16":
             assert loaded < sectors < 2 * loaded
+        elif layout == "split":
+            need = rows_probed(index, torch.from_numpy(codes), torch.from_numpy(lengths), stride)
+            assert (loaded, sectors) == (need["rows"], need["vals_rows"])
     km, ok = compute_kmers(jnp.asarray(codes), jnp.asarray(lengths))
     c, p = _jax_lookup(packed, layout, km[:, ::stride], ok[:, ::stride])
     _assert_like_jax(got, c, p)
@@ -666,14 +763,22 @@ def test_kernel_mirror_matches_jax_on_edge_rows(indexer, layout, stride):
     assert (c >= 0).any() and (c == -1).any() and (c == EMPTY).any()
 
 
+def _edge_validity(names, seed=10):
+    """The edge queries' validity: 90% of the random group, none of the
+    invalid group, every other query."""
+    valid = np.random.default_rng(seed).random(names.shape) < 0.9
+    valid[names != "random"] = True
+    valid[names == "invalid"] = False
+    return valid
+
+
 @pytest.mark.parametrize("layout", ["split", *sorted(KV_LAYOUTS)])
 def test_kernel_mirror_matches_jax_on_edge_queries(indexer, layout):
     packed, q, names = _edge_queries(indexer, _packed(indexer, layout))
     index = index_to_torch(packed, "cpu")
-    valid = np.random.default_rng(10).random(q.shape) < 0.9
-    valid[names != "random"] = True
-    got, loaded, sectors = _mirror_lookup(index, q, valid)
-    assert sectors is None and loaded >= valid.sum()
+    valid = _edge_validity(names)
+    got, loaded, counted = _mirror_lookup(index, q, valid)
+    assert loaded >= valid.sum()
     c, p = _jax_lookup(packed, layout, q.astype(np.uint32), valid)
     _assert_like_jax(got, c, p)
     flat = tm.probe_kmers(torch.from_numpy(q.astype(np.uint32).view(np.int32)),
@@ -681,7 +786,33 @@ def test_kernel_mirror_matches_jax_on_edge_queries(indexer, layout):
     assert np.array_equal(got, flat.numpy())
     assert (got[names == "sentinel", 0] == EMPTY).all()
     assert (got[names == "h2_with_h1_full", 0] != EMPTY).all()
-    assert (q >= 2**31).any()
+    assert (got[names == "real_high", 0] != EMPTY).all()
+    assert (got[names == "invalid"] == [EMPTY, 0]).all()
+    assert (q[names == "real_high"] >= 2**31).all() and (q >= 2**31).sum() > 100
+    if layout != "split":
+        assert counted is None
+    else:
+        # the odd lane's half holds keys: h1 slots 4-7 and h2 slots 4-7
+        for s in range(8):
+            assert (got[names == f"slot_{s}", 0] != EMPTY).all(), s
+        planted = np.isin(names, [f"slot_{s}" for s in range(4, 8)])
+        assert (got[planted, 0] == [int(n[-1]) for n in names[planted]]).all()
+        assert (got[names == "h2_slot_4_7", 0] == np.repeat(np.arange(4, 8), 8)).all()
+        # key rows and vals elements a query: one row in h1, two past it, a
+        # vals element a hit (the sentinel matches an empty slot and reads
+        # its EMPTY vals), none for an invalid query
+        _, rows, vals = _mirror_split(index, q, valid)
+        per = {n: (set(rows[names == n].tolist()), set(vals[names == n].tolist()))
+               for n in np.unique(names)}
+        want = dict(slot_0=({1}, {1}), slot_7=({1}, {1}), h2_slot_4_7=({2}, {1}),
+                    h2_with_h1_full=({2}, {1}), sentinel=({1}, {1}), invalid=({0}, {0}))
+        for n, v in want.items():
+            assert per[n] == v, (n, per[n])
+        keys = index.table[torch.from_numpy(np.stack([_h1(q, index.shift), _h2(q, index.shift)],
+                                                     1).astype(np.int64))]
+        in_row = (keys == torch.from_numpy(_as_i32(q))[:, None, None]).any(2).numpy()
+        assert counted == (valid & in_row.any(1)).sum()
+        assert loaded == valid.sum() + (valid & ~in_row[:, 0]).sum()
     if layout == "split":
         from genefuserust_tpu.ops.pallas_lookup import TILE, pallas_lookup
         import jax.numpy as jnp
@@ -719,8 +850,8 @@ def _layout_queries(ix, packed, layout, artificial=True):
     if layout in SINGLE_LAYOUTS:
         epacked, q, names = _single_queries(ix, packed)
         return (epacked if artificial else packed), q, names != "invalid"
-    packed, q, _ = _edge_queries(ix, packed)
-    return packed, q, np.ones(len(q), bool)
+    packed, q, names = _edge_queries(ix, packed)
+    return packed, q, names != "invalid"
 
 
 @pytest.mark.cuda
@@ -758,35 +889,43 @@ def test_probe_kernel_matches_plain(indexer, layout, cuda_device):
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_probe_kernel_loads_the_rows_needed(indexer, layout, cuda_device):
     # the kernel's own count of its table row loads: h2 only for keys not in
-    # h1 (on single-probe rows: past a flagged h1 row)
+    # h1 (on single-probe rows: past a flagged h1 row); on split rows also
+    # its count of vals elements, a hit's one each
     packed = _packed(indexer, layout)
     cpu, dev = index_to_torch(packed, "cpu"), index_to_torch(packed, cuda_device)
     codes, lengths = _edge_codes(indexer)
     c_d, l_d = torch.from_numpy(codes).to(cuda_device), torch.from_numpy(lengths).to(cuda_device)
+    split = layout == "split"
     for stride in (1, 2):
         exp = tm.probe(torch.from_numpy(codes), torch.from_numpy(lengths), stride, cpu)
         B, W = codes.shape
         NQ = exp.shape[1]
         out = torch.empty((B, NQ, 2), dtype=torch.int32, device=cuda_device)
-        loads = torch.zeros(1, dtype=torch.int64, device=cuda_device)
-        tcuda.launch_probe(c_d, l_d, None, None, B * NQ, W, stride, NQ, dev, out, row_loads=loads)
+        loads = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+        tcuda.launch_probe(c_d, l_d, None, None, B * NQ, W, stride, NQ, dev, out,
+                           row_loads=loads[:1], vals_loads=loads[1:] if split else None)
         assert torch.equal(out.cpu(), exp)
-        assert int(loads) == _rows_needed(cpu, codes, lengths, stride)
+        assert int(loads[0]) == _rows_needed(cpu, codes, lengths, stride)
+        if split:
+            mirror = _kernel_probe(codes, lengths, stride, cpu)
+            assert loads.tolist() == list(mirror[1:])
     # the edge queries, flat: valid + JAX need2 rows on single-probe tables
     # (the packed table, where the packer invariant holds)
     epacked, eq, ev = _layout_queries(indexer, packed, layout, artificial=False)
     edev = index_to_torch(epacked, cuda_device)
-    exp, rows, _ = _mirror_lookup(index_to_torch(epacked, "cpu"), eq, ev)
+    exp, rows, counted = _mirror_lookup(index_to_torch(epacked, "cpu"), eq, ev)
     if layout in SINGLE_LAYOUTS:
         assert rows == ev.sum() + _need2_jax(epacked, eq, ev).sum()
     out = torch.empty((len(eq), 2), dtype=torch.int32, device=cuda_device)
-    loads = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    loads = torch.zeros(2, dtype=torch.int64, device=cuda_device)
     name = tcuda.probe_name(edev)
     n0 = tcuda.LAUNCHES[name]
     tcuda.launch_probe(None, None, torch.from_numpy(_as_i32(eq)).to(cuda_device),
                        torch.from_numpy(ev).to(cuda_device), len(eq), 0, 1, 1, edev, out,
-                       row_loads=loads)
-    assert np.array_equal(out.cpu().numpy(), exp) and int(loads) == rows
+                       row_loads=loads[:1], vals_loads=loads[1:] if split else None)
+    assert np.array_equal(out.cpu().numpy(), exp) and int(loads[0]) == rows
+    if split:
+        assert int(loads[1]) == counted
     assert tcuda.LAUNCHES[name] == n0 + 1
     assert name == {"kvs": "probe_kvs", "kv16": "probe_kv16"}.get(layout, "probe")
     # a row-offset view of the codes is refused on the card
@@ -826,3 +965,49 @@ def test_probe_kernel_counts_the_sectors_requested(indexer, layout, cuda_device)
                            row_loads=loads[:1], sector_loads=loads[1:])
         assert np.array_equal(out.cpu().numpy(), exp)
         assert loads.tolist() == [rows, sectors]
+
+
+@pytest.mark.cuda
+def test_split_kernel_at_every_sweep_shape(indexer, cuda_device):
+    """Every launch shape `chip_smoke.py --probe-sweep` builds of the split
+    kernel (queries a thread x row cache policy x threads a block):
+    bit-equal to plain on the packed table and on the edge queries' copy,
+    over the edge rows at strides 1 and 2 and the flat edge queries, its
+    key-row and vals counts equal to the mirror's, its launch shape as
+    the library reports it equal to the build's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from chip_smoke import split_sweep_shapes
+
+    assert tcuda.probe_split_shape() == split_default_shape()
+    shapes = split_sweep_shapes()
+    with ThreadPoolExecutor(8) as ex:
+        libs = [tcuda.load(p) for p in ex.map(lambda d: tcuda.build(("probe.cu",), d),
+                                              [d for _, d in shapes])]
+    packed = _packed(indexer, "split")
+    epacked, eq, ev = _layout_queries(indexer, packed, "split")
+    codes, lengths = _edge_codes(indexer)
+    c_d, l_d = torch.from_numpy(codes).to(cuda_device), torch.from_numpy(lengths).to(cuda_device)
+    B, W = codes.shape
+    for p in (packed, epacked):
+        cpu, dev = index_to_torch(p, "cpu"), index_to_torch(p, cuda_device)
+        want = {s: _kernel_probe(codes, lengths, s, cpu) for s in (1, 2)}
+        flat = _mirror_lookup(cpu, eq, ev)
+        for (shape, _), lib in zip(shapes, libs):
+            q, _, t = shape.split(",")[:3]
+            assert tcuda.probe_split_shape(lib) == (int(q), int(t)), shape
+            for s, (exp, rows, vals) in want.items():
+                NQ = exp.shape[1]
+                out = torch.zeros((B, NQ, 2), dtype=torch.int32, device=cuda_device)
+                loads = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+                tcuda.launch_probe(c_d, l_d, None, None, B * NQ, W, s, NQ, dev, out,
+                                   row_loads=loads[:1], lib=lib, vals_loads=loads[1:])
+                assert np.array_equal(out.cpu().numpy(), exp), (shape, s)
+                assert loads.tolist() == [rows, vals], (shape, s)
+            out = torch.zeros((len(eq), 2), dtype=torch.int32, device=cuda_device)
+            loads = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+            tcuda.launch_probe(None, None, torch.from_numpy(_as_i32(eq)).to(cuda_device),
+                               torch.from_numpy(ev).to(cuda_device), len(eq), 0, 1, 1, dev, out,
+                               row_loads=loads[:1], lib=lib, vals_loads=loads[1:])
+            assert np.array_equal(out.cpu().numpy(), flat[0]), shape
+            assert loads.tolist() == list(flat[1:]), shape
