@@ -76,13 +76,16 @@ Phases, one result line each; any failure raises and exits non-zero:
              their R1 alone through the driver with a 4-entry device list,
              the pairs also through the CLI with --mesh 1; JSON and HTML
              equal to TorchEngine's single-table scan of the same reads,
-             and on the first 4,096 pairs/reads to the host oracle's; one
-             shard flags launch a call (the 4 shards in one launch). The
+             and on the first 4,096 pairs/reads to the host oracle's (the
+             pairs also on 3 shards of their own); one vote launch and
+             one shard flags launch a call (the 4 shards in each). The
              split probe (also its four launches alone, each shard into
-             its own output), the vote's counts mode, the merge (the whole
-             step from the shards' rows to the gate and keys, and its
-             other read design), the flags and mask+segments from flags
-             bit-equal to plain at the scan's largest batch, timed. Then
+             its own output), the vote's counts mode (one launch over the
+             4 shards; the same launch over the padded rows beside it),
+             the merge (the whole step from the shards' rows to the gate
+             and keys),
+             the flags and mask+segments from flags bit-equal to plain at
+             the scan's largest batch, timed. Then
              the wide paths: a 4,200-base and a
              70,000-base read among 62 others, single-end and as R1 of
              pairs, through TorchEngine and the sharded engine, reports
@@ -92,9 +95,11 @@ Phases, one result line each; any failure raises and exits non-zero:
              bit-equal to plain, each wide kernel also with caps that send
              its long rows to global scratch, the wide paths timed with
              bounds from what the rows need (the samples and k-mers inside
-             their lengths), and sharded_map_read's peak device memory
-             there. Then (viii) the five wide kernels at a 4,096-row lane
-             as TorchEngine builds one: the 70,000-base read among 4,095 R1
+             their lengths), the sharded vote's launches alone and its
+             device reads over the wide scans (one a sharded call), and
+             sharded_map_read's peak device memory there. Then (viii)
+             the five wide kernels at a 4,096-row lane as TorchEngine
+             builds one: the 70,000-base read among 4,095 R1
              reads of 150 bases, every row padded to 70,016 bases;
              bit-equal to plain (plain in chunks of rows) with the default
              caps and on the global route (the shard flags also ORing into
@@ -199,10 +204,11 @@ single-probe variant at both strides (between two timings of this
 checkout's), phase 16's row gather on its three row passes, phase 3's
 probe, split probe (both strides, with the parent's registers), vote and
 mask+segments (between two timings of this checkout's, and the machine
-code of probe_kernel, probe_single_kernel, vote_kernel and
-mask_segments_kernel against the parent's, cuobjdump -sass), phase 13's
-split probe launches, merge, shard flags and mask
-from flags at the scan's largest call, phase 17's split probe, each wide
+code of probe_kernel, probe_single_kernel, vote_kernel, vote_wide_kernel
+and mask_segments_kernel against the parent's, cuobjdump -sass), phase
+13's split probe launches, the vote's per-shard launches (in turns with
+this checkout's one launch), merge, shard flags and mask from flags at the scan's
+largest call, phase 17's split probe, each wide
 kernel at phase 13's calls and at its 4,096-row lane, and the parent's
 sharded_map_read's peak device memory beside this checkout's at the wide
 calls.
@@ -246,14 +252,14 @@ MESH_ENTRIES = 4  # phase 14: TorchEngine entries, all on the one card
 LONG_READ = 250_000  # phase 14 (e): past what staging a tile's rows whole allowed
 LONG_BATCH = 64
 # kernels the build compiles: probe 6 (kv2, kv4, kv8, split; the
-# single-probe variant for kvs and kv16), vote 10 (the
-# vote, its wide path, the shards' merge for 1 to 8 shards), mask_segments
-# 10 (kv and split, each narrow and wide; the shards' flags, kv and split;
-# from flags, narrow on segments of 8, 16 and 32 lanes, and wide),
-# gather_sum 3 (vector widths), edit_distance 1, fused_glue 5 (unpack,
-# exceptions, count, place with the code rows, survivor rows), merge 5
-# (bytes, codes, rows)
-N_COMPILED = 38
+# single-probe variant for kvs and kv16), vote 12 (the vote, its wide
+# path, the shards' vote in one launch and its wide path, the shards'
+# merge for 1 to 8 shards), mask_segments 10 (kv and split, each narrow
+# and wide; the shards' flags, kv and split; from flags, narrow on
+# segments of 8, 16 and 32 lanes, and wide), gather_sum 3 (vector
+# widths), edit_distance 1, fused_glue 5 (unpack, exceptions, count, place
+# with the code rows, survivor rows), merge 3 (bytes, codes, rows)
+N_COMPILED = 40
 # the probe's launch-shape sweep (--probe-sweep): queries a thread, table-row
 # cache policy (PROBE_POLICY in csrc/probe.cu), threads a block
 PROBE_SWEEP_Q = (1, 2, 4, 8)
@@ -805,13 +811,16 @@ def phase_kernels(data: dict) -> dict:
         say("3 kernels", kernel="mask_segments", baseline=base.csrc, ms=f"{ms:.4f}",
             parent_ms=f"{rec['mask_segments']['parent_ms']:.4f}",
             again_ms=f"{rec['mask_segments']['again_ms']:.4f}", equal=True)
-        # the three kernels' machine code against the parent's, instruction
-        # for instruction (the sources of two of them were edited elsewhere),
-        # and the single-probe variant's (kept on the probe's record)
-        for k, key in (("probe", "sass"), ("vote", "sass"), ("mask_segments", "sass"),
-                       ("probe_single", "sass_single")):
+        # the kernels' machine code against the parent's, instruction for
+        # instruction (their sources hold kernels edited or added elsewhere;
+        # vote_wide_kernel's and the single-probe variant's kept on the
+        # vote's and the probe's records)
+        for k, on, key in (("probe", "probe", "sass"), ("vote", "vote", "sass"),
+                           ("vote_wide", "vote", "sass_wide"),
+                           ("mask_segments", "mask_segments", "sass"),
+                           ("probe_single", "probe", "sass_single")):
             sass = base.sass(f"{k}_kernel")
-            r = rec["probe" if k == "probe_single" else k]
+            r = rec[on]
             r[key] = dict(
                 equal=sass["this"] == sass["parent"] and bool(sass["this"]),
                 instructions=[len(v) for v in sass["this"].values()],
@@ -2282,15 +2291,28 @@ class WideBaseline:
 
     @contextlib.contextmanager
     def active(self):
-        """The port's wrappers launch the parent's kernels inside the block."""
-        from genefuserust_tpu_torch.ops import cuda
+        """The port's wrappers launch the parent's kernels inside the block;
+        a parent from before gf_vote_shards votes one table, and a
+        device's shards a launch each, through `parent_vote_counts`, as
+        its vote_counts and sharded_map_read did (holding a flag group's
+        stride-2 results at once, as this checkout's does). That branch,
+        and parent_vote_counts, can go once the parent has
+        gf_vote_shards."""
+        import torch
 
-        saved = cuda.library()
+        from genefuserust_tpu_torch.ops import cuda
+        from genefuserust_tpu_torch.ops import map_read as tm
+
+        saved, one, shards = cuda.library(), tm.vote_counts, tm.vote_counts_shards
         cuda._lib = self.lib
+        if not hasattr(self.lib, "gf_vote_shards"):
+            tm.vote_counts = parent_vote_counts
+            tm.vote_counts_shards = lambda prs, indexes, lengths=None, smem_cap=None: torch.stack(
+                [parent_vote_counts(pr, ix, lengths, smem_cap) for pr, ix in zip(prs, indexes)])
         try:
             yield
         finally:
-            cuda._lib = saved
+            cuda._lib, tm.vote_counts, tm.vote_counts_shards = saved, one, shards
 
     def probe(self, codes, lengths, stride, index):
         from genefuserust_tpu_torch.ops import map_read as tm
@@ -2354,6 +2376,37 @@ class WideBaseline:
             parent = {f.replace("probe_kernelILb0E", "probe_kernelI"): v
                       for f, v in parent.items() if "probe_kernelILb1E" not in f}
         return dict(this=sass_of(cuda.build(), name), parent=parent)
+
+
+def parent_vote_counts(pr, index, lengths=None, smem_cap=None):
+    """The counts-mode vote of one shard as a parent from before
+    gf_vote_shards ran it (its vote_counts): gf_vote in counts mode, and on
+    wide rows gf_vote_wide's passes with a read of the keys past shared
+    memory -> (B, 6) int32."""
+    import torch
+
+    from genefuserust_tpu_torch.config import PASS1_STEP
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.ops import map_read as tm
+
+    B, NS, _ = pr.shape
+    out = torch.empty((B, 6), dtype=torch.int32, device=pr.device)
+    P2 = tm.vote_width(NS, index.D)
+    args = (pr, B, NS, index, PASS1_STEP, 0, 0)
+    if not B:
+        return out
+    if P2 <= tm.MAX_VOTE_KEYS:
+        cuda.launch_vote(*args, P2, out, True)
+        return out
+    keys_cap = (tm.WIDE_SMEM_BYTES if smem_cap is None else smem_cap) // 8
+    wide = torch.zeros(3 + 3 * B, dtype=torch.int64, device=pr.device)
+    cuda.launch_vote(*args, P2, out, True, wide, lengths)
+    cuda.launch_vote_wide(*args, wide, lengths, keys_cap, out, counts=True)
+    over = int(wide[1]) if NS * index.D > keys_cap else 0
+    if over:
+        cuda.launch_vote_wide(*args, wide, lengths, keys_cap, out,
+                              torch.empty(over, dtype=torch.int64, device=pr.device), True)
+    return out
 
 
 def sass_of(lib: str, name: str) -> dict:
@@ -2540,20 +2593,47 @@ def sharded_kernels(codes, lens, indexes, reps=20, plain_reps=3, base=None):
             lambda: tuple(base.probe(codes, lens, PASS1_STEP, ix) for ix in indexes), tuple(prs),
             reps)
         rec["probe_split"]["again_launches_ms"] = event_ms(launches_alone, reps)
+    # the vote: one launch over the S shards into one (S, B, 6) tensor, a
+    # row walked up to its length (sharded_map_read's call); the same
+    # launch over the padded rows; the parent's S per-shard launches (each
+    # into its own output, no stack: the parent's pass 1), in turns with
+    # the one launch
+    pl = list(prs)
+
+    def one_launch():
+        return tm.vote_counts_shards(pl, indexes, lens)
+
     votes, err, ms, pms = _timed_pair(
-        f"vote_counts ({B}x{NS})",
-        lambda: torch.stack([tm.vote_counts(pr, ix, lens) for pr, ix in zip(prs, indexes)]),
+        f"vote_counts ({S} shards, {B}x{NS}, one launch)", one_launch,
         lambda: torch.stack([tm.vote_counts_plain(pr, ix) for pr, ix in zip(prs, indexes)]),
         reps=reps, plain_reps=plain_reps)
     cands = [tm.vote_candidates(pr, ix) for pr, ix in zip(prs, indexes)]
+    vneeds = [vote_need(pr, lens, ix) for pr, ix in zip(prs, indexes)]
+    vops = (OPS["vote_sample"] * sum(n["samples"] for n in vneeds)
+            + OPS["vote_candidate"] * sum(int(c.sum()) for c in cands))
     rec["vote_counts"] = dict(err=err, ms=ms, plain_ms=pms, **bound(
-        sum(pr.numel() * 4 + dupe_row_bytes(pr, ix) for pr, ix in zip(prs, indexes))
-        + votes.numel() * 4,
-        OPS["vote_sample"] * S * B * NS + OPS["vote_candidate"] * sum(int(c.sum()) for c in cands)))
-    rec["vote_counts"]["shape"] = (f"{S} shards x {B}x{NS} samples, D {indexes[0].D}, "
-                                   f"most valid keys a row {max(int(c.max()) for c in cands)}")
+        sum(n["bytes"] for n in vneeds) + votes.numel() * 4, vops))
+    rec["vote_counts"].update(
+        shape=f"{S} shards x {B}x{NS} samples, D {indexes[0].D}, most valid keys a row "
+              f"{max(int(c.max()) for c in cands)}, one launch",
+        padded_bound_ms=bound(sum(pr.numel() * 4 + dupe_row_bytes(pr, ix)
+                                  for pr, ix in zip(prs, indexes)) + votes.numel() * 4,
+                              OPS["vote_sample"] * S * B * NS)["bound_ms"])
+    _, _, rec["vote_counts"]["padded_ms"], _ = _timed_pair(
+        f"vote_counts ({S} shards, one launch over the padded rows)",
+        lambda: tm.vote_counts_shards(pl, indexes), lambda: votes, reps=reps, plain_reps=1)
+    if base:
+        def parent_launches():
+            return tuple(base.vote(pr, ix, 0, 0, True, lens) for pr, ix in zip(pl, indexes))
+
+        rec["vote_counts"]["parent_ms"] = parent_ms(
+            f"vote_counts ({S} shards, the parent's per-shard launches)", parent_launches,
+            tuple(votes), reps)
+        rec["vote_counts"]["again_ms"] = event_ms(one_launch, reps)
+        rec["vote_counts"]["parent_again_ms"] = event_ms(parent_launches, reps)
     # the merge: the whole step from the shards' rows, where the vote wrote
-    # them, to what pass 2 takes (ok, gp); the parent's merge beside it
+    # them (slices of the one launch's tensor), to what pass 2 takes (ok,
+    # gp); the parent's merge beside it
     vl = list(votes)
     (ok, gp), err, ms, pms = _timed_pair(
         f"merge_top2 ({B} rows)", lambda: tm.merge_top2(vl, 40, 20),
@@ -2603,9 +2683,10 @@ def say_kernel(rec: dict, k: str) -> None:
     say("13 sharded", kernel=k, shape=repr(r["shape"]), ms=f"{r['ms']:.4f}",
         plain_ms=f"{r['plain_ms']:.4f}", bound_ms=f"{r['bound_ms']:.5f}",
         bound_by=r["bound_by"], bound_share=f"{r['bound_ms'] / r['ms']:.4f}",
-        max_abs_err=r["err"], **{x: f"{r[x]:.4f}" for x in ("global_ms", "device_ms", "parent_ms",
-                                                            "launches_ms", "parent_launches_ms",
-                                                            "again_launches_ms") if x in r},
+        max_abs_err=r["err"], **{x: f"{r[x]:.4f}" for x in (
+            "global_ms", "device_ms", "parent_ms", "launches_ms", "parent_launches_ms",
+            "again_launches_ms", "padded_ms", "again_ms", "parent_again_ms",
+            "parent_device_ms") if x in r},
         **({} if "launches_ms" not in r else
            dict(launches_bound_share=f"{r['bound_ms'] / r['launches_ms']:.4f}")),
         **{x: f"{r[x]:.5f}" for x in ("padded_bound_ms",) if x in r})
@@ -2696,10 +2777,13 @@ def phase_sharded(data: dict, smi_line: str) -> dict:
         check(launches[k] > 0, f"sharded: kernel {k} was not launched by the scan")
     check(launches["vote"] == launches["mask_segments"] == 0,
           "sharded: the single-table vote or mask+segments ran in the sharded scan")
-    # the 4 shards on the one card: one shard flags launch a call
+    # the 4 shards on the one card: one shard flags launch and one vote
+    # launch a call
     check(launches["shard_flags"] == launches["merge_top2"] == launches["mask_from_flags"],
           f"sharded: {launches['shard_flags']} shard flags launches for "
           f"{launches['merge_top2']} calls")
+    check(launches["vote_counts"] == launches["merge_top2"],
+          f"sharded: {launches['vote_counts']} vote launches for {launches['merge_top2']} calls")
     n_fus = len(json.load(open(os.path.join(wd, "sh4.json")))["fusions"])
     check(n_fus >= 1, "sharded: the scan reported no fusion")
     say("13 sharded", shards=SHARDS, devices=",".join(devices), pairs=SHARD_PAIRS,
@@ -2755,11 +2839,11 @@ def phase_sharded(data: dict, smi_line: str) -> dict:
     sub = ShardedIndexEngine(Settings(), devices=devices)
     sub.use_tables(eng._indexes)
 
-    def oracle(name, items, paired):
+    def oracle(name, items, paired, engine=sub):
         # phase 6's command for pairs, phase 12's for reads
         j = os.path.join(wd, name)
         with quiet(data):
-            sc = Scanner(data["csv"], contigs, "", j, Settings(), engine=sub,
+            sc = Scanner(data["csv"], contigs, "", j, Settings(), engine=engine,
                          command="oracle" if paired else "single")
             (sc.scan_pairs if paired else sc.scan_singles)(items)
         return strip_json(open(j).read())
@@ -2768,7 +2852,19 @@ def phase_sharded(data: dict, smi_line: str) -> dict:
           "sharded: the 4,096-pair JSON differs from the host oracle's")
     check(oracle("o4se.json", [p.left for p in data["oracle_pairs"]], False)
           == data["single_host_json"], "sharded: the 4,096-read JSON differs from the host's")
-    say("13 sharded", oracle_pairs=ORACLE_PAIRS, oracle_reads=ORACLE_PAIRS, json="equal")
+    # the 3-shard form: its own tables (3 shards of the panel on the card),
+    # one vote launch a call over the 3
+    cuda.reset_launches()
+    check(oracle("o3.json", data["oracle_pairs"], True,
+                 ShardedIndexEngine(Settings(), devices=["cuda:0"] * 3))
+          == data["oracle_host_json"],
+          "sharded (3 shards): the 4,096-pair JSON differs from the host oracle's")
+    l3 = dict(cuda.LAUNCHES)
+    check(l3["vote_counts"] == l3["merge_top2"] > 0,
+          f"sharded (3 shards): {l3['vote_counts']} vote launches for {l3['merge_top2']} calls")
+    say("13 sharded", oracle_pairs=ORACLE_PAIRS, oracle_reads=ORACLE_PAIRS, json="equal",
+        oracle_pairs_3_shards="equal", vote_counts_3_shards=l3["vote_counts"],
+        merge_top2_3_shards=l3["merge_top2"])
 
     # (vi) each kernel of the path against its plain version, at the
     # scan's largest batch
@@ -2795,7 +2891,8 @@ def phase_sharded(data: dict, smi_line: str) -> dict:
         se_items.insert(1 + 20 * k, read)
         pe_items.insert(1 + 20 * k, SequenceReadPair(read, mate))
     cuda.reset_launches()
-    with largest_wide_launches() as kv_calls, largest_sharded_call() as sh_calls:
+    with largest_wide_launches() as kv_calls, largest_sharded_call() as sh_calls, \
+            counted_reads() as reads:
         for paired, items in ((False, se_items), (True, pe_items)):
             reps = {}
             for name, engine in (("host", HostEngine()),
@@ -2819,9 +2916,17 @@ def phase_sharded(data: dict, smi_line: str) -> dict:
     wide_launches = dict(cuda.LAUNCHES)
     for k in WIDE_KERNELS:
         check(wide_launches[k] > 0, f"wide reads: kernel {k} was not launched")
+    # a sharded call: one vote launch, and on the wide route one first
+    # pass and one read of the keys past shared memory for its 4 shards
+    check(wide_launches["vote_counts"] == wide_launches["merge_top2"],
+          "wide reads: not one vote launch a sharded call")
+    check(len(reads) == wide_launches["vote_counts_wide"] and sum(reads) == len(reads),
+          f"wide reads: {len(reads)} device reads ({reads} lists) for "
+          f"{wide_launches['vote_counts_wide']} wide vote launches")
     say("13 sharded", wide_reads="4200,70000", single_end="equal", paired="equal",
         engines="TorchEngine,ShardedIndexEngine", vs="host oracle",
-        launches=json.dumps(wide_launches, separators=(",", ":")))
+        launches=json.dumps(wide_launches, separators=(",", ":")),
+        vote_counts_device_reads=len(reads))
     # the wide kernels at the wide scans' largest calls: TorchEngine's on
     # the kv2 table, the sharded engine's on the 4 split shard tables; each
     # also on the global route (caps below the long rows' keys and words)
@@ -2897,20 +3002,15 @@ def phase_sharded(data: dict, smi_line: str) -> dict:
                   "wide rows: the gated vote differs from plain on a split shard table")
             check(torch.equal(tm.mask_segments(spr1, lens, aux["gp"], ix, 10, mcap), mp),
                   "wide rows: mask+segments differs from plain on a split shard table")
-    # the sharded records' bounds from what the rows need
+    # mask from flags' bound from what the rows need (the vote's and the
+    # flags' have theirs from sharded_kernels)
     prs, pr1s = aux["prs"], aux["pr1s"]
-    vneeds = [vote_need(p, lens, ix) for p, ix in zip(prs, indexes)]
-    srec["vote_counts"].update(bound(
-        sum(n["bytes"] for n in vneeds) + len(indexes) * lens.numel() * 24,
-        OPS["vote_sample"] * sum(n["samples"] for n in vneeds)
-        + OPS["vote_candidate"] * sum(n["keys"] for n in vneeds)))
     vplain = torch.stack([tm.vote_counts_plain(p, ix) for p, ix in zip(prs, indexes)])
     srec["vote_counts"]["global_ms"] = wide_global(
         "vote_counts (wide rows, 4 shards, global route)",
-        lambda: torch.stack([tm.vote_counts(p, ix, lens, VOTE_CAP) for p, ix in zip(prs, indexes)]),
-        vplain)
-    srec["vote_counts"]["device_ms"] = sum(
-        wide_vote_device_ms(p, ix, lens, True, e) for p, ix, e in zip(prs, indexes, vplain))
+        lambda: tm.vote_counts_shards(list(prs), indexes, lens, VOTE_CAP), vplain)
+    srec["vote_counts"]["device_ms"] = wide_shards_device_ms(list(prs), indexes, lens, vplain)
+    srec["vote_counts"]["device_reads"] = len(reads)
     NK = pr1s[0].shape[1]
     words = aux["words"]
     seg = aux["seg"]
@@ -2924,6 +3024,9 @@ def phase_sharded(data: dict, smi_line: str) -> dict:
             "vote_counts (wide rows, 4 shards)",
             lambda: torch.stack([base.vote(p, ix, 0, 0, True, lens)
                                  for p, ix in zip(prs, indexes)]), vplain, 5)
+        with base.active():
+            srec["vote_counts"]["parent_device_ms"] = sum(
+                wide_vote_device_ms(p, ix, lens, True, e) for p, ix, e in zip(prs, indexes, vplain))
     del aux, prs, pr1s, words, seg, vplain
     rec["vote_counts_wide"] = srec["vote_counts"]
     rec["shard_flags_wide"] = srec["shard_flags"]
@@ -2962,13 +3065,66 @@ def wide_vote_device_ms(pr, index, lens, counts: bool, exp, reps: int = 20) -> f
     def run():
         wide[:3].zero_()
         cuda.launch_vote(*args, tm.vote_width(NS, index.D), out, counts, wide, lens)
-        cuda.launch_vote_wide(*args, counts, wide, lens, tm.WIDE_SMEM_BYTES // 8, out)
+        cuda.launch_vote_wide(*args, wide, lens, tm.WIDE_SMEM_BYTES // 8, out, counts=counts)
         return out
 
     run()
     check(int(wide[1]) == 0 and torch.equal(out, exp),
           "the wide vote's launches alone differ from plain (or a row is past shared memory)")
     return event_ms(run, reps)
+
+
+def wide_shards_device_ms(prs, indexes, lens, exp, reps: int = 20) -> float:
+    """The sharded wide vote's two launches alone (vote_shards_kernel
+    listing every shard's long rows, vote_shards_wide_kernel's
+    shared-memory pass), enqueued back to back without the wrapper's read
+    of the keys past shared memory: their device ms (CUDA events), where no
+    row is past it. Bit-equal to `exp`, the shards' (S, B, 6) rows."""
+    import torch
+
+    from genefuserust_tpu_torch.config import PASS1_STEP
+    from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.ops import map_read as tm
+    from genefuserust_tpu_torch.profiling.gather_floor import event_ms
+
+    S = len(prs)
+    B, NS, _ = prs[0].shape
+    out = torch.empty((S, B, 6), dtype=torch.int32, device=prs[0].device)
+    wide = torch.zeros(3 + 3 * S * B, dtype=torch.int64, device=prs[0].device)
+    args = (prs, indexes, B, NS, PASS1_STEP)
+    P2 = max(tm.vote_width(NS, ix.D) for ix in indexes)
+
+    def run():
+        wide[:3].zero_()
+        cuda.launch_vote_shards(*args, P2, out, wide, lens)
+        cuda.launch_vote_shards_wide(*args, wide, lens, tm.WIDE_SMEM_BYTES // 8, out)
+        return out
+
+    run()
+    check(int(wide[1]) == 0 and torch.equal(out, exp),
+          "the shards' wide vote launches alone differ from plain (or a row is past shared "
+          "memory)")
+    return event_ms(run, reps)
+
+
+@contextlib.contextmanager
+def counted_reads():
+    """The device reads vote_counts_shards makes inside the block (of the
+    counts of keys past shared memory) -> a list, one entry a read: the
+    wide lists it covered; the reads go on unchanged."""
+    from genefuserust_tpu_torch.ops import map_read as tm
+
+    reads, fn = [], tm._keys_past_smem
+
+    def count(wides):
+        reads.append(len(wides))
+        return fn(wides)
+
+    tm._keys_past_smem = count
+    try:
+        yield reads
+    finally:
+        tm._keys_past_smem = fn
 
 
 def wide_global(name: str, fn, exp, reps: int = 5) -> float:
@@ -3026,10 +3182,15 @@ def wide_lane(data: dict, kv2, wide_read: str, base, shards=None, reps: int = 5)
         if global_fn is not None:
             r["global_ms"] = wide_global(f"{name} (4,096-row lane, global route)", global_fn,
                                          got)
-        if key in ("vote_wide", "vote_counts_wide"):
-            r["device_ms"] = wide_vote_device_ms(pr, kv2, lens, key == "vote_counts_wide", got)
+        if key == "vote_wide":
+            r["device_ms"] = wide_vote_device_ms(pr, kv2, lens, False, got)
+        if key == "vote_counts_wide":
+            r["device_ms"] = wide_shards_device_ms([pr], [kv2], lens, got[None])
         if parent_fn is not None:
             r["parent_ms"] = parent_ms(f"{name} (4,096-row lane)", parent_fn, got, reps)
+        if parent_fn is not None and key == "vote_counts_wide":
+            with base.active():
+                r["parent_device_ms"] = wide_vote_device_ms(pr, kv2, lens, True, got)
         recs[key] = r
         say("13 sharded", kernel=key, lane=f"{B}x{W}", ms=f"{ms:.4f}",
             plain_ms=f"{r['plain_ms']:.1f}", bound_ms=f"{r['bound_ms']:.5f}",
@@ -3037,6 +3198,8 @@ def wide_lane(data: dict, kv2, wide_read: str, base, shards=None, reps: int = 5)
             global_ms=f"{r['global_ms']:.4f}" if "global_ms" in r else "-",
             device_ms=f"{r['device_ms']:.4f}" if "device_ms" in r else "-",
             parent_ms=f"{r['parent_ms']:.4f}" if "parent_ms" in r else "not run",
+            **({"parent_device_ms": f"{r['parent_device_ms']:.4f}"}
+               if "parent_device_ms" in r else {}),
             max_abs_err=err)
         return got
 
@@ -3046,9 +3209,11 @@ def wide_lane(data: dict, kv2, wide_read: str, base, shards=None, reps: int = 5)
                lambda: _chunked(tm.vote_plain, [pr], 256, kv2, 40, 20), need["bytes"] + B * 20,
                vops, lambda: tm.vote(pr, kv2, 40, 20, lens, VOTE_CAP),
                base and (lambda: base.vote(pr, kv2, 40, 20, lengths=lens)))
-    record("vote_counts", "vote_counts_wide", lambda: tm.vote_counts(pr, kv2, lens),
+    # the counts vote of the one table: vote_counts_shards' launches with
+    # one shard, against the parent's per-shard route
+    record("vote_counts", "vote_counts_wide", lambda: tm.vote_counts_shards([pr], [kv2], lens)[0],
            lambda: _chunked(tm.vote_counts_plain, [pr], 256, kv2), need["bytes"] + B * 24, vops,
-           lambda: tm.vote_counts(pr, kv2, lens, VOTE_CAP),
+           lambda: tm.vote_counts_shards([pr], [kv2], lens, VOTE_CAP)[0],
            base and (lambda: base.vote(pr, kv2, 0, 0, True, lens)))
     del pr
     gp = v[:, 1:5].contiguous()
@@ -3753,8 +3918,8 @@ def main(argv=None) -> int:
                     help="another checkout's csrc/: phases 3, 13, 15, 16 and 17 also time "
                          "its probe.cu's, vote.cu's, mask_segments.cu's and merge.cu's "
                          "kernels on the same inputs, and compare probe_kernel's, "
-                         "probe_single_kernel's, vote_kernel's and mask_segments_kernel's "
-                         "SASS")
+                         "probe_single_kernel's, vote_kernel's, vote_wide_kernel's and "
+                         "mask_segments_kernel's SASS")
     args = ap.parse_args(argv)
     import torch
 
@@ -3917,7 +4082,8 @@ def main(argv=None) -> int:
              "again_ms", "device_ms", "rows4096", "peak", "sass", "kv2_ms", "kv2_rows_needed",
              "no_lanes_ms", "no_lanes_bound_ms", "packed_ms", "pass2_ms", "launches_ms",
              "parent_launches_ms", "again_launches_ms", "full_size", "large_table",
-             "sass_single")
+             "sass_single", "sass_wide", "padded_ms", "parent_again_ms",
+             "parent_device_ms", "device_reads")
     kernels = [
         dict(name=k, route="cuda",
              source=f"genefuserust_tpu_torch/csrc/{sources.get(k, k)}.cu",

@@ -67,8 +67,9 @@
 // from those counts, and a second launch of the kernel sorts it there.
 //
 // Counts mode (the contig-sharded index): the same vote, its two entries
-// written as [c1, h1, l1, c2, h2, l2] with no gate; merge_top2_kernel then
-// merges the shards' entries and applies the gate.
+// written as [c1, h1, l1, c2, h2, l2] with no gate, for a device's shards
+// in one launch (vote_shards_kernel, vote_shards_wide_kernel);
+// merge_top2_kernel then merges the shards' entries and applies the gate.
 #include <algorithm>
 #include <climits>
 
@@ -370,16 +371,27 @@ __device__ __forceinline__ int row_samples(const int32_t* __restrict__ lengths, 
 // the cap x B, their offsets in the global scratch x B].
 constexpr int WL_ROWS = 0, WL_KEYS = 1, WL_OVER = 2, WL_HEAD = 3;
 
-// lengths: NULL, or the rows' lengths; a row's warp then walks only its
-// samples inside them. wide: NULL, or the wide path's list: the rows past
-// the warp path (more than VOTE_WALK_MAX samples inside, or more than
-// WARP_CAP valid keys) are listed there for vote_wide_kernel instead of
-// taken by the block here.
-__global__ void __launch_bounds__(VOTE_THREADS)
-vote_kernel(const int32_t* __restrict__ pr, int B, int NS, const int32_t* __restrict__ lengths,
-            const int32_t* __restrict__ dupes, int dstride, int D, bool split, int cbits,
-            int pos_bias, int step, int major_req, int minor_req, bool counts,
-            long long* __restrict__ wide, int32_t* __restrict__ out) {
+// A vote kernel's rows: the (B, NS) results of one table (vote_kernel,
+// vote_wide_kernel) or of one shard (vote_shards_kernel,
+// vote_shards_wide_kernel), the parameters of its dupe table, and where
+// its rows' votes go (5 or 6 int32 a row).
+struct VoteRows {
+  const int2* pr;
+  const int32_t* dupes;
+  int dstride, D, cbits, pos_bias;
+  int32_t* out;
+};
+
+// The body of vote_kernel and vote_shards_kernel: row b = blockIdx.x *
+// VOTE_WARPS + warp of `v`. lengths: NULL, or the rows' lengths; a row's
+// warp then walks only its samples inside them. wide: NULL, or the wide
+// path's list: the rows past the warp path (more than VOTE_WALK_MAX
+// samples inside, or more than WARP_CAP valid keys) are listed there, as
+// first + b, for the wide kernel instead of taken by the block here.
+__device__ __forceinline__ void vote_rows(const VoteRows& v, int B, int NS,
+                                          const int32_t* __restrict__ lengths, bool split,
+                                          int step, int major_req, int minor_req, bool counts,
+                                          long long* __restrict__ wide, long long first) {
   extern __shared__ long long smem[];
   __shared__ long long red[33];
   __shared__ int over_row[VOTE_WARPS];
@@ -387,7 +399,6 @@ vote_kernel(const int32_t* __restrict__ pr, int B, int NS, const int32_t* __rest
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * VOTE_WARPS + warp;
   const int cols = counts ? 6 : 5;
-  const int2* rows = reinterpret_cast<const int2*>(pr);
   bool over = false;
   if (b < B) {
     const int ns = row_samples(lengths, b, NS, step);
@@ -395,11 +406,11 @@ vote_kernel(const int32_t* __restrict__ pr, int B, int NS, const int32_t* __rest
       over = true;
     } else {
       long long* slice = smem + warp * WARP_CAP;
-      const int n = warp_compact(rows + (long long)b * NS, ns, dupes, dstride, D, split, cbits,
-                                 pos_bias, step, lane, slice);
+      const int n = warp_compact(v.pr + (long long)b * NS, ns, v.dupes, v.dstride, v.D, split,
+                                 v.cbits, v.pos_bias, step, lane, slice);
       __syncwarp();
-      const int P = NS * D;
-      int32_t* o = out + (long long)b * cols;
+      const int P = NS * v.D;
+      int32_t* o = v.out + (long long)b * cols;
       if (n <= 32) warp_vote<1>(slice, n, P, lane, step, major_req, minor_req, counts, o);
       else if (n <= 64) warp_vote<2>(slice, n, P, lane, step, major_req, minor_req, counts, o);
       else if (n <= 128) warp_vote<4>(slice, n, P, lane, step, major_req, minor_req, counts, o);
@@ -412,7 +423,7 @@ vote_kernel(const int32_t* __restrict__ pr, int B, int NS, const int32_t* __rest
   if (wide != nullptr) {
     if (threadIdx.x < VOTE_WARPS && over_row[threadIdx.x] >= 0) {
       auto* head = reinterpret_cast<unsigned long long*>(wide);
-      wide[WL_HEAD + atomicAdd(head + WL_ROWS, 1ull)] = over_row[threadIdx.x];
+      wide[WL_HEAD + atomicAdd(head + WL_ROWS, 1ull)] = first + over_row[threadIdx.x];
     }
     return;
   }
@@ -420,10 +431,20 @@ vote_kernel(const int32_t* __restrict__ pr, int B, int NS, const int32_t* __rest
   for (int w = 0; w < VOTE_WARPS; ++w) {
     const int ob = over_row[w];
     if (ob >= 0)
-      block_vote(rows + (long long)ob * NS, NS, dupes, dstride, D, split, cbits, pos_bias,
-                 step, major_req, minor_req, counts, smem, red, &count,
-                 out + (long long)ob * cols);
+      block_vote(v.pr + (long long)ob * NS, NS, v.dupes, v.dstride, v.D, split, v.cbits,
+                 v.pos_bias, step, major_req, minor_req, counts, smem, red, &count,
+                 v.out + (long long)ob * cols);
   }
+}
+
+// The vote of one table's rows, listed in `wide` as b (vote_rows).
+__global__ void __launch_bounds__(VOTE_THREADS)
+vote_kernel(const int32_t* __restrict__ pr, int B, int NS, const int32_t* __restrict__ lengths,
+            const int32_t* __restrict__ dupes, int dstride, int D, bool split, int cbits,
+            int pos_bias, int step, int major_req, int minor_req, bool counts,
+            long long* __restrict__ wide, int32_t* __restrict__ out) {
+  vote_rows(VoteRows{reinterpret_cast<const int2*>(pr), dupes, dstride, D, cbits, pos_bias, out},
+            B, NS, lengths, split, step, major_req, minor_req, counts, wide, 0);
 }
 
 // Samples [s0, s1) of a row, one warp: their valid candidate keys -> their
@@ -541,35 +562,39 @@ __device__ void sorted_vote(long long* keys, int n, int P, int step, int major_r
   __syncthreads();  // the keys and slots are the next row's
 }
 
-// The rows vote_kernel listed (global_pass: the rows this kernel listed
-// again, past keys_cap), block g taking entries g, g + grid, ... A row's
-// warps take ranges of whole chunks of 32 samples: they count its valid
-// keys, then (unless the row is past keys_cap on the first pass: it is
-// listed for the global pass with its offset in the scratch) write them at
-// their scanned offsets into shared memory or the row's scratch slice.
-__global__ void __launch_bounds__(VOTE_WIDE_THREADS)
-vote_wide_kernel(const int32_t* __restrict__ pr, int B, int NS,
-                 const int32_t* __restrict__ lengths, const int32_t* __restrict__ dupes,
-                 int dstride, int D, bool split, int cbits, int pos_bias, int step,
-                 int major_req, int minor_req, bool counts, long long* __restrict__ wide,
-                 long long* __restrict__ scratch, int keys_cap, bool global_pass,
-                 int32_t* __restrict__ out) {
+// The body of vote_wide_kernel and vote_shards_wide_kernel: the rows a
+// vote kernel listed (global_pass: the rows listed again here, past
+// keys_cap), block g taking entries g, g + grid, ... of the list's N; the
+// entry e of row b of rows.at(e, b), e then what that row is listed again
+// as. A row's warps take ranges of whole chunks of 32 samples: they count
+// its valid keys, then (unless the row is past keys_cap on the first
+// pass: it is listed for the global pass with its offset in the scratch)
+// write them at their scanned offsets into shared memory or the row's
+// scratch slice.
+template <class Rows>
+__device__ __forceinline__ void vote_wide_rows(const Rows& rows, int N, int NS,
+                                               const int32_t* __restrict__ lengths, bool split,
+                                               int step, int major_req, int minor_req,
+                                               bool counts, long long* __restrict__ wide,
+                                               long long* __restrict__ scratch, int keys_cap,
+                                               bool global_pass) {
   extern __shared__ long long keys_s[];
   __shared__ long long red[33];
   __shared__ int sm[32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
   const int cols = counts ? 6 : 5;
-  const int2* rows = reinterpret_cast<const int2*>(pr);
-  const long long* list = wide + WL_HEAD + (global_pass ? B : 0);
+  const long long* list = wide + WL_HEAD + (global_pass ? N : 0);
   const long long n_rows = wide[global_pass ? WL_OVER : WL_ROWS];
   for (long long i = blockIdx.x; i < n_rows; i += gridDim.x) {
-    const int b = (int)list[i];
-    const int2* row = rows + (long long)b * NS;
+    long long e = list[i];
+    int b;
+    const VoteRows v = rows.at(e, b);
+    const int2* row = v.pr + (long long)b * NS;
     const int ns = row_samples(lengths, b, NS, step);
     const int per_warp = ((ns + 31) / 32 + warps - 1) / warps;
     const int s0 = min(ns, warp * per_warp * 32), s1 = min(ns, s0 + per_warp * 32);
-    const int mine = warp_keys<false>(row, s0, s1, dupes, dstride, D, split, cbits, pos_bias,
-                                      step, lane, nullptr, 0);
+    const int mine = warp_keys<false>(row, s0, s1, v.dupes, v.dstride, v.D, split, v.cbits,
+                                      v.pos_bias, step, lane, nullptr, 0);
     if (lane == 0) sm[warp] = mine;
     __syncthreads();
     int base = 0, n = 0;
@@ -580,22 +605,45 @@ vote_wide_kernel(const int32_t* __restrict__ pr, int B, int NS,
     __syncthreads();
     long long* keys = keys_s;
     if (global_pass) {
-      keys = scratch + wide[WL_HEAD + 2 * B + i];
+      keys = scratch + wide[WL_HEAD + 2 * N + i];
     } else if (n > keys_cap) {
       if (threadIdx.x == 0) {
         auto* head = reinterpret_cast<unsigned long long*>(wide);
         const long long k = (long long)atomicAdd(head + WL_OVER, 1ull);
-        wide[WL_HEAD + B + k] = b;
-        wide[WL_HEAD + 2 * B + k] = (long long)atomicAdd(head + WL_KEYS, (unsigned long long)n);
+        wide[WL_HEAD + N + k] = e;
+        wide[WL_HEAD + 2 * N + k] = (long long)atomicAdd(head + WL_KEYS, (unsigned long long)n);
       }
       continue;
     }
-    warp_keys<true>(row, s0, s1, dupes, dstride, D, split, cbits, pos_bias, step, lane, keys,
-                    base);
+    warp_keys<true>(row, s0, s1, v.dupes, v.dstride, v.D, split, v.cbits, v.pos_bias, step, lane,
+                    keys, base);
     __syncthreads();
-    sorted_vote(keys, n, NS * D, step, major_req, minor_req, counts, red, sm,
-                out + (long long)b * cols);
+    sorted_vote(keys, n, NS * v.D, step, major_req, minor_req, counts, red, sm,
+                v.out + (long long)b * cols);
   }
+}
+
+// One table's rows: entry e is row b = e.
+struct OneTable {
+  VoteRows v;
+  __device__ __forceinline__ VoteRows at(long long& e, int& b) const {
+    b = (int)e;
+    e = b;
+    return v;
+  }
+};
+
+// The rows vote_kernel listed (vote_wide_rows over its B entries).
+__global__ void __launch_bounds__(VOTE_WIDE_THREADS)
+vote_wide_kernel(const int32_t* __restrict__ pr, int B, int NS,
+                 const int32_t* __restrict__ lengths, const int32_t* __restrict__ dupes,
+                 int dstride, int D, bool split, int cbits, int pos_bias, int step,
+                 int major_req, int minor_req, bool counts, long long* __restrict__ wide,
+                 long long* __restrict__ scratch, int keys_cap, bool global_pass,
+                 int32_t* __restrict__ out) {
+  const VoteRows v{reinterpret_cast<const int2*>(pr), dupes, dstride, D, cbits, pos_bias, out};
+  vote_wide_rows(OneTable{v}, B, NS, lengths, split, step, major_req, minor_req, counts, wide,
+                 scratch, keys_cap, global_pass);
 }
 
 // The contig-sharded index's top-2 merge and gate, one thread a row
@@ -688,6 +736,80 @@ merge_top2_kernel(MergeShards shards, int B, int step, int major_req, int minor_
   top2<0, 2 * S>(x, g1, g2);
   gp[b] = make_int4(g1.h, g1.l, g2.h, g2.l);
   ok[b] = (max(g1.c, 0) * step >= major_req) && (max(g2.c, 0) * step >= minor_req);
+}
+
+// The counts-mode vote of a device's shards in one launch (genefuserust_tpu/
+// parallel/sharded_index.py per_shard's top2_votes, :209-215, run for every
+// shard of a device as one shard_map program runs them).
+//
+// What bounds it: bytes, but far below them, launches. At the sharded
+// scan's call of 4 shards x 8,192 rows of 105 samples the rows' own
+// samples are 12.8 MB (0.0038 ms at 3.35 TB/s); one shard's launch has
+// 1,024 blocks of 8 warps, so four launches back to back each fill the
+// card and drain it again. Here one launch takes the shards on its grid's
+// y axis (a block's 8 warps take 8 rows of one shard, so the block path's
+// barrier and the shard's parameters stay uniform in a block), runs
+// vote_kernel's body (vote_rows: warp path, block path, wide list), and
+// writes each shard's rows into its slice of one (S, B, 6) tensor, where
+// merge_top2_kernel reads them. The wide list holds s * B + b, a row's
+// shard and row, for all the shards, so one vote_shards_wide_kernel launch
+// (vote_wide_kernel's body, vote_wide_rows) takes every long row of the
+// device, and the count of keys past shared memory is one read for all of
+// them. On an H100 80GB HBM3 (700 W) the one launch takes 0.038 ms of that
+// call where the four took 0.055.
+struct VoteShards {
+  const int2* pr[MAX_SHARDS];
+  const int32_t* dupes[MAX_SHARDS];
+  int dstride[MAX_SHARDS];
+  int D[MAX_SHARDS];
+  int cbits[MAX_SHARDS];
+  int pos_bias[MAX_SHARDS];
+};
+
+// shard s's rows, their votes at out + 6 s B; selected with constant
+// indexes so that the table stays in the parameter bank
+__device__ __forceinline__ VoteRows shard_rows(const VoteShards& t, int s, int B, int32_t* out) {
+  int32_t* o = out + (long long)s * B * 6;
+  VoteRows v{t.pr[0], t.dupes[0], t.dstride[0], t.D[0], t.cbits[0], t.pos_bias[0], o};
+#pragma unroll
+  for (int q = 1; q < MAX_SHARDS; ++q)
+    if (q == s)
+      v = VoteRows{t.pr[q], t.dupes[q], t.dstride[q], t.D[q], t.cbits[q], t.pos_bias[q], o};
+  return v;
+}
+
+// vote_rows in counts mode for shard blockIdx.y; out (S, B, 6); wide
+// entries s * B + b (a (3 + 3 S B) list)
+__global__ void __launch_bounds__(VOTE_THREADS)
+vote_shards_kernel(const VoteShards shards, int B, int NS, const int32_t* __restrict__ lengths,
+                   bool split, int step, long long* __restrict__ wide,
+                   int32_t* __restrict__ out) {
+  const int s = blockIdx.y;
+  vote_rows(shard_rows(shards, s, B, out), B, NS, lengths, split, step, 0, 0, true, wide,
+            (long long)s * B);
+}
+
+// The shards' rows: entry e = s * B + b is row b of shard s.
+struct ShardTables {
+  const VoteShards& t;
+  int B;
+  int32_t* out;
+  __device__ __forceinline__ VoteRows at(long long& e, int& b) const {
+    const int s = (int)(e / B);
+    b = (int)(e - (long long)s * B);
+    return shard_rows(t, s, B, out);
+  }
+};
+
+// vote_wide_rows in counts mode over vote_shards_kernel's list of N = S B
+// entries
+__global__ void __launch_bounds__(VOTE_WIDE_THREADS)
+vote_shards_wide_kernel(const VoteShards shards, int B, int N, int NS,
+                        const int32_t* __restrict__ lengths, bool split, int step,
+                        long long* __restrict__ wide, long long* __restrict__ scratch,
+                        int keys_cap, bool global_pass, int32_t* __restrict__ out) {
+  vote_wide_rows(ShardTables{shards, B, out}, N, NS, lengths, split, step, 0, 0, true, wide,
+                 scratch, keys_cap, global_pass);
 }
 
 }  // namespace gf
@@ -790,5 +912,94 @@ extern "C" int gf_merge_top2(int S, const long long* rows, int B, int step, int 
     GF_MERGE(8)
 #undef GF_MERGE
   }
+  return (int)cudaGetLastError();
+}
+
+// The shards' table of gf_vote_shards / gf_vote_shards_wide from host
+// arrays of S entries (1..MAX_SHARDS): each shard's (B, NS, 2) pass-1
+// probe results and dupe table (device pointers), its dupe row stride,
+// width D, cbits and pos_bias; -> false for a bad S.
+static bool vote_shards_table(int S, const long long* prs, const long long* dupes,
+                              const int* dstrides, const int* Ds, const int* cbits,
+                              const int* pos_biases, gf::VoteShards& t, int& maxD) {
+  if (S < 1 || S > gf::MAX_SHARDS) return false;
+  t = gf::VoteShards{};
+  maxD = 1;
+  for (int s = 0; s < S; ++s) {
+    t.pr[s] = (const int2*)prs[s];
+    t.dupes[s] = (const int32_t*)dupes[s];
+    t.dstride[s] = dstrides[s];
+    t.D[s] = Ds[s];
+    t.cbits[s] = cbits[s];
+    t.pos_bias[s] = pos_biases[s];
+    maxD = std::max(maxD, Ds[s]);
+  }
+  return true;
+}
+
+// The counts-mode vote of S shards of one table layout in one launch: out
+// (S, B, 6) int32, shard s's [c1, h1, l1, c2, h2, l2] rows at out + 6 s B,
+// each equal to gf_vote's in counts mode on that shard alone. lengths, P2
+// (here the largest over the shards), step as gf_vote's; wide: NULL, or the
+// shards' wide list, a (3 + 3 S B) int64 tensor whose first three entries
+// are zero, whose entries are s * B + b, for gf_vote_shards_wide.
+extern "C" int gf_vote_shards(int S, const long long* prs, const long long* dupes,
+                              const int* dstrides, const int* Ds, const int* cbits,
+                              const int* pos_biases, int split, int B, int NS,
+                              const void* lengths, int step, int P2, void* wide, void* out,
+                              void* stream) {
+  gf::VoteShards t;
+  int maxD;
+  if (!vote_shards_table(S, prs, dupes, dstrides, Ds, cbits, pos_biases, t, maxD) || B < 0 ||
+      (wide == nullptr && P2 > gf::MAX_BLOCK_KEYS))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  const size_t warp_keys = (size_t)gf::VOTE_WARPS * gf::WARP_CAP;
+  const size_t n_keys = wide == nullptr && (size_t)P2 > warp_keys ? (size_t)P2 : warp_keys;
+  const size_t smem = n_keys * sizeof(long long);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gf::vote_shards_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((B + gf::VOTE_WARPS - 1) / gf::VOTE_WARPS, S);
+  gf::vote_shards_kernel<<<grid, gf::VOTE_THREADS, smem, (cudaStream_t)stream>>>(
+      t, B, NS, (const int32_t*)lengths, split != 0, step, (long long*)wide, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// The rows gf_vote_shards listed in `wide`, as gf_vote_wide's two passes
+// (keys_cap, scratch, global_pass as there); the shards' table and out as
+// gf_vote_shards'.
+extern "C" int gf_vote_shards_wide(int S, const long long* prs, const long long* dupes,
+                                   const int* dstrides, const int* Ds, const int* cbits,
+                                   const int* pos_biases, int split, int B, int NS,
+                                   const void* lengths, int step, void* wide, void* scratch,
+                                   int keys_cap, int global_pass, void* out, void* stream) {
+  gf::VoteShards t;
+  int maxD;
+  if (!vote_shards_table(S, prs, dupes, dstrides, Ds, cbits, pos_biases, t, maxD) || B < 1 ||
+      keys_cap < 1 || keys_cap > gf::VOTE_SMEM_KEYS || (global_pass != 0) != (scratch != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      global_pass ? 0
+                  : (size_t)std::min<long long>(keys_cap, (long long)NS * maxD) * sizeof(long long);
+  cudaError_t e = cudaFuncSetAttribute(gf::vote_shards_wide_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gf::vote_shards_wide_kernel,
+                                                         gf::VOTE_WIDE_THREADS, smem)) !=
+      cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int N = S * B;
+  const int grid = std::min(N, sms * per_sm);
+  gf::vote_shards_wide_kernel<<<grid, gf::VOTE_WIDE_THREADS, smem, (cudaStream_t)stream>>>(
+      t, B, N, NS, (const int32_t*)lengths, split != 0, step, (long long*)wide,
+      (long long*)scratch, keys_cap, global_pass != 0, (int32_t*)out);
   return (int)cudaGetLastError();
 }

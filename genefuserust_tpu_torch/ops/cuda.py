@@ -14,9 +14,10 @@ per launch, so a run can show which kernels it used. The probe counts as
 kernel, `probe_split_kernel`), and as "probe_kvs" and "probe_kv16" on
 the single-probe tables (its variant, `probe_single_kernel`). The vote
 kernel counts as "vote" in its gated mode and as "vote_counts" in its counts
-mode (the contig-sharded index). The wide-row paths count apart from
-their kernels' main paths: "vote_wide" and "vote_counts_wide" (the two
-modes of the wide vote's second launch; its first is the vote's; rows
+mode (the contig-sharded index, where one launch of `vote_shards_kernel`
+votes a device's shards and counts once). The wide-row paths count apart
+from their kernels' main paths: "vote_wide" and "vote_counts_wide" (the
+two modes of the wide vote's second launch; its first is the vote's; rows
 whose keys pass its shared memory take a third launch, counted as
 "vote_wide_global" and "vote_counts_wide_global"), "mask_segments_wide",
 "shard_flags_wide" and "mask_from_flags_wide" (the launches on code rows
@@ -144,6 +145,9 @@ _ARGTYPES = {
     "gf_vote": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "gf_vote_wide": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I,
                      _P, _P],
+    "gf_vote_shards": [_I, _LLP, _LLP, _IP, _IP, _IP, _IP, _I, _I, _I, _P, _I, _I, _P, _P, _P],
+    "gf_vote_shards_wide": [_I, _LLP, _LLP, _IP, _IP, _IP, _IP, _I, _I, _I, _P, _I, _P, _P, _I,
+                            _I, _P, _P],
     "gf_merge_top2": [_I, _LLP, _I, _I, _I, _I, _P, _P, _P],
     "gf_mask_segments": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "gf_shard_flags": [_I, _LLP, _LLP, _IP, _IP, _IP, _IP, _I, _P, _P, _I, _I, _I, _P, _P],
@@ -276,12 +280,13 @@ def probe_split_shape(lib=None) -> tuple:
 
 def launch_vote(pr, B, NS, index, step, major_req, minor_req, P2, out, counts=False,
                 wide=None, lengths=None) -> None:
-    """`counts`: write (B, 6) [c1, h1, l1, c2, h2, l2] rows, no gate.
-    `wide`: None, or the wide path's (3 + 3B) int64 list, its first three
-    entries zero, that the rows past the warp path go to for
-    `launch_vote_wide` (their keys would not fit in the block path's
-    shared memory). `lengths`: None, or the rows' (B,) int32 lengths: a
-    row's samples past its length are skipped."""
+    """`counts`: write (B, 6) [c1, h1, l1, c2, h2, l2] rows, no gate (the
+    kernel's counts mode, kept in its entry point; the port's counts vote
+    is `launch_vote_shards`'s). `wide`: None, or the wide path's (3 + 3B)
+    int64 list, its first three entries zero, that the rows past the warp
+    path go to for `launch_vote_wide` (their keys would not fit in the
+    block path's shared memory). `lengths`: None, or the rows' (B,) int32
+    lengths: a row's samples past its length are skipped."""
     dstride, D = _dupe_args(index)
     with torch.cuda.device(out.device):
         err = library().gf_vote(
@@ -292,13 +297,14 @@ def launch_vote(pr, B, NS, index, step, major_req, minor_req, P2, out, counts=Fa
     _done("vote_counts" if counts else "vote", err)
 
 
-def launch_vote_wide(pr, B, NS, index, step, major_req, minor_req, counts, wide, lengths,
-                     keys_cap, out, scratch=None) -> None:
+def launch_vote_wide(pr, B, NS, index, step, major_req, minor_req, wide, lengths, keys_cap,
+                     out, scratch=None, counts=False) -> None:
     """The rows `launch_vote` listed in `wide`, a 1,024-thread block a row.
     Without `scratch`, the first pass: a row's keys in shared memory, a row
     of more than `keys_cap` listed again with its keys counted into
     wide[1]. With `scratch` (wide[1] int64), the second pass over those
-    rows; it counts as "vote_wide_global" / "vote_counts_wide_global"."""
+    rows; it counts as "vote_wide_global" / "vote_counts_wide_global".
+    `counts` as `launch_vote`'s."""
     dstride, D = _dupe_args(index)
     with torch.cuda.device(out.device):
         err = library().gf_vote_wide(
@@ -309,6 +315,42 @@ def launch_vote_wide(pr, B, NS, index, step, major_req, minor_req, counts, wide,
         )
     name = "vote_counts_wide" if counts else "vote_wide"
     _done(name if scratch is None else f"{name}_global", err)
+
+
+def _shard_table(prs, indexes):
+    """The by-value shard table of a launch over several shards (at most
+    8): (n, their results' pointers, their dupe tables' pointers, dupe row
+    strides, widths D, cbits, pos_biases, split); one table layout."""
+    n = len(prs)
+    ll, ii = ctypes.c_longlong * n, ctypes.c_int * n
+    dupe = [_dupe_args(ix) for ix in indexes]
+    return (n, ll(*(p.data_ptr() for p in prs)), ll(*(ix.dupes.data_ptr() for ix in indexes)),
+            ii(*(d[0] for d in dupe)), ii(*(d[1] for d in dupe)),
+            ii(*(ix.cbits for ix in indexes)), ii(*(ix.pos_bias for ix in indexes)),
+            int(indexes[0].split))
+
+
+def launch_vote_shards(prs, indexes, B, NS, step, P2, out, wide=None, lengths=None) -> None:
+    """The counts-mode vote of the shards' (B, NS, 2) results `prs` in one
+    launch (MAX_SHARDS in csrc/vote.cu at most) into `out` (S, B, 6);
+    counted as "vote_counts". P2: the largest `vote_width` of the shards;
+    `wide`, `lengths` as `launch_vote`'s (a (3 + 3 S B) list)."""
+    with torch.cuda.device(out.device):
+        err = library().gf_vote_shards(*_shard_table(prs, indexes), B, NS, _ptr(lengths), step,
+                                       P2, _ptr(wide), out.data_ptr(), _stream(out))
+    _done("vote_counts", err)
+
+
+def launch_vote_shards_wide(prs, indexes, B, NS, step, wide, lengths, keys_cap, out,
+                            scratch=None) -> None:
+    """The rows `launch_vote_shards` listed in `wide`, as
+    `launch_vote_wide`'s passes: "vote_counts_wide", or with `scratch`
+    "vote_counts_wide_global"."""
+    with torch.cuda.device(out.device):
+        err = library().gf_vote_shards_wide(
+            *_shard_table(prs, indexes), B, NS, _ptr(lengths), step, wide.data_ptr(),
+            _ptr(scratch), keys_cap, int(scratch is not None), out.data_ptr(), _stream(out))
+    _done("vote_counts_wide" if scratch is None else "vote_counts_wide_global", err)
 
 
 def launch_merge_top2(votes, step, major_req, minor_req, gp, ok) -> None:
@@ -351,15 +393,9 @@ def launch_shard_flags(prs, indexes, lengths, gp, NK, words, accumulate: bool) -
     MAX_FLAG_SHARDS in csrc/mask_segments.cu, one table layout); their
     pointers and dupe parameters go by value. `accumulate`: OR into
     `words`, else store every word."""
-    n = len(prs)
-    ll, ii = ctypes.c_longlong * n, ctypes.c_int * n
-    dupe = [_dupe_args(ix) for ix in indexes]
     with torch.cuda.device(words.device):
         err = library().gf_shard_flags(
-            n, ll(*(p.data_ptr() for p in prs)), ll(*(ix.dupes.data_ptr() for ix in indexes)),
-            ii(*(d[0] for d in dupe)), ii(*(d[1] for d in dupe)),
-            ii(*(ix.cbits for ix in indexes)), ii(*(ix.pos_bias for ix in indexes)),
-            int(indexes[0].split), lengths.data_ptr(), gp.data_ptr(), words.shape[0], NK,
+            *_shard_table(prs, indexes), lengths.data_ptr(), gp.data_ptr(), words.shape[0], NK,
             int(accumulate), words.data_ptr(), _stream(words),
         )
     _done(_mask_name("shard_flags", NK), err)

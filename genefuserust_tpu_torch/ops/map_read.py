@@ -13,10 +13,11 @@ tensors and runs the plain version for CPU tensors:
 The contig-sharded index (parallel/sharded_index.py) takes the vote and
 pass 2 apart at their seams, with a wrapper and plain version each:
 
-  vote_counts      the vote's two entries with their counts, no gate (vote.cu)
-  merge_top2       the shards' entries merged, then the gate        (vote.cu)
-  shard_flags      the shards' per-k-mer flags ORed into bit planes (mask_segments.cu)
-  mask_from_flags  mask + extract_segments from those planes        (mask_segments.cu)
+  vote_counts         the vote's two entries with their counts, no gate (vote.cu)
+  vote_counts_shards  vote_counts of a device's shards in one launch    (vote.cu)
+  merge_top2          the shards' entries merged, then the gate         (vote.cu)
+  shard_flags         the shards' per-k-mer flags ORed into bit planes  (mask_segments.cu)
+  mask_from_flags     mask + extract_segments from those planes         (mask_segments.cu)
 
 The vote and mask+segments have no width limit: rows too wide for the
 vote's shared memory, or for mask+segments' 16-bit chain ends, take wide
@@ -76,7 +77,9 @@ VOTE_WARP_KEYS = 256
 # chain end in 16 bits (MASK_MAX_L in csrc/mask_segments.cu); wider rows
 # take the wide launch (64-bit chain keys)
 MASK_MAX_WIDTH = 0xFFFF
-MAX_SHARDS = 8  # shards merge_top2's kernel takes (MAX_SHARDS in csrc/vote.cu)
+# shards merge_top2's kernel and one vote_counts_shards launch take
+# (MAX_SHARDS in csrc/vote.cu)
+MAX_SHARDS = 8
 # shards one shard_flags launch takes (MAX_FLAG_SHARDS in csrc/mask_segments.cu)
 MAX_FLAG_SHARDS = 8
 
@@ -555,47 +558,16 @@ def _smem_cap(smem_cap, least: int) -> int:
     return cap
 
 
-def _vote(pr, index: TorchIndex, major_req: int, minor_req: int, counts: bool, lengths,
-          smem_cap, out=None):
-    dev = pr.device
+def _check_vote(pr, index: TorchIndex, lengths, dev) -> None:
+    """The vote's probe results (B, NS, 2) and their lengths, on `dev`."""
     cuda.check_tensor(pr, "probe results", torch.int32, 3, dev)
     _check_index(index, dev)
-    B, NS, two = pr.shape
-    if two != 2:
+    if pr.shape[2] != 2:
         raise ValueError(f"vote: probe results must be (B, NS, 2), got {tuple(pr.shape)}")
     if lengths is not None:
         cuda.check_tensor(lengths, "lengths", torch.int32, 1, dev)
-        if lengths.shape[0] != B:
-            raise ValueError(f"vote: {lengths.shape[0]} lengths for {B} rows")
-    keys_cap = _smem_cap(smem_cap, 8) // 8
-    cols = 6 if counts else 5
-    if out is not None:
-        cuda.check_tensor(out, "out", torch.int32, 2, dev)
-        if out.shape != (B, cols):
-            raise ValueError(f"vote: out must be ({B}, {cols}), got {tuple(out.shape)}")
-    if dev.type == "cpu":
-        res = vote_counts_plain(pr, index) if counts else vote_plain(pr, index, major_req,
-                                                                      minor_req)
-        return res if out is None else out.copy_(res)
-    if out is None:
-        out = torch.empty((B, cols), dtype=torch.int32, device=dev)
-    if not B:
-        return out
-    P2 = vote_width(NS, index.D)
-    if P2 <= MAX_VOTE_KEYS:
-        cuda.launch_vote(pr, B, NS, index, PASS1_STEP, major_req, minor_req, P2, out, counts)
-        return out
-    wide = torch.zeros(3 + 3 * B, dtype=torch.int64, device=dev)
-    args = (pr, B, NS, index, PASS1_STEP, major_req, minor_req)
-    cuda.launch_vote(*args, P2, out, counts, wide, lengths)
-    cuda.launch_vote_wide(*args, counts, wide, lengths, keys_cap, out)
-    # the keys of the rows past shared memory, counted by that launch:
-    # reading them waits for it, so only where a row can have that many
-    over = int(wide[1]) if NS * index.D > keys_cap else 0
-    if over:
-        scratch = torch.empty(over, dtype=torch.int64, device=dev)
-        cuda.launch_vote_wide(*args, counts, wide, lengths, keys_cap, out, scratch)
-    return out
+        if lengths.shape[0] != pr.shape[0]:
+            raise ValueError(f"vote: {lengths.shape[0]} lengths for {pr.shape[0]} rows")
 
 
 def vote(pr, index: TorchIndex, major_req: int, minor_req: int, lengths=None,
@@ -614,14 +586,102 @@ def vote(pr, index: TorchIndex, major_req: int, minor_req: int, lengths=None,
     every later one a miss, so the result is the same). `out`: None, or
     a contiguous (B, 5) int32 tensor (rows of a larger buffer) that the
     rows are written into and that is returned."""
-    return _vote(pr, index, major_req, minor_req, False, lengths, smem_cap, out)
+    dev = pr.device
+    _check_vote(pr, index, lengths, dev)
+    B, NS, _ = pr.shape
+    keys_cap = _smem_cap(smem_cap, 8) // 8
+    if out is not None:
+        cuda.check_tensor(out, "out", torch.int32, 2, dev)
+        if out.shape != (B, 5):
+            raise ValueError(f"vote: out must be ({B}, 5), got {tuple(out.shape)}")
+    if dev.type == "cpu":
+        res = vote_plain(pr, index, major_req, minor_req)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty((B, 5), dtype=torch.int32, device=dev)
+    if not B:
+        return out
+    P2 = vote_width(NS, index.D)
+    if P2 <= MAX_VOTE_KEYS:
+        cuda.launch_vote(pr, B, NS, index, PASS1_STEP, major_req, minor_req, P2, out)
+        return out
+    wide = torch.zeros(3 + 3 * B, dtype=torch.int64, device=dev)
+    args = (pr, B, NS, index, PASS1_STEP, major_req, minor_req)
+    cuda.launch_vote(*args, P2, out, wide=wide, lengths=lengths)
+    cuda.launch_vote_wide(*args, wide, lengths, keys_cap, out)
+    # the keys of the rows past shared memory, counted by that launch:
+    # reading them waits for it, so only where a row can have that many
+    over = int(wide[1]) if NS * index.D > keys_cap else 0
+    if over:
+        scratch = torch.empty(over, dtype=torch.int64, device=dev)
+        cuda.launch_vote_wide(*args, wide, lengths, keys_cap, out, scratch)
+    return out
 
 
 def vote_counts(pr, index: TorchIndex, lengths=None, smem_cap=None):
-    """The vote kernel's counts mode: (B, NS, 2) -> (B, 6) int32 [c1, h1,
-    l1, c2, h2, l2], the top-2 keys with their counts and no gate;
-    `lengths` and `smem_cap` as vote's."""
-    return _vote(pr, index, 0, 0, True, lengths, smem_cap)
+    """The vote's counts mode: (B, NS, 2) -> (B, 6) int32 [c1, h1, l1, c2,
+    h2, l2], the top-2 keys with their counts and no gate;
+    vote_counts_shards of the one table; `lengths` and `smem_cap` as
+    vote's."""
+    return vote_counts_shards([pr], [index], lengths, smem_cap)[0]
+
+
+def _keys_past_smem(wides) -> list:
+    """The keys that rows of the shards' wide launches counted past shared
+    memory, one entry a wide list: one device read for all of them (it
+    waits for their launches)."""
+    return torch.stack([w[1] for w in wides]).tolist()
+
+
+def vote_counts_shards(prs, indexes, lengths=None, smem_cap=None):
+    """vote_counts of S shards whose pass-1 results `prs` (each (B, NS, 2),
+    one a shard of `indexes`, all on one device, one table layout) ->
+    (S, B, 6) int32, row s the counts-mode vote of prs[s] on indexes[s].
+    On the card one launch votes up to MAX_SHARDS shards (a warp a row of a
+    shard); rows too wide for the block path's shared memory are listed
+    for all the shards together, one wide launch takes them, and the count
+    of keys past `smem_cap` is one device read for the call. `lengths`:
+    the rows' (B,) lengths, or None; given, a row's samples past it are not
+    read (the probe makes them misses, so the rows are the same)."""
+    S = len(prs)
+    if S < 1 or len(indexes) != S:
+        raise ValueError(f"vote_counts_shards: a table for each of the shards, got {S} "
+                         f"results and {len(indexes)} tables")
+    dev = prs[0].device
+    for pr, index in zip(prs, indexes):
+        _check_vote(pr, index, lengths, dev)
+        if pr.shape != prs[0].shape:
+            raise ValueError("vote_counts_shards: the shards' probe results differ in shape")
+    if len({ix.split for ix in indexes}) != 1:
+        raise ValueError("vote_counts_shards: the shards share one table layout")
+    B, NS, _ = prs[0].shape
+    keys_cap = _smem_cap(smem_cap, 8) // 8
+    if dev.type == "cpu":
+        return torch.stack([vote_counts_plain(pr, index) for pr, index in zip(prs, indexes)])
+    out = torch.empty((S, B, 6), dtype=torch.int32, device=dev)
+    if not B:
+        return out
+    P2 = max(vote_width(NS, ix.D) for ix in indexes)
+    groups = [range(a, min(S, a + MAX_SHARDS)) for a in range(0, S, MAX_SHARDS)]
+    launches = []
+    for g in groups:
+        args = ([prs[s] for s in g], [indexes[s] for s in g], B, NS, PASS1_STEP)
+        o = out[g.start : g.stop]
+        if P2 <= MAX_VOTE_KEYS:
+            cuda.launch_vote_shards(*args, P2, o, None, lengths)
+            continue
+        wide = torch.zeros(3 + 3 * len(g) * B, dtype=torch.int64, device=dev)
+        cuda.launch_vote_shards(*args, P2, o, wide, lengths)
+        cuda.launch_vote_shards_wide(*args, wide, lengths, keys_cap, o)
+        launches.append((args, o, wide))
+    # only where a row can have more keys than shared memory holds
+    if not launches or NS * max(ix.D for ix in indexes) <= keys_cap:
+        return out
+    for (args, o, wide), over in zip(launches, _keys_past_smem([w for _, _, w in launches])):
+        if over:
+            scratch = torch.empty(over, dtype=torch.int64, device=dev)
+            cuda.launch_vote_shards_wide(*args, wide, lengths, keys_cap, o, scratch)
+    return out
 
 
 def merge_top2(votes, major_req: int, minor_req: int):

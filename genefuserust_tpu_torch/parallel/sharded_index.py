@@ -25,11 +25,14 @@ O(n) absent-key search; its tables equal the JAX ones array for array.
 
 Where the JAX package runs one `shard_map` program over a mesh, the port
 takes a list of torch devices, one per shard (`parallel/mesh.py`); each
-shard's tables stay on its device and its kernels run there, one shard
-after another. The small per-shard outputs come to the first device
-through `.to()` (NCCL collectives wait for the multi-GPU slice):
+shard's tables stay on its device and its kernels run there, a launch of
+the vote and one of the flags for each device's shards, one device after
+another. The small per-shard outputs come to the first device through
+`.to()` (NCCL collectives wait for the multi-GPU slice):
 
-  each shard   probe (stride 2) -> vote_counts        -> (B, 6) to device 0
+  each device  probe (stride 2) of its shards, one vote_counts_shards
+               launch over them (groups past FLAGS_GROUP_BYTES)
+                                                      -> (S, B, 6) to device 0
   device 0     merge_top2 over the S shards' rows      -> gate and top two
   each device  probe (stride 1) of its shards, one shard_flags launch
                over them (groups past FLAGS_GROUP_BYTES) -> ORed flag words
@@ -214,18 +217,20 @@ def table_bytes(indexes: List[TorchIndex]) -> int:
                for t in (ix.table, ix.vals, ix.dupes))
 
 
-# The stride-1 probe results of one device's shards that a shard_flags
-# launch takes at once, at most (bytes). A call's peak device memory grows
-# by at most this over holding one shard's results at a time; a shard
-# whose results pass it alone takes a launch of its own. At 8,192 rows of
-# width 224 a shard's results are 13.7 MB, so 4 shards take one launch.
+# The probe results of one device's shards that a shard_flags launch
+# (stride 1) or a vote_counts_shards call (stride 2) takes at once, at
+# most (bytes). A call's peak device memory grows by at most this over
+# holding one shard's results at a time; a shard whose results pass it
+# alone takes a launch of its own. At 8,192 rows of width 224 a shard's
+# stride-1 results are 13.7 MB, so 4 shards take one launch.
 FLAGS_GROUP_BYTES = 512 << 20
 
 
 def flag_groups(n_shards: int, shard_bytes: int):
     """The shards of one device in groups, in order, each a shard_flags
-    launch: as many as fit in FLAGS_GROUP_BYTES of probe results (at least
-    one, at most MAX_FLAG_SHARDS) -> [range of shard positions]."""
+    launch or a vote_counts_shards call: as many as fit in
+    FLAGS_GROUP_BYTES of probe results (at least one, at most
+    MAX_FLAG_SHARDS) -> [range of shard positions]."""
     per = max(1, min(M.MAX_FLAG_SHARDS, FLAGS_GROUP_BYTES // max(1, shard_bytes)))
     return [range(a, min(n_shards, a + per)) for a in range(0, n_shards, per)]
 
@@ -257,11 +262,20 @@ def sharded_map_read(codes, lengths, indexes: List[TorchIndex], major_req: int =
     dev0 = indexes[0].table.device
     devs = [ix.table.device for ix in indexes]
     inputs = {d: (codes.to(d), lengths.to(d)) for d in dict.fromkeys(devs)}
-    votes = [M.vote_counts(M.probe(*inputs[d], PASS1_STEP, ix), ix, inputs[d][1]).to(dev0)
-             for ix, d in zip(indexes, devs)]
-    ok, gp = M.merge_top2(votes, major_req, minor_req)
     B, L = codes.shape
     NK = L - KMER + 1
+    votes = [None] * len(indexes)
+    for d in inputs:
+        mine = [s for s, e in enumerate(devs) if e == d]
+        for group in flag_groups(len(mine), B * ((NK - 1) // PASS1_STEP + 1) * 8):
+            pos = [mine[i] for i in group]
+            ixs = [indexes[s] for s in pos]
+            prs = [M.probe(*inputs[d], PASS1_STEP, ix) for ix in ixs]
+            v = M.vote_counts_shards(prs, ixs, inputs[d][1]).to(dev0)
+            del prs
+            for s, row in zip(pos, v):
+                votes[s] = row
+    ok, gp = M.merge_top2(votes, major_req, minor_req)
     words = {}
     for d in inputs:
         mine = [ix for ix, e in zip(indexes, devs) if e == d]
