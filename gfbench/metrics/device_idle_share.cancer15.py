@@ -1,0 +1,5 @@
+"""`device_idle_share` in the cells that report `device_ms_per_mpair` in place of
+`pairs_per_s` (cancer15-pe-targeted): the same reading under a name of its
+own, since a per-layer metric moves one end-to-end metric."""
+
+from gfbench.metrics.device_idle_share import read  # noqa: F401

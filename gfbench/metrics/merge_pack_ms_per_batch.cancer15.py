@@ -1,0 +1,5 @@
+"""`merge_pack_ms_per_batch` in the cells that report `device_ms_per_mpair` in place of
+`pairs_per_s` (cancer15-pe-targeted): the same reading under a name of its
+own, since a per-layer metric moves one end-to-end metric."""
+
+from gfbench.metrics.merge_pack_ms_per_batch import read  # noqa: F401
