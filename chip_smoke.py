@@ -1681,6 +1681,7 @@ def phase_cli(data: dict, smi_line: str) -> dict:
     from genefuserust_tpu_torch import native
     from genefuserust_tpu_torch import cli
     from genefuserust_tpu_torch.ops import cuda
+    from genefuserust_tpu_torch.utils import spans
 
     check(native.available(), "the native host library did not build")
     wd = data["workdir"]
@@ -1690,8 +1691,9 @@ def phase_cli(data: dict, smi_line: str) -> dict:
     write_fastq(r2, b2, q2, "p")
     data["r1"], data["r2"] = r1, r2
     html, js = os.path.join(wd, "out.html"), os.path.join(wd, "out.json")
-    # the engine's opt-in wall-time split of host stages (TorchEngine._timed)
-    os.environ["GENEFUSE_STAGE_TIMERS"] = "1"
+    # the port's spans over this job alone (utils/spans.py; the registry is
+    # the process's)
+    spans0 = dict(spans.REGISTRY.items())
     cuda.reset_launches()
     t0 = time.perf_counter()
     out = io.StringIO()
@@ -1723,8 +1725,8 @@ def phase_cli(data: dict, smi_line: str) -> dict:
         ed_jobs=engine.ed_stats["jobs"],
         ed_jobs_in_device_sized_batches=engine.ed_stats["device_sized"],
         ed_jobs_batched=engine.ed_stats["device"],
-        host_stage_s=json.dumps({k: round(v[0], 3) for k, v in engine._timers.items()},
-                                separators=(",", ":")),
+        host_stage_s=json.dumps({k: round(v[0] - spans0.get(k, (0.0,))[0], 3)
+                                 for k, v in engine._timers.items()}, separators=(",", ":")),
         card=repr(smi_line))
     ed = check_flushes("cli", flushes)
     data["ed_flushes"] = flushes

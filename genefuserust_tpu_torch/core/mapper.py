@@ -15,6 +15,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..config import DISTANCE_DIFF_THRESHOLD, Settings
 from ..models.fusion import Fusion
+from ..utils.spans import span
 from .edit_distance import edit_distance
 from .indexer import GenePos, Indexer, SeqMatch
 from .read import SequenceRead
@@ -192,7 +193,8 @@ class FusionMapper:
         self.remove_by_complexity()
         self.remove_by_distance()
         self.remove_indels()
-        self.remove_alignables()
+        with span("report.alignable"):
+            self.remove_alignables()
 
     def remove_by_complexity(self) -> None:
         """reference: fusion_mapper.rs:298-321,559-569."""

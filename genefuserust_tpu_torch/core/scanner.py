@@ -19,6 +19,7 @@ import logging
 from typing import Dict, Iterable, List, Optional
 
 from ..config import Settings
+from ..utils.spans import span
 from .mapper import FusionMapper, ReadMatch
 from .read import SequenceRead, SequenceReadPair
 
@@ -231,15 +232,17 @@ def finish_scan(
     """Post-scan pipeline tail: filters, deterministic sort, clustering,
     reports (pescanner.rs:334-346). Shared by Scanner and the multi-CSV
     driver path."""
-    mapper.filter_matches()
-    mapper.sort_matches()
-    mapper.cluster_matches()
-    if html_file:
-        from ..report.html import HtmlReporter
+    with span("report.finish_scan"):
+        mapper.filter_matches()
+        mapper.sort_matches()
+        mapper.cluster_matches()
+        with span("report.write"):
+            if html_file:
+                from ..report.html import HtmlReporter
 
-        HtmlReporter(html_file, mapper, command, settings).run()
-    if json_file:
-        from ..report.json import JsonReporter
+                HtmlReporter(html_file, mapper, command, settings).run()
+            if json_file:
+                from ..report.json import JsonReporter
 
-        JsonReporter(json_file, mapper, command, settings).run()
-    mapper.free_matches()
+                JsonReporter(json_file, mapper, command, settings).run()
+        mapper.free_matches()

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils.spans import span
 from .hashtable import (
     EMPTY,
     KV16_SLOTS,
@@ -57,6 +58,9 @@ from .hashtable import (
 )
 
 log = logging.getLogger("genefuse")
+
+# the spans (utils/spans.py) of building and uploading a table
+TABLE_SPANS = ("table.pack", "table.upload")
 
 
 def absent_key(present: np.ndarray) -> int:
@@ -254,7 +258,8 @@ def build_packed_index(indexer, layout: str = None, attempts: list = None):
     logged. `attempts`: a list that each layout tried is appended to, as
     {layout, seconds, packed}."""
     layout = layout or os.environ.get("GENEFUSE_TABLE_LAYOUT", "auto")
-    p = _pick_layout(indexer, layout, attempts)
+    with span("table.pack"):
+        p = _pick_layout(indexer, layout, attempts)
     log.info("table layout %s built (asked: %s), %d buckets, %.1f MB", layout_name(p),
              layout, p.n_buckets, p.nbytes / 1e6)
     return p

@@ -24,6 +24,7 @@ import torch
 
 from ..core.edit_distance import edit_distance
 from ..ops.edit_distance import ED_ALPHA, ED_CODE_LUT, ED_MAX_WORDS, edit_distance_batch
+from ..utils.spans import span
 
 # Flushes of at least this many jobs go to the kernel. Over the jobs the
 # scans of chip_smoke.py phases 5 and 10 flushed (read halves of ~92
@@ -104,12 +105,13 @@ class EdBatcher:
     def flush(self) -> None:
         jobs, self._jobs = self._jobs, []
         self.stats["jobs"] += len(jobs)
-        if len(jobs) < self.min_jobs:
-            for q, r, setter in jobs:
-                setter(edit_distance(q, r))
-            return
-        self.stats["device_sized"] += len(jobs)
-        self.stats["device"] += evaluate_batched(jobs, self.device)
+        with span("ed.flush"):
+            if len(jobs) < self.min_jobs:
+                for q, r, setter in jobs:
+                    setter(edit_distance(q, r))
+                return
+            self.stats["device_sized"] += len(jobs)
+            self.stats["device"] += evaluate_batched(jobs, self.device)
 
 
 def evaluate_batched(jobs: List[Tuple[str, str, Callable[[int], None]]], device) -> int:

@@ -69,7 +69,8 @@ from ..core.read import SequenceRead, SequenceReadPair
 from ..core.scanner import scan_one_pair
 from ..core.sequence import BASE_CODE_LUT
 from ..ops.fused import fused_scan_lanes
-from ..ops.index import build_packed_index, index_to_torch
+from ..ops.index import TABLE_SPANS, build_packed_index, index_to_torch
+from ..utils import spans
 from ..utils.pbar import prepare_pbar
 from .ed_batch import EdBatcher, _round_up
 
@@ -188,24 +189,14 @@ class TorchEngine:
         # survivors carried by one batch's result; beyond it _p2_overflow
         # rescans the rest (the JAX engine's value, from its TPU A/B)
         self._surv_cap = 1024
-        # opt-in wall-time split of the host stages: label -> [total_s, calls]
-        self._timers = {} if os.environ.get("GENEFUSE_STAGE_TIMERS") else None
+        # the process's spans and counters (utils/spans.py): label ->
+        # [total_s, calls] or [count, events]
+        self._timers = spans.REGISTRY
         # edit-distance job counts (see EdBatcher)
         self.ed_stats = {"jobs": 0, "device_sized": 0, "device": 0}
-        # host seconds spent building and uploading device index tables
+        # host seconds this engine spent building and uploading device
+        # index tables (its share of the table.* spans)
         self.table_seconds = 0.0
-
-    def _timed(self, label, fn):
-        """Run fn() and charge its wall time to `label` (no-op unless
-        GENEFUSE_STAGE_TIMERS is set)."""
-        if self._timers is None:
-            return fn()
-        t0 = time.time()
-        r = fn()
-        e = self._timers.setdefault(label, [0.0, 0])
-        e[0] += time.time() - t0
-        e[1] += 1
-        return r
 
     def _submit_producer(self, entry: _Entry, fn, *args):
         if self._producer is None:
@@ -266,16 +257,25 @@ class TorchEngine:
         """The table entry of a packed index: one copy on each distinct
         device of the list."""
         indexes = {}
-        for e in self._entries:
-            if e.device not in indexes:
-                indexes[e.device] = index_to_torch(packed, e.device)
+        with spans.span("table.upload"):
+            for e in self._entries:
+                if e.device not in indexes:
+                    indexes[e.device] = index_to_torch(packed, e.device)
         return dict(packed=packed, indexes=indexes)
+
+    def _table_built(self, build: Callable):
+        """build() -> its result, its table.* span seconds added to
+        table_seconds."""
+        t0 = spans.REGISTRY.seconds(*TABLE_SPANS)
+        out = build()
+        self.table_seconds += spans.REGISTRY.seconds(*TABLE_SPANS) - t0
+        return out
 
     def use_packed(self, packed, mapper=None) -> None:
         """Install a pre-built table. With `mapper`, it is bound to that
         mapper at once; without, the first mapper `_table_entry` sees
         takes it."""
-        entry = self._entry_from_packed(packed)
+        entry = self._table_built(lambda: self._entry_from_packed(packed))
         if mapper is not None:
             entry["mapper"] = mapper
             self._tables[id(mapper)] = entry
@@ -299,14 +299,15 @@ class TorchEngine:
             e["mapper"] = mapper
             self._tables[key] = e
             return e
-        t0 = time.perf_counter()
-        packed = build_packed_index(mapper.indexer)
-        e = self._entry_from_packed(packed)
-        self.table_seconds += time.perf_counter() - t0
+        s0 = self.table_seconds
+        e = self._table_built(lambda: self._entry_from_packed(
+            build_packed_index(mapper.indexer)))
+        packed = e["packed"]
         e["mapper"] = mapper
         self._tables[key] = e
-        log.info("device index ready: %d buckets, %.1f MB%s", packed.n_buckets,
-                 packed.nbytes / 1e6, " (kv rows)" if hasattr(packed, "kv_tbl") else "")
+        log.info("device index ready: %d buckets, %.1f MB%s, %.2f s", packed.n_buckets,
+                 packed.nbytes / 1e6, " (kv rows)" if hasattr(packed, "kv_tbl") else "",
+                 self.table_seconds - s0)
         return e
 
     def _prepare(self, mapper) -> None:
@@ -487,8 +488,8 @@ class TorchEngine:
                 return out
 
             b1, q1, b2, q2 = padw_in(b1), padw_in(q1), padw_in(b2), padw_in(q2)
-        res = self._timed("st0.merge_pack",
-                          lambda: native.merge_pack_pe_batch(b1, q1, b2, q2, l1, l2, L))
+        with spans.span("st0.merge_pack"):
+            res = native.merge_pack_pe_batch(b1, q1, b2, q2, l1, l2, L)
         if res is None:  # pure-Python fallback (oracle fast_merge per row)
             res = native.merge_pack_pe_fallback(b1, q1, b2, q2, l1, l2, L)
         m_flag = res["m_flag"]
@@ -561,13 +562,14 @@ class TorchEngine:
         if len(u_exc):
             exc[len(m_exc) : n_exc, 0] = u_exc[:, 0] + offs[2]
             exc[len(m_exc) : n_exc, 1] = u_exc[:, 1]
-        out = self._timed("st0.upload", lambda: dict(
-            bufs_d=tuple(self._put_batch(b, dev) for b in bufs),
-            # every lane's lengths in one upload: the scan takes each lane's
-            # view of them and the compaction all of them
-            lens_d=self._put_batch(np.concatenate(lens_arrs), dev),
-            exc_d=self._put_batch(exc, dev),
-        ))
+        with spans.span("st0.upload"):
+            out = dict(
+                bufs_d=tuple(self._put_batch(b, dev) for b in bufs),
+                # every lane's lengths in one upload: the scan takes each
+                # lane's view of them and the compaction all of them
+                lens_d=self._put_batch(np.concatenate(lens_arrs), dev),
+                exc_d=self._put_batch(exc, dev),
+            )
         out.update(
             rows_m=rows_m, m_len=m_len, rwork=rwork, exotic=res["exotic"],
             mbuf=mbuf, ubuf=ubuf, exc_np=exc[:n_exc], lane_meta=lane_meta,
@@ -592,7 +594,8 @@ class TorchEngine:
         if sh["fetched"]:
             return
         fut = sh.pop("fut")
-        sh.update(self._timed("st1.producer_join", fut.result))
+        with spans.span("st1.producer_join"):
+            sh.update(fut.result())
         exotic = sh["exotic"]
         if exotic.any():
             pair_obj = sh["pair_obj"]
@@ -620,7 +623,7 @@ class TorchEngine:
         self._fetch_merge(sh)
         c["scan_d"] = c["okw_d"] = c["scan_f"] = None
         if sh["n_m"] or sh["n_u"]:
-            with torch.cuda.stream(sh["entry"].stream):
+            with spans.span("st1.issue_scan"), torch.cuda.stream(sh["entry"].stream):
                 self._adopt_uploads(sh)
                 out_d, okw_d = self._scan(
                     c["tbl"], sh["bufs_d"], sh["lens_d"], sh["exc_d"], sh["widths"],
@@ -732,12 +735,17 @@ class TorchEngine:
 
         ed = self._ed()
         retry: List[Tuple[int, int, SequenceRead]] = []
+        rows = []
         if c["scan_f"] is not None:
-            out = c["scan_f"].get()  # (cap + 1, 13)
+            with spans.span("st3.result_wait"):
+                out = c["scan_f"].get()  # (cap + 1, 13)
             n_count = int(out[-1, 0])
+            spans.count("scan.survivors", n_count)
             rows = list(out[: min(n_count, self._surv_cap)])
             if n_count > self._surv_cap:
-                rows.extend(self._p2_overflow(c, n_count))
+                with spans.span("st3.p2_overflow"):
+                    rows.extend(self._p2_overflow(c, n_count))
+        with spans.span("st3.assemble"):
             for r in rows:
                 if not (r[2] and r[3]):
                     continue
@@ -749,11 +757,11 @@ class TorchEngine:
                     mapper.add_match(m)
                 else:
                     retry.append((i, lane, read_for(i, lane).reverse_complement()))
-        if retry:
-            self._enqueue_retries(
-                mapper, [(lane, rc, originals(i)) for i, lane, rc in retry]
-            )
-        ed.flush()
+            if retry:
+                self._enqueue_retries(
+                    mapper, [(lane, rc, originals(i)) for i, lane, rc in retry]
+                )
+            ed.flush()
         if c["count_progress"]:
             self._progress(sh["orig_B"])
         c["stage"] = 2
@@ -788,61 +796,63 @@ class TorchEngine:
         single-lane scan (pescanner.rs:455-513), on entry 0 whichever entry
         finished last. items: [(lane, rc_read, original_reads)] ->
         [(chunk, result)] for _retry_assemble."""
-        tbl = self._table_entry(mapper)
-        entry = self._entries[0]
-        dev = entry.device
-        ctxs = []
-        CHUNK = self._retry_flush_at
-        for s in range(0, len(items), CHUNK):
-            ch = items[s : s + CHUNK]
-            W = _round_up(max(KMER, max(len(r.seq) for _, r, _ in ch)), 32)
-            rows, lens = _tokenize_bytes([r.seq.encode("latin-1") for _, r, _ in ch], W)
-            codes = BASE_CODE_LUT[rows]
-            col = np.arange(W)[None, :]
-            er, ec = np.nonzero((codes == 255) & (col < lens[:, None]))
-            codes = np.where(codes == 255, 0, codes).astype(np.uint8)
-            packed = (codes[:, 0::4] | (codes[:, 1::4] << 2)
-                      | (codes[:, 2::4] << 4) | (codes[:, 3::4] << 6))
-            PAD = self._pad_rows(len(ch))
-            buf = np.zeros((PAD, W // 4), np.uint8)
-            buf[: len(ch)] = packed
-            ln = np.zeros(PAD, np.int32)
-            ln[: len(ch)] = lens
-            exc = np.full((max(32, self._pad_rows(len(er))), 2), W, np.int32)
-            exc[:, 0] = PAD
-            exc[: len(er), 0] = er
-            exc[: len(er), 1] = ec
-            with torch.cuda.stream(entry.stream):
-                out_d, _ = self._scan(
-                    tbl, (self._put_batch(buf, dev),), self._put_batch(ln, dev),
-                    self._put_batch(exc, dev), (W,), PAD,
-                )
-                ctxs.append((ch, _Result(out_d)))
+        with spans.span("retry.issue"):
+            tbl = self._table_entry(mapper)
+            entry = self._entries[0]
+            dev = entry.device
+            ctxs = []
+            CHUNK = self._retry_flush_at
+            for s in range(0, len(items), CHUNK):
+                ch = items[s : s + CHUNK]
+                W = _round_up(max(KMER, max(len(r.seq) for _, r, _ in ch)), 32)
+                rows, lens = _tokenize_bytes([r.seq.encode("latin-1") for _, r, _ in ch], W)
+                codes = BASE_CODE_LUT[rows]
+                col = np.arange(W)[None, :]
+                er, ec = np.nonzero((codes == 255) & (col < lens[:, None]))
+                codes = np.where(codes == 255, 0, codes).astype(np.uint8)
+                packed = (codes[:, 0::4] | (codes[:, 1::4] << 2)
+                          | (codes[:, 2::4] << 4) | (codes[:, 3::4] << 6))
+                PAD = self._pad_rows(len(ch))
+                buf = np.zeros((PAD, W // 4), np.uint8)
+                buf[: len(ch)] = packed
+                ln = np.zeros(PAD, np.int32)
+                ln[: len(ch)] = lens
+                exc = np.full((max(32, self._pad_rows(len(er))), 2), W, np.int32)
+                exc[:, 0] = PAD
+                exc[: len(er), 0] = er
+                exc[: len(er), 1] = ec
+                with torch.cuda.stream(entry.stream):
+                    out_d, _ = self._scan(
+                        tbl, (self._put_batch(buf, dev),), self._put_batch(ln, dev),
+                        self._put_batch(exc, dev), (W,), PAD,
+                    )
+                    ctxs.append((ch, _Result(out_d)))
         return ctxs
 
     def _retry_assemble(self, mapper, ctxs, ed_batcher=None) -> None:
         """Consume _retry_issue results. Survivors come back compacted in
         ascending row order, so matches are appended in item order."""
-        for ch, fetch in ctxs:
-            out = fetch.get()
-            body = out[:-1]
-            n = int(out[-1, 0])
-            for k in range(min(n, len(body))):
-                r = body[k]
-                i = int(r[0])
-                if i >= len(ch) or not (r[2] and r[3]):
-                    continue
-                lane, rc_read, originals = ch[i]
-                mapping = _mapping(r)
-                if not mapper.indexer.in_required_direction(mapping):
-                    continue
-                m = mapper.make_match(rc_read, mapping, ed_batcher=ed_batcher)
-                m.original_reads = originals
-                if lane != 0:
-                    # merged-lane RC matches keep reversed=False
-                    # (faithful: pescanner.rs:465-468 vs :487-490)
-                    m.reversed = True
-                mapper.add_match(m)
+        with spans.span("retry.assemble"):
+            for ch, fetch in ctxs:
+                out = fetch.get()
+                body = out[:-1]
+                n = int(out[-1, 0])
+                for k in range(min(n, len(body))):
+                    r = body[k]
+                    i = int(r[0])
+                    if i >= len(ch) or not (r[2] and r[3]):
+                        continue
+                    lane, rc_read, originals = ch[i]
+                    mapping = _mapping(r)
+                    if not mapper.indexer.in_required_direction(mapping):
+                        continue
+                    m = mapper.make_match(rc_read, mapping, ed_batcher=ed_batcher)
+                    m.original_reads = originals
+                    if lane != 0:
+                        # merged-lane RC matches keep reversed=False
+                        # (faithful: pescanner.rs:465-468 vs :487-490)
+                        m.reversed = True
+                    mapper.add_match(m)
 
     # ------------- single-end -------------
 
@@ -892,11 +902,12 @@ class TorchEngine:
         exc[:n_exc, 0] = er
         exc[:n_exc, 1] = ec
         dev = (entry or self._entries[0]).device
-        out = self._timed("st0.upload", lambda: dict(
-            bufs_d=(self._put_batch(buf, dev),),
-            lens_d=self._put_batch(ln, dev),
-            exc_d=self._put_batch(exc, dev),
-        ))
+        with spans.span("st0.upload"):
+            out = dict(
+                bufs_d=(self._put_batch(buf, dev),),
+                lens_d=self._put_batch(ln, dev),
+                exc_d=self._put_batch(exc, dev),
+            )
         out.update(
             rows_m=np.zeros(0, np.int64), m_len=np.zeros(B, np.int32), rwork=rwork,
             exotic=np.zeros(B, bool), mbuf=np.zeros((0, 1), np.uint8), ubuf=packed,

@@ -20,7 +20,6 @@ device.
 from __future__ import annotations
 
 import logging
-import time
 from typing import Iterable, List, Tuple
 
 import numpy as np
@@ -30,7 +29,9 @@ from ..config import Settings
 from ..core.indexer import GenePos, SeqMatch
 from ..core.read import SequenceRead
 from ..core.sequence import encode_bases
+from ..ops.index import TABLE_SPANS
 from ..ops.map_read import MAX_SHARDS
+from ..utils import spans
 from .ed_batch import EdBatcher, _round_up
 from .engine import resolve_device
 from .mesh import resolve_mesh
@@ -56,8 +57,9 @@ class ShardedIndexEngine:
         self._indexes = None
         self._installed = False  # use_tables: the same tables for every mapper
         self.ed_stats = {"jobs": 0, "device_sized": 0, "device": 0}
-        # host seconds spent building and uploading the shard tables, and
-        # the tables' bytes on the devices
+        # host seconds this engine spent building and uploading the shard
+        # tables (its share of the table.* spans), and the tables' bytes on
+        # the devices
         self.table_seconds = 0.0
         self.table_bytes = 0
 
@@ -76,10 +78,12 @@ class ShardedIndexEngine:
     def _prepare(self, mapper) -> None:
         if self._installed or self._prepared_for is mapper:
             return
-        t0 = time.perf_counter()
-        _, packs = pack_index_sharded(mapper.indexer, self.n_shards, build_form=False)
-        self._indexes = shard_indexes(packs, self.devices)
-        self.table_seconds += time.perf_counter() - t0
+        t0 = spans.REGISTRY.seconds(*TABLE_SPANS)
+        with spans.span("table.pack"):
+            _, packs = pack_index_sharded(mapper.indexer, self.n_shards, build_form=False)
+        with spans.span("table.upload"):
+            self._indexes = shard_indexes(packs, self.devices)
+        self.table_seconds += spans.REGISTRY.seconds(*TABLE_SPANS) - t0
         self.table_bytes = table_bytes(self._indexes)
         self._prepared_for = mapper
         log.info(
