@@ -21,7 +21,7 @@ from .indexer import GenePos, Indexer, SeqMatch
 from .read import SequenceRead
 from .sequence import dis_connected_count, reverse_complement
 from .fusion_result import FusionResult
-from .matcher import Matcher
+from .matcher import Matcher, genome_index
 
 log = logging.getLogger("genefuse")
 
@@ -246,7 +246,10 @@ class FusionMapper:
         check through the (quirk-faithful) Matcher."""
         seqs = [rm.read.seq for fm in self.fusion_matches for rm in fm]
         log.info("making matcher...")
-        matcher = Matcher(self.contigs, seqs)
+        # the genome index is built once per contigs object and shared by
+        # every mapper over it; this mapper keeps it alive
+        self.genome_index = genome_index(self.contigs)
+        matcher = Matcher.over(self.genome_index, seqs)
         removed = 0
         log.info("removing alignable sequences...")
         for fm in self.fusion_matches:

@@ -40,11 +40,13 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..config import KMER
+from ..utils import spans
 from .sequence import reverse_complement
 
 log = logging.getLogger("genefuse")
@@ -85,13 +87,116 @@ _CODE_LUT[ord("C")] = 2
 _CODE_LUT[ord("G")] = 3
 
 
+def _scan_contigs(
+    contigs: Dict[str, str], bloom_bits
+) -> Tuple[List[str], Dict[int, List[Tuple[int, int]]]]:
+    """matcher.rs:120-169 + index_contig_bytes:227-289, single-threaded
+    deterministic order (name-sorted contigs) -> (contig names, key (quirky
+    kmer value) -> list of (contig, position)), keeping the keys in
+    `bloom_bits`."""
+    from .. import native
+    from .sequence import encode_bases
+
+    contig_names: List[str] = []
+    kmer_positions: Dict[int, List[Tuple[int, int]]] = {}
+    for ctg, (name, seq) in enumerate(contigs.items()):
+        contig_names.append(name)
+        su = seq.upper()
+        n = len(su)
+        if n <= KMER:
+            continue
+        # native single-pass scan (capped run counters; exact same keep
+        # set as the vectorized fallback below, cross-checked in tests)
+        nat = native.matcher_scan(encode_bases(su), bloom_bits)
+        if nat is not None:
+            poss, keys = nat
+            for k in range(4):
+                sel = poss[keys == k]
+                if len(sel):
+                    kmer_positions.setdefault(k, []).extend(
+                        (ctg, i) for i in sel.tolist()
+                    )
+            continue
+        b = np.frombuffer(su.encode("latin-1"), np.uint8)
+        codes = _CODE_LUT[b]
+        # positions iterated: 0 .. n-KMER-1 (bound excludes last kmer)
+        m = n - KMER
+        # state machine: kmer value at i = packed codes of
+        # [run_start_i .. i] truncated to the last 16 bases; invalid
+        # base resets. Vectorized: standard rolling 16-mer with invalid
+        # codes zeroed, masked down to min(run_len,16) bases.
+        valid = codes >= 0
+        c = np.where(valid, codes, 0).astype(np.uint64)
+        # rolling 16-mer ending at i (for i>=15, positions before padded 0)
+        cp = np.concatenate([np.zeros(KMER - 1, np.uint64), c])
+        km = np.zeros(n, np.uint64)
+        for j in range(KMER):
+            km |= cp[j : j + n] << np.uint64(2 * (KMER - 1 - j))
+        # run length ending at i (# consecutive valid up to and incl i):
+        # index of last invalid before or at i
+        inv_idx = np.where(valid, -1, np.arange(n))
+        last_inv = np.maximum.accumulate(inv_idx)
+        run = np.arange(n) - last_inv  # 0 where invalid
+        w = np.minimum(run, KMER)
+        mask = (np.uint64(1) << (2 * w.astype(np.uint64))) - np.uint64(1)
+        kmv = (km & mask).astype(np.int64)
+        keep = (run[:m] > 0) & (kmv[:m] <= 3) & np.isin(
+            kmv[:m], list(bloom_bits) or [-99]
+        )
+        for i in np.nonzero(keep)[0].tolist():
+            kmer_positions.setdefault(int(kmv[i]), []).append((ctg, int(i)))
+    return contig_names, kmer_positions
+
+
+class GenomeIndex:
+    """The genome index of one contigs dict for every key 0-3 (the full
+    bloom set). A position is kept whatever the bloom set iff its key is
+    at most 3 and in the set, so the index of any set is this one with the
+    other keys dropped, each remaining list unchanged (Matcher.over).
+    Holds `contigs`, so that its id is not reused while the index lives."""
+
+    def __init__(self, contigs: Dict[str, str]):
+        self.contigs = contigs
+        self.contig_names, self.kmer_positions = _scan_contigs(contigs, range(4))
+
+
+# id(contigs) -> its GenomeIndex, while any holder (each FusionMapper that
+# used it) keeps the index: mappers over one dict share one build, and no
+# genome outlives its last holder
+_SHARED: "weakref.WeakValueDictionary[int, GenomeIndex]" = weakref.WeakValueDictionary()
+
+
+def genome_index(contigs: Dict[str, str]) -> GenomeIndex:
+    """The GenomeIndex of this contigs object: built on the first call
+    (span `report.matcher_index`), found on later ones (counter
+    `matcher.index_reuse`) while a holder keeps it."""
+    idx = _SHARED.get(id(contigs))
+    if idx is not None and idx.contigs is contigs:
+        spans.count("matcher.index_reuse", 1)
+        return idx
+    with spans.span("report.matcher_index"):
+        idx = GenomeIndex(contigs)
+    _SHARED[id(contigs)] = idx
+    return idx
+
+
 class Matcher:
     def __init__(self, contigs: Dict[str, str], seqs: List[str]):
-        self.contig_names: List[str] = []
-        # key (quirky kmer value) -> list of (contig, position)
-        self.kmer_positions: Dict[int, List[Tuple[int, int]]] = {}
         self._init_bloom(seqs)
-        self._make_index(contigs)
+        # key (quirky kmer value) -> list of (contig, position)
+        self.contig_names, self.kmer_positions = _scan_contigs(contigs, self._bloom_bits)
+
+    @classmethod
+    def over(cls, index: GenomeIndex, seqs: List[str]) -> "Matcher":
+        """Matcher(index.contigs, seqs) from a built GenomeIndex, no scan:
+        the same names, lists and order (the lists are the index's own)."""
+        m = cls.__new__(cls)
+        m._init_bloom(seqs)
+        m.contig_names = index.contig_names
+        m.kmer_positions = {
+            k: v for k, v in index.kmer_positions.items() if k in m._bloom_bits
+        }
+        return m
 
     # -------- bloom (quirky): set of first-base codes over read prefixes --------
 
@@ -114,64 +219,6 @@ class Matcher:
                     if c >= 0:
                         bits.add(c)
         self._bloom_bits = bits
-
-    # -------- genome index (incremental encoder with quirky restarts) --------
-
-    def _make_index(self, contigs: Dict[str, str]) -> None:
-        """matcher.rs:120-169 + index_contig_bytes:227-289, single-threaded
-        deterministic order (name-sorted contigs)."""
-        from .. import native
-        from .sequence import encode_bases
-
-        for ctg, (name, seq) in enumerate(contigs.items()):
-            self.contig_names.append(name)
-            su = seq.upper()
-            n = len(su)
-            if n <= KMER:
-                continue
-            # native single-pass scan (capped run counters; exact same keep
-            # set as the vectorized fallback below, cross-checked in tests)
-            nat = native.matcher_scan(encode_bases(su), self._bloom_bits)
-            if nat is not None:
-                poss, keys = nat
-                for k in range(4):
-                    sel = poss[keys == k]
-                    if len(sel):
-                        self.kmer_positions.setdefault(k, []).extend(
-                            (ctg, i) for i in sel.tolist()
-                        )
-                continue
-            b = np.frombuffer(su.encode("latin-1"), np.uint8)
-            codes = _CODE_LUT[b]
-            # positions iterated: 0 .. n-KMER-1 (bound excludes last kmer)
-            m = n - KMER
-            # state machine: kmer value at i = packed codes of
-            # [run_start_i .. i] truncated to the last 16 bases; invalid
-            # base resets. Vectorized: standard rolling 16-mer with invalid
-            # codes zeroed, masked down to min(run_len,16) bases.
-            valid = codes >= 0
-            c = np.where(valid, codes, 0).astype(np.uint64)
-            # rolling 16-mer ending at i (for i>=15, positions before padded 0)
-            cp = np.concatenate([np.zeros(KMER - 1, np.uint64), c])
-            km = np.zeros(n, np.uint64)
-            for j in range(KMER):
-                km |= cp[j : j + n] << np.uint64(2 * (KMER - 1 - j))
-            # run length ending at i (# consecutive valid up to and incl i)
-            run = np.zeros(n, np.int64)
-            rl = 0
-            # vectorized run-length: index of last invalid before or at i
-            inv_idx = np.where(valid, -1, np.arange(n))
-            last_inv = np.maximum.accumulate(inv_idx)
-            run = np.arange(n) - last_inv  # 0 where invalid
-            w = np.minimum(run, KMER)
-            mask = (np.uint64(1) << (2 * w.astype(np.uint64))) - np.uint64(1)
-            kmv = (km & mask).astype(np.int64)
-            pos = np.arange(m)
-            keep = (run[:m] > 0) & (kmv[:m] <= 3) & np.isin(
-                kmv[:m], list(self._bloom_bits) or [-99]
-            )
-            for i in np.nonzero(keep)[0].tolist():
-                self.kmer_positions.setdefault(int(kmv[i]), []).append((ctg, int(i)))
 
     # -------- query --------
 

@@ -191,10 +191,12 @@ def _scan_multi_csv(config: RunConfig, command: str, engine, contigs) -> None:
                     multi_csv_mode=True, command=command,
                     index_cache_dir=config.index_cache_dir, ref_file=config.ref_file,
                 )
+                # the last CSV's mapper keeps the shared genome index
+                # (core/matcher.py) alive until this one has found it
                 if pairs is not None:
-                    scanner.scan_pair_block(pairs)
+                    mapper = scanner.scan_pair_block(pairs)
                 else:
-                    scanner.scan_single_block(reads)
+                    mapper = scanner.scan_single_block(reads)
                 pb.inc(1)
     finally:
         pb.finish_and_clear()

@@ -33,7 +33,8 @@ PORT_LABELS = {
     "st0.merge_pack", "st0.upload", "st1.producer_join", "st1.issue_scan",
     "st3.result_wait", "st3.assemble", "st3.p2_overflow", "ed.flush", "retry.issue",
     "retry.assemble", "report.finish_scan", "report.alignable", "report.write",
-    "table.pack", "table.upload", "scan.survivors",
+    "table.pack", "table.upload", "scan.survivors", "report.matcher_index",
+    "matcher.index_reuse",
 }
 
 
