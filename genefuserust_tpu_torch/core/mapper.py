@@ -5,6 +5,8 @@ Indexer and the per-(left,right)-contig match bins (bin index =
 n_fusions*right_contig + left_contig, fusion_mapper.rs:263), runs the
 read -> ReadMatch conversion (make_match + calc_distance), the four match
 filters, the deterministic sort, and greedy clustering into FusionResults.
+The bins are sparse (`MatchBins`): the reference's n^2 lists, walked in
+bin-index order, hold only the bins a match has landed in.
 """
 
 from __future__ import annotations
@@ -63,6 +65,40 @@ class _NegStr:
         return self.s == other.s
 
 
+class MatchBins:
+    """The mapper's n x n match bins, keeping a bin only once it is asked
+    for (`add_match` asks only to append to it). `len()` is n x n, as the
+    reference's list of lists; `bins[i]` is bin i's list, kept from then on;
+    iteration walks the kept bins in bin-index order, which is the order
+    of the reference's walk over its non-empty lists. A 1,100-gene panel
+    has 1.21M bins, of which a sample fills a few hundred."""
+
+    __slots__ = ("_n", "_kept")
+
+    def __init__(self, n_bins: int):
+        self._n = n_bins
+        self._kept: Dict[int, List["ReadMatch"]] = {}
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i: int) -> List["ReadMatch"]:
+        if not 0 <= i < self._n:
+            raise IndexError("match bin index out of range")
+        fm = self._kept.get(i)
+        if fm is None:
+            fm = self._kept[i] = []
+        return fm
+
+    def __iter__(self):
+        kept = self._kept
+        return (kept[i] for i in sorted(kept))
+
+    def kept(self) -> int:
+        """The bins held: what one walk over them visits."""
+        return len(self._kept)
+
+
 class FusionMapper:
     def __init__(
         self,
@@ -92,7 +128,7 @@ class FusionMapper:
                 )
         self.contigs = contigs
         n = len(self.fusion_list)
-        self.fusion_matches: List[List[ReadMatch]] = [[] for _ in range(n * n)]
+        self.fusion_matches = MatchBins(n * n)
         self.fusion_results: List[FusionResult] = []
 
     # ------------- per-read -------------
@@ -190,9 +226,10 @@ class FusionMapper:
     def filter_matches(self) -> None:
         total = sum(len(fm) for fm in self.fusion_matches)
         log.info("sequence number before filtering: %d", total)
-        self.remove_by_complexity()
-        self.remove_by_distance()
-        self.remove_indels()
+        with span("report.filter"):
+            self.remove_by_complexity()
+            self.remove_by_distance()
+            self.remove_indels()
         with span("report.alignable"):
             self.remove_alignables()
 
@@ -307,7 +344,7 @@ class FusionMapper:
         self.fusion_results.sort(key=lambda fr: (-fr.unique, -len(fr.matches)))
 
     def free_matches(self) -> None:
-        self.fusion_matches = [[] for _ in self.fusion_matches]
+        self.fusion_matches = MatchBins(len(self.fusion_matches))
 
 
 def _is_low_complexity(s: str) -> bool:

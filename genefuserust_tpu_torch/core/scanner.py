@@ -19,6 +19,7 @@ import logging
 from typing import Dict, Iterable, List, Optional
 
 from ..config import Settings
+from ..utils import spans
 from ..utils.spans import span
 from .mapper import FusionMapper, ReadMatch
 from .read import SequenceRead, SequenceReadPair
@@ -233,9 +234,12 @@ def finish_scan(
     reports (pescanner.rs:334-346). Shared by Scanner and the multi-CSV
     driver path."""
     with span("report.finish_scan"):
+        spans.count("report.bins_walked", mapper.fusion_matches.kept())
         mapper.filter_matches()
-        mapper.sort_matches()
-        mapper.cluster_matches()
+        with span("report.sort"):
+            mapper.sort_matches()
+        with span("report.cluster"):
+            mapper.cluster_matches()
         with span("report.write"):
             if html_file:
                 from ..report.html import HtmlReporter

@@ -63,6 +63,22 @@ log = logging.getLogger("genefuse")
 TABLE_SPANS = ("table.pack", "table.upload")
 
 
+class Entries(list):
+    """`_entries_from_indexer`'s [keys, contigs, poss, dupes, max_dupe],
+    extracted once by `build_packed_index` and handed to every packer its
+    chain tries in place of the indexer. The split packer, always the
+    chain's last, empties it, so that a genome-scale panel's entries (GBs)
+    are freed once they are in its table."""
+
+
+def _entries(source):
+    """A packer's entries: `source` itself where it holds them already,
+    else extracted from the indexer `source`."""
+    if isinstance(source, Entries):
+        return source
+    return _entries_from_indexer(source)
+
+
 def absent_key(present: np.ndarray) -> int:
     """Smallest uint32 not in `present` (read as uint32 bit patterns).
 
@@ -83,14 +99,15 @@ def _sentinel_keys(table: np.ndarray):
     return keys, sentinel
 
 
-def _pack_kv(indexer, target_load: float = 0.9, slots: int = KV_SLOTS,
+def _pack_kv(source, target_load: float = 0.9, slots: int = KV_SLOTS,
              max_buckets: int = 1 << 27):
     """The reference's `pack_index_kv` with `absent_key`: the kv rows, or
     None when the panel exceeds the payload bit budget or the row cap.
     Where the reference's rounding of the bucket count to an even power of
     two alone passes `max_buckets`, the layout is given up as there, and a
-    warning names it."""
-    keys, contigs, poss, dupes, max_dupe = _entries_from_indexer(indexer)
+    warning names it. `source` is an indexer or its `Entries`, as for every
+    packer below."""
+    keys, contigs, poss, dupes, max_dupe = _entries(source)
     budget = _kv_budget(contigs, poss, dupes, max_dupe)
     if budget is None:
         return None
@@ -143,12 +160,12 @@ def _packed_dupes(dupes, pbits: int, pos_bias: int) -> np.ndarray:
     return dupes_packed
 
 
-def _pack_single(indexer, slots: int, target_load: float, max_buckets: int):
+def _pack_single(source, slots: int, target_load: float, max_buckets: int):
     """The reference's `pack_index_kvs` (slots KV_SLOTS) and
     `pack_index_kv16` (KV16_SLOTS) with `absent_key`: the single-probe rows,
     or None when the panel exceeds the payload bit budget or placement
     cannot fit under `max_buckets` rows."""
-    keys, contigs, poss, dupes, max_dupe = _entries_from_indexer(indexer)
+    keys, contigs, poss, dupes, max_dupe = _entries(source)
     budget = _kv_budget(contigs, poss, dupes, max_dupe)
     if budget is None:
         return None
@@ -179,18 +196,20 @@ def _pack_single(indexer, slots: int, target_load: float, max_buckets: int):
                max_dupe, sentinel)
 
 
-def _pack_kvs(indexer, target_load: float = 1.0, max_buckets: int = 1 << 27):
-    return _pack_single(indexer, KV_SLOTS, target_load, max_buckets)
+def _pack_kvs(source, target_load: float = 1.0, max_buckets: int = 1 << 27):
+    return _pack_single(source, KV_SLOTS, target_load, max_buckets)
 
 
-def _pack_kv16(indexer, target_load: float = 4.0, max_buckets: int = 1 << 26):
-    return _pack_single(indexer, KV16_SLOTS, target_load, max_buckets)
+def _pack_kv16(source, target_load: float = 4.0, max_buckets: int = 1 << 26):
+    return _pack_single(source, KV16_SLOTS, target_load, max_buckets)
 
 
-def _pack_split(indexer) -> PackedIndex:
+def _pack_split(source) -> PackedIndex:
     """The reference's `pack_index`, with its device form (keys_tbl,
     vals_tbl, the absent key) filled in here."""
-    keys, contigs, poss, dupes, max_dupe = _entries_from_indexer(indexer)
+    keys, contigs, poss, dupes, max_dupe = _entries(source)
+    if isinstance(source, Entries):
+        source.clear()
     nb = 16
     while nb * 2 < max(len(keys), 1):
         nb *= 2
@@ -221,16 +240,16 @@ def layout_name(packed) -> str:
 
 
 def _layout_chain(layout: str):
-    """The packers `layout` tries, in order -> [(name, pack(indexer))]."""
+    """The packers `layout` tries, in order -> [(name, pack(entries))]."""
     chain = []
     if layout == "kv16":
         chain.append(("kv16", _pack_kv16))
     if layout == "kvs":
         chain.append(("kvs", _pack_kvs))
     if layout in ("auto", "kv2"):
-        chain.append(("kv2", lambda ix: _pack_kv(ix, target_load=0.5, slots=1)))
+        chain.append(("kv2", lambda e: _pack_kv(e, target_load=0.5, slots=1)))
     if layout in ("auto", "kv4", "kv2"):
-        chain.append(("kv4", lambda ix: _pack_kv(ix, target_load=0.6, slots=2)))
+        chain.append(("kv4", lambda e: _pack_kv(e, target_load=0.6, slots=2)))
     if layout in ("auto", "kv4", "kv2", "kv16", "kvs", "kv8"):
         chain.append(("kv8", _pack_kv))
     chain.append(("split", _pack_split))
@@ -238,9 +257,11 @@ def _layout_chain(layout: str):
 
 
 def _pick_layout(indexer, layout: str, attempts=None):
+    with span("table.entries"):
+        entries = Entries(_entries_from_indexer(indexer))
     for name, pack in _layout_chain(layout):
         t0 = time.perf_counter()
-        p = pack(indexer)
+        p = pack(entries)
         if attempts is not None:
             attempts.append(dict(layout=name, seconds=time.perf_counter() - t0,
                                  packed=p is not None))
@@ -254,9 +275,11 @@ def build_packed_index(indexer, layout: str = None, attempts: list = None):
     reference's `build_packed_index`: kv2 -> kv4 -> kv8 -> split. `layout`
     or GENEFUSE_TABLE_LAYOUT ('kv2' | 'kv4' | 'kv8' | 'kvs' | 'kv16' |
     'split') pins one; a pinned layout that cannot be packed falls through
-    as there (kvs and kv16 to kv8, then split). The layout built is
-    logged. `attempts`: a list that each layout tried is appended to, as
-    {layout, seconds, packed}."""
+    as there (kvs and kv16 to kv8, then split). The indexer's entries are
+    extracted once (span `table.entries`) for every layout tried. The
+    layout built is logged. `attempts`: a list that each layout tried is
+    appended to, as {layout, seconds, packed} (the extraction not in
+    its seconds)."""
     layout = layout or os.environ.get("GENEFUSE_TABLE_LAYOUT", "auto")
     with span("table.pack"):
         p = _pick_layout(indexer, layout, attempts)

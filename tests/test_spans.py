@@ -34,7 +34,8 @@ PORT_LABELS = {
     "st3.result_wait", "st3.assemble", "st3.p2_overflow", "ed.flush", "retry.issue",
     "retry.assemble", "report.finish_scan", "report.alignable", "report.write",
     "table.pack", "table.upload", "scan.survivors", "report.matcher_index",
-    "matcher.index_reuse",
+    "matcher.index_reuse", "report.filter", "report.sort", "report.cluster",
+    "report.bins_walked", "table.entries",
 }
 
 
