@@ -2236,11 +2236,11 @@ def largest_wide_launches():
         return False
 
     def vote_rec(pr, B, NS, index, step, major_req, minor_req, P2, out, counts=False,
-                 wide=None, lengths=None):
+                 wide=None, lengths=None, stats=None):
         if wide is not None and not counts and keep("vote", (pr.clone(), index, major_req,
                                                             minor_req)):
             got["vote_lengths"] = None if lengths is None else lengths.clone()
-        vote(pr, B, NS, index, step, major_req, minor_req, P2, out, counts, wide, lengths)
+        vote(pr, B, NS, index, step, major_req, minor_req, P2, out, counts, wide, lengths, stats)
 
     def mask_rec(pr, lengths, gp, B, NK, index, mismatch_thr, out, scratch=None, smem_cap=0):
         if NK + 15 > tm.MASK_MAX_WIDTH:

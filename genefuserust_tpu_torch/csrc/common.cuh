@@ -20,6 +20,10 @@ constexpr int ALLOWED_GAP = 10;
 constexpr int THRESHOLD_LEN = 20;
 // JAX's invalid candidate (hi = lo = INT32_MAX) as a packed key
 constexpr long long INVALID_KEY = 0x7FFFFFFF7FFFFFFFLL;
+// slots of the vote's row counter (vote.cu): its blocks add (rows voted on
+// the warp path) + (rows sorted) << 32 into slot blockIdx.x % 32, and the
+// compaction (fused_glue.cu) sums them into the count row of its output
+constexpr int VOTE_STAT_SLOTS = 32;
 
 __device__ __forceinline__ void decode(uint32_t pay, int cbits, int pos_bias,
                                        int32_t& contig, int32_t& pos) {

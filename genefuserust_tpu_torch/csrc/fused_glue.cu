@@ -67,6 +67,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 // Rows a compaction tile (a multiple of 256 up to 8,192; a build may set
 // another). 256, one word a warp, was the fastest of 256-8,192 at the
 // main path's ~80,000 rows on the H100 (chip_smoke.py --glue-sweep): the
@@ -403,7 +405,9 @@ __device__ __forceinline__ int slot_row(const int32_t* __restrict__ okwords, int
 // slot is below c = min(cap, N): out[slot, 0:2] = [i, ok], slens[slot] =
 // ok ? lens[i] : 0, gp[slot] = v[i, 1:5], and, where a lane of `lanes`
 // holds row i, rows[slot] = its code row padded with 255 to Wmax.
-// out[cap, 0] = S, and every other cell of out (cap + 1, 13) is zero.
+// out[cap, 0] = S; with `stats` (the vote's VOTE_STAT_SLOTS slots)
+// out[cap, 1:3] = the rows the vote's warp path voted on and the rows it
+// sorted; every other cell of out (cap + 1, 13) is zero.
 // The rows to copy are not spread like the tiles: the non-survivors that
 // fill slots [S, c) are the first rows, in the first few tiles (~926 of
 // the main path's 1,024 in 4 tiles of 315). So block b copies slots
@@ -419,7 +423,8 @@ compact_place_kernel(const int32_t* __restrict__ v, const int32_t* __restrict__ 
                      int cap, const int32_t* __restrict__ okwords,
                      const int32_t* __restrict__ tile_cnt, int ntiles, int32_t* __restrict__ out,
                      int32_t* __restrict__ slens, int32_t* __restrict__ gp, Lanes lanes,
-                     int Wmax, uint8_t* __restrict__ rows) {
+                     int Wmax, uint8_t* __restrict__ rows,
+                     const unsigned long long* __restrict__ stats) {
   __shared__ int sums[3][COMPACT_WARPS];  // earlier tiles, all tiles, this warp's words
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = min(cap, N);
@@ -448,15 +453,25 @@ compact_place_kernel(const int32_t* __restrict__ v, const int32_t* __restrict__ 
     pre += sums[0][w] + (w < warp ? sums[2][w] : 0);
     S += sums[1][w];
   }
-  // the zeros: every cell that no row and not the count writes
+  // the zeros: every cell that no row, not the count and not the counter writes
   const long long cells = (long long)(cap + 1) * OUT_COLS;
+  const int count_cols = stats != nullptr ? 3 : 1;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < cells;
        e += (long long)gridDim.x * blockDim.x) {
     const long long r = e / OUT_COLS;
     const int col = (int)(e - r * OUT_COLS);
-    if (!((r < c && col < 2) || (r == cap && col == 0))) out[e] = 0;
+    if (!((r < c && col < 2) || (r == cap && col < count_cols))) out[e] = 0;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) out[(long long)cap * OUT_COLS] = S;
+  if (stats != nullptr && blockIdx.x == 0 && warp == 0) {
+    unsigned long long t = lane < VOTE_STAT_SLOTS ? stats[lane] : 0ull;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(FULL_MASK, t, o);
+    if (lane == 0) {
+      out[(long long)cap * OUT_COLS + 1] = (int32_t)(uint32_t)t;
+      out[(long long)cap * OUT_COLS + 2] = (int32_t)(t >> 32);
+    }
+  }
   const unsigned below = (1u << lane) - 1u;
 #pragma unroll
   for (int k = 0; k < COMPACT_WPW; ++k) {
@@ -635,12 +650,13 @@ extern "C" int gf_compact_count(const void* v, int N, void* okwords, void* tile_
 // lanes, ptrs, offs, rows, widths host arrays of their pointers, first
 // rows, rows and widths (<= Wmax), passed by value: the rows that they
 // hold are copied into `codes` (c, Wmax), 255 past a lane's width (none
-// for nlanes 0 or c 0, and then codes may be NULL).
+// for nlanes 0 or c 0, and then codes may be NULL). stats: NULL, or the
+// vote's VOTE_STAT_SLOTS uint64 slots (gf_vote's), summed into out[cap, 1:3].
 extern "C" int gf_compact_place(const void* v, const void* lens, int N, int cap,
                                 const void* okwords, const void* tile_cnt, void* out,
                                 void* slens, void* gp, int nlanes, const long long* ptrs,
                                 const long long* offs, const int* rows, const int* widths,
-                                int Wmax, void* codes, void* stream) {
+                                int Wmax, void* codes, const void* stats, void* stream) {
   if (N < 0 || N >= (1 << 30) || cap < 0 ||
       (long long)(cap + 1LL) * gf::OUT_COLS >= (1LL << 31) || (uintptr_t)gp % 16 ||
       nlanes < 0 || nlanes > gf::MAX_LANES ||
@@ -660,7 +676,7 @@ extern "C" int gf_compact_place(const void* v, const void* lens, int N, int cap,
                              (cudaStream_t)stream>>>(
       (const int32_t*)v, (const int32_t*)lens, N, cap, (const int32_t*)okwords,
       (const int32_t*)tile_cnt, ntiles, (int32_t*)out, (int32_t*)slens, (int32_t*)gp, lanes,
-      Wmax, (uint8_t*)codes);
+      Wmax, (uint8_t*)codes, (const unsigned long long*)stats);
   return (int)cudaGetLastError();
 }
 

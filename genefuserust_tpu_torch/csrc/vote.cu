@@ -6,12 +6,21 @@
 // run-length scan) and the count*2 >= major/minor gate. On the TPU this
 // stage was jnp; the TPU's only Pallas kernel is the probe (probe.cu).
 //
-// What bounds it on the H100: bytes. A read's input is its NS (contig,
-// pos) probe results, 8*NS contiguous bytes, plus the dupe rows its DUPE
-// samples name; its output is 20 bytes. At the main path's 65,536 x 89
-// batch that is ~47 MB, ~0.014 ms at 3.35 TB/s. The counting is small: a
-// regular hit is one candidate and a miss none, so a read holds at most
-// NS valid candidates unless a sample hits a dupe row (up to D each).
+// What bounds it on the H100. Its bytes: a read's input is its NS
+// (contig, pos) probe results, 8*NS contiguous bytes, plus the dupe rows
+// its DUPE samples name; its output is 20 bytes. At the main path's
+// 65,536 x 89 batch that is ~47 MB, ~0.014 ms at 3.35 TB/s. The counting
+// is small: a regular hit is one candidate and a miss none, so a read
+// holds at most NS valid candidates unless a sample hits a dupe row (up
+// to D each). But the kernel ran at 9% of that bound, and the time went to
+// instructions: a bitonic sort of every read's keys in registers (K = 4
+// for the 65-128 keys of an on-target read: 28 stages of 64-bit shuffles
+// and min/max selects) took 77% of the kernel on the cancer15 cell's
+// batches and 65% on oncokb1100's (a build without it, PERF.md §6).
+// Yet a read holds few distinct keys: a substitution turns k-mers into
+// misses, not other keys, so an on-target read is one diagonal (contig,
+// pos - i) and what its DUPE samples and stray hits add. Those batches
+// hold 1.2 and 4.6 distinct keys a read on average, none past 16.
 //
 // What the design does about it. The first design (one block per read)
 // sorted all NS*D candidate slots, mostly empty, in shared memory with a
@@ -19,23 +28,46 @@
 //   - one warp per read, 8 reads per block; the lanes load the row's
 //     int2 results coalesced and expand only DUPE samples' rows;
 //   - the warp compacts the n valid keys into its 2 KB slice of shared
-//     memory (ballot + popc; no atomics, so the order is fixed);
-//   - it sorts them in registers, K = 1, 2, 4 or 8 keys a lane (chosen
-//     from n: 32 * K >= n), with a bitonic network whose partners are
-//     64-bit shuffles (lane distance < 32) or registers (>= 32);
-//   - run starts compare each key with its neighbour, and a run's length
-//     is the distance to the next start, found in the ballot masks of run
-//     starts; two warp max reductions over (count << 32 | N - 1 - index)
-//     give the top two, ties to the smaller key as top2_votes; a missing
-//     entry takes count 0 and the smallest slot key (the first sorted key,
-//     or INVALID_KEY when a slot is empty and smaller).
+//     memory (ballot + popc; no atomics, so the order is fixed) and holds
+//     them in registers, K = 1, 2, 4 or 8 keys a lane (32 * K >= n);
+//   - it peels the distinct keys (warp_peel): each step takes the first
+//     key left, counts its slots with a compare and a ballot a register
+//     and marks them counted, and keeps the top two (count, key) and the
+//     least key; after the first key, as a rule the diagonal, the slots
+//     left move to one register when they fit, so later steps cost one
+//     compare and one ballot. A read of more than PEEL_CAP (16) distinct
+//     keys (none in those batches; dupe-heavy reads) is sorted instead,
+//     over the same untouched slice (warp_vote):
+//   - the sort: a bitonic network whose partners are 64-bit shuffles
+//     (lane distance < 32) or registers (>= 32); run starts compare each
+//     key with its neighbour, and a run's length is the distance to the
+//     next start, found in the ballot masks of run starts; two warp max
+//     reductions over (count << 32 | N - 1 - index) give the top two;
+//   - both give the same rows bit for bit, top2_votes': ties to the
+//     smaller key (signed), and a missing entry takes count 0 and the
+//     smallest slot key (the least key, or INVALID_KEY when a slot is
+//     empty and smaller);
+//   - each block adds its rows voted and rows sorted to a counter, one
+//     atomic a block over VOTE_STAT_SLOTS slots, for the engine's
+//     vote.rows and vote.rows_sorted.
+// The peel keeps more in registers than the sort alone: ptxas gave
+// vote_kernel 60 registers (4 blocks of 256 an SM) where the sort alone
+// had 48 (5 blocks), and with fewer warps in flight the rows' loads waited
+// longer. VOTE_MIN_BLOCKS 6 caps it at 40 registers (6 blocks an SM; 200
+// bytes of spill stores), 18-20% faster than no cap on the cells' batches
+// (8 blocks, 32 registers and 768 bytes spilled: as fast on cancer15's, 8%
+// faster on oncokb1100's; PERF.md §6). What bounds it now: on those
+// batches it takes 0.274 and 0.521 ms where a build without the vote takes
+// 0.167 and 0.316, so the loads and the compaction (the split table's
+// DUPE rows read one sample at a time) are most of it, the peel the rest.
 // A read with more than WARP_CAP valid keys (dupe-heavy; at most NS*D) is
 // flagged. After the warps are done the block meets at one barrier, and
 // if any warp was flagged, the whole block takes each flagged read: it
 // expands the valid keys into shared memory (atomic slots; the sort makes
 // the order irrelevant), bitonic-sorts just those, and reduces as above.
 // That barrier costs about nothing: a block retires only when its last
-// warp is done anyway. Nothing but the (B, 5) result goes to device memory.
+// warp is done anyway. Nothing but the (B, 5) result and the counter go
+// to device memory.
 //
 // Rows too wide for the block path's shared memory (NS * D past
 // MAX_BLOCK_KEYS, code rows of more than ~4,096 bases) take the wide path:
@@ -79,7 +111,12 @@ namespace gf {
 
 constexpr int VOTE_THREADS = 256;
 constexpr int VOTE_WARPS = VOTE_THREADS / 32;
-constexpr int WARP_CAP = 256;  // valid keys a warp sorts in registers (8 a lane)
+// blocks of VOTE_THREADS that vote_kernel and vote_shards_kernel must fit
+// on an SM at once, which caps their registers at 40: the warp path waits
+// on its rows' loads, and more resident warps hide more of that wait
+constexpr int VOTE_MIN_BLOCKS = 6;
+constexpr int WARP_CAP = 256;  // valid keys a warp votes on in registers (8 a lane)
+constexpr int PEEL_CAP = 16;  // distinct keys a warp counts one by one before it sorts
 constexpr unsigned FULL = 0xffffffffu;
 constexpr long long PAD_KEY = LLONG_MAX;  // sorts after every candidate
 constexpr int MAX_BLOCK_KEYS = 16384;  // the block path's keys in shared memory (128 KB)
@@ -286,6 +323,120 @@ __device__ __forceinline__ void warp_vote(const long long* slice, int n, int P, 
                counts);
 }
 
+// The top two (count, key) of the keys peeled so far, and the least key.
+struct Peeled {
+  int c1 = 0, c2 = 0;  // count 0: no entry
+  long long g1 = 0, g2 = 0, least = LLONG_MAX;
+  int d = 0;  // keys peeled
+};
+
+// Peels the keys of the slots `left` (ballot masks, uniform in the warp)
+// of v[K], one a step: the first slot left (ffs of the first nonzero
+// mask) gives the key, a compare and a ballot a register count its slots,
+// which are then marked counted. A votable key is scored as warp_vote
+// scores its run: the larger count first, then the smaller key (signed,
+// the sort's order). At most `steps` steps (PEEL_CAP take any start to
+// the end or to the cap) -> false once a key is left past PEEL_CAP keys
+// peeled.
+template <int K>
+__device__ __forceinline__ bool peel_keys(const long long (&v)[K], unsigned (&left)[K],
+                                          Peeled& p, int steps) {
+  for (int step = 0; step < steps; ++step) {
+    int kf = -1;
+    unsigned mf = 0;
+#pragma unroll
+    for (int k = K - 1; k >= 0; --k)
+      if (left[k]) {
+        kf = k;
+        mf = left[k];
+      }
+    if (kf < 0) return true;
+    if (p.d == PEEL_CAP) return false;
+    ++p.d;
+    long long x = v[0];
+#pragma unroll
+    for (int k = 1; k < K; ++k)
+      if (k == kf) x = v[k];
+    const long long key = __shfl_sync(FULL, x, __ffs(mf) - 1);
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const unsigned eq = __ballot_sync(FULL, v[k] == key) & left[k];
+      c += __popc(eq);
+      left[k] &= ~eq;
+    }
+    p.least = min(p.least, key);
+    if (votable(key)) {
+      if (c > p.c1 || (c == p.c1 && key < p.g1)) {
+        p.c2 = p.c1;
+        p.g2 = p.g1;
+        p.c1 = c;
+        p.g1 = key;
+      } else if (c > p.c2 || (c == p.c2 && key < p.g2)) {
+        p.c2 = c;
+        p.g2 = key;
+      }
+    }
+  }
+  return true;
+}
+
+// The vote of one read whose n <= 32 * K valid keys are in `slice`, by
+// peeling its distinct keys (peel_keys). After the first key (as a rule
+// the read's diagonal, most of its slots) a read of K > 1 whose slots left
+// fit one register moves them to slice[n, n + 32) and peels the rest there,
+// a compare and a ballot a step instead of K; slice[0, n) stays as it was.
+// The least key is the sort's first. -> false, with nothing written, for a
+// read of more than PEEL_CAP distinct keys.
+template <int K>
+__device__ __forceinline__ bool warp_peel(long long* slice, int n, int P, int lane, int step,
+                                          int major_req, int minor_req, bool counts,
+                                          int32_t* o) {
+  long long v[K];
+  unsigned left[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int e = k * 32 + lane, m = n - k * 32;
+    v[k] = e < n ? slice[e] : 0;
+    left[k] = m >= 32 ? FULL : m > 0 ? (1u << m) - 1u : 0u;
+  }
+  Peeled p;
+  if (!peel_keys<K>(v, left, p, 1)) return false;
+  int rest = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) rest += __popc(left[k]);
+  if (K > 1 && rest > 0 && rest <= 32 && n + rest <= WARP_CAP) {
+    const unsigned below = (1u << lane) - 1u;
+    int at = n;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if ((left[k] >> lane) & 1u) slice[at + __popc(left[k] & below)] = v[k];
+      at += __popc(left[k]);
+    }
+    __syncwarp();
+    const long long w[1] = {lane < rest ? slice[n + lane] : 0};
+    unsigned l1[1] = {rest == 32 ? FULL : (1u << rest) - 1u};
+    if (!peel_keys<1>(w, l1, p, PEEL_CAP)) return false;
+  } else if (!peel_keys<K>(v, left, p, PEEL_CAP)) {
+    return false;
+  }
+  if (lane == 0)
+    write_vote(o, p.c1 ? (long long)p.c1 << 32 : -1, p.g1, p.c2 ? (long long)p.c2 << 32 : -1,
+               p.g2, slot_min(p.least, n, P), step, major_req, minor_req, counts);
+  return true;
+}
+
+// The warp path's vote of one read: the peel, or past PEEL_CAP distinct
+// keys the sort over the same slice -> whether it sorted.
+template <int K>
+__device__ __forceinline__ bool vote_warp(long long* slice, int n, int P, int lane,
+                                          int step, int major_req, int minor_req, bool counts,
+                                          int32_t* o) {
+  if (warp_peel<K>(slice, n, P, lane, step, major_req, minor_req, counts, o)) return false;
+  warp_vote<K>(slice, n, P, lane, step, major_req, minor_req, counts, o);
+  return true;
+}
+
 // first index in [lo, n) whose key exceeds k (keys ascending)
 __device__ __forceinline__ int upper_bound(const long long* keys, int lo, int n,
                                            long long k) {
@@ -388,18 +539,24 @@ struct VoteRows {
 // path's list: the rows past the warp path (more than VOTE_WALK_MAX
 // samples inside, or more than WARP_CAP valid keys) are listed there, as
 // first + b, for the wide kernel instead of taken by the block here.
+// stats: NULL, or VOTE_STAT_SLOTS slots that each block adds its rows
+// voted on the warp path + its rows sorted << 32 to, in slot blockIdx.x %
+// VOTE_STAT_SLOTS (one atomic a block, spread so that no slot serialises).
 __device__ __forceinline__ void vote_rows(const VoteRows& v, int B, int NS,
                                           const int32_t* __restrict__ lengths, bool split,
                                           int step, int major_req, int minor_req, bool counts,
-                                          long long* __restrict__ wide, long long first) {
+                                          long long* __restrict__ wide, long long first,
+                                          unsigned long long* __restrict__ stats) {
   extern __shared__ long long smem[];
   __shared__ long long red[33];
   __shared__ int over_row[VOTE_WARPS];
+  __shared__ unsigned long long tally[VOTE_WARPS];
   __shared__ int count;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * VOTE_WARPS + warp;
   const int cols = counts ? 6 : 5;
   bool over = false;
+  unsigned long long mine = 0;  // 1 voted on the warp path, + 1 << 32 sorted
   if (b < B) {
     const int ns = row_samples(lengths, b, NS, step);
     if (wide != nullptr && ns > VOTE_WALK_MAX) {
@@ -411,15 +568,32 @@ __device__ __forceinline__ void vote_rows(const VoteRows& v, int B, int NS,
       __syncwarp();
       const int P = NS * v.D;
       int32_t* o = v.out + (long long)b * cols;
-      if (n <= 32) warp_vote<1>(slice, n, P, lane, step, major_req, minor_req, counts, o);
-      else if (n <= 64) warp_vote<2>(slice, n, P, lane, step, major_req, minor_req, counts, o);
-      else if (n <= 128) warp_vote<4>(slice, n, P, lane, step, major_req, minor_req, counts, o);
-      else if (n <= WARP_CAP) warp_vote<8>(slice, n, P, lane, step, major_req, minor_req, counts, o);
-      else over = true;
+      bool sorted = false;
+      if (n <= 32)
+        sorted = vote_warp<1>(slice, n, P, lane, step, major_req, minor_req, counts, o);
+      else if (n <= 64)
+        sorted = vote_warp<2>(slice, n, P, lane, step, major_req, minor_req, counts, o);
+      else if (n <= 128)
+        sorted = vote_warp<4>(slice, n, P, lane, step, major_req, minor_req, counts, o);
+      else if (n <= WARP_CAP)
+        sorted = vote_warp<8>(slice, n, P, lane, step, major_req, minor_req, counts, o);
+      else
+        over = true;
+      mine = over ? 0ull : 1ull + ((unsigned long long)sorted << 32);
     }
   }
-  if (lane == 0) over_row[warp] = over ? b : -1;
-  if (!__syncthreads_or(over)) return;
+  if (lane == 0) {
+    over_row[warp] = over ? b : -1;
+    tally[warp] = mine;
+  }
+  const bool any_over = __syncthreads_or(over);
+  if (stats != nullptr && threadIdx.x == 0) {
+    unsigned long long t = 0;
+#pragma unroll
+    for (int w = 0; w < VOTE_WARPS; ++w) t += tally[w];
+    if (t) atomicAdd(stats + blockIdx.x % VOTE_STAT_SLOTS, t);
+  }
+  if (!any_over) return;
   if (wide != nullptr) {
     if (threadIdx.x < VOTE_WARPS && over_row[threadIdx.x] >= 0) {
       auto* head = reinterpret_cast<unsigned long long*>(wide);
@@ -438,13 +612,14 @@ __device__ __forceinline__ void vote_rows(const VoteRows& v, int B, int NS,
 }
 
 // The vote of one table's rows, listed in `wide` as b (vote_rows).
-__global__ void __launch_bounds__(VOTE_THREADS)
+__global__ void __launch_bounds__(VOTE_THREADS, VOTE_MIN_BLOCKS)
 vote_kernel(const int32_t* __restrict__ pr, int B, int NS, const int32_t* __restrict__ lengths,
             const int32_t* __restrict__ dupes, int dstride, int D, bool split, int cbits,
             int pos_bias, int step, int major_req, int minor_req, bool counts,
-            long long* __restrict__ wide, int32_t* __restrict__ out) {
+            long long* __restrict__ wide, int32_t* __restrict__ out,
+            unsigned long long* __restrict__ stats) {
   vote_rows(VoteRows{reinterpret_cast<const int2*>(pr), dupes, dstride, D, cbits, pos_bias, out},
-            B, NS, lengths, split, step, major_req, minor_req, counts, wide, 0);
+            B, NS, lengths, split, step, major_req, minor_req, counts, wide, 0, stats);
 }
 
 // Samples [s0, s1) of a row, one warp: their valid candidate keys -> their
@@ -780,13 +955,13 @@ __device__ __forceinline__ VoteRows shard_rows(const VoteShards& t, int s, int B
 
 // vote_rows in counts mode for shard blockIdx.y; out (S, B, 6); wide
 // entries s * B + b (a (3 + 3 S B) list)
-__global__ void __launch_bounds__(VOTE_THREADS)
+__global__ void __launch_bounds__(VOTE_THREADS, VOTE_MIN_BLOCKS)
 vote_shards_kernel(const VoteShards shards, int B, int NS, const int32_t* __restrict__ lengths,
                    bool split, int step, long long* __restrict__ wide,
                    int32_t* __restrict__ out) {
   const int s = blockIdx.y;
   vote_rows(shard_rows(shards, s, B, out), B, NS, lengths, split, step, 0, 0, true, wide,
-            (long long)s * B);
+            (long long)s * B, nullptr);
 }
 
 // The shards' rows: entry e = s * B + b is row b of shard s.
@@ -824,10 +999,13 @@ vote_shards_wide_kernel(const VoteShards shards, int B, int N, int NS,
 // (3 + 3B) int64 tensor whose first three entries are zero, that the rows
 // past the warp path go to for gf_vote_wide (needed when P2 >
 // MAX_BLOCK_KEYS: the block path's keys would not fit in shared memory).
+// stats: NULL, or VOTE_STAT_SLOTS uint64 slots that the launch adds its
+// counts to: the low 32 bits the rows voted on the warp path, the high 32
+// bits those of them that it sorted (vote_rows).
 extern "C" int gf_vote(const void* pr, int B, int NS, const void* lengths, const void* dupes,
                        int dstride, int D, int split, int cbits, int pos_bias, int step,
                        int major_req, int minor_req, int P2, int counts, void* wide, void* out,
-                       void* stream) {
+                       void* stats, void* stream) {
   if (wide == nullptr && P2 > gf::MAX_BLOCK_KEYS) return (int)cudaErrorInvalidValue;
   const size_t warp_keys = (size_t)gf::VOTE_WARPS * gf::WARP_CAP;
   const size_t n_keys = wide == nullptr && (size_t)P2 > warp_keys ? (size_t)P2 : warp_keys;
@@ -841,7 +1019,7 @@ extern "C" int gf_vote(const void* pr, int B, int NS, const void* lengths, const
   gf::vote_kernel<<<grid, gf::VOTE_THREADS, smem, (cudaStream_t)stream>>>(
       (const int32_t*)pr, B, NS, (const int32_t*)lengths, (const int32_t*)dupes, dstride, D,
       split != 0, cbits, pos_bias, step, major_req, minor_req, counts != 0, (long long*)wide,
-      (int32_t*)out);
+      (int32_t*)out, (unsigned long long*)stats);
   return (int)cudaGetLastError();
 }
 

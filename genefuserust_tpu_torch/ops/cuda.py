@@ -142,7 +142,7 @@ _ARGTYPES = {
                         _P, _P, _P, _P],
     "gf_probe_split": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P, _I, _P, _P, _P,
                        _P],
-    "gf_vote": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "gf_vote": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "gf_vote_wide": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I,
                      _P, _P],
     "gf_vote_shards": [_I, _LLP, _LLP, _IP, _IP, _IP, _IP, _I, _I, _I, _P, _I, _I, _P, _P, _P],
@@ -159,7 +159,7 @@ _ARGTYPES = {
     "gf_compact_tile": [],
     "gf_compact_count": [_P, _I, _P, _P, _P],
     "gf_compact_place": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _LLP, _LLP, _IP, _IP, _I, _P,
-                         _P],
+                         _P, _P],
     "gf_survivor_rows": [_I, _LLP, _LLP, _IP, _IP, _P, _I, _I, _I, _P, _P],
     "gf_merge_bytes": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "gf_merge_codes": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
@@ -279,20 +279,24 @@ def probe_split_shape(lib=None) -> tuple:
 
 
 def launch_vote(pr, B, NS, index, step, major_req, minor_req, P2, out, counts=False,
-                wide=None, lengths=None) -> None:
+                wide=None, lengths=None, stats=None) -> None:
     """`counts`: write (B, 6) [c1, h1, l1, c2, h2, l2] rows, no gate (the
     kernel's counts mode, kept in its entry point; the port's counts vote
     is `launch_vote_shards`'s). `wide`: None, or the wide path's (3 + 3B)
     int64 list, its first three entries zero, that the rows past the warp
     path go to for `launch_vote_wide` (their keys would not fit in the
     block path's shared memory). `lengths`: None, or the rows' (B,) int32
-    lengths: a row's samples past its length are skipped."""
+    lengths: a row's samples past its length are skipped. `stats`: None,
+    or the vote's (VOTE_STAT_SLOTS,) int64 row counter (map_read.vote); a
+    library built before the counter reads it as its stream, so None there
+    launches on the default stream."""
     dstride, D = _dupe_args(index)
     with torch.cuda.device(out.device):
         err = library().gf_vote(
             pr.data_ptr(), B, NS, _ptr(lengths), index.dupes.data_ptr(), dstride, D,
             int(index.split), index.cbits, index.pos_bias, step,
-            major_req, minor_req, P2, int(counts), _ptr(wide), out.data_ptr(), _stream(out),
+            major_req, minor_req, P2, int(counts), _ptr(wide), out.data_ptr(), _ptr(stats),
+            _stream(out),
         )
     _done("vote_counts" if counts else "vote", err)
 
@@ -473,11 +477,12 @@ def launch_compact_count(v, okwords, tile_cnt, lib=None) -> None:
 
 
 def launch_compact_place(v, lens, cap: int, okwords, tile_cnt, out, slens, gp, lanes=(),
-                         offs=(), codes=None, lib=None) -> None:
+                         offs=(), codes=None, lib=None, stats=None) -> None:
     """`lanes`: at most MAX_LANES (P_i, W_i) uint8 code tensors, their rows
     at `offs` in the concatenated row space (the table goes by value);
     the rows they hold are copied into `codes` (c, Wmax) as they are
-    placed."""
+    placed. `stats`: None, or the vote's row counter, summed into
+    out[cap, 1:3] (a `lib` from before the counter as `launch_vote`'s)."""
     n = len(lanes)
     ll, ii = ctypes.c_longlong * n, ctypes.c_int * n
     with torch.cuda.device(out.device):
@@ -486,7 +491,7 @@ def launch_compact_place(v, lens, cap: int, okwords, tile_cnt, out, slens, gp, l
             tile_cnt.data_ptr(), out.data_ptr(), slens.data_ptr(), gp.data_ptr(), n,
             ll(*(t.data_ptr() for t in lanes)), ll(*offs), ii(*(t.shape[0] for t in lanes)),
             ii(*(t.shape[1] for t in lanes)), 0 if codes is None else codes.shape[1],
-            _ptr(codes), _stream(out))
+            _ptr(codes), _ptr(stats), _stream(out))
     _done("compact_place", err)
 
 

@@ -47,7 +47,7 @@ import torch
 from ..config import MIN_OVERLAP, PASS1_STEP
 from . import cuda
 from .index import TorchIndex
-from .map_read import mask_segments, probe, vote
+from .map_read import VOTE_STAT_SLOTS, mask_segments, probe, vote
 from .merge import MERGE_MAX_L, low_qual_classes, overlap_scan
 from .pack import COMP4, MAP_FROM_SEQ4, lut, unpack_q2, unpack_seq2, unpack_seq4
 
@@ -88,12 +88,14 @@ def lane_exceptions_plain(codes, exc, off: int) -> torch.Tensor:
     return flat[: P * W].view(P, W)
 
 
-def compact_plain(v, lens, cap: int):
+def compact_plain(v, lens, cap: int, stats=None):
     """The concatenated vote rows v (N, 5) [ok, h1, l1, h2, l2] and lens
     (N,) -> (out, slens, gp, okwords):
 
       out      (cap + 1, 13) int32 zeros but for [sidx, svalid] in rows
-               [0, c), c = min(cap, N), and the survivor count at [cap, 0];
+               [0, c), c = min(cap, N), the survivor count at [cap, 0]
+               and, given the vote's row counter `stats`, its rows voted
+               and rows sorted at [cap, 1:3];
                sidx: the survivors in row order, then the other rows in
                row order (the stable argsort of where(ok, i, N + i));
       slens    (c,) int32, the rows' lengths, 0 where not a survivor;
@@ -115,6 +117,9 @@ def compact_plain(v, lens, cap: int):
     out[:c, 0] = sidx.to(torch.int32)
     out[:c, 1] = svalid.to(torch.int32)
     out[cap, 0] = ok.sum().to(torch.int32)
+    if stats is not None:
+        t = int(stats.sum())
+        out[cap, 1:3] = torch.tensor([t & 0xFFFFFFFF, t >> 32], dtype=torch.int32)
     return out, slens, gp, _okwords(ok)
 
 
@@ -196,10 +201,11 @@ def lane_codes(buf, W: int, exc, off: int) -> torch.Tensor:
     return lanes_codes([buf], [W], exc, off)[0]
 
 
-def compact(v, lens, cap: int, lanes=None, Wmax: int = 0):
+def compact(v, lens, cap: int, lanes=None, Wmax: int = 0, stats=None):
     """compact_plain's (out, slens, gp, okwords), and given the code
     `lanes` (P_i, W_i) uint8 whose rows are v's, survivor_rows_plain's
-    (c, Wmax) rows of out[:c, 0] as a fifth output. On the card, over tiles
+    (c, Wmax) rows of out[:c, 0] as a fifth output; `stats`: None, or the
+    vote's row counter (map_read.vote), for out[cap, 1:3]. On the card, over tiles
     of cuda.compact_tile() rows, a block a tile: the count launch ballots
     the gate bits 32 rows a word (okwords) and counts each tile's
     survivors; the place launch gives row i the slot pre(i) (the survivors
@@ -221,7 +227,7 @@ def compact(v, lens, cap: int, lanes=None, Wmax: int = 0):
         if held != N:
             raise ValueError(f"compact: the lanes hold {held} rows, v {N}")
     if dev.type == "cpu":
-        res = compact_plain(v, lens, cap)
+        res = compact_plain(v, lens, cap, stats)
         if lanes is None:
             return res
         return (*res, survivor_rows_plain(lanes, res[0][: res[1].shape[0], 0], Wmax))
@@ -234,13 +240,13 @@ def compact(v, lens, cap: int, lanes=None, Wmax: int = 0):
     if N:
         cuda.launch_compact_count(v, okwords, tile_cnt)
     if lanes is None:
-        cuda.launch_compact_place(v, lens, cap, okwords, tile_cnt, out, slens, gp)
+        cuda.launch_compact_place(v, lens, cap, okwords, tile_cnt, out, slens, gp, stats=stats)
         return out, slens, gp, okwords
     rows = torch.empty((c, Wmax), dtype=torch.uint8, device=dev)
     offs = _lane_offsets(lanes)
     first = slice(0, cuda.MAX_LANES)
     cuda.launch_compact_place(v, lens, cap, okwords, tile_cnt, out, slens, gp, lanes[first],
-                              offs[first], rows)
+                              offs[first], rows, stats=stats)
     for g in range(cuda.MAX_LANES, len(lanes) if c else 0, cuda.MAX_LANES):
         group = slice(g, g + cuda.MAX_LANES)
         cuda.launch_survivor_rows(lanes[group], offs[group], out[:c, 0], rows)
@@ -299,12 +305,16 @@ def fused_scan_lanes(bufs, lens_t, exc, index: TorchIndex, *, widths, cap: int,
 
     Each lane's vote writes its rows of one (N, 5) buffer, so the
     compaction reads the votes and lengths where they lie; its place
-    launch copies the survivors' code rows.
+    launch copies the survivors' code rows. The votes add to one row
+    counter, which the place launch writes into the count row.
 
     Returns (out, okwords):
       out      (cap + 1, 13) int32 — per survivor [sidx, svalid, valid0,
                valid1, start0, start1, end0, end1, contig0, contig1, pos0,
-               pos1, 0]; the LAST row is [n_survivors, 0, ...].
+               pos1, 0]; the LAST row is [n_survivors, rows voted on the
+               vote's warp path, rows of them sorted (past VOTE_PEEL_KEYS
+               distinct keys), 0, ...] (the JAX package's holds zeros past
+               n_survivors).
       okwords  (ceil(N/32),) int32 — the vote-gate bitmap, bit k of word w
                = row 32w + k, as the int32 bit pattern of a uint32 OR.
     """
@@ -313,12 +323,13 @@ def fused_scan_lanes(bufs, lens_t, exc, index: TorchIndex, *, widths, cap: int,
         raise ValueError(f"fused_scan_lanes: lens_t must be one ({sum(rows)},) tensor")
     codes_l = lanes_codes(bufs, widths, exc)
     votes = torch.empty((lens_t.shape[0], 5), dtype=torch.int32, device=exc.device)
+    stats = torch.zeros(VOTE_STAT_SLOTS, dtype=torch.int64, device=exc.device)
     at = 0
     for ci, ln in zip(codes_l, torch.split(lens_t, rows)):
         vote(probe(ci, ln, PASS1_STEP, index), index, major_req, minor_req, ln,
-             out=votes[at : at + ci.shape[0]])
+             out=votes[at : at + ci.shape[0]], stats=stats)
         at += ci.shape[0]
-    out, slens, gp, okwords, scodes = compact(votes, lens_t, cap, codes_l, max(widths))
+    out, slens, gp, okwords, scodes = compact(votes, lens_t, cap, codes_l, max(widths), stats)
     c = slens.shape[0]
     out[:c, 2:12] = mask_segments(probe(scodes, slens, 1, index), slens, gp, index,
                                   mismatch_thr)

@@ -73,6 +73,14 @@ MASK_SLICE_BYTES = MASK_WIDE_WARPS * 16 * MASK_WARP_WORDS
 # valid candidates a row may hold on the vote kernel's warp path (WARP_CAP
 # in csrc/vote.cu)
 VOTE_WARP_KEYS = 256
+# distinct keys the warp path counts one by one; a row of more is sorted
+# (PEEL_CAP in csrc/vote.cu)
+VOTE_PEEL_KEYS = 16
+# samples a warp walks on the vote's wide route (VOTE_WALK_MAX in csrc/vote.cu)
+VOTE_WALK_MAX = 2048
+# slots of the vote's row counter (VOTE_STAT_SLOTS in csrc/common.cuh): the
+# launches add (rows voted on the warp path) + (rows sorted) << 32
+VOTE_STAT_SLOTS = 32
 # widest code row of the mask+segments kernels' main path, which keeps a
 # chain end in 16 bits (MASK_MAX_L in csrc/mask_segments.cu); wider rows
 # take the wide launch (64-bit chain keys)
@@ -367,6 +375,34 @@ def vote_counts_plain(pr, index: TorchIndex):
     return torch.stack([c1.to(torch.int32), h1, l1, c2.to(torch.int32), h2, l2], dim=1)
 
 
+def vote_tally(pr, index: TorchIndex, lengths=None):
+    """What the vote kernel's row counter adds for a vote of `pr` (B, NS,
+    2), as vote() launches it -> (rows voted on the warp path, those of
+    them sorted): a row of at most VOTE_WARP_KEYS valid keys is the warp
+    path's unless the wide route lists it (more than VOTE_WALK_MAX samples
+    inside its length); it is sorted past VOTE_PEEL_KEYS distinct keys."""
+    B, NS, _ = pr.shape
+    if not B:
+        return 0, 0
+    keys, cv = _keys_at(index, pr, PASS1_STEP)
+    wide = vote_width(NS, index.D) > MAX_VOTE_KEYS
+    ns = torch.full((B,), NS, dtype=torch.int64, device=pr.device)
+    if wide and lengths is not None:
+        ln = lengths.to(torch.int64)
+        ns = torch.where(ln < KMER, 0, torch.clamp((ln - KMER) // PASS1_STEP + 1, max=NS))
+        cv = cv & (torch.arange(NS, device=pr.device)[None, :, None] < ns[:, None, None])
+    keys, cv = keys.reshape(B, -1), cv.reshape(B, -1)
+    s = torch.sort(torch.where(cv, keys, INVALID_KEY), dim=1).values
+    new = torch.ones_like(s, dtype=torch.bool)
+    new[:, 1:] = s[:, 1:] != s[:, :-1]
+    # INVALID_KEY stands for the empty slots; a valid slot may hold it too
+    distinct = (new & (s != INVALID_KEY)).sum(1) + (cv & (keys == INVALID_KEY)).any(1)
+    warp = cv.sum(1) <= VOTE_WARP_KEYS
+    if wide:
+        warp &= ns <= VOTE_WALK_MAX
+    return int(warp.sum()), int((warp & (distinct > VOTE_PEEL_KEYS)).sum())
+
+
 def _gate(c1, c2, major_req: int, minor_req: int):
     return (c1 * PASS1_STEP >= major_req) & (c2 * PASS1_STEP >= minor_req)
 
@@ -571,10 +607,11 @@ def _check_vote(pr, index: TorchIndex, lengths, dev) -> None:
 
 
 def vote(pr, index: TorchIndex, major_req: int, minor_req: int, lengths=None,
-         smem_cap=None, out=None):
+         smem_cap=None, out=None, stats=None):
     """Kernel 2: pass-1 probe results (B, NS, 2) -> (B, 5) int32
-    [ok, h1, l1, h2, l2]. One warp sorts and counts one row's valid
-    candidates; a row of more than VOTE_WARP_KEYS goes to the block. When
+    [ok, h1, l1, h2, l2]. One warp counts one row's valid candidates, a
+    distinct key at a time, or past VOTE_PEEL_KEYS of them sorts them; a
+    row of more than VOTE_WARP_KEYS goes to the block. When
     the rows are too wide for the block's keys to fit in shared memory
     (vote_width past MAX_VOTE_KEYS), those rows are listed instead, and a
     second launch gives each a 1,024-thread block that counts its valid
@@ -585,7 +622,9 @@ def vote(pr, index: TorchIndex, major_req: int, minor_req: int, lengths=None,
     path walks a row's samples only up to its length (the probe makes
     every later one a miss, so the result is the same). `out`: None, or
     a contiguous (B, 5) int32 tensor (rows of a larger buffer) that the
-    rows are written into and that is returned."""
+    rows are written into and that is returned. `stats`: None, or a
+    (VOTE_STAT_SLOTS,) int64 row counter that the call adds vote_tally's
+    (rows, sorted) to as rows + (sorted << 32), spread over its slots."""
     dev = pr.device
     _check_vote(pr, index, lengths, dev)
     B, NS, _ = pr.shape
@@ -594,8 +633,15 @@ def vote(pr, index: TorchIndex, major_req: int, minor_req: int, lengths=None,
         cuda.check_tensor(out, "out", torch.int32, 2, dev)
         if out.shape != (B, 5):
             raise ValueError(f"vote: out must be ({B}, 5), got {tuple(out.shape)}")
+    if stats is not None:
+        cuda.check_tensor(stats, "stats", torch.int64, 1, dev)
+        if stats.shape != (VOTE_STAT_SLOTS,):
+            raise ValueError(f"vote: stats must be ({VOTE_STAT_SLOTS},), got {tuple(stats.shape)}")
     if dev.type == "cpu":
         res = vote_plain(pr, index, major_req, minor_req)
+        if stats is not None:
+            rows, sorted_ = vote_tally(pr, index, lengths)
+            stats[0] += rows + (sorted_ << 32)
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty((B, 5), dtype=torch.int32, device=dev)
@@ -603,11 +649,12 @@ def vote(pr, index: TorchIndex, major_req: int, minor_req: int, lengths=None,
         return out
     P2 = vote_width(NS, index.D)
     if P2 <= MAX_VOTE_KEYS:
-        cuda.launch_vote(pr, B, NS, index, PASS1_STEP, major_req, minor_req, P2, out)
+        cuda.launch_vote(pr, B, NS, index, PASS1_STEP, major_req, minor_req, P2, out,
+                         stats=stats)
         return out
     wide = torch.zeros(3 + 3 * B, dtype=torch.int64, device=dev)
     args = (pr, B, NS, index, PASS1_STEP, major_req, minor_req)
-    cuda.launch_vote(*args, P2, out, wide=wide, lengths=lengths)
+    cuda.launch_vote(*args, P2, out, wide=wide, lengths=lengths, stats=stats)
     cuda.launch_vote_wide(*args, wide, lengths, keys_cap, out)
     # the keys of the rows past shared memory, counted by that launch:
     # reading them waits for it, so only where a row can have that many

@@ -741,6 +741,11 @@ class TorchEngine:
                 out = c["scan_f"].get()  # (cap + 1, 13)
             n_count = int(out[-1, 0])
             spans.count("scan.survivors", n_count)
+            if self.device.type == "cuda":
+                # the vote kernel's warp path; the plain vote on the CPU
+                # fills the same columns but has no such path to count
+                spans.count("vote.rows", int(out[-1, 1]))
+                spans.count("vote.rows_sorted", int(out[-1, 2]))
             rows = list(out[: min(n_count, self._surv_cap)])
             if n_count > self._surv_cap:
                 with spans.span("st3.p2_overflow"):

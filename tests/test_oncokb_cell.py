@@ -54,6 +54,13 @@ def test_the_new_readers_read_the_run(traced):
     assert walked < 0.01 * GENES * GENES
 
 
+def test_a_cpu_run_leaves_the_vote_share_out(traced):
+    """The vote's row counter counts the card's warp path: on the CPU the
+    engine adds no `vote.rows`, and the reader leaves its metric out."""
+    out, _ = traced
+    assert "vote_sort_share.oncokb1100" not in out["metrics"]
+
+
 def test_the_readers_find_nothing_in_a_program_without_the_spans():
     """On a program without these spans and this counter each reader
     leaves its metric out and does not raise."""

@@ -35,7 +35,7 @@ PORT_LABELS = {
     "retry.assemble", "report.finish_scan", "report.alignable", "report.write",
     "table.pack", "table.upload", "scan.survivors", "report.matcher_index",
     "matcher.index_reuse", "report.filter", "report.sort", "report.cluster",
-    "report.bins_walked", "table.entries",
+    "report.bins_walked", "table.entries", "vote.rows", "vote.rows_sorted",
 }
 
 

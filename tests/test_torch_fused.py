@@ -189,7 +189,11 @@ def test_fused_scan_lanes_matches_jax(panel_ix, case, layout):
     m, c = min(n, cap), min(cap, N)
     assert (out_t[:m] == out_j[:m]).all()
     assert (out_t[:c, :2] == out_j[:c, :2]).all()
-    assert (out_t[c:] == out_j[c:]).all() and not out_t[c:cap].any()
+    assert (out_t[c:cap] == out_j[c:cap]).all() and not out_t[c:cap].any()
+    # the count row; its columns 1-2 are the port's row counter of the vote
+    # (JAX's hold zeros): every row voted on the warp path, none sorted
+    assert out_t[cap, 0] == out_j[cap, 0] and (out_t[cap, 3:] == out_j[cap, 3:]).all()
+    assert out_t[cap, 1] == N and out_t[cap, 2] == 0
     assert okw_t.dtype == np.int32 and (okw_t == okw_j).all()
     if m:
         assert (out_j[:m, 2] & out_j[:m, 3]).any()  # some two-segment hits
